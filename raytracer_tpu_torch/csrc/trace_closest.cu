@@ -1,0 +1,41 @@
+// K4: batched closest hit, one thread per ray calling K1 (traverse.cuh).
+//
+// Replaces raytracer_tpu/ops/pallas_traverse.py _traverse_packets (:907),
+// whose kernel is _make_kernel (:282) -> _kernel_body (:849), at the
+// contract of trace_closest_pallas(sort=False) (:961). The wrapper is
+// raytracer_tpu_torch/ops/cuda_traverse.py trace_closest. Not on the fused
+// path (the path loop calls K1 inline); it lets the traversal be checked
+// and timed alone. Bound like K1: dependent BVH loads and divergence; the
+// ray I/O is 7 floats in and 6 words out per thread.
+#include <cuda_runtime.h>
+
+#include "traverse.cuh"
+
+__global__ void trace_closest_kernel(trav::BvhView bvh, const float* __restrict__ o,
+                                     const float* __restrict__ d, const float* __restrict__ tlim,
+                                     float t_min, int n, float* __restrict__ t_out,
+                                     int* __restrict__ id_out, int* __restrict__ mat_out,
+                                     float* __restrict__ n_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const trav::Hit h = trav::traverse(bvh, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                                     d[3 * i + 1], d[3 * i + 2], tlim[i], t_min);
+  t_out[i] = h.t;
+  id_out[i] = h.prim;
+  mat_out[i] = h.mat;
+  n_out[3 * i] = h.nx;
+  n_out[3 * i + 1] = h.ny;
+  n_out[3 * i + 2] = h.nz;
+}
+
+extern "C" int rt_trace_closest(const trav::BvhView* bvh, const float* o, const float* d,
+                                const float* tlim, float t_min, int n, float* t_out, int* id_out,
+                                int* mat_out, float* n_out, int block, void* stream) {
+  if (bvh->width != trav::K) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    const int grid = (n + block - 1) / block;
+    trace_closest_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        *bvh, o, d, tlim, t_min, n, t_out, id_out, mat_out, n_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,190 @@
+// K1: closest-hit traversal of one ray as a __device__ function.
+//
+// Replaces raytracer_tpu/ops/pallas_traverse.py traverse_tile (:319) with
+// hoist_invariants (:254), the body shared by the TPU's path-loop kernel
+// and its per-bounce traversal kernel. Plain PyTorch version:
+// raytracer_tpu_torch/ops/cuda_traverse.py (_traverse_plain), which takes
+// the same steps in the same order, so the two agree bit for bit.
+//
+// Contract: closest hit with t in [t_min, t_lim); t_lim = -1 marks a dead
+// ray. A brute-force Möller–Trumbore sweep over the oversized triangles
+// (Bvh4.brute_*) primes t_best, then the wide BVH is walked nearest child
+// first from a per-thread stack. Returns t_best (t_lim when nothing is
+// hit), the original face id (-1 when nothing is hit), its material id
+// (0 then) and the unnormalized cross(e1, e2).
+//
+// What the TPU kernel needed and this one does not: the 8x128 sub-warp
+// chains, the pair-packed SMEM stacks, the float-encoded ids and the
+// row-per-node table all work around Mosaic. Here each thread owns one ray
+// and reads the Bvh4 arrays as they are.
+//
+// What bounds it on an H100: dependent loads (node boxes, child codes,
+// triangle records) and warp divergence, not FLOPs. Each expansion reads
+// K*6 floats + K ints of one node; neighbouring rays of a warp mostly
+// visit the same nodes, which L1/L2 serve: the 50 MB L2 holds the bunny
+// scene's whole 0.8 MB node table and 4 MB triangle table. The stack lives
+// in local memory (L1-cached).
+#pragma once
+#include <cstdint>
+
+namespace trav {
+
+constexpr float BIG = 3.0e38f;
+constexpr int NONE = -1;
+constexpr int STACK_CAP = 256;  // utils/cudalib.STACK_CAP; the wrapper checks stack_depth+4
+constexpr int K = 8;            // BVH width: scene/builder always widens to BVH8
+
+struct BvhView {
+  const float* bounds;    // [n_nodes, K, 6] child boxes (min xyz, max xyz)
+  const int* children;    // [n_nodes, K]; >=0 node, -1 empty, <=-2 leaf -(2+lo*8+cnt-1)
+  const float* tri;       // [T, 9] v0, e1, e2 in leaf order
+  const int* prim;        // [T] original face ids
+  const int* fmat;        // [T] material ids
+  const float* btri;      // [Tb, 9] brute-force set (may be null when n_brute == 0)
+  const int* bprim;       // [Tb]
+  const int* bmat;        // [Tb]
+  int n_brute;
+  int width;              // must equal K (checked by each entry point)
+};
+
+struct Hit {
+  float t;
+  int prim;
+  int mat;
+  float nx, ny, nz;
+};
+
+// Möller–Trumbore of one triangle record, the terms of
+// pallas_traverse.mt_record in the same order. Updates h on a strictly
+// closer hit.
+__device__ __forceinline__ void mt_record(const float* __restrict__ rec, int prim, int mat,
+                                          float ox, float oy, float oz, float dx, float dy,
+                                          float dz, float t_min, Hit& h) {
+  const float v0x = rec[0], v0y = rec[1], v0z = rec[2];
+  const float e1x = rec[3], e1y = rec[4], e1z = rec[5];
+  const float e2x = rec[6], e2y = rec[7], e2z = rec[8];
+  const float hx = dy * e2z - dz * e2y;
+  const float hy = dz * e2x - dx * e2z;
+  const float hz = dx * e2y - dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  bool ok = fabsf(a) >= 1e-8f;
+  const float f = 1.0f / (ok ? a : 1.0f);
+  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  ok = ok && (u >= 0.0f) && (u <= 1.0f);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (dx * qx + dy * qy + dz * qz);
+  ok = ok && (v >= 0.0f) && (u + v <= 1.0f);
+  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  ok = ok && (t >= t_min) && (t < h.t);
+  if (ok) {
+    h.t = t;
+    h.prim = prim;
+    h.mat = mat;
+    h.nx = e1y * e2z - e1z * e2y;
+    h.ny = e1z * e2x - e1x * e2z;
+    h.nz = e1x * e2y - e1y * e2x;
+  }
+}
+
+// Slab test of one child box. 1/d may be +-inf, and (b - o) * inf is NaN
+// when the ray starts on a slab plane it runs parallel to. The reference
+// takes min/max with jnp.minimum/maximum, which propagate NaN, so the final
+// `tmax > tmin` is false: a miss. fminf/fmaxf would drop the NaN and could
+// turn that miss into a hit, so any NaN among the six plane distances is a
+// miss here, explicitly; otherwise fminf/fmaxf give the same values.
+__device__ __forceinline__ bool slab(const float* __restrict__ b, float ox, float oy, float oz,
+                                     float ix, float iy, float iz, float t_min, float t_best,
+                                     float& entry) {
+  const float t0x = (b[0] - ox) * ix, t1x = (b[3] - ox) * ix;
+  const float t0y = (b[1] - oy) * iy, t1y = (b[4] - oy) * iy;
+  const float t0z = (b[2] - oz) * iz, t1z = (b[5] - oz) * iz;
+  if (isnan(t0x) || isnan(t1x) || isnan(t0y) || isnan(t1y) || isnan(t0z) || isnan(t1z))
+    return false;
+  const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), t_min));
+  const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), t_best));
+  entry = tmin;
+  return tmax > tmin;
+}
+
+#define TRAV_CSWAP(i, j)                           \
+  {                                                \
+    const bool sw = key[i] > key[j];               \
+    const float ki = sw ? key[j] : key[i];         \
+    const float kj = sw ? key[i] : key[j];         \
+    const int ci = sw ? code[j] : code[i];         \
+    const int cj = sw ? code[i] : code[j];         \
+    key[i] = ki;                                   \
+    key[j] = kj;                                   \
+    code[i] = ci;                                  \
+    code[j] = cj;                                  \
+  }
+
+// ops/bvh4.SORT_PAIRS[8]: keys ascending; a swap only on a strictly greater key.
+__device__ __forceinline__ void sort_children(float (&key)[K], int (&code)[K]) {
+  TRAV_CSWAP(0, 1) TRAV_CSWAP(2, 3) TRAV_CSWAP(4, 5) TRAV_CSWAP(6, 7)
+  TRAV_CSWAP(0, 2) TRAV_CSWAP(1, 3) TRAV_CSWAP(4, 6) TRAV_CSWAP(5, 7)
+  TRAV_CSWAP(1, 2) TRAV_CSWAP(5, 6)
+  TRAV_CSWAP(0, 4) TRAV_CSWAP(1, 5) TRAV_CSWAP(2, 6) TRAV_CSWAP(3, 7)
+  TRAV_CSWAP(2, 4) TRAV_CSWAP(3, 5)
+  TRAV_CSWAP(1, 2) TRAV_CSWAP(3, 4) TRAV_CSWAP(5, 6)
+}
+#undef TRAV_CSWAP
+
+__device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz, float dx,
+                               float dy, float dz, float t_lim, float t_min) {
+  Hit h{t_lim, NONE, 0, 0.0f, 0.0f, 0.0f};
+  // Nothing lies in [t_min, t_lim) for a dead ray: skip all work (exact).
+  if (!(t_lim > t_min)) return h;
+
+  for (int j = 0; j < bvh.n_brute; ++j)
+    mt_record(bvh.btri + 9 * j, bvh.bprim[j], bvh.bmat[j], ox, oy, oz, dx, dy, dz, t_min, h);
+
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  int stack[STACK_CAP];
+  int sp = 0;
+  int task = 0;  // the root
+  while (true) {
+    int next = NONE;
+    if (task >= 0) {
+      const float* nb = bvh.bounds + static_cast<size_t>(task) * (K * 6);
+      const int* nc = bvh.children + static_cast<size_t>(task) * K;
+      float key[K];
+      int code[K];
+      int nhit = 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c = nc[k];
+        float entry = 0.0f;
+        const bool valid = slab(nb + 6 * k, ox, oy, oz, ix, iy, iz, t_min, h.t, entry) &&
+                           c != NONE;
+        key[k] = valid ? entry : BIG;
+        code[k] = c;
+        nhit += valid ? 1 : 0;
+      }
+      sort_children(key, code);
+      if (nhit > 0) next = code[0];
+      // Push the other hit children far to near, so the nearest pops first.
+#pragma unroll
+      for (int k = K - 1; k >= 1; --k)
+        if (k < nhit && sp < STACK_CAP) stack[sp++] = code[k];
+    } else {
+      const int c = -task - 2;
+      const int lo = c >> 3;
+      const int cnt = (c & 7) + 1;
+      for (int k = 0; k < cnt; ++k)
+        mt_record(bvh.tri + 9 * static_cast<size_t>(lo + k), bvh.prim[lo + k], bvh.fmat[lo + k],
+                  ox, oy, oz, dx, dy, dz, t_min, h);
+    }
+    if (next == NONE) {
+      if (sp == 0) break;
+      next = stack[--sp];
+    }
+    task = next;
+  }
+  return h;
+}
+
+}  // namespace trav

@@ -1,0 +1,257 @@
+"""The fused path loop: the whole integrator per pixel lane in one kernel
+(counterpart of raytracer_tpu/ops/pallas_megakernel.py).
+
+`render_tiles_fused` returns the mean linear radiance f32[N,3] of any
+pixel list. On CUDA tensors it launches kernel K3 (csrc/megakernel.cu:
+one thread per lane looping samples and bounces, K1 and K2 inline); on
+CPU tensors it runs `_render_plain`, the plain PyTorch version.
+
+`_render_plain` is the TPU kernel's lane-stable loop restated over
+tensors: all pending lanes advance one bounce per step, a lane that
+ends a sample claims its next sample on the following step, and every
+draw is keyed by (pixel, sample + sample_offset, bounce, purpose)
+(utils/ktf.py). Per lane that is the kernel's nested loop exactly, with
+the kernel's formulas, so both trace the same paths; they can differ
+only where the two libraries' cos/sin round differently (the lens-disk
+and scatter-direction draws).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.camera import camera_basis
+from raytracer_tpu_torch.ops.cuda_traverse import _traverse_plain
+from raytracer_tpu_torch.ops.materials import lookup_params, scatter_fused
+from raytracer_tpu_torch.ops.sphere import BIG, intersect_spheres
+from raytracer_tpu_torch.scene.types import DIFFUSE_LIGHT
+from raytracer_tpu_torch.utils import cudalib, ktf
+
+MAX_SPHERES = cudalib.MAX_SPHERES
+MAX_MATERIALS = cudalib.MAX_MATERIALS
+PACKET = 1024          # lanes per "packet" in host_chunk_packets units
+KERNEL_BLOCK = 128     # threads per block of K3
+SKY_TOP = (0.5, 0.7, 1.0)
+LAUNCHES = {"render_fused": 0}      # K3 launches, counted by the wrapper
+PLAIN_CALLS = {"render_plain": 0}   # calls of the plain path loop
+
+
+def fused_megakernel_available(scene) -> bool:
+    """True when the fused path loop can render this scene."""
+    return (scene.bvh4 is not None
+            and scene.bvh4.face_mat is not None
+            and scene.spheres.count <= MAX_SPHERES
+            and scene.materials.count <= MAX_MATERIALS)
+
+
+def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff):
+    """Plain version of K3: radiance SUM f32[N,3] over spp samples."""
+    PLAIN_CALLS["render_plain"] += 1
+    n = pix.shape[0]
+    dev = pix.device
+    ll, hor, ver = basis["lower_left"], basis["horizontal"], basis["vertical"]
+    pos, right, up, lens_r = basis["position"], basis["right"], basis["up"], basis["lens_radius"]
+    spheres, mats, bvh = scene.spheres, scene.materials, scene.bvh4
+    t_min = cfg.t_min
+    rr_max = torch.tensor(np.float32(cfg.rr_max_prob), device=dev)
+
+    o = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    d = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    tp = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    sample = torch.zeros((n,), dtype=torch.int32, device=dev)
+    bounce = torch.zeros((n,), dtype=torch.int32, device=dev)
+    active = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    while True:
+        lanes = torch.nonzero(active | (sample < spp)).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        act = active[lanes]
+        smp_l = sample[lanes]
+        b = torch.where(act, bounce[lanes], torch.zeros_like(smp_l))
+        s_eff = smp_l + soff
+        pixl = pix[lanes]
+
+        # Camera regeneration on claiming lanes (Core/Camera.cuh:32-44),
+        # draws keyed at bounce 0.
+        claim = ~act
+        cl = lanes[claim]
+        if cl.numel():
+            sm0 = ktf.KtfSampler(k0, k1, pix[cl], s_eff[claim], torch.zeros_like(cl, dtype=torch.int32))
+            ldx, ldy = sm0.disk_parts(ktf.LENS)
+            rdx, rdy = lens_r * ldx, lens_r * ldy
+            off = right * rdx[:, None] + up * rdy[:, None]
+            ju, jv = sm0.uniform_pair(ktf.JITTER)
+            u = (pxf[cl] + ju) * (1.0 / cfg.width)
+            v = (pyf[cl] + jv) * (1.0 / cfg.height)
+            o[cl] = pos + off
+            d[cl] = ll + u[:, None] * hor + v[:, None] * ver - pos - off
+            tp[cl] = 1.0
+
+        # Russian roulette (CUDAKernels.h:113-121).
+        smp = ktf.KtfSampler(k0, k1, pixl, s_eff, b)
+        tl = tp[lanes]
+        do_rr = b >= cfg.min_bounces
+        survival = torch.minimum(torch.maximum(torch.maximum(tl[:, 0], tl[:, 1]), tl[:, 2]), rr_max)
+        survived = ~(do_rr & (smp.uniform(ktf.RR) > survival))
+        rr_scale = torch.where(survived & do_rr, 1.0 / torch.clamp_min(survival, 1e-12),
+                               torch.ones_like(survival))
+        tl = tl * rr_scale[:, None]
+
+        # Sphere sweep, then K1 within [t_min, t_sph).
+        ol, dl = o[lanes], d[lanes]
+        t_sph, sid = intersect_spheres(ol, dl, spheres.center, spheres.radius, t_min, BIG)
+        t_lim = torch.where(survived, t_sph, torch.full_like(t_sph, -1.0))
+        t_tri, _, mat_tri, ng = _traverse_plain(ol, dl, bvh, t_lim, t_min)
+
+        # Hit resolution (pallas_megakernel.py post_trav).
+        tri_wins = t_tri < t_sph
+        t_hit = torch.where(tri_wins, t_tri, t_sph)
+        ray_hit = t_hit < BIG
+        p = ol + t_hit[:, None] * dl
+        sidl = sid.long()
+        rad = spheres.radius[sidl]
+        r_sel = torch.where(rad != 0.0, rad, torch.ones_like(rad))
+        rn = torch.where(tri_wins[:, None], ng, (p - spheres.center[sidl]) / r_sel[:, None])
+        rnx, rny, rnz = rn.unbind(-1)
+        inv_nn = 1.0 / torch.sqrt(torch.clamp_min(rnx * rnx + rny * rny + rnz * rnz, 1e-24))
+        nn = rn * inv_nn[:, None]
+        dx, dy, dz = dl.unbind(-1)
+        front = (dx * nn[:, 0] + dy * nn[:, 1] + dz * nn[:, 2]) < 0.0
+        nrm = nn * torch.where(front, 1.0, -1.0)[:, None]
+        mid = torch.where(tri_wins, mat_tri, spheres.mat_id[sidl])
+        params = lookup_params(mats, mid)
+
+        a_q = dx * dx + dy * dy + dz * dz
+        inv_dl = 1.0 / torch.sqrt(a_q)
+        scd, att, scattered = scatter_fused(dl, nrm, front, inv_dl, params,
+                                            smp.unit_vector(ktf.SCATTER),
+                                            smp.uniform(ktf.DIELECTRIC))
+
+        # Accumulation & state update.
+        hit = ray_hit & survived
+        light_hit = hit & (params.mtype == DIFFUSE_LIGHT)
+        miss = survived & ~ray_hit
+        cont = hit & scattered & (b + 1 < cfg.max_bounces)
+        em = params.emission if cfg.reference_emission_quirk else tl * params.emission
+        sky_t = 0.5 * (dy * inv_dl + 1.0)
+        sky = torch.stack([(1.0 - sky_t) + sky_t * c for c in SKY_TOP], dim=-1)
+        c = torch.where(light_hit[:, None], em, torch.zeros_like(em))
+        c = torch.where(miss[:, None], tl * sky, c)
+        term = ~cont
+        acc[lanes] = acc[lanes] + torch.where(term[:, None], c, torch.zeros_like(c))
+        sample[lanes] = torch.where(term, smp_l + 1, smp_l)
+        tp[lanes] = torch.where(cont[:, None], tl * att, tl)
+        o[lanes] = torch.where(cont[:, None], p, ol)
+        d[lanes] = torch.where(cont[:, None], scd, dl)
+        bounce[lanes] = torch.where(cont, b + 1, b)
+        active[lanes] = cont
+    return acc
+
+
+def _pack_tables(scene):
+    """Spheres → f32[S,4] (center, radius) + i32[S]; materials →
+    f32[M,8] (albedo, emission, roughness, ior) + i32[M] types."""
+    s, m = scene.spheres, scene.materials
+    if s.count > MAX_SPHERES or m.count > MAX_MATERIALS:
+        raise ValueError(f"fused kernel budgets: {s.count} spheres (max {MAX_SPHERES}), "
+                         f"{m.count} materials (max {MAX_MATERIALS})")
+    sph = torch.cat([s.center, s.radius[:, None]], dim=1).contiguous()
+    mat = torch.cat([m.albedo, m.emission, m.roughness[:, None], m.ior[:, None]], dim=1)
+    return sph, s.mat_id.contiguous(), mat.contiguous(), m.type.contiguous()
+
+
+def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block):
+    """Launch K3 over the lanes: radiance SUM f32[N,3]."""
+    n = pix.shape[0]
+    for name, t in (("pixel", pix), ("px", pxi), ("py", pyi)):
+        cudalib.require_cuda(name, t, torch.int32, (n,))
+    view = cudalib.bvh_view(scene.bvh4)
+    sph, sph_mat, mat, mat_type = _pack_tables(scene)
+    for name, t in (("spheres", sph), ("materials", mat)):
+        cudalib.require_cuda(name, t, torch.float32)
+    for name, t in (("sphere mat_id", sph_mat), ("material type", mat_type)):
+        cudalib.require_cuda(name, t, torch.int32)
+
+    def vec(key):
+        return (ctypes.c_float * 3)(*basis[key].tolist())
+
+    prm = cudalib.FusedParams(
+        ll=vec("lower_left"), hor=vec("horizontal"), ver=vec("vertical"),
+        pos=vec("position"), right=vec("right"), up=vec("up"),
+        lens_r=float(basis["lens_radius"]),
+        inv_w=float(np.float32(1.0 / cfg.width)), inv_h=float(np.float32(1.0 / cfg.height)),
+        rr_max_prob=float(np.float32(cfg.rr_max_prob)), t_min=float(np.float32(cfg.t_min)),
+        k0=k0 & 0xFFFFFFFF, k1=k1 & 0xFFFFFFFF, sample_offset=int(soff), spp=int(spp),
+        max_bounces=int(cfg.max_bounces), min_bounces=int(cfg.min_bounces),
+        emission_quirk=int(bool(cfg.reference_emission_quirk)),
+        n_spheres=scene.spheres.count, n_materials=scene.materials.count)
+    out = torch.empty((n, 3), dtype=torch.float32, device=pix.device)
+    code = cudalib.lib().rt_render_fused(
+        prm, view, pix.data_ptr(), pxi.data_ptr(), pyi.data_ptr(), sph.data_ptr(),
+        sph_mat.data_ptr(), mat.data_ptr(), mat_type.data_ptr(), n, out.data_ptr(), block,
+        cudalib.stream_handle())
+    cudalib.check(code, "fused path-loop kernel")
+    LAUNCHES["render_fused"] += 1
+    return out
+
+
+def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets, block,
+            use_kernel: bool):
+    if not fused_megakernel_available(scene):
+        raise ValueError("the fused path loop needs a bvh4 scene within the kernel's "
+                         f"budgets ({MAX_SPHERES} spheres, {MAX_MATERIALS} materials)")
+    spp = cfg.spp if spp is None else int(spp)
+    basis = {k: torch.as_tensor(v, dtype=torch.float32).reshape(-1)
+             for k, v in camera_basis(cam).items()}
+    basis["position"] = cam.position.reshape(-1)
+    k0, k1 = ktf.key_words(seed)
+    pxi, pyi = px.to(torch.int32), py.to(torch.int32)
+    pix = pyi * cfg.width + pxi
+
+    if use_kernel:
+        def run(lo, hi):
+            return _render_cuda(scene, basis, cfg, k0, k1, pix[lo:hi], pxi[lo:hi],
+                                pyi[lo:hi], spp, sample_offset, block)
+    else:
+        basis_d = {k: v.to(px.device) for k, v in basis.items()}
+        basis_d["lens_radius"] = basis_d["lens_radius"].reshape(())
+
+        def run(lo, hi):
+            return _render_plain(scene, basis_d, cfg, k0, k1, pix[lo:hi],
+                                 pxi[lo:hi].to(torch.float32), pyi[lo:hi].to(torch.float32),
+                                 spp, sample_offset)
+
+    n = px.shape[0]
+    step = n if not host_chunk_packets else int(host_chunk_packets) * PACKET
+    acc = torch.cat([run(lo, min(lo + step, n)) for lo in range(0, n, max(step, 1))])
+    return acc * (1.0 / spp)
+
+
+def render_tiles_fused(scene, cam, cfg, seed: int, px, py, spp=None, sample_offset: int = 0,
+                       host_chunk_packets=None, block: int = KERNEL_BLOCK) -> torch.Tensor:
+    """Mean linear radiance f32[N,3] over `spp` samples for the pixels
+    (px, py) (i32[N], py = 0 the bottom row) on the scene's device: CUDA
+    tensors launch K3, CPU tensors take the plain version.
+
+    `sample_offset` shifts the sample index of every draw, so passes of
+    a split spp give the samples a single pass would. `host_chunk_packets`
+    splits the lanes into launches of that many 1024-lane packets; lanes
+    are independent, so the result is identical. `block` is K3's threads
+    per block (a launch shape that does not change the image)."""
+    if px.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"render_tiles_fused: unsupported device {px.device}")
+    return _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets,
+                   block, use_kernel=px.is_cuda)
+
+
+def render_tiles_fused_plain(scene, cam, cfg, seed: int, px, py, spp=None,
+                             sample_offset: int = 0, host_chunk_packets=None) -> torch.Tensor:
+    """`render_tiles_fused` through the plain PyTorch version on any
+    device (the reference the kernel is checked against on the card)."""
+    return _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets,
+                   KERNEL_BLOCK, use_kernel=False)

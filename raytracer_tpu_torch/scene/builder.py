@@ -1,0 +1,226 @@
+"""Scene builders for the milestone configs and the reference world (port
+of raytracer_tpu/scene/builder.py).
+
+The reference hardcodes its world inside the `createRandomWorld` device
+kernel (CUDAKernels.h:56-84): loaded meshes + a ground sphere
+(Lambertian 0.5, center (0,-1000,0), r=999) + a mirror sphere
+(Metal (0.7,0.6,0.5) roughness 0, center (0.2,0.2,0), r=0.05). Here
+scenes are host-side constructors returning tensor dataclasses on the
+CPU; `Scene.to(device)` moves them.
+
+Differences from the JAX module: assets are read from the committed
+files and a missing file raises (the procedural generators of
+scene/assets.py are not ported yet); the native BVH builder must build
+(no LBVH fallback); the edge-aware light rectangle (fit_light_rect),
+which only the differentiable path reads, is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.ops.bvh4 import widen_bvh
+from raytracer_tpu_torch.scene.native import build_bvh4_native
+from raytracer_tpu_torch.scene.obj_io import load_scene_objs
+from raytracer_tpu_torch.scene.types import (
+    DIELECTRIC,
+    DIFFUSE_LIGHT,
+    LAMBERTIAN,
+    METAL,
+    Materials,
+    Scene,
+    Spheres,
+    TriMesh,
+)
+
+# The reference's hardcoded extras (CUDAKernels.h:69-73).
+GROUND_SPHERE = dict(center=(0.0, -1000.0, 0.0), radius=999.0, albedo=(0.5, 0.5, 0.5))
+MIRROR_SPHERE = dict(center=(0.2, 0.2, 0.0), radius=0.05, albedo=(0.7, 0.6, 0.5))
+BVH_WIDTH = 8
+ASSETS_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
+                                          "assets", "models"))
+
+
+def _asset_paths(assets_dir: str | None) -> dict:
+    d = ASSETS_DIR if assets_dir is None else assets_dir
+    paths = {"cornell": os.path.join(d, "CornellBox-Original.obj"),
+             "bunny": os.path.join(d, "bunny.obj")}
+    for p in paths.values():
+        if not os.path.exists(p):
+            raise FileNotFoundError(f"scene asset missing: {p}")
+    return paths
+
+
+def cornell_spheres_scene() -> Scene:
+    """BASELINE config[0]: Cornell-style lighting with analytic spheres
+    only (no mesh/BVH)."""
+    mats = Materials.from_lists(
+        types=[LAMBERTIAN, METAL, LAMBERTIAN, LAMBERTIAN, DIELECTRIC, DIFFUSE_LIGHT, METAL],
+        albedos=[
+            GROUND_SPHERE["albedo"],  # 0 ground
+            MIRROR_SPHERE["albedo"],  # 1 mirror (rough 0)
+            (0.65, 0.05, 0.05),       # 2 red diffuse
+            (0.12, 0.45, 0.15),       # 3 green diffuse
+            (1.0, 1.0, 1.0),          # 4 glass
+            (0.0, 0.0, 0.0),          # 5 light
+            (0.8, 0.85, 0.88),        # 6 rough metal
+        ],
+        emissions=[(0, 0, 0)] * 5 + [(15.0, 15.0, 15.0), (0, 0, 0)],
+        roughnesses=[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.3],
+        iors=[1.0, 1.0, 1.0, 1.0, 1.5, 1.0, 1.0],
+    )
+    spheres = Spheres.from_lists(
+        centers=[
+            GROUND_SPHERE["center"],
+            MIRROR_SPHERE["center"],
+            (-0.45, 0.2, -0.3),
+            (0.45, 0.15, 0.35),
+            (0.0, 0.22, 0.3),
+            (0.0, 1.4, 0.0),
+            (-0.2, 0.12, 0.55),
+        ],
+        radii=[GROUND_SPHERE["radius"], MIRROR_SPHERE["radius"], 0.2, 0.15, 0.22, 0.45, 0.12],
+        mat_ids=[0, 1, 2, 3, 4, 5, 6],
+    )
+    return Scene(materials=mats, spheres=spheres, mesh=TriMesh.empty(), name="cornell_spheres")
+
+
+def add_reference_extras(mesh: TriMesh, materials: Materials, name: str = "scene") -> Scene:
+    """Append the hardcoded ground and mirror spheres (CUDAKernels.h:69-73)
+    after the OBJ materials, in createRandomWorld's addMaterial order."""
+    m = materials.count
+    mats = Materials.from_lists(
+        types=np.concatenate([materials.type.numpy(), [LAMBERTIAN, METAL]]),
+        albedos=np.concatenate(
+            [materials.albedo.numpy(),
+             np.asarray([GROUND_SPHERE["albedo"], MIRROR_SPHERE["albedo"]], np.float32)]),
+        emissions=np.concatenate([materials.emission.numpy(), np.zeros((2, 3), np.float32)]),
+        roughnesses=np.concatenate([materials.roughness.numpy(), np.zeros(2, np.float32)]),
+        iors=np.concatenate([materials.ior.numpy(), np.ones(2, np.float32)]),
+    )
+    spheres = Spheres.from_lists(
+        centers=[GROUND_SPHERE["center"], MIRROR_SPHERE["center"]],
+        radii=[GROUND_SPHERE["radius"], MIRROR_SPHERE["radius"]],
+        mat_ids=[m, m + 1],
+    )
+    return Scene(materials=mats, spheres=spheres, mesh=mesh, name=name)
+
+
+def reference_scene(assets_dir: str | None = None, with_bunny: bool = True,
+                    build_bvh: bool = True) -> Scene:
+    """The full reference world (SceneManager.h:101-103 +
+    CUDAKernels.h:56-84): CornellBox-Original.obj (+ bunny), jointly
+    normalized, plus the hardcoded ground and mirror spheres."""
+    paths = _asset_paths(assets_dir)
+    files = [paths["cornell"]] + ([paths["bunny"]] if with_bunny else [])
+    mesh, materials = load_scene_objs(files)
+    scene = add_reference_extras(mesh, materials,
+                                 name="cornell_bunny" if with_bunny else "cornell")
+    if build_bvh:
+        scene = scene.replace(bvh4=build_scene_bvh4(mesh))
+    return scene
+
+
+def partition_brute_faces(mesh: TriMesh, area_ratio: float = 100.0,
+                          max_brute: int = 64, min_tree: int = 256):
+    """Split off a handful of LARGE triangles (Cornell walls/boxes/light)
+    to be tested brute-force before traversal, so the tree's root box
+    shrinks to the dense mesh.
+
+    Returns (brute_ids, tree_ids) as int64 arrays of ORIGINAL face ids;
+    brute_ids is empty when no triangle dwarfs the median area or the
+    mesh is too small to split."""
+    faces = mesh.faces.numpy()
+    verts = mesh.vertices.numpy()
+    t = faces.shape[0]
+    all_ids = np.arange(t, dtype=np.int64)
+    if t < min_tree + 1:
+        return all_ids[:0], all_ids
+    e1 = verts[faces[:, 1]] - verts[faces[:, 0]]
+    e2 = verts[faces[:, 2]] - verts[faces[:, 0]]
+    area = np.linalg.norm(np.cross(e1, e2), axis=1)
+    med = np.median(area)
+    big = np.where(area > area_ratio * max(med, 1e-30))[0]
+    if big.size == 0 or big.size > max_brute or t - big.size < min_tree:
+        return all_ids[:0], all_ids
+    keep = np.ones(t, bool)
+    keep[big] = False
+    return big.astype(np.int64), all_ids[keep]
+
+
+def build_scene_bvh4(mesh: TriMesh):
+    """Native binned-SAH BVH4 (native/scenekit.cpp) over the dense-mesh
+    faces, widened to BVH8, with oversized triangles split off for the
+    brute-force pre-pass. prim ids in both halves are ORIGINAL face
+    indices."""
+    brute_ids, tree_ids = partition_brute_faces(mesh)
+    if brute_ids.size:
+        sub = TriMesh(vertices=mesh.vertices,
+                      faces=mesh.faces[torch.from_numpy(tree_ids)],
+                      face_mat=mesh.face_mat[torch.from_numpy(tree_ids)])
+    else:
+        sub = mesh
+    b4 = widen_bvh(build_bvh4_native(sub), BVH_WIDTH)
+    if not brute_ids.size:
+        return b4
+
+    # Remap sub-mesh prim ids back to original face ids; leaf-alignment
+    # padding slots carry -1 and must stay -1.
+    pi = b4.prim_index.numpy()
+    prim = np.where(pi >= 0, tree_ids[np.maximum(pi, 0)], -1).astype(np.int32)
+    verts = mesh.vertices.numpy()
+    faces = mesh.faces.numpy()
+    fmat = mesh.face_mat.numpy()
+    bf = faces[brute_ids]
+    v0 = verts[bf[:, 0]]
+    bt = np.concatenate([v0, verts[bf[:, 1]] - v0, verts[bf[:, 2]] - v0],
+                        axis=1).astype(np.float32)
+    bp = brute_ids.astype(np.int32)
+    bm = fmat[brute_ids].astype(np.int32)
+    pad = (-bt.shape[0]) % 8  # degenerate padding rows (MT self-rejects)
+    if pad:
+        bt = np.concatenate([bt, np.zeros((pad, 9), np.float32)])
+        bp = np.concatenate([bp, np.zeros((pad,), np.int32)])
+        bm = np.concatenate([bm, np.zeros((pad,), np.int32)])
+    return dataclasses.replace(
+        b4,
+        prim_index=torch.from_numpy(prim),
+        brute_tri=torch.from_numpy(bt),
+        brute_prim=torch.from_numpy(bp),
+        brute_mat=torch.from_numpy(bm),
+    )
+
+
+def cornell_materials_scene(assets_dir: str | None = None, build_bvh: bool = True) -> Scene:
+    """BASELINE config[1]: the Cornell box with a glass sphere and a
+    rough-metal sphere inside — all four material types. With
+    `build_bvh` the BVH is what the JAX CLI attaches to this scene
+    (build_scene_bvh4 of its mesh)."""
+    paths = _asset_paths(assets_dir)
+    mesh, materials = load_scene_objs([paths["cornell"]])
+    base = add_reference_extras(mesh, materials, name="cornell_materials")
+    m = base.materials
+    mats = Materials.from_lists(
+        types=np.concatenate([m.type.numpy(), [DIELECTRIC, METAL]]),
+        albedos=np.concatenate(
+            [m.albedo.numpy(), np.asarray([(1.0, 1.0, 1.0), (0.8, 0.7, 0.4)], np.float32)]),
+        emissions=np.concatenate([m.emission.numpy(), np.zeros((2, 3), np.float32)]),
+        roughnesses=np.concatenate([m.roughness.numpy(), [0.0, 0.25]]).astype(np.float32),
+        iors=np.concatenate([m.ior.numpy(), [1.5, 1.0]]).astype(np.float32),
+    )
+    sp = base.spheres
+    mcount = m.count
+    spheres = Spheres.from_lists(
+        centers=np.concatenate(
+            [sp.center.numpy(), np.asarray([(-0.08, -0.21, 0.05), (0.1, -0.23, 0.12)], np.float32)]),
+        radii=np.concatenate([sp.radius.numpy(), [0.09, 0.07]]).astype(np.float32),
+        mat_ids=np.concatenate([sp.mat_id.numpy(), [mcount, mcount + 1]]).astype(np.int32),
+    )
+    scene = Scene(materials=mats, spheres=spheres, mesh=base.mesh, name="cornell_materials")
+    if build_bvh:
+        scene = scene.replace(bvh4=build_scene_bvh4(scene.mesh))
+    return scene

@@ -1,0 +1,203 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared
+library with a plain C interface, bound with ctypes.
+
+The library is compiled with nvcc for Hopper (sm_90a) at first use into
+`raytracer_tpu_torch/_build/` (git-ignored) and rebuilt whenever a
+source's content or the flags change (the file name carries their
+hash). No PyTorch headers and no libraries: each C entry point launches
+one kernel on the stream it is given and returns cudaGetLastError(),
+which `check` turns into an exception.
+
+`-fmad=false` keeps every multiply and add separately rounded, as in the
+plain PyTorch versions, so kernel and plain version agree to the last
+bit wherever no transcendental function is involved.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+STACK_CAP = 256  # per-thread traversal stack entries (csrc/traverse.cuh)
+BVH_WIDTH = 8    # the kernels' only tree width (csrc/traverse.cuh K)
+MAX_SPHERES = 16
+MAX_MATERIALS = 28
+
+_LIB = None
+BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cands.append(os.path.join(home, "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda/bin)")
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile csrc/ into the build directory unless an up-to-date library
+    is there. Returns its path; BUILD_INFO records seconds and the
+    ptxas resource report."""
+    lib_path = os.path.join(BUILD_DIR, f"libraytracer_cuda-{_digest()}.so")
+    if os.path.exists(lib_path):
+        BUILD_INFO.update(path=lib_path, seconds=0.0, cached=True)
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib_path)
+    with open(lib_path + ".ptxas.txt", "w") as f:
+        f.write(res.stderr)
+    BUILD_INFO.update(path=lib_path, seconds=secs, cached=False, ptxas=res.stderr)
+    return lib_path
+
+
+class BvhView(ctypes.Structure):
+    """Mirror of csrc/traverse.cuh `BvhView` (device pointers + sizes)."""
+
+    _fields_ = [
+        ("bounds", ctypes.c_void_p),
+        ("children", ctypes.c_void_p),
+        ("tri", ctypes.c_void_p),
+        ("prim", ctypes.c_void_p),
+        ("fmat", ctypes.c_void_p),
+        ("btri", ctypes.c_void_p),
+        ("bprim", ctypes.c_void_p),
+        ("bmat", ctypes.c_void_p),
+        ("n_brute", ctypes.c_int),
+        ("width", ctypes.c_int),
+    ]
+
+
+class FusedParams(ctypes.Structure):
+    """Mirror of csrc/megakernel.cu `FusedParams` (passed by value to K3)."""
+
+    _fields_ = [
+        ("ll", ctypes.c_float * 3),
+        ("hor", ctypes.c_float * 3),
+        ("ver", ctypes.c_float * 3),
+        ("pos", ctypes.c_float * 3),
+        ("right", ctypes.c_float * 3),
+        ("up", ctypes.c_float * 3),
+        ("lens_r", ctypes.c_float),
+        ("inv_w", ctypes.c_float),
+        ("inv_h", ctypes.c_float),
+        ("rr_max_prob", ctypes.c_float),
+        ("t_min", ctypes.c_float),
+        ("k0", ctypes.c_uint32),
+        ("k1", ctypes.c_uint32),
+        ("sample_offset", ctypes.c_int),
+        ("spp", ctypes.c_int),
+        ("max_bounces", ctypes.c_int),
+        ("min_bounces", ctypes.c_int),
+        ("emission_quirk", ctypes.c_int),
+        ("n_spheres", ctypes.c_int),
+        ("n_materials", ctypes.c_int),
+    ]
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    L = ctypes.CDLL(build())
+    vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    L.rt_ktf_threefry.argtypes = [cu, cu, vp, vp, ci, vp, vp, ci, vp]
+    L.rt_trace_closest.argtypes = [ctypes.POINTER(BvhView), vp, vp, vp, cf, ci,
+                                   vp, vp, vp, vp, ci, vp]
+    L.rt_render_fused.argtypes = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView),
+                                  vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp]
+    for fn in (L.rt_ktf_threefry, L.rt_trace_closest, L.rt_render_fused):
+        fn.restype = ctypes.c_int
+    L.rt_error_string.argtypes = [ci]
+    L.rt_error_string.restype = ctypes.c_char_p
+    _LIB = L
+    return L
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = lib().rt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def require_cuda(name: str, t, dtype, shape=None):
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and
+    `shape`, where given)."""
+    if not torch.is_tensor(t) or not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def bvh_view(bvh) -> BvhView:
+    """BvhView over a Bvh4 whose tensors are on the card (the caller keeps
+    `bvh` alive across the launch)."""
+    k = int(bvh.children.shape[1])
+    if k != BVH_WIDTH:
+        raise ValueError(f"BVH width {k} not supported by the kernels (only {BVH_WIDTH}; "
+                         "scene/builder widens to it)")
+    if bvh.stack_depth + 4 > STACK_CAP:
+        raise ValueError(f"BVH stack bound {bvh.stack_depth}+4 exceeds kernel capacity {STACK_CAP}")
+    n4, t = bvh.children.shape[0], bvh.tri.shape[0]
+    require_cuda("bvh.bounds", bvh.bounds, torch.float32, (n4, k, 6))
+    require_cuda("bvh.children", bvh.children, torch.int32, (n4, k))
+    require_cuda("bvh.tri", bvh.tri, torch.float32, (t, 9))
+    require_cuda("bvh.prim_index", bvh.prim_index, torch.int32, (t,))
+    require_cuda("bvh.face_mat", bvh.face_mat, torch.int32, (t,))
+    v = BvhView(bounds=bvh.bounds.data_ptr(), children=bvh.children.data_ptr(),
+                tri=bvh.tri.data_ptr(), prim=bvh.prim_index.data_ptr(),
+                fmat=bvh.face_mat.data_ptr(), n_brute=0, width=k)
+    if bvh.brute_tri is not None:
+        tb = bvh.brute_tri.shape[0]
+        require_cuda("bvh.brute_tri", bvh.brute_tri, torch.float32, (tb, 9))
+        require_cuda("bvh.brute_prim", bvh.brute_prim, torch.int32, (tb,))
+        require_cuda("bvh.brute_mat", bvh.brute_mat, torch.int32, (tb,))
+        v.btri, v.bprim, v.bmat = (bvh.brute_tri.data_ptr(), bvh.brute_prim.data_ptr(),
+                                   bvh.brute_mat.data_ptr())
+        v.n_brute = tb
+    return v

@@ -1,0 +1,217 @@
+"""Counter-based Threefry-2x32 RNG on int32 tensors (port of
+raytracer_tpu/utils/ktf.py).
+
+This is the plain PyTorch version of kernel K2; the CUDA version is
+`csrc/ktf.cuh`, compiled into the path-loop kernel. Both follow one
+spec — standard Threefry-2x32 (20 rounds) with the counter layout
+
+  c0 = pixel_id
+  c1 = (sample << 9) | (bounce << 4) | purpose
+
+and the uniform map u01(bits) = f32(bits >>> 9) * 2^-23 — so the port
+draws the same bits as the JAX package for the same key words.
+
+Key words: under JAX's default 32-bit mode `jax.random.key(seed)` holds
+(0, seed mod 2^32); `key_words(seed)` returns the same pair as int32
+without JAX.
+
+Integer arithmetic: adds wrap in two's complement exactly like uint32
+adds. torch's `>>` on int32 is an ARITHMETIC shift, so every logical
+right shift below masks off the sign-extended bits.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+# Purpose tags (must stay < 16; see the counter layout above).
+JITTER = 1      # raygen pixel jitter: (u, v) from one block
+LENS = 2        # raygen lens-disk sample: (u1, u2) from one block
+RR = 3          # Russian-roulette survival draw
+SCATTER = 4     # material unit-vector sample: (u1, u2) from one block
+DIELECTRIC = 5  # Schlick reflect-vs-refract draw
+
+_PARITY = int(np.int32(np.uint32(0x1BD11BDA)))
+_ROT_A = (13, 15, 26, 6)
+_ROT_B = (17, 29, 16, 24)
+TWO_PI = 2.0 * math.pi
+
+
+def _i32(x) -> int:
+    """Python int → the int32 with the same low 32 bits."""
+    return int(np.uint32(int(x) & 0xFFFFFFFF).astype(np.int32))
+
+
+def _srl(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Logical right shift of int32 by a constant 0 < r < 32."""
+    return (x >> r) & ((1 << (32 - r)) - 1)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _srl(x, 32 - r)
+
+
+def key_words(seed: int) -> tuple[int, int]:
+    """Integer seed → (k0, k1) int32 key words of jax.random.key(seed)."""
+    return 0, _i32(seed)
+
+
+def threefry2x32(k0, k1, c0: torch.Tensor, c1: torch.Tensor):
+    """Standard Threefry-2x32, 20 rounds, on int32 tensors (k0/k1 python
+    ints or int32 tensors, c0/c1 broadcastable int32 tensors). Returns
+    (x0, x1) int32."""
+    c0 = torch.as_tensor(c0, dtype=torch.int32)
+    c1 = torch.as_tensor(c1, dtype=torch.int32, device=c0.device)
+    k0 = _i32(k0) if not torch.is_tensor(k0) else k0
+    k1 = _i32(k1) if not torch.is_tensor(k1) else k1
+    ks2 = k0 ^ k1 ^ _PARITY
+    if not torch.is_tensor(ks2):
+        ks2 = _i32(ks2)
+    x0 = c0 + k0
+    x1 = c1 + k1
+
+    def four_rounds(x0, x1, rots):
+        for r in rots:
+            x0 = x0 + x1
+            x1 = _rotl(x1, r)
+            x1 = x1 ^ x0
+        return x0, x1
+
+    # Injection schedule: after group i (1-based), x0 += ks[i%3],
+    # x1 += ks[(i+1)%3] + i, with ks = [k0, k1, ks2].
+    x0, x1 = four_rounds(x0, x1, _ROT_A)
+    x0, x1 = x0 + k1, x1 + ks2 + 1
+    x0, x1 = four_rounds(x0, x1, _ROT_B)
+    x0, x1 = x0 + ks2, x1 + k0 + 2
+    x0, x1 = four_rounds(x0, x1, _ROT_A)
+    x0, x1 = x0 + k0, x1 + k1 + 3
+    x0, x1 = four_rounds(x0, x1, _ROT_B)
+    x0, x1 = x0 + k1, x1 + ks2 + 4
+    x0, x1 = four_rounds(x0, x1, _ROT_A)
+    x0, x1 = x0 + ks2, x1 + k0 + 5
+    return x0, x1
+
+
+def u01(bits: torch.Tensor) -> torch.Tensor:
+    """int32 random bits → f32 uniform in [0, 1): f32(bits >>> 9) * 2^-23
+    (exact)."""
+    return _srl(bits, 9).to(torch.float32) * (2.0 ** -23)
+
+
+def counter(sample, bounce, purpose: int) -> torch.Tensor:
+    """c1 word: (sample << 9) | (bounce << 4) | purpose."""
+    s = torch.as_tensor(sample, dtype=torch.int32)
+    b = torch.as_tensor(bounce, dtype=torch.int32, device=s.device)
+    return (s << 9) | (b << 4) | purpose
+
+
+@dataclass(frozen=True)
+class KtfSampler:
+    """Per-lane draw context: pixel ids + the (sample, bounce) word.
+    Works on any tensor shape; the trig-derived draws return separate
+    tensors (`*_parts`) or components stacked on a new last axis."""
+
+    k0: int
+    k1: int
+    pixel: torch.Tensor   # i32[...] pixel ids (c0)
+    sample: torch.Tensor  # i32 scalar or [...] per-lane sample index
+    bounce: torch.Tensor  # i32 scalar or [...] per-lane bounce index
+
+    def _block(self, purpose: int):
+        return threefry2x32(self.k0, self.k1, self.pixel,
+                            counter(self.sample, self.bounce, purpose))
+
+    def uniform(self, purpose: int) -> torch.Tensor:
+        a, _ = self._block(purpose)
+        return u01(a)
+
+    def uniform_pair(self, purpose: int):
+        a, b = self._block(purpose)
+        return u01(a), u01(b)
+
+    def unit_vector_parts(self, purpose: int):
+        """Uniform direction on the unit sphere from 2 uniforms:
+        z = 1-2u1, phi = 2*pi*u2 (Core/Utility.cuh:73-76 distribution)."""
+        u1, u2 = self.uniform_pair(purpose)
+        z = 1.0 - 2.0 * u1
+        r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+        phi = TWO_PI * u2
+        return r * torch.cos(phi), r * torch.sin(phi), z
+
+    def unit_vector(self, purpose: int) -> torch.Tensor:
+        return torch.stack(self.unit_vector_parts(purpose), dim=-1)
+
+    def disk_parts(self, purpose: int):
+        """Uniform point in the unit disk (polar closed form;
+        Core/Utility.cuh:55-62 distribution)."""
+        u1, u2 = self.uniform_pair(purpose)
+        r = torch.sqrt(u1)
+        theta = TWO_PI * u2
+        return r * torch.cos(theta), r * torch.sin(theta)
+
+    def disk(self, purpose: int) -> torch.Tensor:
+        x, y = self.disk_parts(purpose)
+        return torch.stack([x, y, torch.zeros_like(x)], dim=-1)
+
+    # --- Sampler protocol (raytracer_tpu/utils/rng.py) ---
+    def jitter_uv(self):
+        return self.uniform_pair(JITTER)
+
+    def lens_disk(self):
+        return self.disk_parts(LENS)
+
+    def rr_uniform(self):
+        return self.uniform(RR)
+
+    def scatter_unit_vector(self):
+        return self.unit_vector(SCATTER)
+
+    def dielectric_uniform(self):
+        return self.uniform(DIELECTRIC)
+
+    def at(self, sample=None, bounce=None) -> "KtfSampler":
+        dev = self.pixel.device
+        return replace(
+            self,
+            sample=self.sample if sample is None
+            else torch.as_tensor(sample, dtype=torch.int32, device=dev),
+            bounce=self.bounce if bounce is None
+            else torch.as_tensor(bounce, dtype=torch.int32, device=dev))
+
+
+def sampler(seed: int, pixel_ids, sample=0, bounce=0) -> KtfSampler:
+    """Integer seed (the port's stand-in for a jax.random key) → sampler."""
+    k0, k1 = key_words(seed)
+    pixel = torch.as_tensor(pixel_ids, dtype=torch.int32)
+    dev = pixel.device
+    return KtfSampler(k0=k0, k1=k1, pixel=pixel,
+                      sample=torch.as_tensor(sample, dtype=torch.int32, device=dev),
+                      bounce=torch.as_tensor(bounce, dtype=torch.int32, device=dev))
+
+
+LAUNCHES = {"threefry2x32": 0}  # launches of the K2 bit-check kernel
+KERNEL_BLOCK = 256
+
+
+def threefry2x32_kernel(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
+    """`threefry2x32` for int32 counter tensors c0/c1 [N] through kernel K2
+    on a CUDA tensor (csrc/ktf.cu; the path loop runs the same __device__
+    code inline), through the plain version above on a CPU tensor."""
+    if c0.device.type == "cpu":
+        return threefry2x32(k0, k1, c0, c1)
+    from raytracer_tpu_torch.utils import cudalib
+
+    n = c0.shape[0]
+    cudalib.require_cuda("c0", c0, torch.int32, (n,))
+    cudalib.require_cuda("c1", c1, torch.int32, (n,))
+    x0, x1 = torch.empty_like(c0), torch.empty_like(c1)
+    code = cudalib.lib().rt_ktf_threefry(_i32(k0) & 0xFFFFFFFF, _i32(k1) & 0xFFFFFFFF,
+                                         c0.data_ptr(), c1.data_ptr(), n, x0.data_ptr(),
+                                         x1.data_ptr(), KERNEL_BLOCK, cudalib.stream_handle())
+    cudalib.check(code, "threefry2x32 kernel")
+    LAUNCHES["threefry2x32"] += 1
+    return x0, x1

@@ -1,0 +1,51 @@
+"""raytracer_tpu_torch never imports JAX: the machine with the card has
+none. A subprocess in which `import jax` fails imports every module of
+the port and chip_smoke.py."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is blocked in this process")
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+import raytracer_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(raytracer_tpu_torch.__path__,
+                                               "raytracer_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "raytracer_tpu") for m in sys.modules)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """On a machine without CUDA the smoke run exits non-zero and prints no result."""
+    import pytest
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; this checks the refusal without one")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
