@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (raytracer_tpu_torch) on one
 NVIDIA card: builds every kernel from csrc/, checks each against its
-plain PyTorch version, and drives the main path — the reference scene
-(Cornell box + bunny, BVH8 with the brute split) through the fused
-path-loop kernel at 2560x1440, spp 8, 20 bounces.
+plain PyTorch version, and drives the port's two paths:
+
+  * serving (phases 4-7): the reference scene (Cornell box + bunny, BVH8
+    with the brute split) through the fused path-loop kernel K3 at
+    2560x1440, spp 8, 20 bounces;
+  * the differentiable path and inverse-rendering training (phases
+    8-10): K4 through its coherence sort on the bunny scene's
+    second-bounce wavefront, the megakernel renderer against K3, and
+    three Adam steps of the INVERSE_r05 configuration (cornell_materials,
+    128x128, spp 32, 6 bounces, 16 key/target pairs in chunks of 8).
 
     python3 chip_smoke.py              # every phase (what CI runs)
     python3 chip_smoke.py --phases 1,2,3   # a subset, while debugging
 
 Every phase raises on failure, so the script exits non-zero. The last
-two lines are a JSON object with one entry per kernel and
-{"ok": true, "device": {...}}. It needs a CUDA card and imports nothing
-of JAX.
+lines are a `train` JSON line (phase 10), a JSON object with one entry
+per kernel and {"ok": true, "device": {...}}. It needs a CUDA card and
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,6 +45,29 @@ MAIN_SAMPLE = 16384        # 2K pixels (seeded) re-rendered by the plain version
 IMG_ATOL, IMG_RTOL, IMG_BAD_FRAC, MEAN_TOL = 5e-4, 2e-4, 0.005, 1e-3
 T_RTOL = 1e-4              # traversal t vs plain / brute force
 NEAR_TIE_MAX = 1 / 5000    # id flips at equal t allowed per hit ray
+# Phase 8: the second-bounce wavefront of a 512x512 spp1 megakernel frame.
+P8 = dict(width=512, height=512, spp=1, max_bounces=2)
+P8_SUBSET = 16384          # seeded rays re-traced by the plain version
+# Phase 9: the differentiable renderer's forward pass against K3.
+P9 = dict(width=256, height=144, spp=4, max_bounces=8)
+# Phase 10: INVERSE_r05 (scripts/inverse_tpu_r05.py:116-162, INVERSE_r05.json).
+P10 = dict(width=128, height=128, spp=32, max_bounces=6)
+P10_PAIRS, P10_CHUNK, P10_STEPS, P10_SCHEDULE_STEPS, P10_LR = 16, 8, 3, 500, 0.03
+P10_FIELDS = ("albedo", "roughness", "emission", "ior")
+P10_CAM_PERTURB = {"cam_position": (0.015, -0.01, 0.02), "cam_yaw": 1.0, "cam_pitch": -0.75}
+P10_LR_SCALES = {"cam_position": 0.3, "cam_yaw": 2.0, "cam_pitch": 2.0}
+P10_SMALL = dict(width=32, height=32, spp=2, max_bounces=3)
+P10_SMALL_PAIRS = 2
+# Kernel step vs plain step (CPU): transcendentals and reductions round
+# differently on the card, so a rare path can flip; the loss must agree
+# to 1e-4 relative and every gradient entry to 1% of its field's scale.
+STEP_LOSS_RTOL, STEP_GRAD_FRAC = 1e-4, 0.01
+FD_RTOL, FD_ATOL = 0.08, 1e-5  # tests/test_grad.py:76
+# The first losses of the JAX package's INVERSE_r05 run (same scene,
+# keys, init and schedule), committed with six digits: the port's must
+# agree within 2e-3 relative (a fault moves them by far more).
+INVERSE_REF = os.path.join(ROOT, "INVERSE_r05.json")
+LOSS_REF_RTOL = 2e-3
 
 
 def log(phase, msg):
@@ -79,7 +110,7 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -127,7 +158,7 @@ def main(argv=None) -> int:
         log(2, f"  ptxas: {ln}")
 
     scene = None
-    if phases & {4, 5, 6, 7}:
+    if phases & {4, 5, 6, 7, 8, 9}:
         t0 = time.perf_counter()
         scene_cpu = reference_scene()
         scene = scene_cpu.to(dev)
@@ -182,7 +213,7 @@ def main(argv=None) -> int:
         o = torch.cat([o_cam, o_box]).contiguous()
         d = torch.cat([d_cam, d_box]).contiguous()
         before = cuda_traverse.LAUNCHES["trace_closest"]
-        rk = cuda_traverse.trace_closest(o, d, scene.bvh4, BIG)
+        rk = cuda_traverse.trace_closest(o, d, scene.bvh4, BIG, sort=False)
         torch.cuda.synchronize()
         if cuda_traverse.LAUNCHES["trace_closest"] != before + 1:
             raise AssertionError("K4 did not launch")
@@ -210,7 +241,7 @@ def main(argv=None) -> int:
         sub = {k2: v2[sel] for k2, v2 in rk.items()}
         f2, h2 = compare(tb, ib, tb < BIG, sub, "brute force")
         max_err = float((rk["t"] - rp["t"]).abs()[rk["hit"]].max()) if h1 else 0.0
-        ms = cuda_ms(lambda: cuda_traverse.trace_closest(o, d, scene.bvh4, BIG), 20)
+        ms = cuda_ms(lambda: cuda_traverse.trace_closest(o, d, scene.bvh4, BIG, sort=False), 20)
         plain_ms = cuda_ms(lambda: cuda_traverse.trace_closest_plain(o, d, scene.bvh4, BIG), 3)
         kernels["K1"] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
         log(4, f"K4/K1 trace_closest on {2 * m} rays ({m} showcase-camera + {m} in-box): "
@@ -356,39 +387,354 @@ def main(argv=None) -> int:
     else:
         launches = 0
 
-    # K1 and K2 are __device__ code compiled into K3: on the main path they
-    # run inside each K3 launch, so their `launches` is K3's count
-    # (`launched_via`). Their ms / plain_ms / max_abs_err come from their
-    # standalone launchers (K4 trace_closest.cu, ktf.cu), phases 3 and 4.
+    if 8 in phases:
+        r8 = phase8(scene, dev)
+        kernels["K4"] = dict(max_abs_err=r8["max_abs_err"], ms=r8["ms_unsorted"],
+                             plain_ms=r8["plain_ms_unsorted"])
+        kernels["K4-sort"] = dict(max_abs_err=r8["max_abs_err"], ms=r8["ms_sorted"],
+                                  plain_ms=r8["plain_ms_sorted"], ms_unsorted=r8["ms_unsorted"],
+                                  ms_kernel_presorted=r8["ms_kernel_presorted"])
+        log(8, f"K4 on the second-bounce wavefront of a {P8['width']}x{P8['height']} spp1 "
+               f"megakernel frame (cornell_bunny, showcase camera): {r8['rays']} rays, "
+               f"{r8['hits']} hits; sort=True == sort=False bitwise on every field; both == "
+               f"plain (sorted) bitwise on {P8_SUBSET} seeded rays (max |dt| "
+               f"{r8['max_abs_err']:.3g}); sorted {r8['ms_sorted']:.4f} ms vs unsorted "
+               f"{r8['ms_unsorted']:.4f} ms per call, the kernel alone on pre-sorted rays "
+               f"{r8['ms_kernel_presorted']:.4f} ms (CUDA events); plain sorted "
+               f"{r8['plain_ms_sorted']:.1f} ms, unsorted {r8['plain_ms_unsorted']:.1f} ms "
+               f"on {smi}")
+
+    if 9 in phases:
+        r9 = phase9(scene, dev)
+        if r9["k4"] < 1 or r9["k2"] < 1 or r9["plain"]:
+            raise AssertionError(f"megakernel render: K4 launches {r9['k4']}, K2 launches "
+                                 f"{r9['k2']}, plain calls {r9['plain']}")
+        log(9, f"megakernel render_image_chunked {P9['width']}x{P9['height']} spp{P9['spp']} "
+               f"mb{P9['max_bounces']} (ktf) in {r9['seconds']:.3f} s (mean of 5: "
+               f"{r9['ms']:.2f} ms; K3 on the same frame {r9['ms_k3']:.3f} ms): mean "
+               f"{r9['mean']:.6f} vs K3 {r9['mean_k3']:.6f}; {r9['bad']:.4%} elements beyond 5e-4+2e-4|x| (limit "
+               f"0.5%), mean diff {r9['mean_diff']:.2e}, max abs {r9['max_abs']:.3g}; K4 "
+               f"launches {r9['k4']} (sorted {r9['k4_sorted']}), K2 launches {r9['k2']}, plain "
+               f"calls {r9['plain']}; jax family mean {r9['mean_jax']:.6f} (finite); CLI "
+               f"--integrator megakernel wrote {r9['png']} in {r9['cli_s']:.1f} s")
+
+    train = None
+    if 10 in phases:
+        train = phase10(dev)
+        exp = train["k4_expected"]
+        if (train["k4"] != exp or train["k4_sorted"] != exp or train["k2"] < 1
+                or train["plain"]):
+            raise AssertionError(f"training path: K4 launches {train['k4']} (sorted "
+                                 f"{train['k4_sorted']}, expected {exp}), K2 launches "
+                                 f"{train['k2']}, plain calls {train['plain']}")
+        with open(INVERSE_REF) as f:
+            ref = json.load(f)["loss_curve"][:P10_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(train["losses"], ref)]
+        train["reference_losses"], train["loss_rel_err"] = ref, rel
+        if max(rel) > LOSS_REF_RTOL:
+            raise AssertionError(f"training losses {train['losses']} vs the JAX package's "
+                                 f"{ref}: relative errors {rel} (limit {LOSS_REF_RTOL})")
+        log(10, f"INVERSE_r05 config ({P10['width']}x{P10['height']} spp{P10['spp']} "
+                f"mb{P10['max_bounces']}, {P10_PAIRS} pairs in chunks of {P10_CHUNK}): "
+                f"{P10_STEPS} Adam steps, losses {train['losses']} (JAX package "
+                f"{train['reference_losses']}, max rel err {max(train['loss_rel_err']):.2e}), "
+                f"s/step {train['step_s']} (median of steps 2-3 {train['s_per_step']:.3f}), peak "
+                f"memory {train['max_memory_allocated'] / 2**30:.2f} GiB; K4 launches "
+                f"{train['k4']} = {P10_STEPS} steps x {exp // P10_STEPS} ({train['k4_formula']}), "
+                f"all sorted; K2 launches {train['k2']}; plain calls {train['plain']}; "
+                f"at {P10_SMALL['width']}x{P10_SMALL['height']} spp{P10_SMALL['spp']} "
+                f"mb{P10_SMALL['max_bounces']} K={P10_SMALL_PAIRS}: kernel vs plain loss "
+                f"{train['small_loss']:.8g} vs {train['small_loss_plain']:.8g}, grad max |diff| "
+                f"/ scale {train['grad_frac']:.3g} (limit {STEP_GRAD_FRAC}); FD vs autograd: "
+                f"{train['fd']} on {smi}")
+        print(json.dumps({"train": train}), flush=True)
+
+    # Kernel rows. `launches` counts the launches of the path each kernel
+    # serves, with the counters set to 0 just before that path ran: K3 in
+    # phase 7 (serving); K4, K4-sort and the standalone K2 in phase 10
+    # (training). K1 is __device__ code inside K3 and K4, and K2 runs
+    # inline in K3 too: those rows add the serving path's K3 launches.
+    # ms / plain_ms / max_abs_err come from the phase that times each
+    # kernel alone (3, 4, 5/7, 8).
     src = "raytracer_tpu_torch/csrc/"
+    t_k4 = train["k4"] if train else 0
     table = [
         ("fused_path_loop (K3)", "megakernel.cu", "raytracer_tpu/ops/pallas_megakernel.py:623",
-         "K3", None),
-        ("bvh8_traverse (K1, inline in K3; timed alone through K4 trace_closest.cu)",
-         "traverse.cuh", "raytracer_tpu/ops/pallas_traverse.py:319", "K1", "fused_path_loop (K3)"),
-        ("threefry2x32 (K2, inline in K3; timed alone through ktf.cu)", "ktf.cuh",
-         "raytracer_tpu/utils/ktf.py:65", "K2", "fused_path_loop (K3)"),
+         "K3", launches, {}),
+        ("bvh8_traverse (K1, inline in K3 and K4; timed alone through K4 trace_closest.cu)",
+         "traverse.cuh", "raytracer_tpu/ops/pallas_traverse.py:319", "K1", t_k4,
+         {"launches_are": "K4 launches of the training path, which runs this code inline",
+          "serving_path_launches_via_K3": launches}),
+        ("threefry2x32 (K2: standalone in the differentiable path, inline in K3)", "ktf.cu",
+         "raytracer_tpu/utils/ktf.py:65", "K2", train["k2"] if train else 0,
+         {"serving_path_launches_via_K3": launches}),
+        ("trace_closest (K4)", "trace_closest.cu", "raytracer_tpu/ops/pallas_traverse.py:907",
+         "K4", t_k4, {}),
+        ("trace_closest coherence-sorted (K4-sort)", "trace_closest.cu",
+         "raytracer_tpu/ops/pallas_traverse.py:961", "K4-sort",
+         train["k4_sorted"] if train else 0, {}),
     ]
     rows = []
-    for name, source, replaces, key, via in table:
+    for name, source, replaces, key, n_launch, extra in table:
         r = kernels.get(key, {})
         row = {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-               "launches": launches, "max_abs_err": r.get("max_abs_err"),
-               "ms": r.get("ms"), "plain_ms": r.get("plain_ms")}
-        if via:
-            row["launched_via"] = via
-            row["launches_are"] = f"launches of {via}, which runs this code inline"
+               "launches": n_launch, "max_abs_err": r.get("max_abs_err"),
+               "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), **extra}
         if "main_s" in r:
             row["main_path_s"] = r["main_s"]
             row["main_path_median_s"] = r["main_median_s"]
             row["max_abs_err_is"] = f"2K frame vs plain on {MAIN_SAMPLE} seeded pixels"
-        if "preflight_max_abs_err" in r:
-            row["preflight_max_abs_err"] = r["preflight_max_abs_err"]
+        for k in ("preflight_max_abs_err", "ms_unsorted", "ms_kernel_presorted"):
+            if k in r:
+                row[k] = r[k]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _counts():
+    """Launch and plain-call counters of the differentiable path's kernels."""
+    from raytracer_tpu_torch.ops import cuda_traverse
+    from raytracer_tpu_torch.utils import ktf
+
+    return {"k4": cuda_traverse.LAUNCHES["trace_closest"],
+            "k4_sorted": cuda_traverse.LAUNCHES["trace_closest_sorted"],
+            "k2": ktf.LAUNCHES["threefry2x32"],
+            "plain": cuda_traverse.PLAIN_CALLS["traverse_plain"]
+            + ktf.PLAIN_CALLS["threefry2x32"]}
+
+
+def _reset_counts():
+    from raytracer_tpu_torch.ops import cuda_traverse
+    from raytracer_tpu_torch.utils import ktf
+
+    for d in (cuda_traverse.LAUNCHES, cuda_traverse.PLAIN_CALLS, ktf.LAUNCHES, ktf.PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def phase8(scene, dev):
+    """K4 sorted vs unsorted vs plain on the second-bounce wavefront."""
+    import torch
+
+    from raytracer_tpu_torch.camera import generate_rays, showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.models import megakernel
+    from raytracer_tpu_torch.ops.bvh4 import BIG
+    from raytracer_tpu_torch.ops.cuda_traverse import trace_closest, trace_closest_plain
+    from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
+    from raytracer_tpu_torch.render import pixel_grid
+    from raytracer_tpu_torch.utils import ktf
+
+    cfg = RenderConfig(**P8, rng_impl="ktf")
+    cam = showcase_camera(cfg)
+    px, py = pixel_grid(cfg, dev)
+    smp = ktf.sampler(0, py * cfg.width + px)
+    with torch.no_grad():
+        o, d = generate_rays(cam, px, py, cfg.width, cfg.height, smp)
+        state = megakernel.bounce_step(scene, cfg, 0, smp, megakernel.initial_state(o, d))
+    o1, d1 = state[0].contiguous(), state[1].contiguous()
+    bvh = scene.bvh4
+    rs = trace_closest(o1, d1, bvh, BIG, sort=True)
+    ru = trace_closest(o1, d1, bvh, BIG, sort=False)
+    torch.cuda.synchronize()
+    differ = [k for k in rs if not torch.equal(rs[k], ru[k])]
+    if differ:
+        raise AssertionError(f"K4 sort=True vs sort=False: fields {differ} differ")
+    pick = torch.from_numpy(np.random.default_rng(8).choice(
+        o1.shape[0], P8_SUBSET, replace=False)).to(dev)
+    rp = trace_closest_plain(o1[pick], d1[pick], bvh, BIG, sort=True)
+    differ = [k for k in rp if not torch.equal(rs[k][pick], rp[k])]
+    if differ:
+        raise AssertionError(f"K4 sorted vs plain on {P8_SUBSET} rays: fields {differ} differ")
+    hit = rp["hit"]
+    max_err = float((rs["t"][pick] - rp["t"])[hit].abs().max()) if bool(hit.any()) else 0.0
+    # The kernel alone on rays already in coherence order: what the sort
+    # buys inside K4, apart from what the argsort and permutation cost.
+    lo, inv_ext = root_box(bvh)
+    perm = torch.argsort(coherence_keys(o1, d1, lo, inv_ext), stable=True)
+    o_s, d_s = o1[perm].contiguous(), d1[perm].contiguous()
+    return dict(
+        rays=o1.shape[0], hits=int(rs["hit"].sum()), max_abs_err=max_err,
+        ms_sorted=cuda_ms(lambda: trace_closest(o1, d1, bvh, BIG, sort=True), 20),
+        ms_unsorted=cuda_ms(lambda: trace_closest(o1, d1, bvh, BIG, sort=False), 20),
+        ms_kernel_presorted=cuda_ms(lambda: trace_closest(o_s, d_s, bvh, BIG, sort=False), 20),
+        plain_ms_sorted=cuda_ms(lambda: trace_closest_plain(o1, d1, bvh, BIG, sort=True), 1),
+        plain_ms_unsorted=cuda_ms(lambda: trace_closest_plain(o1, d1, bvh, BIG), 1))
+
+
+def phase9(scene, dev):
+    """The differentiable renderer's forward pass: megakernel (ktf) vs
+    K3, the jax family once, and the CLI."""
+    import torch
+
+    from raytracer_tpu_torch.camera import showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.models.fused import render_image_fused
+    from raytracer_tpu_torch.render import render_image_chunked
+
+    cfg = RenderConfig(**P9, rng_impl="ktf")
+    cam = showcase_camera(cfg)
+    with torch.no_grad():
+        render_image_chunked(scene, cam, cfg, 0)   # warm-up (same shapes)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        img = render_image_chunked(scene, cam, cfg, 0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        img_k3 = render_image_fused(scene, cam, cfg, 0)
+        img_jax = render_image_chunked(scene, cam, cfg.replace(rng_impl="jax"), 0)
+        ms = cuda_ms(lambda: render_image_chunked(scene, cam, cfg, 0), 5)
+        ms_k3 = cuda_ms(lambda: render_image_fused(scene, cam, cfg, 0), 5)
+    bad, mean_diff, max_abs = image_agreement(img, img_k3)
+    if not (bool(torch.isfinite(img).all()) and bad <= IMG_BAD_FRAC and mean_diff <= MEAN_TOL):
+        raise AssertionError(f"megakernel (ktf) vs K3: {bad:.4%} elements beyond tolerance, "
+                             f"mean diff {mean_diff}")
+    mean_jax = img_jax.mean().item()
+    if not np.isfinite(mean_jax):
+        raise AssertionError(f"jax-family megakernel mean {mean_jax}")
+    png = os.path.join("renders", "chip_smoke_megakernel.png")
+    os.makedirs(os.path.join(ROOT, "renders"), exist_ok=True)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "raytracer_tpu_torch.cli", "--integrator",
+                          "megakernel", "--scene", "cornell_bunny", "--width", str(P9["width"]),
+                          "--height", str(P9["height"]), "--spp", str(P9["spp"]),
+                          "--max-bounces", str(P9["max_bounces"]), "--out", png],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(ROOT, png), "rb") as f:
+        head = f.read(8)
+    if out.returncode != 0 or head != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"CLI --integrator megakernel failed ({out.returncode}): "
+                             f"{out.stderr[-2000:]}")
+    return dict(seconds=secs, ms=ms, ms_k3=ms_k3, mean=img.mean().item(),
+                mean_k3=img_k3.mean().item(), bad=bad,
+                mean_diff=mean_diff, max_abs=max_abs, mean_jax=mean_jax, png=png, cli_s=cli_s,
+                **counts)
+
+
+def inverse_setup(dev, size: dict, pairs: int):
+    """The INVERSE_r05 problem at `size`: scene, cfg, true camera, pair
+    keys, targets and the noised, pose-perturbed initial params."""
+    import torch
+
+    from raytracer_tpu_torch.camera import make_camera
+    from raytracer_tpu_torch.config import PRESETS
+    from raytracer_tpu_torch.diff import inverse
+    from raytracer_tpu_torch.render import render_image
+    from raytracer_tpu_torch.scene.builder import build_scene_bvh4, cornell_materials_scene
+    from raytracer_tpu_torch.utils import rng
+
+    scene = cornell_materials_scene(build_bvh=False)
+    centers = scene.spheres.center.clone()
+    centers[3] = torch.tensor([0.14, -0.16, 0.12])  # un-occlude the rough metal
+    scene = scene.replace(spheres=dataclasses.replace(scene.spheres, center=centers))
+    scene = scene.replace(bvh4=build_scene_bvh4(scene.mesh)).to(dev)
+    cfg = PRESETS["inverse_render"].replace(reference_emission_quirk=False,
+                                            edge_aware_lights=True, fov_degrees=110.0, **size)
+    cam = make_camera(aspect_ratio=cfg.aspect_ratio, fov_degrees=cfg.fov_degrees,
+                      aperture=cfg.aperture, position=(0.0, -0.05, 0.29), yaw=-90.0,
+                      pitch=-10.0).to(dev)
+    keys = rng.split(rng.key(40, dev), pairs)
+    with torch.no_grad():
+        targets = torch.stack([render_image(scene, cam, cfg, (keys[0][j], keys[1][j]))
+                               for j in range(pairs)])
+    params = inverse.init_params(scene, P10_FIELDS, key=rng.key(41, dev), noise=0.15)
+    params["cam_position"] = cam.position + torch.tensor(P10_CAM_PERTURB["cam_position"],
+                                                         device=dev)
+    params["cam_yaw"] = cam.yaw + P10_CAM_PERTURB["cam_yaw"]
+    params["cam_pitch"] = cam.pitch + P10_CAM_PERTURB["cam_pitch"]
+    return scene, cfg, cam, keys, targets, params
+
+
+def phase10(dev):
+    """Three Adam steps of INVERSE_r05 on the card, then kernel vs plain
+    and finite differences at a reduced size."""
+    import torch
+
+    from raytracer_tpu_torch.diff import inverse
+    from raytracer_tpu_torch.render import pixel_grid, samples_per_trace
+
+    scene, cfg, cam, keys, targets, params = inverse_setup(dev, P10, P10_PAIRS)
+    step = inverse.make_train_step_accum(
+        scene, cam, cfg, targets, keys, chunk=P10_CHUNK, lr=P10_LR,
+        lr_fn=inverse.cosine_lr(P10_LR, P10_SCHEDULE_STEPS, 0.05), lr_scales=P10_LR_SCALES)
+    state = inverse.adam_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, times = [], []
+    for _ in range(P10_STEPS):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    bad = [k for k, v in params.items() if not bool(torch.isfinite(v).all())]
+    if bad or not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training state: losses {losses}, params {bad}")
+    # K4 launches once per bounce of each trace; a chunk of pairs renders
+    # its chunk x H x W pixels in traces of samples_per_trace samples.
+    n_px = P10_CHUNK * cfg.width * cfg.height
+    per = samples_per_trace(cfg, n_px, cfg.spp)
+    traces = -(-cfg.spp // per)
+    n_chunks = P10_PAIRS // P10_CHUNK
+    k4_expected = P10_STEPS * n_chunks * traces * cfg.max_bounces
+
+    # Reduced size: the kernel step against the plain step (CPU), and
+    # central finite differences against autograd on the card.
+    s_scene, s_cfg, s_cam, s_keys, s_tg, s_params = inverse_setup(dev, P10_SMALL,
+                                                                  P10_SMALL_PAIRS)
+    px, py = pixel_grid(s_cfg, dev)
+    tg = s_tg.reshape(P10_SMALL_PAIRS, -1, 3)
+
+    def loss_on(device):
+        sc, cm = s_scene.to(device), s_cam.to(device)
+        ks, t = (s_keys[0].to(device), s_keys[1].to(device)), tg.to(device)
+        qx, qy = px.to(device), py.to(device)
+        return lambda p: inverse.pairs_loss(sc, cm, s_cfg, p, ks, t, qx, qy)
+
+    loss_k, grads_k = inverse.value_and_grad(loss_on(dev), s_params)
+    cpu_params = {k: v.cpu() for k, v in s_params.items()}
+    loss_p, grads_p = inverse.value_and_grad(loss_on(torch.device("cpu")), cpu_params)
+    grad_frac = max(float((grads_k[k].cpu() - grads_p[k]).abs().max())
+                    / max(float(grads_p[k].abs().max()), 1e-12) for k in grads_p)
+    if (abs(float(loss_k) - float(loss_p)) > STEP_LOSS_RTOL * abs(float(loss_p))
+            or grad_frac > STEP_GRAD_FRAC):
+        raise AssertionError(f"kernel step vs plain step: loss {float(loss_k)} vs "
+                             f"{float(loss_p)}, grad max |diff| / scale {grad_frac}")
+    fd = {}
+    f_k = loss_on(dev)
+    types = s_scene.materials.type.cpu()
+    for field, eps, mtype in (("emission", 1e-2, 3), ("albedo", 1e-3, 0)):
+        g = grads_k[field].cpu()
+        mask = (types == mtype)[:, None].expand_as(g)
+        idx = np.unravel_index(int(torch.where(mask, g.abs(), torch.zeros_like(g)).argmax()),
+                               tuple(g.shape))
+        with torch.no_grad():
+            up, dn = dict(s_params), dict(s_params)
+            up[field] = s_params[field].clone()
+            up[field][idx] += eps
+            dn[field] = s_params[field].clone()
+            dn[field][idx] -= eps
+            g_fd = (float(f_k(up)) - float(f_k(dn))) / (2 * eps)
+        g_ad = float(g[idx])
+        if not np.isclose(g_ad, g_fd, rtol=FD_RTOL, atol=FD_ATOL):
+            raise AssertionError(f"FD check {field}{list(idx)}: autograd {g_ad} vs FD {g_fd}")
+        fd[f"{field}{[int(i) for i in idx]}"] = {"autograd": g_ad, "fd": g_fd}
+    return dict(losses=losses, step_s=[round(t, 4) for t in times],
+                s_per_step=float(np.median(times[1:])), max_memory_allocated=peak,
+                k4_expected=k4_expected,
+                k4_formula=f"{n_chunks} chunks x {traces} traces of {per} samples x "
+                           f"{cfg.max_bounces} bounces",
+                small_loss=float(loss_k), small_loss_plain=float(loss_p), grad_frac=grad_frac,
+                fd=fd, **counts)
 
 
 if __name__ == "__main__":

@@ -15,10 +15,13 @@ import math
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.scene.types import tensors_to
 from raytracer_tpu_torch.utils import vecmath as vm
+from raytracer_tpu_torch.utils.rng import as_sampler
 
 
 def _f32(x) -> torch.Tensor:
+    """float32 tensor of x; a tensor keeps its device and its graph."""
     return torch.as_tensor(x, dtype=torch.float32)
 
 
@@ -32,6 +35,9 @@ class Camera:
     aperture: torch.Tensor     # f32[]
     focus_dist: torch.Tensor   # f32[]
     aspect_ratio: float
+
+    def to(self, device) -> "Camera":
+        return tensors_to(self, device)
 
 
 def showcase_camera(cfg) -> Camera:
@@ -54,11 +60,20 @@ def make_camera(
 ) -> Camera:
     """Defaults reproduce the reference setup (Raytracer.h:77-84,
     EntryPoint.cu:16-20): focus distance |pos-target| (float32 norm),
-    yaw -90 / pitch 0 regardless of target."""
+    yaw -90 / pitch 0 regardless of target.
+
+    Every field may be a tensor that requires grad (camera gradients,
+    diff/inverse.py). The focus distance of such a position, or of one
+    on the card, is a torch norm, so gradients flow through it as they
+    do through the JAX package's traced fallback; a plain CPU position
+    keeps the float32 numpy norm the JAX package takes on the host."""
     position = _f32(position)
     if focus_dist is None:
-        # The same float32 numpy norm the JAX package takes.
-        focus_dist = float(np.linalg.norm(position.numpy() - np.asarray(target, np.float32)))
+        if position.requires_grad or position.device.type != "cpu":
+            target_t = torch.as_tensor(target, dtype=torch.float32, device=position.device)
+            focus_dist = torch.linalg.vector_norm(position - target_t)
+        else:
+            focus_dist = float(np.linalg.norm(position.numpy() - np.asarray(target, np.float32)))
     return Camera(
         position=position,
         yaw=_f32(yaw),
@@ -104,8 +119,10 @@ def camera_basis(cam: Camera) -> dict:
 def generate_rays(cam: Camera, px: torch.Tensor, py: torch.Tensor,
                   width: int, height: int, smp):
     """Batched thin-lens rays (Core/Camera.cuh:32-44) from a sampler
-    (utils/ktf.KtfSampler). Returns (origins f32[N,3], directions
-    f32[N,3]); directions are NOT normalized, like the reference."""
+    (utils/ktf.KtfSampler or utils/rng.KeySampler) or raw lane keys
+    (k0, k1). Returns (origins f32[N,3], directions f32[N,3]);
+    directions are NOT normalized, like the reference."""
+    smp = as_sampler(smp)
     dev = px.device
     basis = {k: v.to(dev) for k, v in camera_basis(cam).items()}
     position = cam.position.to(dev)

@@ -3,10 +3,13 @@
 Usage (the default device is the CUDA card):
     python -m raytracer_tpu_torch.cli --integrator fused --scene cornell_bunny \
         --width 2560 --height 1440 --spp 8 --max-bounces 20 --out render.png
+    python -m raytracer_tpu_torch.cli --integrator megakernel --scene cornell_spheres \
+        --width 256 --height 256 --spp 16 --max-bounces 4 --out render.png
 
-Only the fused path loop is ported; the other integrators, the presets'
-LBVH scenes, checkpoints, sharding, profiling and the live preview of
-the JAX CLI raise "not yet ported".
+`fused` is the fused path-loop kernel (ktf draws); `megakernel` is the
+differentiable renderer (render.render_image_chunked, the draw family
+of cfg.rng_impl). The wavefront integrator, checkpoints, sharding,
+profiling and the live preview of the JAX CLI are not yet ported.
 """
 
 from __future__ import annotations
@@ -20,12 +23,14 @@ import torch
 INTEGRATORS = ("fused", "wavefront", "megakernel")
 
 
-SCENES = ("cornell_bunny", "cornell", "cornell_materials")
+SCENES = ("cornell_bunny", "cornell", "cornell_materials", "cornell_spheres")
 
 
 def build_scene(name: str, assets_dir: str | None):
     from raytracer_tpu_torch.scene import builder
 
+    if name == "cornell_spheres":
+        return builder.cornell_spheres_scene()
     if name == "cornell_materials":
         return builder.cornell_materials_scene(assets_dir)
     return builder.reference_scene(assets_dir, with_bunny=(name == "cornell_bunny"))
@@ -52,15 +57,17 @@ def main(argv=None):
                     help="cuda launches the kernels; cpu runs their plain versions")
     args = ap.parse_args(argv)
 
-    if args.integrator != "fused":
-        raise SystemExit(f"--integrator {args.integrator} is not yet ported (use fused)")
+    if args.integrator == "wavefront":
+        raise SystemExit("--integrator wavefront is not yet ported (use fused or megakernel)")
     cfg = PRESETS[args.preset] if args.preset else RenderConfig(
         width=1024, height=576, spp=64, max_bounces=20)
     overrides = {f: getattr(args, f) for f in ("width", "height", "spp")
                  if getattr(args, f) is not None}
     if args.max_bounces is not None:
         overrides["max_bounces"] = args.max_bounces
-    cfg = cfg.replace(rng_impl="ktf", **overrides)
+    if args.integrator == "fused":
+        overrides["rng_impl"] = "ktf"
+    cfg = cfg.replace(**overrides)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -73,10 +80,19 @@ def main(argv=None):
     else:
         cam = showcase_camera(cfg)
 
-    from raytracer_tpu_torch.models.fused import render_image_fused
-
     t0 = time.perf_counter()
-    linear = render_image_fused(scene, cam, cfg, args.seed)
+    if args.integrator == "fused":
+        from raytracer_tpu_torch.models.fused import fused_available, render_image_fused
+
+        if not fused_available(scene, cfg):
+            raise SystemExit("--integrator fused needs a bvh4 scene within the kernel's "
+                             "sphere/material budgets (use cornell_bunny / cornell_materials)")
+        linear = render_image_fused(scene, cam, cfg, args.seed)
+    else:
+        from raytracer_tpu_torch.render import render_image_chunked
+
+        with torch.no_grad():
+            linear = render_image_chunked(scene, cam, cfg, args.seed)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

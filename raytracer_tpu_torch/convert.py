@@ -4,8 +4,12 @@
 Bvh4 or Camera included) into nested dicts of numpy arrays with
 `np.asarray`, without importing JAX. `scene_from_numpy` and
 `camera_from_numpy` rebuild the port's dataclasses from such dicts, so
-one scene can reach both packages in the tests. Fields the port does
-not carry (the LBVH, the light rectangle) are ignored.
+one scene can reach both packages in the tests. A scene that only the
+LBVH accelerates is refused: that traversal is not ported (ROADMAP M11).
+
+`key_words`, `params_from_numpy` and `adam_state_from_numpy` hand over
+the differentiable path's state: jax.random keys as their int32 words,
+a params dict (material fields and camera fields), and Adam's state.
 """
 
 from __future__ import annotations
@@ -46,11 +50,14 @@ def bvh4_from_numpy(d: dict) -> Bvh4:
 
 def scene_from_numpy(d: dict) -> Scene:
     """The JAX Scene's fields as numpy (to_numpy_tree) → the port's Scene."""
+    if d.get("bvh") is not None and d.get("bvh4") is None:
+        raise NotImplementedError("LBVH traversal (scene.bvh) is not yet ported (ROADMAP M11)")
     return Scene(
         materials=_build(Materials, d["materials"]),
         spheres=_build(Spheres, d["spheres"]),
         mesh=_build(TriMesh, d["mesh"]),
         bvh4=None if d.get("bvh4") is None else bvh4_from_numpy(d["bvh4"]),
+        light_rect=_t(d.get("light_rect")),
         name=d.get("name", "scene"),
     )
 
@@ -60,3 +67,24 @@ def camera_from_numpy(d: dict) -> Camera:
     return _build(Camera, {k: np.asarray(v, np.float32) for k, v in d.items()
                            if k != "aspect_ratio"},
                   aspect_ratio=float(d["aspect_ratio"]))
+
+
+def key_words(key_data) -> tuple:
+    """`jax.random.key_data(key)` as numpy (uint32 [..., 2]) → the port's
+    key (k0, k1), int32 tensors of the leading shape."""
+    kd = np.asarray(key_data).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(np.array(kd[..., 0])), torch.from_numpy(np.array(kd[..., 1]))
+
+
+def params_from_numpy(params: dict) -> dict:
+    """A JAX params dict (material fields and cam_* fields) as numpy →
+    float32 tensors of the same shapes."""
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in params.items()}
+
+
+def adam_state_from_numpy(step, mu: dict, nu: dict):
+    """JAX's AdamState fields as numpy → the port's diff/inverse.AdamState."""
+    from raytracer_tpu_torch.diff.inverse import AdamState
+
+    return AdamState(step=int(np.asarray(step)), mu=params_from_numpy(mu),
+                     nu=params_from_numpy(nu))

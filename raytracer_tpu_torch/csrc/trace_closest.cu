@@ -2,11 +2,14 @@
 //
 // Replaces raytracer_tpu/ops/pallas_traverse.py _traverse_packets (:907),
 // whose kernel is _make_kernel (:282) -> _kernel_body (:849), at the
-// contract of trace_closest_pallas(sort=False) (:961). The wrapper is
-// raytracer_tpu_torch/ops/cuda_traverse.py trace_closest. Not on the fused
-// path (the path loop calls K1 inline); it lets the traversal be checked
-// and timed alone. Bound like K1: dependent BVH loads and divergence; the
-// ray I/O is 7 floats in and 6 words out per thread.
+// contract of trace_closest_pallas (:961). The wrapper is
+// raytracer_tpu_torch/ops/cuda_traverse.py trace_closest; with sort=True
+// (K4-sort, :975-1038) it argsorts the rays by coherence key and permutes
+// them around this kernel, which is unchanged: one thread per ray, so a
+// ray's record does not depend on the order. The differentiable path
+// (ops/intersect.intersect_scene) launches it once per bounce; the fused
+// path loop calls K1 inline instead. Bound like K1: dependent BVH loads
+// and divergence; the ray I/O is 7 floats in and 6 words out per thread.
 #include <cuda_runtime.h>
 
 #include "traverse.cuh"

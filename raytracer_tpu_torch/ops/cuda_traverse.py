@@ -1,10 +1,11 @@
 """Closest-hit ray traversal (counterpart of
 raytracer_tpu/ops/pallas_traverse.py).
 
-`trace_closest` has the contract of `trace_closest_pallas(sort=False)`:
-for rays o/d f32[N,3] and limits t_max it returns {t (BIG on miss),
-tri_id (original face id, 0 on miss), mat_id (0 on miss), normal (the
-winner's unnormalized cross(e1, e2)), hit}.
+`trace_closest` has the contract of `trace_closest_pallas`: for rays o/d
+f32[N,3] and limits t_max it returns {t (BIG on miss), tri_id (original
+face id, 0 on miss), mat_id (0 on miss), normal (the winner's
+unnormalized cross(e1, e2)), hit}. `intersect_bvh4` is
+`intersect_bvh4_pallas`: the (t, tri_id) pair of that record.
 
 On a CUDA tensor it launches kernel K4 (csrc/trace_closest.cu), one
 thread per ray calling K1 (csrc/traverse.cuh); on a CPU tensor it runs
@@ -13,6 +14,16 @@ the kernel's steps in the kernel's order — brute-force pre-pass, then
 the wide BVH nearest child first from a per-ray stack (children ordered
 by ops/bvh4.sort_by_key, pushed far to near) — with all live rays
 advanced together, one node or leaf per ray per step.
+
+`sort=True` (the JAX default, and what the differentiable path runs) is
+K4's coherence-sort path (`trace_closest_pallas(sort=True)`,
+pallas_traverse.py:975-1038): the rays are stably argsorted by
+ops/packets.coherence_keys, gathered, traced, and the record is
+scattered back to the callers' order. The argsort and the gathers are
+XLA ops outside the Pallas call in JAX, and torch ops here. The kernel
+gives every ray its own thread, so the record of a ray does not depend
+on its neighbours: sorted and unsorted calls agree bit for bit, and the
+sort can only change how coherent the rays of one warp are.
 """
 
 from __future__ import annotations
@@ -20,12 +31,16 @@ from __future__ import annotations
 import torch
 
 from raytracer_tpu_torch.ops.bvh4 import BIG, sort_by_key
+from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
 from raytracer_tpu_torch.ops.triangle import face_normal, moller_trumbore
 from raytracer_tpu_torch.utils import cudalib
 
 NONE = -1
 KERNEL_BLOCK = 128  # threads per block of K4
-LAUNCHES = {"trace_closest": 0}  # K4 launches, counted by the wrapper
+# K4 launches, counted by the wrapper: all of them, and those made
+# through the coherence-sort path.
+LAUNCHES = {"trace_closest": 0, "trace_closest_sorted": 0}
+PLAIN_CALLS = {"traverse_plain": 0}  # calls of the plain traversal (K1/K4's plain version)
 
 
 def _closest_of(ok, t, t_best):
@@ -41,6 +56,7 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float):
     """Plain version of K1 for rays o/d f32[N,3] with limits t_lim f32[N]
     (t_lim = -1 marks a dead ray). Returns (t_best [N] (t_lim when
     nothing is hit), prim i32[N] (-1), mat i32[N] (0), normal f32[N,3])."""
+    PLAIN_CALLS["traverse_plain"] += 1
     n = o.shape[0]
     dev = o.device
     t_best = t_lim.to(torch.float32).clone()
@@ -145,18 +161,36 @@ def _finish(t_best, best, mat, nrm):
     }
 
 
-def trace_closest_plain(origins, dirs, bvh4, t_max, t_min: float = 1e-3):
-    """The plain PyTorch version of `trace_closest` (any device)."""
+def _limits(origins, t_max):
     n = origins.shape[0]
-    t_hi = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                              device=origins.device), (n,))
-    return _finish(*_traverse_plain(origins, dirs, bvh4, t_hi, t_min))
+    return torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                              device=origins.device), (n,)).contiguous()
+
+
+def _sorted(trace, origins, dirs, bvh4, t_max, t_min):
+    """`trace` on the rays in coherence order, record back in call order."""
+    lo, inv_ext = root_box(bvh4)
+    perm = torch.argsort(coherence_keys(origins, dirs, lo, inv_ext), stable=True)
+    rec = trace(origins[perm].contiguous(), dirs[perm].contiguous(), bvh4,
+                _limits(origins, t_max)[perm].contiguous(), t_min)
+    out = {}
+    for k, v in rec.items():
+        out[k] = torch.empty_like(v)
+        out[k][perm] = v
+    return out
+
+
+def trace_closest_plain(origins, dirs, bvh4, t_max, t_min: float = 1e-3,
+                        sort: bool = False):
+    """The plain PyTorch version of `trace_closest` (any device)."""
+    if sort:
+        return _sorted(trace_closest_plain, origins, dirs, bvh4, t_max, t_min)
+    return _finish(*_traverse_plain(origins, dirs, bvh4, _limits(origins, t_max), t_min))
 
 
 def _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min: float):
     n = origins.shape[0]
-    t_hi = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                              device=origins.device), (n,)).contiguous()
+    t_hi = _limits(origins, t_max)
     cudalib.require_cuda("origins", origins, torch.float32, (n, 3))
     cudalib.require_cuda("dirs", dirs, torch.float32, (n, 3))
     view = cudalib.bvh_view(bvh4)
@@ -173,12 +207,28 @@ def _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min: float):
     return _finish(t, ids, mat, nrm)
 
 
-def trace_closest(origins, dirs, bvh4, t_max, t_min: float = 1e-3):
+def _trace_closest_cuda_sorted(origins, dirs, bvh4, t_max, t_min: float):
+    rec = _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min)
+    LAUNCHES["trace_closest_sorted"] += 1
+    return rec
+
+
+def trace_closest(origins, dirs, bvh4, t_max, t_min: float = 1e-3, sort: bool = True):
     """Closest hit for rays origins/dirs f32[N,3] within [t_min, t_max]
-    (scalar or f32[N]; -1 marks a dead ray). CUDA tensors launch K4, CPU
-    tensors take the plain version."""
+    (scalar or f32[N]; -1 marks a dead ray), through the coherence sort
+    when `sort`. CUDA tensors launch K4 at any ray count, CPU tensors
+    take the plain version."""
     if origins.is_cuda:
+        if sort:
+            return _sorted(_trace_closest_cuda_sorted, origins, dirs, bvh4, t_max, t_min)
         return _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min)
     if origins.device.type != "cpu":
         raise ValueError(f"trace_closest: unsupported device {origins.device}")
-    return trace_closest_plain(origins, dirs, bvh4, t_max, t_min)
+    return trace_closest_plain(origins, dirs, bvh4, t_max, t_min, sort=sort)
+
+
+def intersect_bvh4(origins, dirs, bvh4, t_min, t_max, sort: bool = True):
+    """Closest triangle hit: (t f32[N] BIG on miss, tri_id i32[N] 0 on
+    miss), the contract of pallas_traverse.intersect_bvh4_pallas."""
+    rec = trace_closest(origins, dirs, bvh4, t_max, t_min=float(t_min), sort=sort)
+    return rec["t"], rec["tri_id"]

@@ -11,8 +11,14 @@ winner is picked with `where` (Core/Material.cuh:49-150):
     internal reflection, probabilistic Schlick reflect.
   * DiffuseLight (:139-150): never scatters; emits.
 
-`scatter_params` is the JAX module's formulation (used by the wavefront
-integrator there). `scatter_fused` is the fused path-loop kernel's own
+`scatter` (lookup + `scatter_params`) is the JAX module's formulation,
+which the differentiable path runs: differentiable in albedo, roughness
+and emission (through the sampled directions) and in IOR (through the
+refracted direction); the discrete reflect/refract pick is a bool mask,
+so it carries no gradient, as JAX's stop_gradient makes it. The NaN
+guards of the JAX module stay: the 1e-20 floor in the metal normalize,
+the 1e-12 floor under the refraction sqrt, and the `where` before each
+divide. `scatter_fused` is the fused path-loop kernel's own
 restatement of the same formulas (raytracer_tpu/ops/pallas_megakernel.py
 post_trav: reciprocal-multiply normalisation, Schlick by products); the
 plain path loop uses it so that it rounds like csrc/megakernel.cu.
@@ -27,6 +33,7 @@ import torch
 
 from raytracer_tpu_torch.scene.types import DIELECTRIC, DIFFUSE_LIGHT, LAMBERTIAN, METAL
 from raytracer_tpu_torch.utils import vecmath as vm
+from raytracer_tpu_torch.utils.rng import as_sampler
 
 EPS_SQ_1E20 = float(np.float32(1e-20) * np.float32(1e-20))  # f32 product, as the kernel
 
@@ -49,22 +56,46 @@ class MatParams(NamedTuple):
     ior: torch.Tensor        # f32[N]
 
 
+# Tables up to this many rows are read with an unrolled select per row,
+# as in the JAX module. On the card this also keeps the backward pass
+# cheap: a gather's gradient is an index_put that funnels every lane into
+# a handful of rows (it took 96% of a training step's device time), a
+# select's is one reduction per row.
+SELECT_TABLE_MAX = 24
+
+
 def lookup_params(materials, mat_id: torch.Tensor) -> MatParams:
     """Gather per-lane parameters; an id outside the table gives the
     select chain's defaults (type 0, zero albedo/emission/roughness,
     ior 1), as in the JAX module and the kernel."""
     m = materials.count
+    dev = mat_id.device
+    if m <= SELECT_TABLE_MAX:
+        n = mat_id.shape[0]
+        mtype = torch.zeros((n,), dtype=torch.int32, device=dev)
+        albedo = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        emission = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        roughness = torch.zeros((n,), dtype=torch.float32, device=dev)
+        ior = torch.ones((n,), dtype=torch.float32, device=dev)
+        for r in range(m):
+            sel = mat_id == r
+            sel3 = sel[:, None]
+            mtype = torch.where(sel, materials.type[r], mtype)
+            albedo = torch.where(sel3, materials.albedo[r], albedo)
+            emission = torch.where(sel3, materials.emission[r], emission)
+            roughness = torch.where(sel, materials.roughness[r], roughness)
+            ior = torch.where(sel, materials.ior[r], ior)
+        return MatParams(mtype, albedo, emission, roughness, ior)
     valid = (mat_id >= 0) & (mat_id < m)
     idx = torch.where(valid, mat_id, torch.zeros_like(mat_id)).long()
     v1 = valid[:, None]
-    zero3 = torch.zeros((1, 3), dtype=torch.float32, device=mat_id.device)
+    zero3 = torch.zeros((1, 3), dtype=torch.float32, device=dev)
     return MatParams(
         mtype=torch.where(valid, materials.type[idx], torch.zeros_like(mat_id)),
         albedo=torch.where(v1, materials.albedo[idx], zero3),
         emission=torch.where(v1, materials.emission[idx], zero3),
-        roughness=torch.where(valid, materials.roughness[idx],
-                              torch.zeros((), device=mat_id.device)),
-        ior=torch.where(valid, materials.ior[idx], torch.ones((), device=mat_id.device)),
+        roughness=torch.where(valid, materials.roughness[idx], torch.zeros((), device=dev)),
+        ior=torch.where(valid, materials.ior[idx], torch.ones((), device=dev)),
     )
 
 
@@ -78,8 +109,15 @@ def _refract(uv, n, eta_ratio):
     return r_perp + r_parallel
 
 
+def scatter(smp, in_dir, normal, front_face, mat_id, materials) -> ScatterResult:
+    """`scatter_params` of the materials' parameters at mat_id."""
+    return scatter_params(smp, in_dir, normal, front_face, lookup_params(materials, mat_id))
+
+
 def scatter_params(smp, in_dir, normal, front_face, params: MatParams) -> ScatterResult:
-    """The JAX module's scatter (sampler `smp` from utils/ktf)."""
+    """The JAX module's scatter (a sampler of utils/ktf or utils/rng, or
+    raw lane keys)."""
+    smp = as_sampler(smp)
     mtype = params.mtype
     albedo = params.albedo
     roughness = params.roughness[:, None]

@@ -8,8 +8,12 @@ t > t_max` is invalid, Core/Interval.cuh:33-35).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from raytracer_tpu_torch.utils import vecmath as vm
 
 BIG = np.float32(3.0e38)
 
@@ -53,3 +57,26 @@ def intersect_spheres(origins, dirs, centers, radii, t_min, t_max):
         t_best = torch.where(better, t_s, t_best)
         id_best = torch.where(better, torch.full_like(id_best, s), id_best)
     return t_best, id_best
+
+
+def sphere_shade(origins, dirs, t, sphere_id, centers, radii, mat_ids):
+    """Differentiable hit attributes of the chosen spheres: point, the
+    outward normal flipped to face the ray (Core/HitInfo.cuh:15-18), and
+    the latitude/longitude uv. Gradients flow to the rays, t and the
+    sphere parameters. Returns (point f32[N,3], normal f32[N,3],
+    front_face bool[N], mat i32[N], uv f32[N,2])."""
+    sid = sphere_id.long()
+    center = centers[sid]
+    # The zero-radius sentinel sphere's lanes are masked out downstream,
+    # but a 0-divide here would leak NaN through `where`.
+    r = radii[sid]
+    radius = torch.where(r != 0.0, r, torch.ones_like(r))
+    point = origins + t[:, None] * dirs
+    outward = (point - center) / radius[:, None]
+    front = vm.dot(dirs, outward, keepdims=False) < 0.0
+    normal = torch.where(front[:, None], outward, -outward)
+    ox, oy, oz = outward.unbind(-1)
+    theta = torch.arccos(torch.clamp(-oy, -1.0, 1.0))
+    phi = torch.atan2(-oz, ox) + math.pi
+    uv = torch.stack([phi / (2.0 * math.pi), theta / math.pi], dim=-1)
+    return point, normal, front, mat_ids[sid], uv

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.utils import vecmath as vm
+
 EPSILON = 1e-8
 BIG = np.float32(3.0e38)
 
@@ -55,12 +57,15 @@ def face_normal(e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
                         e1x * e2y - e1y * e2x], dim=-1)
 
 
-def intersect_packed_brute(origins, dirs, tri9, t_min, t_max, chunk: int = 256):
+def intersect_packed_brute(origins, dirs, tri9, t_min, t_max, chunk: int | None = None):
     """All-pairs closest hit against packed (v0,e1,e2) triangles f32[T,9],
     t accepted on the closed interval [t_min, t_max]. Returns
     (t f32[N] (BIG on miss), slot i32[N]); ties go to the lowest slot.
-    Rays are processed `chunk` at a time to bound the [chunk, T] temporaries."""
+    Rays are processed `chunk` at a time to bound the [chunk, T]
+    temporaries (default: about 2^20 ray-triangle pairs per chunk)."""
     n = origins.shape[0]
+    if chunk is None:
+        chunk = max(256, (1 << 20) // max(tri9.shape[0], 1))
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                device=origins.device), (n,))
     v0, e1, e2 = tri9[:, 0:3], tri9[:, 3:6], tri9[:, 6:9]
@@ -78,10 +83,47 @@ def intersect_packed_brute(origins, dirs, tri9, t_min, t_max, chunk: int = 256):
     return t_out, id_out
 
 
-def intersect_tris_brute(origins, dirs, vertices, faces, t_min, t_max, chunk: int = 256):
+def intersect_tris_brute(origins, dirs, vertices, faces, t_min, t_max, chunk: int | None = None):
     """All-pairs [N rays × T tris] closest hit over an indexed mesh; use
     only for checks. Returns (t f32[N] (BIG on miss), tri_id i32[N])."""
     faces = faces.long()
     v0 = vertices[faces[:, 0]]
     tri9 = torch.cat([v0, vertices[faces[:, 1]] - v0, vertices[faces[:, 2]] - v0], dim=1)
     return intersect_packed_brute(origins, dirs, tri9, t_min, t_max, chunk)
+
+
+def tri_shade(origins, dirs, tri_id, vertices, faces, face_mat, face_uvs=None):
+    """Differentiable hit attributes of the chosen triangles: t from the
+    (detached) triangle id by the same Möller–Trumbore algebra, so that
+    gradients flow to the rays and the vertices; the geometric normal
+    flipped to face the ray (Core/Mesh.cuh:303-305); uv the barycentric
+    (u, v), or the per-corner OBJ vt interpolated when `face_uvs`
+    f32[T,3,2] is given (the texture hook).
+
+    Returns (t f32[N], point f32[N,3], normal f32[N,3], front bool[N],
+    mat i32[N], uv f32[N,2])."""
+    tid = tri_id.long()
+    f3 = faces[tid].long()
+    v0 = vertices[f3[:, 0]]
+    e1 = vertices[f3[:, 1]] - v0
+    e2 = vertices[f3[:, 2]] - v0
+
+    h = vm.cross(dirs, e2)
+    a = vm.dot(e1, h, keepdims=False)
+    f = 1.0 / torch.where(torch.abs(a) >= EPSILON, a, torch.ones_like(a))
+    s = origins - v0
+    u = f * vm.dot(s, h, keepdims=False)
+    q = vm.cross(s, e1)
+    v = f * vm.dot(dirs, q, keepdims=False)
+    t = f * vm.dot(e2, q, keepdims=False)
+
+    point = origins + t[:, None] * dirs
+    geom_n = vm.normalize(vm.cross(e1, e2), eps=1e-20)
+    front = vm.dot(dirs, geom_n, keepdims=False) < 0.0
+    normal = torch.where(front[:, None], geom_n, -geom_n)
+    if face_uvs is None:
+        uv = torch.stack([u, v], dim=-1)
+    else:
+        c = face_uvs[tid]  # [N,3,2] per-corner vt
+        uv = (1.0 - u - v)[:, None] * c[:, 0] + u[:, None] * c[:, 1] + v[:, None] * c[:, 2]
+    return t, point, normal, front, face_mat[tid], uv

@@ -1,0 +1,149 @@
+"""Top-level render API of the differentiable path (port of
+raytracer_tpu/render.py).
+
+A render is `(scene, camera, key) → image` through models/megakernel.py:
+the mean radiance over samples of the pixels' paths. Image convention:
+[H, W, 3] with row 0 at the TOP (the pixel ids are pre-flipped; the
+reference renders bottom-up and flips at present time).
+
+A key is an integer seed or jax.random key words (k0, k1) as int32
+tensors, 0-d or one per lane (utils/rng.py). Every random number is a
+pure function of (key, pixel, sample, bounce, purpose), so how samples
+and pixels are batched does not change the image: render_pixels runs
+up to cfg.max_rays_per_pass (pixel, sample) lanes per trace, and
+accumulates the samples in index order, as the JAX package's sample
+loop does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_tpu_torch.camera import generate_rays
+from raytracer_tpu_torch.models import megakernel
+from raytracer_tpu_torch.ops import tonemap
+from raytracer_tpu_torch.utils import ktf
+from raytracer_tpu_torch.utils import rng as rngu
+
+
+def as_key(key, device):
+    """Integer seed or (k0, k1) → key words on `device`."""
+    if isinstance(key, tuple):
+        return key[0].to(device), key[1].to(device)
+    return rngu.key(key, device)
+
+
+def render_pixels(scene, cam, px, py, cfg, key, spp: int | None = None,
+                  sample_offset: int = 0) -> torch.Tensor:
+    """Mean linear radiance f32[N,3] over `spp` samples of the pixels
+    (px, py) (i32[N], py = 0 the bottom row). `sample_offset` shifts the
+    global sample indices, so spp-batched accumulation draws the same
+    numbers as one pass (render_image_chunked). Key words may be one
+    per lane ([N]), for several (key, target) pairs in one render."""
+    spp = cfg.spp if spp is None else int(spp)
+    n = px.shape[0]
+    dev = px.device
+    k0, k1 = as_key(key, dev)
+    pixel_ids = py * cfg.width + px
+    per_pass = samples_per_trace(cfg, n, spp)
+
+    if cfg.rng_impl == "ktf":
+        base = ktf.sampler((k0, k1), pixel_ids)
+    else:
+        pkeys = rngu.lane_keys((k0, k1), pixel_ids)
+
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    for s0 in range(0, spp, per_pass):
+        m = min(per_pass, spp - s0)
+        # Lanes are sample-major: lane j*n + i is pixel i at sample s0+j.
+        samples = (torch.arange(m, dtype=torch.int32, device=dev) + (s0 + sample_offset))
+        samples = samples.repeat_interleave(n)
+        lpx, lpy = px.repeat(m), py.repeat(m)
+        if cfg.rng_impl == "ktf":
+            smp = ktf.sampler(
+                (_tile(base.k0, m), _tile(base.k1, m)), base.pixel.repeat(m), samples, 0)
+            origins, dirs = generate_rays(cam, lpx, lpy, cfg.width, cfg.height, smp)
+            rad = megakernel.trace_paths(scene, origins, dirs, None, cfg, sampler=smp)
+        else:
+            skeys = rngu.fold((_tile(pkeys[0], m), _tile(pkeys[1], m)), samples)
+            origins, dirs = generate_rays(cam, lpx, lpy, cfg.width, cfg.height, skeys)
+            rad = megakernel.trace_paths(scene, origins, dirs, skeys, cfg)
+        rad = rad.reshape(m, n, 3)
+        for j in range(m):
+            acc = acc + rad[j]
+    return acc / float(spp)
+
+
+def samples_per_trace(cfg, n_pixels: int, spp: int) -> int:
+    """Samples that render_pixels traces together for n_pixels pixels: as
+    many as fit in cfg.max_rays_per_pass lanes (at least one). Each trace
+    launches K4 once per bounce."""
+    return max(1, min(spp, cfg.max_rays_per_pass // max(n_pixels, 1)))
+
+
+def _tile(words, m):
+    """Key words (0-d or per lane) repeated for m sample-major copies."""
+    return words if words.dim() == 0 else words.repeat(m)
+
+
+def pixel_grid(cfg, device=None):
+    """Pixel ids of a full image, row 0 = top (pre-flipped)."""
+    xs = torch.arange(cfg.width, dtype=torch.int32, device=device)
+    ys_top_down = torch.arange(cfg.height - 1, -1, -1, dtype=torch.int32, device=device)
+    return xs.repeat(cfg.height), ys_top_down.repeat_interleave(cfg.width)
+
+
+def render_image(scene, cam, cfg, key) -> torch.Tensor:
+    """Single-pass full-image render → linear f32[H,W,3] on the scene's device."""
+    px, py = pixel_grid(cfg, scene.materials.type.device)
+    rgb = render_pixels(scene, cam, px, py, cfg, key)
+    return rgb.reshape(cfg.height, cfg.width, 3)
+
+
+def render_rows(scene, cam, cfg, row0: int, n_rows: int, spp: int, key,
+                sample_offset: int = 0) -> torch.Tensor:
+    """`n_rows` full-width rows from top-down row `row0` of the
+    cfg-sized image → f32[n_rows, W, 3]."""
+    dev = scene.materials.type.device
+    xs = torch.arange(cfg.width, dtype=torch.int32, device=dev)
+    ys = cfg.height - 1 - (row0 + torch.arange(n_rows, dtype=torch.int32, device=dev))
+    px, py = xs.repeat(n_rows), ys.repeat_interleave(cfg.width)
+    rgb = render_pixels(scene, cam, px, py, cfg, key, spp=spp, sample_offset=sample_offset)
+    return rgb.reshape(n_rows, cfg.width, 3)
+
+
+def iter_spp_accumulation(scene, cam, cfg, key, integrator: str = "megakernel",
+                          spp_per_batch: int | None = None, start_done: int = 0):
+    """spp-batched accumulation: yields (done_spp, batch_sum f32[H,W,3])
+    where batch_sum is the SUM of that batch's samples (divide the
+    running total by done_spp for the current mean). Only the
+    megakernel integrator is ported; rows are chunked so that a pass
+    holds at most cfg.max_rays_per_pass pixels."""
+    if integrator != "megakernel":
+        raise NotImplementedError(f"iter_spp_accumulation: integrator {integrator!r} is not "
+                                  "yet ported (megakernel only)")
+    spp_step = max(1, min(cfg.spp, spp_per_batch or cfg.spp_per_pass))
+    h, w = cfg.height, cfg.width
+    rows_per_chunk = max(1, min(h, cfg.max_rays_per_pass // w))
+    done = start_done
+    while done < cfg.spp:
+        s = min(spp_step, cfg.spp - done)
+        parts = [render_rows(scene, cam, cfg, row0, min(rows_per_chunk, h - row0), s, key,
+                             sample_offset=done)
+                 for row0 in range(0, h, rows_per_chunk)]
+        done += s
+        yield done, torch.cat(parts, dim=0) * s
+
+
+def render_image_chunked(scene, cam, cfg, key) -> torch.Tensor:
+    """Row-chunked, spp-batched render (bounded live wavefront memory):
+    the image of render_image, drawn by sample offset."""
+    acc = None
+    for _, batch_sum in iter_spp_accumulation(scene, cam, cfg, key):
+        acc = batch_sum if acc is None else acc + batch_sum
+    return acc / cfg.spp
+
+
+def tone_map_image(linear_rgb: torch.Tensor) -> torch.Tensor:
+    """Linear f32[H,W,3] → display u8[H,W,4] (CRTUtility.cuh:21-32)."""
+    return tonemap.to_rgba8(linear_rgb)

@@ -11,14 +11,14 @@ CPU; `Scene.to(device)` moves them.
 Differences from the JAX module: assets are read from the committed
 files and a missing file raises (the procedural generators of
 scene/assets.py are not ported yet); the native BVH builder must build
-(no LBVH fallback); the edge-aware light rectangle (fit_light_rect),
-which only the differentiable path reads, is not ported yet.
+(no LBVH fallback).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -89,6 +89,50 @@ def cornell_spheres_scene() -> Scene:
     return Scene(materials=mats, spheres=spheres, mesh=TriMesh.empty(), name="cornell_spheres")
 
 
+def fit_light_rect(mesh: TriMesh, materials: Materials):
+    """Fit a rectangle to the scene's mesh emitter (faces whose material
+    is DiffuseLight) for the edge-aware visibility gradient estimator
+    (config.edge_aware_lights; models/megakernel.py). Host numpy, as in
+    the JAX package; returns f32[16] = center(3) normal(3) u_axis(3)
+    v_axis(3) half_u half_v mat_id pad, or None without a mesh light or
+    when the light faces are not coplanar (one rectangle would then aim
+    the gradient term at a light that is not there)."""
+    if mesh.faces is None or mesh.faces.shape[0] == 0:
+        return None
+    fm = mesh.face_mat.numpy()
+    types = materials.type.numpy()
+    light_faces = np.nonzero(types[fm] == DIFFUSE_LIGHT)[0]
+    if light_faces.size == 0:
+        return None
+    verts = mesh.vertices.numpy()
+    faces = mesh.faces.numpy()
+    pts = verts[faces[light_faces]].reshape(-1, 3).astype(np.float64)
+    center = pts.mean(axis=0)
+    f0 = faces[light_faces[0]]
+    n = np.cross(verts[f0[1]] - verts[f0[0]], verts[f0[2]] - verts[f0[0]])
+    n = n / max(np.linalg.norm(n), 1e-12)
+    # Every light vertex must lie on the first face's plane to within
+    # 1e-3 of the emitter's extent.
+    plane_res = np.abs((pts - center) @ n).max()
+    extent = max(float(np.linalg.norm(pts - center, axis=1).max()), 1e-12)
+    if plane_res > 1e-3 * extent:
+        warnings.warn(
+            "fit_light_rect: DIFFUSE_LIGHT faces are not coplanar "
+            f"(plane residual {plane_res:.2e} vs extent {extent:.2e}); "
+            "disabling the edge-aware light rectangle for this scene")
+        return None
+    d = pts - center
+    d = d - np.outer(d @ n, n)
+    _, v = np.linalg.eigh(d.T @ d)
+    u_ax = v[:, -1]
+    u_ax = u_ax / max(np.linalg.norm(u_ax), 1e-12)
+    v_ax = np.cross(n, u_ax)
+    hu = float(np.abs(d @ u_ax).max())
+    hv = float(np.abs(d @ v_ax).max())
+    rect = np.concatenate([center, n, u_ax, v_ax, [hu, hv, float(fm[light_faces[0]]), 0.0]])
+    return torch.from_numpy(rect.astype(np.float32))
+
+
 def add_reference_extras(mesh: TriMesh, materials: Materials, name: str = "scene") -> Scene:
     """Append the hardcoded ground and mirror spheres (CUDAKernels.h:69-73)
     after the OBJ materials, in createRandomWorld's addMaterial order."""
@@ -107,7 +151,8 @@ def add_reference_extras(mesh: TriMesh, materials: Materials, name: str = "scene
         radii=[GROUND_SPHERE["radius"], MIRROR_SPHERE["radius"]],
         mat_ids=[m, m + 1],
     )
-    return Scene(materials=mats, spheres=spheres, mesh=mesh, name=name)
+    return Scene(materials=mats, spheres=spheres, mesh=mesh, name=name,
+                 light_rect=fit_light_rect(mesh, mats))
 
 
 def reference_scene(assets_dir: str | None = None, with_bunny: bool = True,
@@ -220,7 +265,8 @@ def cornell_materials_scene(assets_dir: str | None = None, build_bvh: bool = Tru
         radii=np.concatenate([sp.radius.numpy(), [0.09, 0.07]]).astype(np.float32),
         mat_ids=np.concatenate([sp.mat_id.numpy(), [mcount, mcount + 1]]).astype(np.int32),
     )
-    scene = Scene(materials=mats, spheres=spheres, mesh=base.mesh, name="cornell_materials")
+    scene = Scene(materials=mats, spheres=spheres, mesh=base.mesh, name="cornell_materials",
+                  light_rect=base.light_rect)
     if build_bvh:
         scene = scene.replace(bvh4=build_scene_bvh4(scene.mesh))
     return scene

@@ -1,7 +1,8 @@
 """SoA scene representation (port of raytracer_tpu/scene/types.py).
 
 Frozen dataclasses of tensors: a material table, a sphere list and one
-merged triangle soup, plus the BVH8 (ops/bvh4.Bvh4). `.to(device)`
+merged triangle soup, plus the BVH8 (ops/bvh4.Bvh4) and the fitted
+light rectangle of the differentiable path. `.to(device)`
 moves every tensor field, recursively.
 
 Material type tags follow the reference enum order
@@ -145,6 +146,11 @@ class Scene(_ToDevice):
     spheres: Spheres
     mesh: TriMesh
     bvh4: Optional[Any] = None  # ops/bvh4.Bvh4 (BVH8 after widening)
+    # Fitted rectangle of the mesh emitter for the edge-aware visibility
+    # gradient (scene/builder.fit_light_rect): f32[16] = center(3)
+    # normal(3) u_axis(3) v_axis(3) half_u half_v mat_id(float) pad.
+    # None when the scene has no (planar) mesh light.
+    light_rect: Optional[torch.Tensor] = None
     name: str = "scene"
 
     def replace(self, **kw) -> "Scene":

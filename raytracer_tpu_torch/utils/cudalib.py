@@ -139,11 +139,13 @@ def lib() -> ctypes.CDLL:
     L = ctypes.CDLL(build())
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     L.rt_ktf_threefry.argtypes = [cu, cu, vp, vp, ci, vp, vp, ci, vp]
+    L.rt_ktf_threefry_keyed.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, vp]
     L.rt_trace_closest.argtypes = [ctypes.POINTER(BvhView), vp, vp, vp, cf, ci,
                                    vp, vp, vp, vp, ci, vp]
     L.rt_render_fused.argtypes = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView),
                                   vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp]
-    for fn in (L.rt_ktf_threefry, L.rt_trace_closest, L.rt_render_fused):
+    for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_trace_closest,
+               L.rt_render_fused):
         fn.restype = ctypes.c_int
     L.rt_error_string.argtypes = [ci]
     L.rt_error_string.restype = ctypes.c_char_p

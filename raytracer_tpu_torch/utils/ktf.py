@@ -64,6 +64,7 @@ def threefry2x32(k0, k1, c0: torch.Tensor, c1: torch.Tensor):
     """Standard Threefry-2x32, 20 rounds, on int32 tensors (k0/k1 python
     ints or int32 tensors, c0/c1 broadcastable int32 tensors). Returns
     (x0, x1) int32."""
+    PLAIN_CALLS["threefry2x32"] += 1
     c0 = torch.as_tensor(c0, dtype=torch.int32)
     c1 = torch.as_tensor(c1, dtype=torch.int32, device=c0.device)
     k0 = _i32(k0) if not torch.is_tensor(k0) else k0
@@ -113,17 +114,24 @@ def counter(sample, bounce, purpose: int) -> torch.Tensor:
 class KtfSampler:
     """Per-lane draw context: pixel ids + the (sample, bounce) word.
     Works on any tensor shape; the trig-derived draws return separate
-    tensors (`*_parts`) or components stacked on a new last axis."""
+    tensors (`*_parts`) or components stacked on a new last axis.
 
-    k0: int
-    k1: int
+    Key words are python ints or int32 tensors that broadcast against
+    the pixels (one key per lane when several keys share one render).
+    `kernel=True` draws through `threefry2x32_kernel` (K2 on CUDA
+    tensors); the default is the plain version on any device."""
+
+    k0: object            # int or i32 tensor
+    k1: object
     pixel: torch.Tensor   # i32[...] pixel ids (c0)
     sample: torch.Tensor  # i32 scalar or [...] per-lane sample index
     bounce: torch.Tensor  # i32 scalar or [...] per-lane bounce index
+    kernel: bool = False
 
     def _block(self, purpose: int):
-        return threefry2x32(self.k0, self.k1, self.pixel,
-                            counter(self.sample, self.bounce, purpose))
+        cipher = threefry2x32_kernel if self.kernel else threefry2x32
+        return cipher(self.k0, self.k1, self.pixel,
+                      counter(self.sample, self.bounce, purpose))
 
     def uniform(self, purpose: int) -> torch.Tensor:
         a, _ = self._block(purpose)
@@ -183,35 +191,55 @@ class KtfSampler:
             else torch.as_tensor(bounce, dtype=torch.int32, device=dev))
 
 
-def sampler(seed: int, pixel_ids, sample=0, bounce=0) -> KtfSampler:
-    """Integer seed (the port's stand-in for a jax.random key) → sampler."""
-    k0, k1 = key_words(seed)
+def sampler(key, pixel_ids, sample=0, bounce=0) -> KtfSampler:
+    """Integer seed (the port's stand-in for a jax.random key) or key
+    words (k0, k1) → sampler that draws through K2 on CUDA tensors."""
+    k0, k1 = key if isinstance(key, tuple) else key_words(key)
     pixel = torch.as_tensor(pixel_ids, dtype=torch.int32)
     dev = pixel.device
+    if torch.is_tensor(k0):
+        k0, k1 = k0.to(dev), k1.to(dev)
     return KtfSampler(k0=k0, k1=k1, pixel=pixel,
                       sample=torch.as_tensor(sample, dtype=torch.int32, device=dev),
-                      bounce=torch.as_tensor(bounce, dtype=torch.int32, device=dev))
+                      bounce=torch.as_tensor(bounce, dtype=torch.int32, device=dev),
+                      kernel=True)
 
 
-LAUNCHES = {"threefry2x32": 0}  # launches of the K2 bit-check kernel
+LAUNCHES = {"threefry2x32": 0}  # K2 launches (both entry points of csrc/ktf.cu)
+PLAIN_CALLS = {"threefry2x32": 0}  # calls of the plain Threefry (K2's plain version)
 KERNEL_BLOCK = 256
 
 
-def threefry2x32_kernel(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
-    """`threefry2x32` for int32 counter tensors c0/c1 [N] through kernel K2
-    on a CUDA tensor (csrc/ktf.cu; the path loop runs the same __device__
-    code inline), through the plain version above on a CPU tensor."""
+def threefry2x32_kernel(k0, k1, c0, c1):
+    """`threefry2x32` through kernel K2 on CUDA tensors (csrc/ktf.cu; the
+    path loop runs the same __device__ code inline), through the plain
+    version above on CPU tensors. Keys are python ints or int32 tensors;
+    keys and counters broadcast against each other."""
+    c0 = torch.as_tensor(c0, dtype=torch.int32)
     if c0.device.type == "cpu":
         return threefry2x32(k0, k1, c0, c1)
     from raytracer_tpu_torch.utils import cudalib
 
-    n = c0.shape[0]
-    cudalib.require_cuda("c0", c0, torch.int32, (n,))
-    cudalib.require_cuda("c1", c1, torch.int32, (n,))
-    x0, x1 = torch.empty_like(c0), torch.empty_like(c1)
-    code = cudalib.lib().rt_ktf_threefry(_i32(k0) & 0xFFFFFFFF, _i32(k1) & 0xFFFFFFFF,
-                                         c0.data_ptr(), c1.data_ptr(), n, x0.data_ptr(),
-                                         x1.data_ptr(), KERNEL_BLOCK, cudalib.stream_handle())
+    dev = c0.device
+    keyed = torch.is_tensor(k0) or torch.is_tensor(k1)
+    parts = [c0, torch.as_tensor(c1, dtype=torch.int32, device=dev)]
+    if keyed:
+        parts += [torch.as_tensor(k, dtype=torch.int32, device=dev) for k in (k0, k1)]
+    shape = torch.broadcast_shapes(*(p.shape for p in parts))
+    flat = [p.expand(shape).reshape(-1).contiguous() for p in parts]
+    n = flat[0].numel()
+    for name, t in zip(("c0", "c1", "k0", "k1"), flat):
+        cudalib.require_cuda(name, t, torch.int32, (n,))
+    x0, x1 = torch.empty_like(flat[0]), torch.empty_like(flat[0])
+    if keyed:
+        code = cudalib.lib().rt_ktf_threefry_keyed(
+            flat[2].data_ptr(), flat[3].data_ptr(), flat[0].data_ptr(), flat[1].data_ptr(), n,
+            x0.data_ptr(), x1.data_ptr(), KERNEL_BLOCK, cudalib.stream_handle())
+    else:
+        code = cudalib.lib().rt_ktf_threefry(
+            _i32(k0) & 0xFFFFFFFF, _i32(k1) & 0xFFFFFFFF, flat[0].data_ptr(),
+            flat[1].data_ptr(), n, x0.data_ptr(), x1.data_ptr(), KERNEL_BLOCK,
+            cudalib.stream_handle())
     cudalib.check(code, "threefry2x32 kernel")
     LAUNCHES["threefry2x32"] += 1
-    return x0, x1
+    return x0.reshape(shape), x1.reshape(shape)

@@ -4,9 +4,10 @@ Marked `cuda`: these skip without an NVIDIA card (a CUDA kernel has no
 CPU mode). On the machine with the card:
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 chip_smoke.py runs these checks on the reference scene at larger sizes:
-K2 on 2^20 counters, K4 on 131,072 rays, and K3 on the preflight frame
-and on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path
-frame."""
+K2 on 2^20 counters, K4 on 131,072 rays, K3 on the preflight frame and
+on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path frame,
+K4's sort path on a 262,144-ray bounce wavefront, and the training step
+at the INVERSE_r05 width."""
 
 import numpy as np
 import pytest
@@ -78,3 +79,64 @@ def test_k3_preflight_known_answer(dev, bunny):
     cfg = RenderConfig(width=128, height=40, spp=2, max_bounces=12)
     img = render_image_fused(bunny, showcase_camera(cfg), cfg, 0)
     assert abs(img.mean().item() - 0.276287317276001) <= 0.02 * 0.276287317276001
+
+
+def test_k2_keyed_entry_bitwise(dev):
+    """One key per element (the jax.random family's lane keys)."""
+    rs = np.random.default_rng(2)
+    k0, k1, c0, c1 = (torch.from_numpy(rs.integers(-2**31, 2**31, 1 << 14).astype(np.int32))
+                      for _ in range(4))
+    got = ktf.threefry2x32_kernel(k0.to(dev), k1.to(dev), c0.to(dev), c1.to(dev))
+    want = ktf.threefry2x32(k0, k1, c0, c1)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_k4_sorted_equals_unsorted_and_plain(dev, bunny):
+    rng = np.random.default_rng(3)
+    o = torch.from_numpy(rng.uniform(-0.28, 0.28, (16384, 3)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(rng.normal(size=(16384, 3)).astype(np.float32)).to(dev)
+    before = cuda_traverse.LAUNCHES["trace_closest_sorted"]
+    s = cuda_traverse.trace_closest(o, d, bunny.bvh4, BIG, sort=True)
+    assert cuda_traverse.LAUNCHES["trace_closest_sorted"] == before + 1
+    u = cuda_traverse.trace_closest(o, d, bunny.bvh4, BIG, sort=False)
+    p = cuda_traverse.trace_closest_plain(o.cpu(), d.cpu(), bunny.to("cpu").bvh4, BIG, sort=True)
+    for key in s:
+        assert torch.equal(s[key], u[key]), key
+        assert torch.equal(s[key].cpu(), p[key]), key
+
+
+def test_kernel_step_equals_plain_step(dev):
+    """Loss and gradients of the training loss on the card (K4, K2) and
+    on the CPU (their plain versions): loss to 1e-4 relative, gradients
+    to 1% of each field's scale (transcendentals and reductions round
+    differently on the card)."""
+    from raytracer_tpu_torch.camera import make_camera
+    from raytracer_tpu_torch.diff import inverse
+    from raytracer_tpu_torch.render import pixel_grid, render_image
+    from raytracer_tpu_torch.utils import rng
+
+    cfg = RenderConfig(width=24, height=16, spp=2, max_bounces=3,
+                       reference_emission_quirk=False, edge_aware_lights=True)
+    scene = cornell_materials_scene()
+    cam = make_camera(aspect_ratio=cfg.aspect_ratio, position=(0.0, 0.05, 0.29), pitch=-5.0)
+    keys = rng.split(rng.key(40), 2)
+    with torch.no_grad():
+        tg = torch.stack([render_image(scene, cam, cfg, (keys[0][j], keys[1][j]))
+                          for j in range(2)]).reshape(2, -1, 3)
+    params = inverse.init_params(scene, key=rng.key(41), noise=0.15)
+    px, py = pixel_grid(cfg)
+
+    def run(device):
+        sc, cm = scene.to(device), cam.to(device)
+        ks, t = (keys[0].to(device), keys[1].to(device)), tg.to(device)
+        p = {k: v.to(device) for k, v in params.items()}
+        return inverse.value_and_grad(
+            lambda q: inverse.pairs_loss(sc, cm, cfg, q, ks, t, px.to(device), py.to(device)), p)
+
+    before = cuda_traverse.LAUNCHES["trace_closest"]
+    loss_k, grads_k = run(dev)
+    assert cuda_traverse.LAUNCHES["trace_closest"] > before
+    loss_p, grads_p = run(torch.device("cpu"))
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-4 * abs(float(loss_p))
+    for k, g in grads_p.items():
+        assert (grads_k[k].cpu() - g).abs().max() <= 0.01 * g.abs().max() + 1e-12, k
