@@ -10,7 +10,20 @@ plain PyTorch version, and drives the port's two paths:
     8-10): K4 through its coherence sort on the bunny scene's
     second-bounce wavefront, the megakernel renderer against K3, and
     three Adam steps of the INVERSE_r05 configuration (cornell_materials,
-    128x128, spp 32, 6 bounces, 16 key/target pairs in chunks of 8).
+    128x128, spp 32, 6 bounces, 16 key/target pairs in chunks of 8);
+  * the interleaved path loop K5 (phase 11): two lanes per thread,
+    bitwise equal to K3 on the preflight frame, on 1,023 lanes and on the
+    2K frame, within the image tolerance of the plain version on the
+    preflight lanes, timed against K3 in turns, the kernels' registers
+    and local memory, and the CLI under RAYTRACER_TPU_INTERLEAVE=2;
+  * K3-profile and the profile-guided schedule (phase 12): profile rgb
+    bitwise equal to K3 and its cost / aux equal to the plain version's
+    at the preflight size; build_schedule at the main configuration,
+    whose frame equals the tiled- and blocked-grid frames bitwise, and
+    its 2K spp2 profile checked (rgb == K3 on every lane; cost, aux and
+    lane counts == plain exactly on 16 seeded 1024-lane packets); the
+    instrumentation's overhead, the warps' divergence and the three
+    layouts timed in turns at 2K.
 
     python3 chip_smoke.py              # every phase (what CI runs)
     python3 chip_smoke.py --phases 1,2,3   # a subset, while debugging
@@ -68,6 +81,9 @@ FD_RTOL, FD_ATOL = 0.08, 1e-5  # tests/test_grad.py:76
 # agree within 2e-3 relative (a fault moves them by far more).
 INVERSE_REF = os.path.join(ROOT, "INVERSE_r05.json")
 LOSS_REF_RTOL = 2e-3
+# Phase 12: seeded whole 1024-lane packets of the 2K profile re-rendered
+# by the plain version (cost, aux and lane counts must match exactly).
+P12_PACKETS = 16
 
 
 def log(phase, msg):
@@ -110,7 +126,7 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -158,7 +174,7 @@ def main(argv=None) -> int:
         log(2, f"  ptxas: {ln}")
 
     scene = None
-    if phases & {4, 5, 6, 7, 8, 9}:
+    if phases & {4, 5, 6, 7, 8, 9, 11, 12}:
         t0 = time.perf_counter()
         scene_cpu = reference_scene()
         scene = scene_cpu.to(dev)
@@ -355,8 +371,10 @@ def main(argv=None) -> int:
         rays = cfg.width * cfg.height * cfg.spp
         # Spread: ten more frames, timed the same way (host clock around a
         # synchronized frame; one K3 launch each). CUDA events around the
-        # same calls give the frame's stream time; the remainder of the host
-        # time is the card's idle share.
+        # same calls give the frame's stream time, which includes the host
+        # building the lane grid (the events are queued before it), so
+        # their share of the host time is host-inclusive, not the card's
+        # busy share (phase 11 times the kernel alone).
         repeats, dev_s = [], []
         for _ in range(10):
             ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -367,7 +385,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             repeats.append(time.perf_counter() - t0)
             dev_s.append(ev0.elapsed_time(ev1) / 1e3)
-        idle = 1.0 - sum(dev_s) / sum(repeats)
+        stream_share = sum(dev_s) / sum(repeats)
         os.makedirs(os.path.join(ROOT, "renders"), exist_ok=True)
         png = os.path.join(ROOT, "renders", "chip_smoke_2k.png")
         write_png(png, to_rgba8(img).cpu().numpy())
@@ -382,7 +400,7 @@ def main(argv=None) -> int:
                f"calls {plain_calls}; wrote {os.path.relpath(png, ROOT)}; "
                f"repeat frames (s, host clock): {', '.join(f'{r:.4f}' for r in repeats)}; "
                f"stream time (s, CUDA events): {', '.join(f'{r:.4f}' for r in dev_s)}; "
-               f"idle share {idle:.3f}")
+               f"host-inclusive stream share {stream_share:.3f}")
         launches = n3
     else:
         launches = 0
@@ -449,13 +467,24 @@ def main(argv=None) -> int:
                 f"{train['fd']} on {smi}")
         print(json.dumps({"train": train}), flush=True)
 
+    if 11 in phases:
+        r11 = phase11(scene, dev, smi)
+        kernels["K5"] = r11["row"]
+        log(11, r11["msg"])
+
+    if 12 in phases:
+        r12 = phase12(scene, dev, smi)
+        kernels["K3-profile"] = r12["row"]
+        log(12, r12["msg"])
+
     # Kernel rows. `launches` counts the launches of the path each kernel
     # serves, with the counters set to 0 just before that path ran: K3 in
     # phase 7 (serving); K4, K4-sort and the standalone K2 in phase 10
-    # (training). K1 is __device__ code inside K3 and K4, and K2 runs
-    # inline in K3 too: those rows add the serving path's K3 launches.
-    # ms / plain_ms / max_abs_err come from the phase that times each
-    # kernel alone (3, 4, 5/7, 8).
+    # (training); K5 in phase 11 (the 2K frame with interleave 2);
+    # K3-profile in phase 12 (build_schedule at 2K). K1 is __device__ code
+    # inside K3 and K4, and K2 runs inline in K3 too: those rows add the
+    # serving path's K3 launches. ms / plain_ms / max_abs_err come from
+    # the phase that times each kernel alone (3, 4, 5/7, 8, 11, 12).
     src = "raytracer_tpu_torch/csrc/"
     t_k4 = train["k4"] if train else 0
     table = [
@@ -473,6 +502,14 @@ def main(argv=None) -> int:
         ("trace_closest coherence-sorted (K4-sort)", "trace_closest.cu",
          "raytracer_tpu/ops/pallas_traverse.py:961", "K4-sort",
          train["k4_sorted"] if train else 0, {}),
+        ("fused_path_loop G=2 (K5: two lanes per thread, traversals merged in traverse.cuh "
+         "traverse2)", "interleave.cu", "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair) "
+         "-> raytracer_tpu/ops/pallas_interleave.py:22", "K5",
+         kernels.get("K5", {}).get("launches", 0), {}),
+        ("fused_path_loop profile (K3-profile)", "megakernel.cu",
+         "raytracer_tpu/ops/pallas_megakernel.py:493 (profile=True) with "
+         "raytracer_tpu/ops/pallas_traverse.py:333", "K3-profile",
+         kernels.get("K3-profile", {}).get("launches", 0), {}),
     ]
     rows = []
     for name, source, replaces, key, n_launch, extra in table:
@@ -484,14 +521,303 @@ def main(argv=None) -> int:
             row["main_path_s"] = r["main_s"]
             row["main_path_median_s"] = r["main_median_s"]
             row["max_abs_err_is"] = f"2K frame vs plain on {MAIN_SAMPLE} seeded pixels"
-        for k in ("preflight_max_abs_err", "ms_unsorted", "ms_kernel_presorted"):
-            if k in r:
-                row[k] = r[k]
+        for k, v in r.items():
+            if k not in row and k not in ("main_s", "main_median_s", "launches"):
+                row[k] = v
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _reset_fused_counts():
+    from raytracer_tpu_torch.ops import cuda_megakernel
+
+    for d in (cuda_megakernel.LAUNCHES, cuda_megakernel.PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def _frames_in_turns(renders: dict, turns: int):
+    """Each render of `renders` (name -> fn) `turns` times in alternating
+    order (a, b, ..., b, a, ...): host seconds around a synchronized frame
+    and CUDA-event seconds. Returns {name: (host list, device list)}."""
+    import torch
+
+    times = {k: ([], []) for k in renders}
+    names = list(renders)
+    for t in range(turns):
+        for name in (names if t % 2 == 0 else names[::-1]):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            renders[name]()
+            ev1.record()
+            torch.cuda.synchronize()
+            times[name][0].append(time.perf_counter() - t0)
+            times[name][1].append(ev0.elapsed_time(ev1) / 1e3)
+    return times
+
+
+def _fmt(xs):
+    return ", ".join(f"{x:.4f}" for x in xs)
+
+
+def phase11(scene, dev, smi):
+    """K5: bitwise against K3, timed against it in turns, the three
+    fused kernels' resources, and the CLI with RAYTRACER_TPU_INTERLEAVE=2."""
+    import torch
+
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.camera import showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.models.fused import render_image_fused
+    from raytracer_tpu_torch.ops import cuda_megakernel as cm
+    from raytracer_tpu_torch.schedule import _tiled_pixel_grid, blocked_pixel_grid
+
+    # Preflight frame and an odd lane count.
+    cfg = RenderConfig(**PREFLIGHT)
+    cam = showcase_camera(cfg)
+    g1 = render_image_fused(scene, cam, cfg, 0, interleave=1)
+    g2 = render_image_fused(scene, cam, cfg, 0, interleave=2)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    odd1 = cm.render_tiles_fused(scene, cam, cfg, 0, px[:1023], py[:1023], interleave=1)
+    odd2 = cm.render_tiles_fused(scene, cam, cfg, 0, px[:1023], py[:1023], interleave=2)
+    if not (torch.equal(g1, g2) and torch.equal(odd1, odd2)):
+        raise AssertionError(f"K5 vs K3: preflight equal {torch.equal(g1, g2)}, 1,023 lanes "
+                             f"equal {torch.equal(odd1, odd2)}")
+    # K5 against its plain version (K3's: G = 2 equals G = 1 per lane) on
+    # the preflight lanes, under phase 5's image tolerance; that one call
+    # is also the plain time.
+    k5 = cm.render_tiles_fused(scene, cam, cfg, 0, px, py, interleave=2)
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    plain = cm.render_tiles_fused_plain(scene, cam, cfg, 0, px, py)
+    ev1.record()
+    torch.cuda.synchronize()
+    plain_ms = ev0.elapsed_time(ev1)
+    bad, mean_diff, max_err = image_agreement(k5[None], plain[None])
+    if not (bad <= IMG_BAD_FRAC and mean_diff <= MEAN_TOL):
+        raise AssertionError(f"K5 vs plain on the preflight lanes: {bad:.4%} elements beyond "
+                             f"tolerance, mean diff {mean_diff}")
+    # Kernel times on a lane grid made once (render_image_fused rebuilds
+    # the grid on the host for every frame).
+    ms = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py, interleave=2), 20)
+    ms_k3 = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py, interleave=1), 20)
+
+    # The main configuration: the K5 path with the counts from 0, then
+    # G=1 against G=2 bitwise and in turns, as whole frames and as kernels
+    # alone on the frame's blocked grid.
+    cfg = RenderConfig(**MAIN)
+    cam = showcase_camera(cfg)
+    bx, by, _ = (t.to(dev) for t in blocked_pixel_grid(cfg, 32, 32, 8, 16))
+    render_image_fused(scene, cam, cfg, 0, interleave=2)   # warm-up (same shapes)
+    torch.cuda.synchronize()
+    _reset_fused_counts()
+    img2 = render_image_fused(scene, cam, cfg, 0, interleave=2)
+    torch.cuda.synchronize()
+    counts = dict(cm.LAUNCHES, **cm.PLAIN_CALLS)
+    if counts["render_fused_g2"] < 1 or counts["render_plain"] or counts["render_fused"]:
+        raise AssertionError(f"K5 path: counts {counts}")
+    img1 = render_image_fused(scene, cam, cfg, 0, interleave=1)
+    if not torch.equal(img1, img2):
+        raise AssertionError("K5 vs K3 on the 2K frame: not bitwise equal")
+    times = _frames_in_turns(
+        {"K3 frame": lambda: render_image_fused(scene, cam, cfg, 0, interleave=1),
+         "K5 frame": lambda: render_image_fused(scene, cam, cfg, 0, interleave=2),
+         "K3": lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, interleave=1),
+         "K5": lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, interleave=2)}, 10)
+    med = {k: float(np.median(v[0])) for k, v in times.items()}
+    med_dev = {k: float(np.median(v[1])) for k, v in times.items()}
+    res = cm.kernel_resources()
+
+    # The CLI under RAYTRACER_TPU_INTERLEAVE=2, in this process so that
+    # the counts can be read.
+    png = os.path.join("renders", "chip_smoke_k5_cli.png")
+    os.makedirs(os.path.join(ROOT, "renders"), exist_ok=True)
+    old = os.environ.get("RAYTRACER_TPU_INTERLEAVE")
+    os.environ["RAYTRACER_TPU_INTERLEAVE"] = "2"
+    _reset_fused_counts()
+    try:
+        cli.main(["--integrator", "fused", "--scene", "cornell_bunny", "--width", "256",
+                  "--height", "144", "--spp", "4", "--max-bounces", "8",
+                  "--out", os.path.join(ROOT, png)])
+    finally:
+        if old is None:
+            os.environ.pop("RAYTRACER_TPU_INTERLEAVE")
+        else:
+            os.environ["RAYTRACER_TPU_INTERLEAVE"] = old
+    cli_counts = dict(cm.LAUNCHES, **cm.PLAIN_CALLS)
+    with open(os.path.join(ROOT, png), "rb") as f:
+        head = f.read(8)
+    if (head != b"\x89PNG\r\n\x1a\n" or cli_counts["render_fused_g2"] < 1
+            or cli_counts["render_plain"] or cli_counts["render_fused"]):
+        raise AssertionError(f"CLI with RAYTRACER_TPU_INTERLEAVE=2: PNG {head!r}, counts "
+                             f"{cli_counts}")
+    row = dict(launches=counts["render_fused_g2"], max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               ms_k3_same_lanes=ms_k3, main_path_median_s=med["K5 frame"],
+               main_path_median_s_k3=med["K3 frame"], kernel_2k_median_s=med["K5"],
+               kernel_2k_median_s_k3=med["K3"], kernel_2k_median_device_s=med_dev["K5"],
+               kernel_2k_median_device_s_k3=med_dev["K3"],
+               num_regs=res["K5"][0], local_bytes=res["K5"][1],
+               max_abs_err_is="K5 vs plain on the preflight lanes (K5 == K3 bitwise on the "
+                              "preflight frame, 1,023 lanes and the 2K frame)")
+    msg = (f"K5 == K3 bitwise on the preflight frame, on 1,023 lanes and on the 2K spp8 mb20 "
+           f"frame; K5 vs plain on the {px.shape[0]} preflight lanes: {bad:.4%} elements beyond "
+           f"5e-4+2e-4|x| (limit 0.5%), mean diff {mean_diff:.2e}, max abs {max_err:.3g}, bitwise "
+           f"equal {torch.equal(k5, plain)}; K5 path counts {counts}; preflight lanes K5 "
+           f"{ms:.3f} ms vs K3 {ms_k3:.3f} ms vs plain {plain_ms:.1f} ms (one call); 2K in "
+           f"turns, median of 10 (host s / CUDA events s): "
+           + ", ".join(f"{k} {med[k]:.4f} / {med_dev[k]:.4f}" for k in times)
+           + f"; K5/K3 kernels {med['K5'] / med['K3']:.3f}, frames "
+           f"{med['K5 frame'] / med['K3 frame']:.3f}; the card idles "
+           f"{1 - med['K3'] / med['K3 frame']:.3f} of a K3 frame (the host builds the lane grid); "
+           f"K3 kernel host s {_fmt(times['K3'][0])}; K5 kernel host s {_fmt(times['K5'][0])}; "
+           f"numRegs / localSizeBytes: "
+           + ", ".join(f"{k} {r} / {b}" for k, (r, b) in res.items())
+           + f"; CLI RAYTRACER_TPU_INTERLEAVE=2 wrote {png}, counts {cli_counts} on {smi}")
+    return dict(row=row, msg=msg)
+
+
+def phase12(scene, dev, smi):
+    """K3-profile against K3 and its plain version, its overhead and the
+    warps' divergence at 2K, and the profile-guided schedule."""
+    import torch
+
+    from raytracer_tpu_torch.camera import showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.ops import cuda_megakernel as cm
+    from raytracer_tpu_torch.schedule import (_tiled_pixel_grid, blocked_pixel_grid,
+                                              build_schedule, order_by_cost)
+
+    cfg = RenderConfig(**PREFLIGHT)
+    cam = showcase_camera(cfg)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    k3 = cm.render_tiles_fused(scene, cam, cfg, 0, px, py)
+    rgb, cost, aux = cm.render_tiles_fused(scene, cam, cfg, 0, px, py, profile=True)
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    _, p_cost, p_aux = cm.render_tiles_fused_plain(scene, cam, cfg, 0, px, py, profile=True)
+    ev1.record()
+    torch.cuda.synchronize()
+    plain_ms = ev0.elapsed_time(ev1)   # that one call
+    checks = {"rgb == K3": torch.equal(rgb, k3), "cost == plain": torch.equal(cost, p_cost),
+              "aux == plain": torch.equal(aux, p_aux)}
+    if not all(checks.values()):
+        raise AssertionError(f"K3-profile at the preflight size: {checks}")
+    ms = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py, profile=True), 20)
+    ms_k3 = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py), 20)
+
+    cfg = RenderConfig(**MAIN)
+    cam = showcase_camera(cfg)
+    grids = {"tiled": _tiled_pixel_grid(cfg), "blocked": blocked_pixel_grid(cfg, 32, 32, 8, 16)}
+    grids = {k: tuple(t.to(dev) for t in v) for k, v in grids.items()}
+    # The schedule path: the profile at spp 2, then the scheduled frame.
+    build_schedule(scene, cam, cfg, 0, profile_spp=2)       # warm-up (same shapes)
+    torch.cuda.synchronize()
+    _reset_fused_counts()
+    t0 = time.perf_counter()
+    grids["scheduled"] = build_schedule(scene, cam, cfg, 0, profile_spp=2)
+    torch.cuda.synchronize()
+    schedule_s = time.perf_counter() - t0
+    px2, py2, inv2 = grids["scheduled"]
+    sched = cm.render_tiles_fused(scene, cam, cfg, 0, px2, py2)[inv2]
+    torch.cuda.synchronize()
+    counts = dict(cm.LAUNCHES, **cm.PLAIN_CALLS)
+    if (counts["render_fused_profile"] != 1 or counts["render_fused"] != 1
+            or counts["render_plain"]):
+        raise AssertionError(f"schedule path: counts {counts}")
+    frames = {k: cm.render_tiles_fused(scene, cam, cfg, 0, g[0], g[1])[g[2]]
+              for k, g in grids.items() if k != "scheduled"}
+    if not all(torch.equal(sched, f) for f in frames.values()):
+        raise AssertionError("2K scheduled frame differs from the tiled or blocked frame")
+
+    # The main path's profile, checked: build_schedule's render again (2K
+    # tiled grid, spp 2; the kernel is deterministic), its rgb against K3
+    # on every lane, the order its cost gives against build_schedule's,
+    # and its cost, aux and lane counts against the plain version's on
+    # seeded whole packets, exactly as at the preflight size.
+    tpx, tpy, _ = grids["tiled"]
+    m_rgb, m_cost, m_aux, m_k1, m_it = cm.render_tiles_fused(
+        scene, cam, cfg, 0, tpx, tpy, spp=2, profile=True, lane_counts=True)
+    m_k3 = cm.render_tiles_fused(scene, cam, cfg, 0, tpx, tpy, spp=2)
+    again = order_by_cost(tpx, tpy, m_cost, cfg)
+    pk = np.sort(np.random.default_rng(12).choice(tpx.shape[0] // cm.PACKET, P12_PACKETS,
+                                                  replace=False))
+    lanes = torch.from_numpy((pk[:, None] * cm.PACKET + np.arange(cm.PACKET)).reshape(-1)).to(dev)
+    t0 = time.perf_counter()
+    p_rgb, p_cost2, p_aux2, p_k1, p_it = cm.render_tiles_fused_plain(
+        scene, cam, cfg, 0, tpx[lanes], tpy[lanes], spp=2, profile=True, lane_counts=True)
+    torch.cuda.synchronize()
+    main_plain_s = time.perf_counter() - t0
+    bad_m, mean_diff_m, max_err_m = image_agreement(m_rgb[lanes][None], p_rgb[None])
+    main_checks = {
+        "rgb == K3 on every lane": torch.equal(m_rgb, m_k3),
+        "order from this cost == build_schedule's": all(
+            torch.equal(a, b) for a, b in zip(again, grids["scheduled"])),
+        "cost == plain": torch.equal(m_cost[lanes], p_cost2),
+        "aux == plain": torch.equal(m_aux[lanes], p_aux2),
+        "lane K1 steps == plain": torch.equal(m_k1[lanes], p_k1),
+        "lane path iterations == plain": torch.equal(m_it[lanes], p_it),
+        "rgb vs plain within the image tolerance": (bad_m <= IMG_BAD_FRAC
+                                                    and mean_diff_m <= MEAN_TOL),
+    }
+    if not all(main_checks.values()):
+        raise AssertionError(f"K3-profile on the main path ({P12_PACKETS} packets): {main_checks}")
+
+    # Overhead of the instrumentation at 2K (tiled grid) and the lanes'
+    # K1 steps on each layout: divergence = mean over warps of
+    # (warp max / warp mean) of the lane K1 totals.
+    times = _frames_in_turns(
+        {"K3": lambda: cm.render_tiles_fused(scene, cam, cfg, 0, tpx, tpy),
+         "K3-profile": lambda: cm.render_tiles_fused(scene, cam, cfg, 0, tpx, tpy, profile=True)},
+        10)
+    over = {k: float(np.median(v[0])) for k, v in times.items()}
+    stats = {}
+    for name, (gx, gy, _) in grids.items():
+        _, c, a, k1, _ = cm.render_tiles_fused(scene, cam, cfg, 0, gx, gy, profile=True,
+                                               lane_counts=True)
+        w = k1.reshape(-1, 32).float()
+        stats[name] = dict(cost_mean=c.mean().item(), cost_max=c.max().item(),
+                           k1_mean=w.mean().item(),
+                           divergence=(w.amax(dim=1) / w.mean(dim=1).clamp_min(1e-9)).mean().item(),
+                           lockstep_sum=float(a.reshape(-1, 8, 128)[:, 0, 0].sum().item()))
+    layouts = {name: (lambda g=g: cm.render_tiles_fused(scene, cam, cfg, 0, g[0], g[1]))
+               for name, g in grids.items()}
+    lt = _frames_in_turns(layouts, 10)
+    lay = {k: float(np.median(v[0])) for k, v in lt.items()}
+    lay_dev = {k: float(np.median(v[1])) for k, v in lt.items()}
+    row = dict(launches=counts["render_fused_profile"], max_abs_err=0.0, ms=ms,
+               plain_ms=plain_ms, ms_k3_same_lanes=ms_k3,
+               profile_2k_median_s=over["K3-profile"], k3_2k_median_s=over["K3"],
+               build_schedule_s=schedule_s, layout_median_s=lay, layout_median_device_s=lay_dev,
+               lane_stats=stats, main_packets_checked=P12_PACKETS,
+               main_max_abs_err_vs_plain=max_err_m,
+               max_abs_err_is="rgb vs K3 at the preflight size and on the 2K spp2 profile; cost, "
+                              "aux and lane counts equal plain there and on "
+                              f"{P12_PACKETS} 2K packets")
+    msg = (f"K3-profile at the preflight size: {checks} (cost and aux exact); {ms:.3f} ms vs "
+           f"K3 {ms_k3:.3f} ms vs plain {plain_ms:.1f} ms (one call); main path (2K tiled grid, "
+           f"spp 2): {main_checks} on {P12_PACKETS} seeded packets {pk.tolist()} (cost, aux, "
+           f"counts exact; rgb vs plain {bad_m:.4%} beyond tolerance, max abs {max_err_m:.3g}, "
+           f"bitwise {torch.equal(m_rgb[lanes], p_rgb)}; plain took {main_plain_s:.2f} s); "
+           f"2K spp8 mb20 tiled grid in turns, "
+           f"median of 10: K3 {over['K3']:.4f} s, K3-profile {over['K3-profile']:.4f} s "
+           f"(overhead {over['K3-profile'] / over['K3'] - 1:+.4f}); K3-profile host s "
+           f"{_fmt(times['K3-profile'][0])}; lane statistics (cost mean/max, K1 mean, "
+           f"divergence, lockstep sum): "
+           + "; ".join(f"{k} {v['cost_mean']:.2f}/{v['cost_max']:.0f}, {v['k1_mean']:.2f}, "
+                       f"{v['divergence']:.4f}, {v['lockstep_sum']:.0f}"
+                       for k, v in stats.items())
+           + f"; build_schedule(profile_spp=2) {schedule_s:.3f} s, path counts {counts}; the "
+           f"scheduled frame == tiled == blocked bitwise; frames in turns, median of 10: "
+           + ", ".join(f"{k} {v:.4f} s (events {lay_dev[k]:.4f})" for k, v in lay.items())
+           + f" on {smi}")
+    return dict(row=row, msg=msg)
 
 
 def _counts():

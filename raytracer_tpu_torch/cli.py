@@ -6,7 +6,9 @@ Usage (the default device is the CUDA card):
     python -m raytracer_tpu_torch.cli --integrator megakernel --scene cornell_spheres \
         --width 256 --height 256 --spp 16 --max-bounces 4 --out render.png
 
-`fused` is the fused path-loop kernel (ktf draws); `megakernel` is the
+`fused` is the fused path-loop kernel (ktf draws): K3, one lane per
+thread, or with RAYTRACER_TPU_INTERLEAVE=2 in the environment K5, two
+lanes per thread (the JAX package's switch); `megakernel` is the
 differentiable renderer (render.render_image_chunked, the draw family
 of cfg.rng_impl). The wavefront integrator, checkpoints, sharding,
 profiling and the live preview of the JAX CLI are not yet ported.

@@ -1,4 +1,6 @@
-// K1: closest-hit traversal of one ray as a __device__ function.
+// K1: closest-hit traversal of one ray as a __device__ function, with a
+// counting instantiation for K3-profile, and traverse2, the walks of two
+// rays merged into one loop for K5.
 //
 // Replaces raytracer_tpu/ops/pallas_traverse.py traverse_tile (:319) with
 // hoist_invariants (:254), the body shared by the TPU's path-loop kernel
@@ -133,8 +135,68 @@ __device__ __forceinline__ void sort_children(float (&key)[K], int (&code)[K]) {
 }
 #undef TRAV_CSWAP
 
+// One step of a ray's walk from its own stack, as traverse's loop body
+// takes it: expand the node in `task` (nearest hit child next, the other
+// hit children pushed far to near) or test the leaf it names, then take
+// the next task. False once the walk has ended. traverse2 runs it;
+// traverse keeps the body written out: calling step there took K3 from 64
+// to 68 registers (ptxas, sm_90a) and its 2K spp8 mb20 kernel from 46.27
+// to 47.39 ms, median of 10 in alternating turns with non-overlapping
+// ranges (NVIDIA H100 80GB HBM3, 700 W). K4 went from 54 to 50 registers
+// and 8.45 to 7.96 ms per 20 calls, within its run-to-run spread.
+__device__ __forceinline__ bool step(const BvhView& bvh, float ox, float oy, float oz, float dx,
+                                     float dy, float dz, float ix, float iy, float iz,
+                                     float t_min, Hit& h, int (&stack)[STACK_CAP], int& sp,
+                                     int& task) {
+  int next = NONE;
+  if (task >= 0) {
+    const float* nb = bvh.bounds + static_cast<size_t>(task) * (K * 6);
+    const int* nc = bvh.children + static_cast<size_t>(task) * K;
+    float key[K];
+    int code[K];
+    int nhit = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = nc[k];
+      float entry = 0.0f;
+      const bool valid = slab(nb + 6 * k, ox, oy, oz, ix, iy, iz, t_min, h.t, entry) &&
+                         c != NONE;
+      key[k] = valid ? entry : BIG;
+      code[k] = c;
+      nhit += valid ? 1 : 0;
+    }
+    sort_children(key, code);
+    if (nhit > 0) next = code[0];
+    // Push the other hit children far to near, so the nearest pops first.
+#pragma unroll
+    for (int k = K - 1; k >= 1; --k)
+      if (k < nhit && sp < STACK_CAP) stack[sp++] = code[k];
+  } else {
+    const int c = -task - 2;
+    const int lo = c >> 3;
+    const int cnt = (c & 7) + 1;
+    for (int k = 0; k < cnt; ++k)
+      mt_record(bvh.tri + 9 * static_cast<size_t>(lo + k), bvh.prim[lo + k], bvh.fmat[lo + k],
+                ox, oy, oz, dx, dy, dz, t_min, h);
+  }
+  if (next == NONE) {
+    if (sp == 0) return false;
+    next = stack[--sp];
+  }
+  task = next;
+  return true;
+}
+
+// COUNT (K3-profile) adds to *iters the number of steps the walk takes:
+// one node expansion or one leaf each, 0 for a dead ray and for the brute
+// pre-pass. It is the per-thread counterpart of traverse_tile(profile=True)'s
+// per-chain count (pallas_traverse.py:333-345). The production
+// instantiation (COUNT = false) has no counter and compiles as it did
+// before the counter existed.
+template <bool COUNT = false>
 __device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz, float dx,
-                               float dy, float dz, float t_lim, float t_min) {
+                               float dy, float dz, float t_lim, float t_min,
+                               int* iters = nullptr) {
   Hit h{t_lim, NONE, 0, 0.0f, 0.0f, 0.0f};
   // Nothing lies in [t_min, t_lim) for a dead ray: skip all work (exact).
   if (!(t_lim > t_min)) return h;
@@ -147,6 +209,7 @@ __device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz,
   int sp = 0;
   int task = 0;  // the root
   while (true) {
+    if constexpr (COUNT) ++*iters;
     int next = NONE;
     if (task >= 0) {
       const float* nb = bvh.bounds + static_cast<size_t>(task) * (K * 6);
@@ -185,6 +248,49 @@ __device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz,
     task = next;
   }
   return h;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float t_lim;  // as traverse's: t_lim <= t_min marks a dead ray
+};
+
+// K5's traversal (raytracer_tpu/ops/pallas_interleave.py traverse_tiles
+// :22): the walks of two rays merged into one loop, each ray with its own
+// stack and its own t_best, so that one thread keeps two independent
+// chains of dependent loads in flight. A ray whose walk has ended idles
+// while the other goes on. Each ray takes exactly the steps traverse
+// takes for it, in the same order, so h0 and h1 equal traverse's bit for
+// bit.
+__device__ inline void traverse2(const BvhView& bvh, const Ray& r0, const Ray& r1, float t_min,
+                                 Hit& h0, Hit& h1) {
+  h0 = Hit{r0.t_lim, NONE, 0, 0.0f, 0.0f, 0.0f};
+  h1 = Hit{r1.t_lim, NONE, 0, 0.0f, 0.0f, 0.0f};
+  bool go0 = r0.t_lim > t_min;
+  bool go1 = r1.t_lim > t_min;
+  if (!(go0 || go1)) return;
+
+  for (int j = 0; j < bvh.n_brute; ++j) {
+    const float* rec = bvh.btri + 9 * j;
+    if (go0) mt_record(rec, bvh.bprim[j], bvh.bmat[j], r0.ox, r0.oy, r0.oz, r0.dx, r0.dy, r0.dz,
+                       t_min, h0);
+    if (go1) mt_record(rec, bvh.bprim[j], bvh.bmat[j], r1.ox, r1.oy, r1.oz, r1.dx, r1.dy, r1.dz,
+                       t_min, h1);
+  }
+
+  const float ix0 = 1.0f / r0.dx, iy0 = 1.0f / r0.dy, iz0 = 1.0f / r0.dz;
+  const float ix1 = 1.0f / r1.dx, iy1 = 1.0f / r1.dy, iz1 = 1.0f / r1.dz;
+  int stack0[STACK_CAP], stack1[STACK_CAP];
+  int sp0 = 0, sp1 = 0;
+  int task0 = 0, task1 = 0;  // the root
+  while (go0 || go1) {
+    if (go0)
+      go0 = step(bvh, r0.ox, r0.oy, r0.oz, r0.dx, r0.dy, r0.dz, ix0, iy0, iz0, t_min, h0, stack0,
+                 sp0, task0);
+    if (go1)
+      go1 = step(bvh, r1.ox, r1.oy, r1.oz, r1.dx, r1.dy, r1.dz, ix1, iy1, iz1, t_min, h1, stack1,
+                 sp1, task1);
+  }
 }
 
 }  // namespace trav

@@ -32,21 +32,24 @@ def fused_available(scene, cfg) -> bool:
 
 
 def render_image_fused(scene, cam, cfg, seed: int, spp: int | None = None,
-                       plain: bool = False) -> torch.Tensor:
+                       plain: bool = False, interleave: int | None = None) -> torch.Tensor:
     """Full-image render through the fused path loop → linear
     f32[H,W,3] on the scene's device. `plain=True` runs the plain
-    PyTorch version on that device instead of the kernel."""
+    PyTorch version on that device instead of the kernel. `interleave`
+    is the kernel's lanes per thread (1: K3, 2: K5); None reads
+    RAYTRACER_TPU_INTERLEAVE (default 1)."""
     dev = scene.materials.type.device
     px, py, inv = _fused_pixel_grid(cfg)
     px, py, inv = px.to(dev), py.to(dev), inv.to(dev)
     spp = cfg.spp if spp is None else spp
     render = render_tiles_fused_plain if plain else render_tiles_fused
+    kw = {} if plain else {"interleave": interleave}
     step = max(1, min(spp, cfg.spp_per_pass))
     acc = None
     done = 0
     while done < spp:
         s = min(step, spp - done)
-        part = render(scene, cam, cfg, seed, px, py, spp=s, sample_offset=done)
+        part = render(scene, cam, cfg, seed, px, py, spp=s, sample_offset=done, **kw)
         if s != spp:
             part = part * (s / spp)
         acc = part if acc is None else acc + part

@@ -3,8 +3,14 @@
 
 `render_tiles_fused` returns the mean linear radiance f32[N,3] of any
 pixel list. On CUDA tensors it launches kernel K3 (csrc/megakernel.cu:
-one thread per lane looping samples and bounces, K1 and K2 inline); on
-CPU tensors it runs `_render_plain`, the plain PyTorch version.
+one thread per lane looping samples and bounces, K1 and K2 inline), or
+with `interleave=2` (RAYTRACER_TPU_INTERLEAVE=2) K5 (csrc/interleave.cu:
+two lanes per thread, their traversals merged), or with `profile=True`
+K3-profile, which also returns the per-lane cost and the per-packet aux
+plane that `schedule.build_schedule` reads. On CPU tensors it runs
+`_render_plain`, the plain PyTorch version of all three: K5 equals K3
+per lane, and the profile counts are integers the plain loop counts the
+same way.
 
 `_render_plain` is the TPU kernel's lane-stable loop restated over
 tensors: all pending lanes advance one bounce per step, a lane that
@@ -19,6 +25,7 @@ and scatter-direction draws).
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -33,10 +40,25 @@ from raytracer_tpu_torch.utils import cudalib, ktf
 MAX_SPHERES = cudalib.MAX_SPHERES
 MAX_MATERIALS = cudalib.MAX_MATERIALS
 PACKET = 1024          # lanes per "packet" in host_chunk_packets units
-KERNEL_BLOCK = 128     # threads per block of K3
+WARP = 32
+KERNEL_BLOCK = 128     # threads per block of K3, K3-profile and K5
 SKY_TOP = (0.5, 0.7, 1.0)
-LAUNCHES = {"render_fused": 0}      # K3 launches, counted by the wrapper
+# Launches counted by the wrapper: K3, K5 (G = 2) and K3-profile.
+LAUNCHES = {"render_fused": 0, "render_fused_g2": 0, "render_fused_profile": 0}
 PLAIN_CALLS = {"render_plain": 0}   # calls of the plain path loop
+
+
+def _check_interleave(g: int) -> int:
+    if g not in (1, 2):
+        raise ValueError(f"interleave must be 1 or 2, got {g}")
+    return g
+
+
+def _default_interleave() -> int:
+    """Lanes per thread of the fused path loop (1 or 2), from
+    RAYTRACER_TPU_INTERLEAVE (default 1), the JAX package's switch
+    (raytracer_tpu/ops/pallas_megakernel.py:67)."""
+    return _check_interleave(int(os.environ.get("RAYTRACER_TPU_INTERLEAVE", "1")))
 
 
 def fused_megakernel_available(scene) -> bool:
@@ -47,8 +69,11 @@ def fused_megakernel_available(scene) -> bool:
             and scene.materials.count <= MAX_MATERIALS)
 
 
-def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff):
-    """Plain version of K3: radiance SUM f32[N,3] over spp samples."""
+def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff, profile=False):
+    """Plain version of K3 (and of K5, which equals it per lane): radiance
+    SUM f32[N,3] over spp samples. With `profile`, K3-profile's: also
+    each lane's K1 steps and path iterations, i32[N] each (a path
+    iteration per step the lane is pending, a roulette kill included)."""
     PLAIN_CALLS["render_plain"] += 1
     n = pix.shape[0]
     dev = pix.device
@@ -65,6 +90,8 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff):
     sample = torch.zeros((n,), dtype=torch.int32, device=dev)
     bounce = torch.zeros((n,), dtype=torch.int32, device=dev)
     active = torch.zeros((n,), dtype=torch.bool, device=dev)
+    k1_steps = torch.zeros((n,), dtype=torch.int32, device=dev)
+    path_iters = torch.zeros((n,), dtype=torch.int32, device=dev)
 
     while True:
         lanes = torch.nonzero(active | (sample < spp)).squeeze(1)
@@ -75,6 +102,8 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff):
         b = torch.where(act, bounce[lanes], torch.zeros_like(smp_l))
         s_eff = smp_l + soff
         pixl = pix[lanes]
+        if profile:
+            path_iters[lanes] += 1
 
         # Camera regeneration on claiming lanes (Core/Camera.cuh:32-44),
         # draws keyed at bounce 0.
@@ -106,7 +135,9 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff):
         ol, dl = o[lanes], d[lanes]
         t_sph, sid = intersect_spheres(ol, dl, spheres.center, spheres.radius, t_min, BIG)
         t_lim = torch.where(survived, t_sph, torch.full_like(t_sph, -1.0))
-        t_tri, _, mat_tri, ng = _traverse_plain(ol, dl, bvh, t_lim, t_min)
+        t_tri, _, mat_tri, ng, *steps = _traverse_plain(ol, dl, bvh, t_lim, t_min, count=profile)
+        if profile:
+            k1_steps[lanes] += steps[0]
 
         # Hit resolution (pallas_megakernel.py post_trav).
         tri_wins = t_tri < t_sph
@@ -150,7 +181,23 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff):
         d[lanes] = torch.where(cont[:, None], scd, dl)
         bounce[lanes] = torch.where(cont, b + 1, b)
         active[lanes] = cont
+    if profile:
+        return acc, k1_steps, path_iters
     return acc
+
+
+def _packet_bill(k1_steps, path_iters):
+    """Plain version of K3-profile's aux plane f32[N] ([N/1024, 8, 128]):
+    row 0 the sum over a packet's 32 warps of the warp's largest lane
+    total of K1 steps, row 1 the packet's largest lane path-iteration
+    count, rows 2-7 zero."""
+    g = k1_steps.shape[0] // PACKET
+    lockstep = k1_steps.reshape(g, PACKET // WARP, WARP).amax(dim=2).sum(dim=1)
+    outer = path_iters.reshape(g, PACKET).amax(dim=1)
+    aux = torch.zeros((g, 8, 128), dtype=torch.float32, device=k1_steps.device)
+    aux[:, 0, :] = lockstep.to(torch.float32)[:, None]
+    aux[:, 1, :] = outer.to(torch.float32)[:, None]
+    return aux.reshape(-1)
 
 
 def _pack_tables(scene):
@@ -165,8 +212,10 @@ def _pack_tables(scene):
     return sph, s.mat_id.contiguous(), mat.contiguous(), m.type.contiguous()
 
 
-def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block):
-    """Launch K3 over the lanes: radiance SUM f32[N,3]."""
+def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, kind):
+    """Launch K3 (kind "k3"), K5 ("g2") or K3-profile ("profile") over the
+    lanes: radiance SUM f32[N,3]; K3-profile also cost f32[N], aux f32[N]
+    and the lane K1 steps and path iterations, i32[N] each."""
     n = pix.shape[0]
     for name, t in (("pixel", pix), ("px", pxi), ("py", pyi)):
         cudalib.require_cuda(name, t, torch.int32, (n,))
@@ -190,21 +239,57 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block):
         max_bounces=int(cfg.max_bounces), min_bounces=int(cfg.min_bounces),
         emission_quirk=int(bool(cfg.reference_emission_quirk)),
         n_spheres=scene.spheres.count, n_materials=scene.materials.count)
-    out = torch.empty((n, 3), dtype=torch.float32, device=pix.device)
-    code = cudalib.lib().rt_render_fused(
-        prm, view, pix.data_ptr(), pxi.data_ptr(), pyi.data_ptr(), sph.data_ptr(),
-        sph_mat.data_ptr(), mat.data_ptr(), mat_type.data_ptr(), n, out.data_ptr(), block,
-        cudalib.stream_handle())
+    dev = pix.device
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    args = (prm, view, pix.data_ptr(), pxi.data_ptr(), pyi.data_ptr(), sph.data_ptr(),
+            sph_mat.data_ptr(), mat.data_ptr(), mat_type.data_ptr(), n, out.data_ptr())
+    L = cudalib.lib()
+    if kind == "profile":
+        cost = torch.empty((n,), dtype=torch.float32, device=dev)
+        aux = torch.empty((n,), dtype=torch.float32, device=dev)
+        scratch = torch.empty((2, n), dtype=torch.int32, device=dev)
+        code = L.rt_render_fused_profile(*args, cost.data_ptr(), scratch[0].data_ptr(),
+                                         scratch[1].data_ptr(), aux.data_ptr(), block,
+                                         cudalib.stream_handle())
+        cudalib.check(code, "fused path-loop kernel (profile)")
+        LAUNCHES["render_fused_profile"] += 1
+        return out, cost, aux, scratch[0], scratch[1]
+    if kind == "g2":
+        code = L.rt_render_fused_g2(*args, block, cudalib.stream_handle())
+        cudalib.check(code, "fused path-loop kernel (G=2)")
+        LAUNCHES["render_fused_g2"] += 1
+        return out
+    code = L.rt_render_fused(*args, block, cudalib.stream_handle())
     cudalib.check(code, "fused path-loop kernel")
     LAUNCHES["render_fused"] += 1
     return out
 
 
+def kernel_resources() -> dict:
+    """{kernel: (registers per thread, local memory bytes per thread)} of
+    K3, K3-profile and K5 on the card (cudaFuncGetAttributes)."""
+    L = cudalib.lib()
+    out = {}
+    for name, call in (("K3", lambda r, b: L.rt_render_fused_attrs(0, r, b)),
+                       ("K3-profile", lambda r, b: L.rt_render_fused_attrs(1, r, b)),
+                       ("K5", L.rt_render_fused_g2_attrs)):
+        regs, local = ctypes.c_int(0), ctypes.c_int(0)
+        cudalib.check(call(ctypes.byref(regs), ctypes.byref(local)), f"{name} attributes")
+        out[name] = (regs.value, local.value)
+    return out
+
+
 def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets, block,
-            use_kernel: bool):
+            use_kernel: bool, profile: bool, interleave, lane_counts: bool = False):
     if not fused_megakernel_available(scene):
         raise ValueError("the fused path loop needs a bvh4 scene within the kernel's "
                          f"budgets ({MAX_SPHERES} spheres, {MAX_MATERIALS} materials)")
+    g = _default_interleave() if interleave is None else _check_interleave(int(interleave))
+    n = px.shape[0]
+    if profile and g != 1:
+        raise ValueError("profile=True renders one lane per thread: it needs interleave=1")
+    if profile and n % PACKET:
+        raise ValueError(f"profile=True needs a multiple of {PACKET} lanes, got {n}")
     spp = cfg.spp if spp is None else int(spp)
     basis = {k: torch.as_tensor(v, dtype=torch.float32).reshape(-1)
              for k, v in camera_basis(cam).items()}
@@ -214,44 +299,70 @@ def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packet
     pix = pyi * cfg.width + pxi
 
     if use_kernel:
+        kind = "profile" if profile else ("g2" if g == 2 else "k3")
+
         def run(lo, hi):
             return _render_cuda(scene, basis, cfg, k0, k1, pix[lo:hi], pxi[lo:hi],
-                                pyi[lo:hi], spp, sample_offset, block)
+                                pyi[lo:hi], spp, sample_offset, block, kind)
     else:
         basis_d = {k: v.to(px.device) for k, v in basis.items()}
         basis_d["lens_radius"] = basis_d["lens_radius"].reshape(())
 
         def run(lo, hi):
-            return _render_plain(scene, basis_d, cfg, k0, k1, pix[lo:hi],
-                                 pxi[lo:hi].to(torch.float32), pyi[lo:hi].to(torch.float32),
-                                 spp, sample_offset)
+            res = _render_plain(scene, basis_d, cfg, k0, k1, pix[lo:hi],
+                                pxi[lo:hi].to(torch.float32), pyi[lo:hi].to(torch.float32),
+                                spp, sample_offset, profile=profile)
+            if not profile:
+                return res
+            acc, k1_steps, path_iters = res
+            return (acc, (k1_steps + path_iters).to(torch.float32),
+                    _packet_bill(k1_steps, path_iters), k1_steps, path_iters)
 
-    n = px.shape[0]
     step = n if not host_chunk_packets else int(host_chunk_packets) * PACKET
-    acc = torch.cat([run(lo, min(lo + step, n)) for lo in range(0, n, max(step, 1))])
-    return acc * (1.0 / spp)
+    parts = [run(lo, min(lo + step, n)) for lo in range(0, n, max(step, 1))]
+    if not profile:
+        return torch.cat(parts) * (1.0 / spp)
+    acc, *rest = (torch.cat(x) for x in zip(*parts))
+    return (acc * (1.0 / spp), *(rest if lane_counts else rest[:2]))
 
 
 def render_tiles_fused(scene, cam, cfg, seed: int, px, py, spp=None, sample_offset: int = 0,
-                       host_chunk_packets=None, block: int = KERNEL_BLOCK) -> torch.Tensor:
+                       host_chunk_packets=None, block: int = KERNEL_BLOCK,
+                       profile: bool = False, interleave=None, lane_counts: bool = False):
     """Mean linear radiance f32[N,3] over `spp` samples for the pixels
     (px, py) (i32[N], py = 0 the bottom row) on the scene's device: CUDA
-    tensors launch K3, CPU tensors take the plain version.
+    tensors launch K3 (K5 with `interleave=2`, K3-profile with
+    `profile`), CPU tensors take the plain version.
+
+    `interleave` is 1 or 2 lanes per thread; None reads
+    RAYTRACER_TPU_INTERLEAVE (default 1). `profile=True` (interleave 1,
+    N % 1024 == 0) returns (rgb, cost f32[N], aux f32[N]), the layout of
+    raytracer_tpu/ops/pallas_megakernel.py:694-699: cost is the lane's
+    path iterations plus its K1 steps; aux, viewed [N/1024, 8, 128],
+    holds per packet the lockstep bill (row 0: the sum over its 32 warps
+    of the warp's largest lane total of K1 steps) and the outer path
+    iterations (row 1: the largest lane iteration count). `lane_counts`
+    adds the counts they are made of: the lane K1 steps and path
+    iterations, i32[N] each.
 
     `sample_offset` shifts the sample index of every draw, so passes of
     a split spp give the samples a single pass would. `host_chunk_packets`
     splits the lanes into launches of that many 1024-lane packets; lanes
-    are independent, so the result is identical. `block` is K3's threads
+    are independent, so the result is identical. `block` is the threads
     per block (a launch shape that does not change the image)."""
     if px.device.type not in ("cuda", "cpu"):
         raise ValueError(f"render_tiles_fused: unsupported device {px.device}")
     return _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets,
-                   block, use_kernel=px.is_cuda)
+                   block, use_kernel=px.is_cuda, profile=profile, interleave=interleave,
+                   lane_counts=lane_counts)
 
 
 def render_tiles_fused_plain(scene, cam, cfg, seed: int, px, py, spp=None,
-                             sample_offset: int = 0, host_chunk_packets=None) -> torch.Tensor:
+                             sample_offset: int = 0, host_chunk_packets=None,
+                             profile: bool = False, lane_counts: bool = False):
     """`render_tiles_fused` through the plain PyTorch version on any
-    device (the reference the kernel is checked against on the card)."""
+    device (the reference the kernels are checked against on the card;
+    it is also K5's, which equals K3 per lane)."""
     return _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets,
-                   KERNEL_BLOCK, use_kernel=False)
+                   KERNEL_BLOCK, use_kernel=False, profile=profile, interleave=1,
+                   lane_counts=lane_counts)

@@ -52,10 +52,13 @@ def _closest_of(ok, t, t_best):
     return t_new < float("inf"), t_new, j
 
 
-def _traverse_plain(o, d, bvh, t_lim, t_min: float):
+def _traverse_plain(o, d, bvh, t_lim, t_min: float, count: bool = False):
     """Plain version of K1 for rays o/d f32[N,3] with limits t_lim f32[N]
     (t_lim = -1 marks a dead ray). Returns (t_best [N] (t_lim when
-    nothing is hit), prim i32[N] (-1), mat i32[N] (0), normal f32[N,3])."""
+    nothing is hit), prim i32[N] (-1), mat i32[N] (0), normal f32[N,3]),
+    and with `count` also i32[N], the steps each ray's walk took (one
+    node expansion or one leaf each; 0 for a dead ray and for the brute
+    pre-pass) — K1's count in K3-profile (csrc/traverse.cuh, COUNT)."""
     PLAIN_CALLS["traverse_plain"] += 1
     n = o.shape[0]
     dev = o.device
@@ -63,10 +66,12 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float):
     best = torch.full((n,), NONE, dtype=torch.int32, device=dev)
     mat = torch.zeros((n,), dtype=torch.int32, device=dev)
     nrm = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    steps = torch.zeros((n,), dtype=torch.int32, device=dev)
+    out = (t_best, best, mat, nrm, steps) if count else (t_best, best, mat, nrm)
     # Nothing lies in [t_min, t_lim) for a dead ray: skip all work (exact).
     live = torch.nonzero(t_best > t_min).squeeze(1)
     if live.numel() == 0:
-        return t_best, best, mat, nrm
+        return out
 
     def leaf_update(rays, tri9, prim, fm, valid):
         """Möller–Trumbore of rays [m] against their own triangle rows
@@ -100,6 +105,8 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float):
     slot = torch.arange(8, device=dev)
     kk = torch.arange(k_w, device=dev)
     while rays.numel():
+        if count:
+            steps[rays] += 1
         tk = task[rays]
         nxt = torch.full_like(tk, NONE)
 
@@ -147,7 +154,7 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float):
         nxt[pop] = stack[rp, sp[rp]]
         task[rays] = nxt
         rays = rays[nxt != NONE]
-    return t_best, best, mat, nrm
+    return out
 
 
 def _finish(t_best, best, mat, nrm):

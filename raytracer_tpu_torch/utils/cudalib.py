@@ -4,9 +4,11 @@ library with a plain C interface, bound with ctypes.
 The library is compiled with nvcc for Hopper (sm_90a) at first use into
 `raytracer_tpu_torch/_build/` (git-ignored) and rebuilt whenever a
 source's content or the flags change (the file name carries their
-hash). No PyTorch headers and no libraries: each C entry point launches
-one kernel on the stream it is given and returns cudaGetLastError(),
-which `check` turns into an exception.
+hash). Each source compiles in its own nvcc process, all started
+together, and one more links the objects. No PyTorch headers and no
+libraries: each C entry point launches its kernels on the stream it is
+given and returns cudaGetLastError(), which `check` turns into an
+exception.
 
 `-fmad=false` keeps every multiply and add separately rounded, as in the
 plain PyTorch versions, so kernel and plain version agree to the last
@@ -29,7 +31,8 @@ _PKG = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 STACK_CAP = 256  # per-thread traversal stack entries (csrc/traverse.cuh)
 BVH_WIDTH = 8    # the kernels' only tree width (csrc/traverse.cuh K)
 MAX_SPHERES = 16
@@ -56,7 +59,7 @@ def sources() -> list[str]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(glob.glob(os.path.join(CSRC, "*"))):
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
@@ -74,16 +77,32 @@ def build() -> str:
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    srcs = sources()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src], text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for src, obj in zip(srcs, objs)]
+    reports = [p.communicate()[0] for p in procs]
+    try:
+        failed = [f"nvcc failed on {src}:\n{rep}"
+                  for src, p, rep in zip(srcs, procs, reports) if p.returncode]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = [_nvcc(), *LINK_FLAGS, "-o", tmp, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({' '.join(link)}):\n{res.stdout}\n{res.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, lib_path)
+    ptxas = "".join(reports)
     with open(lib_path + ".ptxas.txt", "w") as f:
-        f.write(res.stderr)
-    BUILD_INFO.update(path=lib_path, seconds=secs, cached=False, ptxas=res.stderr)
+        f.write(ptxas)
+    BUILD_INFO.update(path=lib_path, seconds=secs, cached=False, ptxas=ptxas)
     return lib_path
 
 
@@ -105,7 +124,7 @@ class BvhView(ctypes.Structure):
 
 
 class FusedParams(ctypes.Structure):
-    """Mirror of csrc/megakernel.cu `FusedParams` (passed by value to K3)."""
+    """Mirror of csrc/path.cuh `FusedParams` (passed by value to K3 and K5)."""
 
     _fields_ = [
         ("ll", ctypes.c_float * 3),
@@ -142,10 +161,16 @@ def lib() -> ctypes.CDLL:
     L.rt_ktf_threefry_keyed.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, vp]
     L.rt_trace_closest.argtypes = [ctypes.POINTER(BvhView), vp, vp, vp, cf, ci,
                                    vp, vp, vp, vp, ci, vp]
-    L.rt_render_fused.argtypes = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView),
-                                  vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp]
+    fused = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView), vp, vp, vp, vp, vp, vp, vp, ci]
+    L.rt_render_fused.argtypes = fused + [vp, ci, vp]
+    L.rt_render_fused_g2.argtypes = fused + [vp, ci, vp]
+    L.rt_render_fused_profile.argtypes = fused + [vp, vp, vp, vp, vp, ci, vp]
+    ip = ctypes.POINTER(ctypes.c_int)
+    L.rt_render_fused_attrs.argtypes = [ci, ip, ip]
+    L.rt_render_fused_g2_attrs.argtypes = [ip, ip]
     for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_trace_closest,
-               L.rt_render_fused):
+               L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
+               L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs):
         fn.restype = ctypes.c_int
     L.rt_error_string.argtypes = [ci]
     L.rt_error_string.restype = ctypes.c_char_p

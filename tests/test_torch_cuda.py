@@ -6,8 +6,9 @@ CPU mode). On the machine with the card:
 chip_smoke.py runs these checks on the reference scene at larger sizes:
 K2 on 2^20 counters, K4 on 131,072 rays, K3 on the preflight frame and
 on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path frame,
-K4's sort path on a 262,144-ray bounce wavefront, and the training step
-at the INVERSE_r05 width."""
+K4's sort path on a 262,144-ray bounce wavefront, the training step
+at the INVERSE_r05 width, K5 against K3 on the whole 2K frame, and
+K3-profile against K3 and its plain version."""
 
 import numpy as np
 import pytest
@@ -73,6 +74,45 @@ def test_k3_matches_plain_and_launch_shape(dev, block):
     bad = (k - p).abs() > 5e-4 + 2e-4 * p.abs()
     assert bad.float().mean().item() < 0.005
     assert abs(k.mean().item() - p.mean().item()) < 1e-3
+
+
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_k5_equals_k3_bitwise(dev, bunny, block):
+    """Two lanes per thread, traversals merged: each lane's radiance is
+    K3's bit for bit, also at an odd lane count (the last thread holds
+    one lane)."""
+    cfg = RenderConfig(width=128, height=40, spp=2, max_bounces=12)
+    cam = showcase_camera(cfg)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    k3 = cuda_megakernel.render_tiles_fused(bunny, cam, cfg, 0, px, py, interleave=1)
+    before = cuda_megakernel.LAUNCHES["render_fused_g2"]
+    k5 = cuda_megakernel.render_tiles_fused(bunny, cam, cfg, 0, px, py, interleave=2, block=block)
+    odd = cuda_megakernel.render_tiles_fused(bunny, cam, cfg, 0, px[:1023], py[:1023],
+                                             interleave=2, block=block)
+    assert cuda_megakernel.LAUNCHES["render_fused_g2"] == before + 2
+    assert torch.equal(k5, k3)
+    assert torch.equal(odd, k3[:1023])
+
+
+def test_k3_profile_equals_k3_and_plain(dev, bunny):
+    """K3-profile's radiance is K3's bit for bit; its cost and aux equal
+    the plain version's exactly (integer counts of the same paths)."""
+    cfg = RenderConfig(width=128, height=40, spp=2, max_bounces=12)
+    cam = showcase_camera(cfg)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    k3 = cuda_megakernel.render_tiles_fused(bunny, cam, cfg, 0, px, py)
+    before = cuda_megakernel.LAUNCHES["render_fused_profile"]
+    rgb, cost, aux = cuda_megakernel.render_tiles_fused(bunny, cam, cfg, 0, px, py, profile=True)
+    assert cuda_megakernel.LAUNCHES["render_fused_profile"] == before + 1
+    _, p_cost, p_aux, p_k1, p_it = cuda_megakernel.render_tiles_fused_plain(
+        bunny, cam, cfg, 0, px, py, profile=True, lane_counts=True)
+    _, _, _, k1, it = cuda_megakernel.render_tiles_fused(bunny, cam, cfg, 0, px, py, profile=True,
+                                                         lane_counts=True)
+    assert torch.equal(rgb, k3)
+    assert torch.equal(cost, p_cost) and torch.equal(aux, p_aux)
+    assert torch.equal(k1, p_k1) and torch.equal(it, p_it)
+    regs = cuda_megakernel.kernel_resources()
+    assert set(regs) == {"K3", "K3-profile", "K5"} and all(r > 0 for r, _ in regs.values())
 
 
 def test_k3_preflight_known_answer(dev, bunny):
