@@ -23,14 +23,26 @@ plain PyTorch version, and drives the port's two paths:
     its 2K spp2 profile checked (rgb == K3 on every lane; cost, aux and
     lane counts == plain exactly on 16 seeded 1024-lane packets); the
     instrumentation's overhead, the warps' divergence and the three
-    layouts timed in turns at 2K.
+    layouts timed in turns at 2K;
+  * the traversal-iteration probes (phase 13): the entry points of
+    probes/ablate_v8.py (at the script's 64 packets and at 1,056, 8 per
+    SM), probes/ablate.py, load_probe.py and floor_probe.py (the
+    reference scene's 4-wide tree, 128 packets) time every variant with
+    the launch counts from 0; each variant equals its plain version bit
+    for bit at 16 iterations over all packets, `full` also at the
+    script's iteration count.
+
+Every kernel row carries its bound: the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and its operations
+over the peak rate of their type (fp32: 67 TFLOP/s), counted from this
+run's inputs (H100 SXM datasheet peaks).
 
     python3 chip_smoke.py              # every phase (what CI runs)
     python3 chip_smoke.py --phases 1,2,3   # a subset, while debugging
 
 Every phase raises on failure, so the script exits non-zero. The last
-lines are a `train` JSON line (phase 10), a JSON object with one entry
-per kernel and {"ok": true, "device": {...}}. It needs a CUDA card and
+lines are a `train` JSON line (phase 10), a `probes` JSON line (phase 13),
+a JSON object with one entry per kernel and {"ok": true, "device": {...}}. It needs a CUDA card and
 imports nothing of JAX.
 """
 
@@ -84,6 +96,17 @@ LOSS_REF_RTOL = 2e-3
 # Phase 12: seeded whole 1024-lane packets of the 2K profile re-rendered
 # by the plain version (cost, aux and lane counts must match exactly).
 P12_PACKETS = 16
+# Phase 13: the probes' plain versions are slow on the card; every variant
+# is held to its plain version at this many iterations over all packets.
+P13_CHECK_ITERS = 16
+P13_FILL_PACKETS = 1056    # 8 blocks of 8 warps per SM on 132 SMs
+# Peaks for the bounds: H100 SXM (NVIDIA H100 datasheet) and the
+# Hopper SM's 64 INT32 units (NVIDIA H100 Tensor Core GPU Architecture
+# whitepaper), at the card's own maximum SM clock for int32.
+HBM_BYTES_PER_S, FP32_OPS_PER_S, INT32_UNITS_PER_SM = 3.35e12, 67e12, 64
+# Threefry-2x32 per block: 2 adds, 20 rounds of add / rotate / xor, 5 key
+# injections of 2 adds (the key sums folded): 72 int32 operations.
+THREEFRY_OPS = 72
 
 
 def log(phase, msg):
@@ -114,6 +137,51 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def roofline(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> dict:
+    """The least time the card could take: bytes over the memory rate
+    against operations over their peak rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(nbytes), bound_ops=int(ops))
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bvh_bytes(b) -> int:
+    return _nbytes(b.bounds, b.children, b.tri, b.prim_index, b.face_mat, b.brute_tri,
+                   b.brute_prim, b.brute_mat)
+
+
+def trace_bound(bvh, n_rays: int, k1_steps: int) -> dict:
+    """K1 / K4 on n_rays live rays whose walks took k1_steps steps (the
+    plain version's count): the tables, o, d, t_lim in and the record
+    (t, id, mat, normal) out; per step at least one MT record (a leaf of
+    one triangle; a node expansion is 8 slab tests), plus the brute
+    pre-pass of every ray."""
+    from raytracer_tpu_torch.probes.common import MT_OPS
+
+    n_brute = 0 if bvh.brute_tri is None else bvh.brute_tri.shape[0]
+    return roofline(bvh_bytes(bvh) + n_rays * (24 + 4 + 24),
+                    MT_OPS * (k1_steps + n_brute * n_rays))
+
+
+def path_bound(bvh, n_lanes: int, spp: int, k1_steps: int, path_iters: int) -> dict:
+    """K3 / K5 / K3-profile on n_lanes lanes, from K3-profile's lane
+    counts: the tables and the lanes' pixel ids in, rgb out; K1's steps as
+    in trace_bound, and the brute pre-pass of every traced ray (each path
+    iteration traces one, except a sample's last when roulette ends it)."""
+    from raytracer_tpu_torch.probes.common import MT_OPS
+
+    n_brute = 0 if bvh.brute_tri is None else bvh.brute_tri.shape[0]
+    traced = max(path_iters - spp * n_lanes, 0)
+    return roofline(bvh_bytes(bvh) + n_lanes * (12 + 12),
+                    MT_OPS * (k1_steps + n_brute * traced))
+
+
 def image_agreement(a, b):
     """(bad element fraction, |mean difference| per channel max, max abs err)."""
     import torch
@@ -126,7 +194,7 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -205,7 +273,14 @@ def main(argv=None) -> int:
         k0, k1 = ktf.key_words(0)
         ms = cuda_ms(lambda: ktf.threefry2x32_kernel(k0, k1, c0d, c1d), 50)
         plain_ms = cuda_ms(lambda: ktf.threefry2x32(k0, k1, c0d, c1d), 10)
-        kernels["K2"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                    "--format=csv,noheader,nounits"], capture_output=True,
+                                   text=True, timeout=60).stdout.split()[0])
+        int32_rate = torch.cuda.get_device_properties(0).multi_processor_count * \
+            INT32_UNITS_PER_SM * mhz * 1e6
+        kernels["K2"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                             **roofline(16 * n, THREEFRY_OPS * n, int32_rate),
+                             int32_ops_per_s=int32_rate, max_sm_clock_mhz=mhz)
         log(3, f"K2 threefry2x32: bitwise equal to utils.ktf (card and host) on 2^20 "
                f"counters x 3 keys; kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per 2^20 "
                f"blocks on {smi}")
@@ -234,6 +309,9 @@ def main(argv=None) -> int:
         if cuda_traverse.LAUNCHES["trace_closest"] != before + 1:
             raise AssertionError("K4 did not launch")
         rp = cuda_traverse.trace_closest_plain(o, d, scene.bvh4, BIG)
+        steps = cuda_traverse._traverse_plain(o, d, scene.bvh4,
+                                              torch.full_like(o[:, 0], float(BIG)), 1e-3,
+                                              count=True)[4]
 
         def compare(ref_t, ref_id, ref_hit, k, what):
             hit_ok = torch.equal(k["hit"], ref_hit)
@@ -259,7 +337,9 @@ def main(argv=None) -> int:
         max_err = float((rk["t"] - rp["t"]).abs()[rk["hit"]].max()) if h1 else 0.0
         ms = cuda_ms(lambda: cuda_traverse.trace_closest(o, d, scene.bvh4, BIG, sort=False), 20)
         plain_ms = cuda_ms(lambda: cuda_traverse.trace_closest_plain(o, d, scene.bvh4, BIG), 3)
-        kernels["K1"] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+        kernels["K1"] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                             **trace_bound(scene.bvh4, o.shape[0], int(steps.sum())),
+                             k1_steps=int(steps.sum()))
         log(4, f"K4/K1 trace_closest on {2 * m} rays ({m} showcase-camera + {m} in-box): "
                f"{h1} hits; vs plain: hit masks equal, t within rtol {T_RTOL} "
                f"(max |dt| {max_err:.3g}), {f1} near-tie id flips; vs brute force on {nb} "
@@ -407,11 +487,15 @@ def main(argv=None) -> int:
 
     if 8 in phases:
         r8 = phase8(scene, dev)
+        bound = trace_bound(scene.bvh4, r8["rays"], r8["k1_steps"])
         kernels["K4"] = dict(max_abs_err=r8["max_abs_err"], ms=r8["ms_unsorted"],
-                             plain_ms=r8["plain_ms_unsorted"])
+                             plain_ms=r8["plain_ms_unsorted"], k1_steps=r8["k1_steps"], **bound)
         kernels["K4-sort"] = dict(max_abs_err=r8["max_abs_err"], ms=r8["ms_sorted"],
                                   plain_ms=r8["plain_ms_sorted"], ms_unsorted=r8["ms_unsorted"],
-                                  ms_kernel_presorted=r8["ms_kernel_presorted"])
+                                  ms_kernel_presorted=r8["ms_kernel_presorted"],
+                                  library_ms=r8["argsort_ms"],
+                                  library_is="torch.argsort(stable=True) of the coherence keys",
+                                  **bound)
         log(8, f"K4 on the second-bounce wavefront of a {P8['width']}x{P8['height']} spp1 "
                f"megakernel frame (cornell_bunny, showcase camera): {r8['rays']} rays, "
                f"{r8['hits']} hits; sort=True == sort=False bitwise on every field; both == "
@@ -419,7 +503,9 @@ def main(argv=None) -> int:
                f"{r8['max_abs_err']:.3g}); sorted {r8['ms_sorted']:.4f} ms vs unsorted "
                f"{r8['ms_unsorted']:.4f} ms per call, the kernel alone on pre-sorted rays "
                f"{r8['ms_kernel_presorted']:.4f} ms (CUDA events); plain sorted "
-               f"{r8['plain_ms_sorted']:.1f} ms, unsorted {r8['plain_ms_unsorted']:.1f} ms "
+               f"{r8['plain_ms_sorted']:.1f} ms, unsorted {r8['plain_ms_unsorted']:.1f} ms; "
+               f"the argsort alone {r8['argsort_ms']:.4f} ms; {r8['k1_steps']} K1 steps "
+               f"(plain count), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
                f"on {smi}")
 
     if 9 in phases:
@@ -475,16 +561,28 @@ def main(argv=None) -> int:
     if 12 in phases:
         r12 = phase12(scene, dev, smi)
         kernels["K3-profile"] = r12["row"]
+        b = r12["bounds"]
+        for key in ("K3", "K5"):
+            if key in kernels:
+                kernels[key].update(**b["preflight"], bound_2k_ms=b["2k"]["bound_ms"],
+                                    bound_2k_by=b["2k"]["bound_by"])
         log(12, r12["msg"])
+
+    probes = None
+    if 13 in phases:
+        probes = phase13(dev, smi)
+        kernels.update(probes.pop("rows"))
+        print(json.dumps({"probes": probes}), flush=True)
 
     # Kernel rows. `launches` counts the launches of the path each kernel
     # serves, with the counters set to 0 just before that path ran: K3 in
     # phase 7 (serving); K4, K4-sort and the standalone K2 in phase 10
     # (training); K5 in phase 11 (the 2K frame with interleave 2);
-    # K3-profile in phase 12 (build_schedule at 2K). K1 is __device__ code
-    # inside K3 and K4, and K2 runs inline in K3 too: those rows add the
-    # serving path's K3 launches. ms / plain_ms / max_abs_err come from
-    # the phase that times each kernel alone (3, 4, 5/7, 8, 11, 12).
+    # K3-profile in phase 12 (build_schedule at 2K); the probes in phase 13
+    # (their entry points). K1 is __device__ code inside K3 and K4, and K2
+    # runs inline in K3 too: those rows add the serving path's K3 launches.
+    # ms / plain_ms / max_abs_err / the bound come from the phase that
+    # times each kernel alone (3, 4, 5/7, 8, 11, 12, 13).
     src = "raytracer_tpu_torch/csrc/"
     t_k4 = train["k4"] if train else 0
     table = [
@@ -510,13 +608,26 @@ def main(argv=None) -> int:
          "raytracer_tpu/ops/pallas_megakernel.py:493 (profile=True) with "
          "raytracer_tpu/ops/pallas_traverse.py:333", "K3-profile",
          kernels.get("K3-profile", {}).get("launches", 0), {}),
+        ("traversal-iteration ablation of the round-5 BVH8 body (P-v8, 7 variants)",
+         "probe_v8.cu", "scripts/kernel_ablate_v8.py:49", "P-v8",
+         kernels.get("P-v8", {}).get("launches", 0), {}),
+        ("v5-body phase ablation (P-ablate, 5 variants)", "probe_v5.cu",
+         "scripts/kernel_ablate.py:33", "P-ablate",
+         kernels.get("P-ablate", {}).get("launches", 0), {}),
+        ("v5-body row-load probe (P-load, 3 modes)", "probe_v5.cu",
+         "scripts/kernel_load_probe.py:43", "P-load",
+         kernels.get("P-load", {}).get("launches", 0), {}),
+        ("v5-body loop-floor probe (P-floor, 5 modes)", "probe_v5.cu",
+         "scripts/kernel_floor_probe.py:48", "P-floor",
+         kernels.get("P-floor", {}).get("launches", 0), {}),
     ]
     rows = []
     for name, source, replaces, key, n_launch, extra in table:
         r = kernels.get(key, {})
         row = {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
                "launches": n_launch, "max_abs_err": r.get("max_abs_err"),
-               "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), **extra}
+               "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
+               "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"), **extra}
         if "main_s" in r:
             row["main_path_s"] = r["main_s"]
             row["main_path_median_s"] = r["main_median_s"]
@@ -711,6 +822,12 @@ def phase12(scene, dev, smi):
         raise AssertionError(f"K3-profile at the preflight size: {checks}")
     ms = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py, profile=True), 20)
     ms_k3 = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py), 20)
+    # The work of a preflight frame, from its lane counts: the bound of
+    # K3, K5 and K3-profile at the size their `ms` is timed at.
+    _, _, _, pk1, pit = cm.render_tiles_fused(scene, cam, cfg, 0, px, py, profile=True,
+                                              lane_counts=True)
+    bounds = {"preflight": path_bound(scene.bvh4, px.shape[0], cfg.spp, int(pk1.sum()),
+                                      int(pit.sum()))}
 
     cfg = RenderConfig(**MAIN)
     cam = showcase_camera(cfg)
@@ -779,8 +896,11 @@ def phase12(scene, dev, smi):
     over = {k: float(np.median(v[0])) for k, v in times.items()}
     stats = {}
     for name, (gx, gy, _) in grids.items():
-        _, c, a, k1, _ = cm.render_tiles_fused(scene, cam, cfg, 0, gx, gy, profile=True,
-                                               lane_counts=True)
+        _, c, a, k1, it = cm.render_tiles_fused(scene, cam, cfg, 0, gx, gy, profile=True,
+                                                lane_counts=True)
+        if name == "tiled":   # the same paths on every layout
+            bounds["2k"] = path_bound(scene.bvh4, gx.shape[0], cfg.spp, int(k1.sum()),
+                                      int(it.sum()))
         w = k1.reshape(-1, 32).float()
         stats[name] = dict(cost_mean=c.mean().item(), cost_max=c.max().item(),
                            k1_mean=w.mean().item(),
@@ -796,6 +916,8 @@ def phase12(scene, dev, smi):
                profile_2k_median_s=over["K3-profile"], k3_2k_median_s=over["K3"],
                build_schedule_s=schedule_s, layout_median_s=lay, layout_median_device_s=lay_dev,
                lane_stats=stats, main_packets_checked=P12_PACKETS,
+               **bounds["preflight"], bound_2k_ms=bounds["2k"]["bound_ms"],
+               bound_2k_by=bounds["2k"]["bound_by"],
                main_max_abs_err_vs_plain=max_err_m,
                max_abs_err_is="rgb vs K3 at the preflight size and on the 2K spp2 profile; cost, "
                               "aux and lane counts equal plain there and on "
@@ -816,8 +938,165 @@ def phase12(scene, dev, smi):
            + f"; build_schedule(profile_spp=2) {schedule_s:.3f} s, path counts {counts}; the "
            f"scheduled frame == tiled == blocked bitwise; frames in turns, median of 10: "
            + ", ".join(f"{k} {v:.4f} s (events {lay_dev[k]:.4f})" for k, v in lay.items())
+           + "; bounds (K3, K5, K3-profile): "
+           + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']}: {v['bound_bytes']} B, "
+                       f"{v['bound_ops']} fp32 ops)" for k, v in bounds.items())
            + f" on {smi}")
-    return dict(row=row, msg=msg)
+    return dict(row=row, msg=msg, bounds=bounds)
+
+
+def _bitwise(a, b) -> bool:
+    """Equal bit for bit, a NaN equal to any NaN (the card's NaN and the
+    CPU's differ in sign bit)."""
+    import torch
+
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | both_nan).all())
+
+
+def _max_abs(a, b) -> float:
+    fin = a.isfinite() & b.isfinite()
+    return float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
+def phase13(dev, smi):
+    """The traversal-iteration probes: each probe's entry point with the
+    launch counts from 0 (the timings), then every variant against its
+    plain version, and the bounds."""
+    import torch
+
+    from raytracer_tpu_torch.probes import (ablate, ablate_v8, floor_probe, load_probe, sass,
+                                            v5_body)
+
+    t_phase = time.perf_counter()
+    res_v8, res_v5 = ablate_v8.kernel_resources(), v5_body.kernel_resources()
+    t0 = time.perf_counter()
+    node5, tri5, zero_row = v5_body.reference_tables()
+    o5, d5, tl5 = (torch.from_numpy(a) for a in v5_body.make_rays(v5_body.N_PACKETS))
+    setup_s = time.perf_counter() - t0
+
+    def out(line):
+        log(13, "  " + line)
+
+    # ---- the path: each entry point as its script's main() runs it
+    for d in (ablate_v8.LAUNCHES, ablate_v8.PLAIN_CALLS, v5_body.LAUNCHES, v5_body.PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+    runs, launches = {}, {}
+    log(13, f"ablate_v8.run({ablate_v8.ITERS}, {ablate_v8.N_PACKETS}) (the script's sizes):")
+    runs["P-v8"] = ablate_v8.run(ablate_v8.ITERS, ablate_v8.N_PACKETS, out=out)
+    log(13, f"ablate_v8.run({ablate_v8.ITERS}, {P13_FILL_PACKETS}) (8 blocks per SM):")
+    runs["P-v8 fill"] = ablate_v8.run(ablate_v8.ITERS, P13_FILL_PACKETS, out=out)
+    launches["P-v8"] = ablate_v8.LAUNCHES["probe_v8"]
+    v5_probes = {"P-ablate": ("ablate", ablate.VARIANTS),
+                 "P-load": ("load_probe", load_probe.MODES),
+                 "P-floor": ("floor_probe", floor_probe.MODES)}
+    for key, (script, modes) in v5_probes.items():
+        before = v5_body.LAUNCHES["probe_v5"]
+        log(13, f"{script} ({v5_body.ITERS} iterations, {v5_body.N_PACKETS} packets, the "
+                f"reference scene's 4-wide tree):")
+        runs[key] = v5_body.run(script, modes, inputs=(node5, tri5, o5, d5, tl5, zero_row),
+                                out=out)
+        launches[key] = v5_body.LAUNCHES["probe_v5"] - before
+    plain_calls = ablate_v8.PLAIN_CALLS["probe_v8"] + v5_body.PLAIN_CALLS["probe_v5"]
+    want = {"P-v8": 2 * 11 * len(ablate_v8.VARIANTS),
+            **{k: 11 * len(m) for k, (_, m) in v5_probes.items()}}
+    if launches != want or plain_calls:
+        raise AssertionError(f"probe paths: launches {launches} (expected {want}), plain calls "
+                             f"{plain_calls}")
+
+    # ---- every variant against its plain version, bit for bit
+    checked, max_err, plain_ms = [], {}, {}
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    v8_in = {}
+    for packets in (ablate_v8.N_PACKETS, P13_FILL_PACKETS):
+        v8_in[packets] = tuple(torch.from_numpy(a).to(dev) for a in ablate_v8.make_inputs(packets))
+        for v in ablate_v8.VARIANTS:
+            sizes = [P13_CHECK_ITERS] + ([ablate_v8.ITERS] if (
+                v == "full" and packets == ablate_v8.N_PACKETS) else [])
+            for iters in sizes:
+                k = ablate_v8.ablate_v8(*v8_in[packets], v, iters)
+                torch.cuda.synchronize()
+                ev0.record()
+                p = ablate_v8.ablate_v8_plain(*v8_in[packets], v, iters)
+                ev1.record()
+                torch.cuda.synchronize()
+                if not _bitwise(k, p):
+                    raise AssertionError(f"P-v8 {v} at {packets} packets, {iters} iterations: "
+                                         f"kernel != plain (max |diff| {_max_abs(k, p)})")
+                checked.append(f"v8 {v} P{packets} i{iters}")
+                max_err["P-v8"] = max(max_err.get("P-v8", 0.0), _max_abs(k, p))
+                if iters == ablate_v8.ITERS:
+                    plain_ms["P-v8"] = ev0.elapsed_time(ev1)
+    v5_in = tuple(t.to(dev) for t in (node5, tri5, o5, d5, tl5))
+    body = {}
+    for mode in v5_body.MODES:
+        body_mode = mode in ("full", "full16", "prod_smem", "prod_carry")
+        for iters in [P13_CHECK_ITERS] + ([v5_body.ITERS] if body_mode else []):
+            k = v5_body.v5(*v5_in, zero_row, mode, iters)
+            torch.cuda.synchronize()
+            ev0.record()
+            p = v5_body.v5_plain(*v5_in, zero_row, mode, iters)
+            ev1.record()
+            torch.cuda.synchronize()
+            if not _bitwise(k, p):
+                raise AssertionError(f"v5 body {mode}, {iters} iterations: kernel != plain "
+                                     f"(max |diff| {_max_abs(k, p)})")
+            checked.append(f"v5 {mode} i{iters}")
+            key = next(kk for kk, (_, m) in v5_probes.items() if mode in m)
+            max_err[key] = max(max_err.get(key, 0.0), _max_abs(k, p))
+            if iters == v5_body.ITERS:
+                body[mode] = k
+                plain_ms[mode] = ev0.elapsed_time(ev1)
+    if not all(torch.equal(body["full"], b) for b in body.values()):
+        raise AssertionError("v5 body: full, full16, prod_smem and prod_carry differ")
+
+    # ---- what each knockout left of the kernel: static SASS counts
+    if os.path.exists(sass.cuobjdump()):
+        sc = sass.by_name()
+        for run_ in (runs["P-v8"], runs["P-v8 fill"]):
+            for v, r in run_["variants"].items():
+                r["sass"] = sc[f"v8 {v}"]
+        for key in v5_probes:
+            for mode, r in runs[key]["modes"].items():
+                r["sass"] = sc[f"v5 {mode}"]
+        log(13, "static SASS instructions per kernel (cuobjdump -sass): " + "; ".join(
+            f"{k} {c['total']} (fp32 {c['fp32']}, int {c['int']}, shfl {c['shfl']}, shared "
+            f"{c['shared']}, global {c['global']}, local {c['local']}, sync {c['sync']})"
+            for k, c in sc.items()))
+    else:
+        log(13, "static SASS counts: not measured (no cuobjdump beside nvcc)")
+
+    # ---- rows, with the bound of each variant at its size
+    rows = {}
+    for run_ in (runs["P-v8"], runs["P-v8 fill"]):
+        node, tri, o, _ = v8_in[run_["packets"]]
+        for v, r in run_["variants"].items():
+            w = ablate_v8.work(node, tri, o, v, run_["iters"])
+            r.update(roofline(w["bytes"], w["ops"]))
+    for key in v5_probes:
+        for mode, r in runs[key]["modes"].items():
+            w = v5_body.work(v5_in[0], v5_in[1], v5_in[2], mode, v5_body.ITERS)
+            r.update(roofline(w["bytes"], w["ops"]))
+    fill = runs["P-v8 fill"]["variants"]
+    rows["P-v8"] = dict(launches=launches["P-v8"], max_abs_err=max_err["P-v8"],
+                        plain_ms=plain_ms["P-v8"], **runs["P-v8"]["variants"]["full"],
+                        ms_1056=fill["full"]["ms"], bound_1056_ms=fill["full"]["bound_ms"],
+                        variants=runs["P-v8"]["variants"], variants_1056=fill)
+    for key, first in (("P-ablate", "full"), ("P-load", "full16"), ("P-floor", "prod_smem")):
+        m = runs[key]["modes"]
+        rows[key] = dict(launches=launches[key], max_abs_err=max_err[key],
+                         plain_ms=plain_ms[first], ms_is=first, **m[first], modes=m)
+    secs = time.perf_counter() - t_phase
+    log(13, f"every variant == its plain version bit for bit ({len(checked)} checks: "
+            f"{P13_CHECK_ITERS} iterations over all packets, the full bodies also at the "
+            f"scripts' iterations); full == full16 == prod_smem == prod_carry; launches "
+            f"{launches} (11 per variant: a warm-up and 10 timed), plain calls {plain_calls}; "
+            f"plain full bodies {', '.join(f'{k} {v:.1f} ms' for k, v in plain_ms.items())}; "
+            f"numRegs / localSizeBytes v8 {res_v8}, v5 {res_v5}; v5 tables built in "
+            f"{setup_s:.2f} s; phase {secs:.1f} s on {smi}")
+    return dict(seconds=secs, checks=len(checked), launches=launches, card=smi, runs=runs,
+                rows=rows)
 
 
 def _counts():
@@ -848,6 +1127,7 @@ def phase8(scene, dev):
     from raytracer_tpu_torch.camera import generate_rays, showcase_camera
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.models import megakernel
+    from raytracer_tpu_torch.ops import cuda_traverse
     from raytracer_tpu_torch.ops.bvh4 import BIG
     from raytracer_tpu_torch.ops.cuda_traverse import trace_closest, trace_closest_plain
     from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
@@ -882,8 +1162,13 @@ def phase8(scene, dev):
     lo, inv_ext = root_box(bvh)
     perm = torch.argsort(coherence_keys(o1, d1, lo, inv_ext), stable=True)
     o_s, d_s = o1[perm].contiguous(), d1[perm].contiguous()
+    keys = coherence_keys(o1, d1, lo, inv_ext)
+    steps = cuda_traverse._traverse_plain(o1, d1, bvh, torch.full_like(o1[:, 0], float(BIG)),
+                                          1e-3, count=True)[4]
     return dict(
         rays=o1.shape[0], hits=int(rs["hit"].sum()), max_abs_err=max_err,
+        k1_steps=int(steps.sum()),
+        argsort_ms=cuda_ms(lambda: torch.argsort(keys, stable=True), 20),
         ms_sorted=cuda_ms(lambda: trace_closest(o1, d1, bvh, BIG, sort=True), 20),
         ms_unsorted=cuda_ms(lambda: trace_closest(o1, d1, bvh, BIG, sort=False), 20),
         ms_kernel_presorted=cuda_ms(lambda: trace_closest(o_s, d_s, bvh, BIG, sort=False), 20),

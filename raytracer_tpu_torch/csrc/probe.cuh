@@ -1,0 +1,174 @@
+// Pieces shared by the traversal-iteration probes (probe_v8.cu, probe_v5.cu):
+// the lanes of a chain, the probes' slab test and Möller–Trumbore record, the
+// chain reductions and the integer and float conversions with the TPU
+// script's semantics.
+//
+// Mapping. A TPU packet is (8, 128): 8 chains ("sub-warps") of 128 lanes,
+// each chain with its own task. Here a chain is one warp and a packet one
+// block of 8 warps; thread l of a warp owns lanes l, l+32, l+64, l+96. What
+// is per chain (task, stack pointer, spares, child codes, sort keys) is
+// warp-uniform: every lane computes the same value. What the TPU kept in
+// SMEM lives in the warp's slice of shared memory, written by lane 0 and
+// read by all lanes, with __syncwarp() between.
+//
+// Every operation is the script's, in its order, in float32 without
+// contraction (-fmad=false), so the kernels equal their plain PyTorch
+// versions bit for bit. A reduction over a chain's lanes is a pass over the
+// thread's 4 lanes and a __shfl_xor_sync butterfly: a min is order-free and
+// an int32 sum exact.
+#pragma once
+#include <cstdint>
+
+namespace probe {
+
+constexpr int P_SUB = 8;             // chains (warps) per packet (block)
+constexpr int P_LANE = 128;          // lanes per chain
+constexpr int LPT = P_LANE / 32;     // lanes per thread
+constexpr int ROW = 128;             // floats per table row
+constexpr int TRI_STRIDE = 16;       // floats per triangle record
+constexpr float BIG = 3.0e38f;
+constexpr int NONE = -1;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float qnan() { return __int_as_float(0x7fffffff); }
+
+// jnp.minimum (and torch's): NaN in, NaN out; fminf drops a NaN.
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (isnan(a) || isnan(b)) ? qnan() : fminf(a, b);
+}
+
+// astype(int32) of a float-encoded id, as XLA converts: toward zero,
+// saturating, NaN -> 0.
+__device__ __forceinline__ int f2i(float x) {
+  if (isnan(x)) return 0;
+  if (x >= 2147483648.0f) return 2147483647;
+  if (x <= -2147483648.0f) return -2147483647 - 1;
+  return static_cast<int>(x);
+}
+
+// jnp's // and % on int32: floor division (C's / and % truncate).
+__device__ __forceinline__ int floordiv(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+__device__ __forceinline__ int floormod(int a, int b) {
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// x << 16 as int32 wraps it (0xFFFF << 16 = -65536); a signed shift into the
+// sign bit is undefined in C, so shift the bits unsigned.
+__device__ __forceinline__ int shl16(int x) {
+  return static_cast<int>(static_cast<uint32_t>(x) << 16);
+}
+// -x - 2 with int32 wrap-around (a garbage task of loads0 may be INT_MIN).
+__device__ __forceinline__ int neg2(int x) {
+  return static_cast<int>(0u - static_cast<uint32_t>(x) - 2u);
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, m));
+  return v;
+}
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+  return v;
+}
+
+// Keeps a value that reaches no output computed (carry8's task).
+__device__ __forceinline__ void keep(int x) { asm volatile("" : : "r"(x)); }
+
+struct Lanes {
+  float ox[LPT], oy[LPT], oz[LPT], dx[LPT], dy[LPT], dz[LPT], ix[LPT], iy[LPT], iz[LPT];
+  float t_best[LPT];
+  int best[LPT];
+};
+
+// Rays of chain s of packet p from o, d f32[P, 3, 8, 128]; 1/d as the
+// scripts take it.
+__device__ __forceinline__ void load_rays(Lanes& L, const float* __restrict__ o,
+                                          const float* __restrict__ d, int p, int s, int lane) {
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    const int l = lane + 32 * j;
+    const size_t base = (static_cast<size_t>(p) * 3 * P_SUB + s) * P_LANE + l;
+    const size_t c = P_SUB * P_LANE;
+    L.ox[j] = o[base];
+    L.oy[j] = o[base + c];
+    L.oz[j] = o[base + 2 * c];
+    L.dx[j] = d[base];
+    L.dy[j] = d[base + c];
+    L.dz[j] = d[base + 2 * c];
+    L.ix[j] = 1.0f / L.dx[j];
+    L.iy[j] = 1.0f / L.dy[j];
+    L.iz[j] = 1.0f / L.dz[j];
+  }
+}
+
+// The scripts' mt_record for all of the thread's lanes: fields v0, e1, e2 of
+// one record (per chain), prim its float-encoded id.
+__device__ __forceinline__ void mt_record(Lanes& L, const float (&r)[9], int prim) {
+  const float v0x = r[0], v0y = r[1], v0z = r[2];
+  const float e1x = r[3], e1y = r[4], e1z = r[5];
+  const float e2x = r[6], e2y = r[7], e2z = r[8];
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    const float dx = L.dx[j], dy = L.dy[j], dz = L.dz[j];
+    const float hx = dy * e2z - dz * e2y;
+    const float hy = dz * e2x - dx * e2z;
+    const float hz = dx * e2y - dy * e2x;
+    const float a = e1x * hx + e1y * hy + e1z * hz;
+    bool ok = fabsf(a) >= 1e-8f;
+    const float f = 1.0f / (ok ? a : 1.0f);
+    const float sx = L.ox[j] - v0x, sy = L.oy[j] - v0y, sz = L.oz[j] - v0z;
+    const float u = f * (sx * hx + sy * hy + sz * hz);
+    ok = ok & (u >= 0.0f) & (u <= 1.0f);
+    const float qx = sy * e1z - sz * e1y;
+    const float qy = sz * e1x - sx * e1z;
+    const float qz = sx * e1y - sy * e1x;
+    const float v = f * (dx * qx + dy * qy + dz * qz);
+    ok = ok & (v >= 0.0f) & (u + v <= 1.0f);
+    const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+    ok = ok & (t >= 1e-3f) & (t < L.t_best[j]);
+    L.t_best[j] = ok ? t : L.t_best[j];
+    L.best[j] = ok ? prim : L.best[j];
+  }
+}
+
+// The scripts' slab for lane j against box b (min xyz, max xyz): hit and
+// entry distance tmin. The scripts take min/max with jnp.minimum/maximum,
+// which propagate NaN: a NaN plane distance makes tmin NaN and the test a
+// miss, and so does a NaN t_best. Here that is the explicit rule of
+// traverse.cuh's slab (:94-99) — any NaN among the six distances is a miss,
+// with tmin NaN — and fminf/fmaxf otherwise, which then give jnp's values.
+__device__ __forceinline__ bool slab(const Lanes& L, int j, const float (&b)[6], float& tmin) {
+  const float t0x = (b[0] - L.ox[j]) * L.ix[j], t1x = (b[3] - L.ox[j]) * L.ix[j];
+  const float t0y = (b[1] - L.oy[j]) * L.iy[j], t1y = (b[4] - L.oy[j]) * L.iy[j];
+  const float t0z = (b[2] - L.oz[j]) * L.iz[j], t1z = (b[5] - L.oz[j]) * L.iz[j];
+  const bool nan6 = isnan(t0x) || isnan(t1x) || isnan(t0y) || isnan(t1y) || isnan(t0z) ||
+                    isnan(t1z);
+  tmin = nan6 ? qnan()
+              : fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), 1e-3f));
+  const float tmax =
+      fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), L.t_best[j]));
+  return !nan6 && !isnan(L.t_best[j]) && tmax > tmin;
+}
+
+// One compare-exchange of a sorting network over (key, code) arrays: keys
+// ascending, a swap only on a strictly greater key.
+#define PROBE_CSWAP(key, code, i, j)          \
+  {                                           \
+    const bool sw = key[i] > key[j];          \
+    const float ki_ = sw ? key[j] : key[i];   \
+    const float kj_ = sw ? key[i] : key[j];   \
+    const int ci_ = sw ? code[j] : code[i];   \
+    const int cj_ = sw ? code[i] : code[j];   \
+    key[i] = ki_;                             \
+    key[j] = kj_;                             \
+    code[i] = ci_;                            \
+    code[j] = cj_;                            \
+  }
+
+}  // namespace probe

@@ -1,0 +1,79 @@
+"""Static SASS instruction counts of the probe kernels in the built kernel
+library (`cuobjdump -sass`), by kind. A probe's loop body is unrolled
+except for the loop over iterations, so a kernel's count is close to one
+iteration's instructions per thread: it shows what a knockout removed,
+including what the compiler then dropped as dead. chip_smoke.py phase 13
+prints them.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+
+from raytracer_tpu_torch.utils import cudalib
+
+# Kinds by opcode (the part before the first '.'); every other opcode
+# counts in `total` only.
+KINDS = {
+    "fp32": {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK", "MUFU", "FSET"},
+    "int": {"IADD3", "IMAD", "IABS", "IMNMX", "ISETP", "LOP3", "SHF", "SEL", "LEA", "F2I", "I2F",
+            "POPC", "FLO", "PRMT"},
+    "shfl": {"SHFL"},
+    "shared": {"LDS", "STS"},
+    "global": {"LDG", "STG"},
+    "local": {"LDL", "STL"},
+    "sync": {"WARPSYNC", "BAR", "BSSY", "BSYNC", "NANOSLEEP"},
+    "branch": {"BRA", "BRX", "JMP", "EXIT", "RET", "CALL"},
+}
+_FUNC = re.compile(r"Function : (\S+)")
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+_KERNEL = re.compile(r"probe_(v8|v5)_kernelILi(\d+)E")
+
+
+def cuobjdump() -> str:
+    """cuobjdump beside nvcc (the CUDA toolkit ships both)."""
+    return os.path.join(os.path.dirname(cudalib._nvcc()), "cuobjdump")
+
+
+def parse(sass: str) -> dict:
+    """{("v8" | "v5", instantiation id): {"total": n, kind: n, ...}} of the
+    probe kernels in cuobjdump -sass output."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            k = _KERNEL.search(m.group(1))
+            cur = (k.group(1), int(k.group(2))) if k else None
+            if cur is not None:
+                out[cur] = dict.fromkeys(["total", *KINDS], 0)
+            continue
+        m = _INSN.search(line) if cur is not None else None
+        if not m or m.group(1) == "NOP":
+            continue
+        op = m.group(1).split(".")[0]
+        c = out[cur]
+        c["total"] += 1
+        for kind, ops in KINDS.items():
+            if op in ops:
+                c[kind] += 1
+    return out
+
+
+def counts(lib_path: str | None = None) -> dict:
+    """parse() of the library at lib_path (the built one by default)."""
+    lib_path = lib_path or cudalib.build()
+    res = subprocess.run([cuobjdump(), "-sass", lib_path], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {res.stderr[-2000:]}")
+    return parse(res.stdout)
+
+
+def by_name() -> dict:
+    """{"v8 <variant>" | "v5 <mode>": counts} in the probes' own names."""
+    from raytracer_tpu_torch.probes import ablate_v8, v5_body
+
+    names = {"v8": ablate_v8.VARIANTS, "v5": v5_body.MODES}
+    return {f"{body} {names[body][i]}": c for (body, i), c in sorted(counts().items())}

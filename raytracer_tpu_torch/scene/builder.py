@@ -40,7 +40,7 @@ from raytracer_tpu_torch.scene.types import (
 # The reference's hardcoded extras (CUDAKernels.h:69-73).
 GROUND_SPHERE = dict(center=(0.0, -1000.0, 0.0), radius=999.0, albedo=(0.5, 0.5, 0.5))
 MIRROR_SPHERE = dict(center=(0.2, 0.2, 0.0), radius=0.05, albedo=(0.7, 0.6, 0.5))
-BVH_WIDTH = 8
+BVH_WIDTH = 8  # default tree width; RAYTRACER_TPU_BVH_WIDTH overrides it
 ASSETS_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
                                           "assets", "models"))
 
@@ -199,9 +199,11 @@ def partition_brute_faces(mesh: TriMesh, area_ratio: float = 100.0,
 
 def build_scene_bvh4(mesh: TriMesh):
     """Native binned-SAH BVH4 (native/scenekit.cpp) over the dense-mesh
-    faces, widened to BVH8, with oversized triangles split off for the
+    faces, widened to RAYTRACER_TPU_BVH_WIDTH (8 by default) as the JAX
+    builder reads it, with oversized triangles split off for the
     brute-force pre-pass. prim ids in both halves are ORIGINAL face
-    indices."""
+    indices. The kernels of csrc/ take width 8 only (utils/cudalib.bvh_view);
+    a 4-wide tree serves the v5-layout probes (probes/v5_tables.py)."""
     brute_ids, tree_ids = partition_brute_faces(mesh)
     if brute_ids.size:
         sub = TriMesh(vertices=mesh.vertices,
@@ -209,7 +211,10 @@ def build_scene_bvh4(mesh: TriMesh):
                       face_mat=mesh.face_mat[torch.from_numpy(tree_ids)])
     else:
         sub = mesh
-    b4 = widen_bvh(build_bvh4_native(sub), BVH_WIDTH)
+    b4 = build_bvh4_native(sub)
+    width = int(os.environ.get("RAYTRACER_TPU_BVH_WIDTH", str(BVH_WIDTH)))
+    if width > 4:
+        b4 = widen_bvh(b4, width)
     if not brute_ids.size:
         return b4
 

@@ -7,8 +7,9 @@ chip_smoke.py runs these checks on the reference scene at larger sizes:
 K2 on 2^20 counters, K4 on 131,072 rays, K3 on the preflight frame and
 on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path frame,
 K4's sort path on a 262,144-ray bounce wavefront, the training step
-at the INVERSE_r05 width, K5 against K3 on the whole 2K frame, and
-K3-profile against K3 and its plain version."""
+at the INVERSE_r05 width, K5 against K3 on the whole 2K frame,
+K3-profile against K3 and its plain version, and the traversal-iteration
+probes at the scripts' sizes (phase 13)."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.fused import render_image_fused
 from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
 from raytracer_tpu_torch.ops.bvh4 import BIG
+from raytracer_tpu_torch.probes import ablate_v8, v5_body
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 from raytracer_tpu_torch.scene.builder import cornell_materials_scene, reference_scene
 from raytracer_tpu_torch.utils import ktf
@@ -180,3 +182,58 @@ def test_kernel_step_equals_plain_step(dev):
     assert abs(float(loss_k) - float(loss_p)) <= 1e-4 * abs(float(loss_p))
     for k, g in grads_p.items():
         assert (grads_k[k].cpu() - g).abs().max() <= 0.01 * g.abs().max() + 1e-12, k
+
+
+def _bitwise(a, b):
+    a, b = a.cpu(), b.cpu()
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | both_nan).all())
+
+
+@pytest.mark.parametrize("variant", ablate_v8.VARIANTS)
+def test_probe_v8_equals_plain(dev, variant):
+    """csrc/probe_v8.cu ≡ ablate_v8_plain bit for bit (the script's inputs
+    at 3 packets, 12 iterations), and the wrapper counts its launch."""
+    node, tri, o, d = (torch.from_numpy(a) for a in ablate_v8.make_inputs(3))
+    before = ablate_v8.LAUNCHES["probe_v8"]
+    k = ablate_v8.ablate_v8(node.to(dev), tri.to(dev), o.to(dev), d.to(dev), variant, 12)
+    assert ablate_v8.LAUNCHES["probe_v8"] == before + 1
+    assert _bitwise(k, ablate_v8.ablate_v8_plain(node, tri, o, d, variant, 12))
+
+
+def test_probe_v8_nan_inputs_equal_plain(dev):
+    """NaN bounds and zero direction components: the kernel's NaN-is-miss
+    slab gives the plain version's (torch.minimum/maximum) results, NaN
+    where those propagate it, in every variant."""
+    node, tri, o, d = (torch.from_numpy(a) for a in ablate_v8.make_inputs(2))
+    node[::7, 0:48:5] = float("nan")
+    node[::11, 3] = float("inf")
+    d[:, 0, :, ::9] = 0.0
+    for v in ablate_v8.VARIANTS:
+        k = ablate_v8.ablate_v8(node.to(dev), tri.to(dev), o.to(dev), d.to(dev), v, 12)
+        assert _bitwise(k, ablate_v8.ablate_v8_plain(node, tri, o, d, v, 12)), v
+
+
+@pytest.fixture(scope="module")
+def v5_inputs():
+    node, tri, zero_row = v5_body.reference_tables()
+    o, d, tlim = (torch.from_numpy(a) for a in v5_body.make_rays(2))
+    return node, tri, o, d, tlim, zero_row
+
+
+@pytest.mark.parametrize("mode", v5_body.MODES)
+def test_probe_v5_equals_plain(dev, v5_inputs, mode):
+    """csrc/probe_v5.cu ≡ v5_plain bit for bit in every mode of the three
+    v5 probes (the reference scene's 4-wide tree, 2 packets, 12
+    iterations), and the wrapper counts its launch."""
+    node, tri, o, d, tlim, zero_row = v5_inputs
+    before = v5_body.LAUNCHES["probe_v5"]
+    k = v5_body.v5(*(t.to(dev) for t in (node, tri, o, d, tlim)), zero_row, mode, 12)
+    assert v5_body.LAUNCHES["probe_v5"] == before + 1
+    assert _bitwise(k, v5_body.v5_plain(node, tri, o, d, tlim, zero_row, mode, 12))
+
+
+def test_probe_resources(dev):
+    regs8, regs5 = ablate_v8.kernel_resources(), v5_body.kernel_resources()
+    assert set(regs8) == set(ablate_v8.VARIANTS) and set(regs5) == set(v5_body.MODES)
+    assert all(r > 0 for r, _ in list(regs8.values()) + list(regs5.values()))

@@ -1,8 +1,8 @@
 """raytracer_tpu_torch never imports JAX: the machine with the card has
 none. A subprocess in which `import jax` fails imports every module of
 the port (the differentiable path's render, models/megakernel,
-ops/intersect, ops/packets, utils/rng and diff/inverse among them) and
-chip_smoke.py."""
+ops/intersect, ops/packets, utils/rng and diff/inverse, and the probes,
+among them) and chip_smoke.py."""
 
 import os
 import subprocess
@@ -27,7 +27,10 @@ for name in names:
     importlib.import_module(name)
 for name in ("raytracer_tpu_torch.render", "raytracer_tpu_torch.models.megakernel",
              "raytracer_tpu_torch.ops.intersect", "raytracer_tpu_torch.ops.packets",
-             "raytracer_tpu_torch.utils.rng", "raytracer_tpu_torch.diff.inverse"):
+             "raytracer_tpu_torch.utils.rng", "raytracer_tpu_torch.diff.inverse",
+             "raytracer_tpu_torch.probes.ablate_v8", "raytracer_tpu_torch.probes.v5_body",
+             "raytracer_tpu_torch.probes.v5_tables", "raytracer_tpu_torch.probes.ablate",
+             "raytracer_tpu_torch.probes.load_probe", "raytracer_tpu_torch.probes.floor_probe"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "raytracer_tpu") for m in sys.modules)
@@ -41,7 +44,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 32
+    assert int(out.stdout.strip().splitlines()[-1]) >= 40
 
 
 def test_chip_smoke_refuses_without_a_card():
