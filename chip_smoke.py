@@ -26,11 +26,15 @@ plain PyTorch version, and drives the port's two paths:
     layouts timed in turns at 2K;
   * the traversal-iteration probes (phase 13): the entry points of
     probes/ablate_v8.py (at the script's 64 packets and at 1,056, 8 per
-    SM), probes/ablate.py, load_probe.py and floor_probe.py (the
-    reference scene's 4-wide tree, 128 packets) time every variant with
-    the launch counts from 0; each variant equals its plain version bit
-    for bit at 16 iterations over all packets, `full` also at the
-    script's iteration count.
+    SM), probes/ablate.py, load_probe.py, floor_probe.py and
+    base_probe.py (the reference scene's 4-wide tree, 128 packets),
+    interleave_probe.py (128 and 1,056 packets), scalar_cost.py (256
+    packets x 403 iterations) and vstack.py (p1, p2, p3 in this process)
+    time every variant with the launch counts from 0; each variant equals
+    its plain version bit for bit at a check size over all packets, the
+    full bodies also at the scripts' sizes; every interleave G equals the
+    v5 full body; scalar_cost's witness (sc, sorted codes) equals the
+    plain version's; vstack's p1 and p3 equal the push/pop model.
 
 Every kernel row carries its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -273,11 +277,7 @@ def main(argv=None) -> int:
         k0, k1 = ktf.key_words(0)
         ms = cuda_ms(lambda: ktf.threefry2x32_kernel(k0, k1, c0d, c1d), 50)
         plain_ms = cuda_ms(lambda: ktf.threefry2x32(k0, k1, c0d, c1d), 10)
-        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                                    "--format=csv,noheader,nounits"], capture_output=True,
-                                   text=True, timeout=60).stdout.split()[0])
-        int32_rate = torch.cuda.get_device_properties(0).multi_processor_count * \
-            INT32_UNITS_PER_SM * mhz * 1e6
+        int32_rate, mhz = _int32_ops_per_s()
         kernels["K2"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                              **roofline(16 * n, THREEFRY_OPS * n, int32_rate),
                              int32_ops_per_s=int32_rate, max_sm_clock_mhz=mhz)
@@ -620,6 +620,18 @@ def main(argv=None) -> int:
         ("v5-body loop-floor probe (P-floor, 5 modes)", "probe_v5.cu",
          "scripts/kernel_floor_probe.py:48", "P-floor",
          kernels.get("P-floor", {}).get("launches", 0), {}),
+        ("v5-body base-cost probe without loads (P-base, 4 modes)", "probe_v5_part3.cu",
+         "scripts/kernel_base_probe.py:40", "P-base",
+         kernels.get("P-base", {}).get("launches", 0), {}),
+        ("v5 full body, G packets per block (P-interleave, G = 1, 2, 4, 8)",
+         "probe_interleave.cu", "scripts/kernel_interleave_probe.py:37", "P-interleave",
+         kernels.get("P-interleave", {}).get("launches", 0), {}),
+        ("scalar unit costs beside vector work (P-scalar, 6 variants + smem16 tables pre-pass)",
+         "probe_scalar.cu", "scripts/scalar_cost_probe.py:37", "P-scalar",
+         kernels.get("P-scalar", {}).get("launches", 0), {}),
+        ("stack disciplines: shift register, shared memory, pointer (P-vstack, 5 cases)",
+         "probe_vstack.cu", "scripts/vstack_probe.py:68 (p1), :130 (p2), :244 and :292 (p3)",
+         "P-vstack", kernels.get("P-vstack", {}).get("launches", 0), {}),
     ]
     rows = []
     for name, source, replaces, key, n_launch, extra in table:
@@ -959,14 +971,37 @@ def _max_abs(a, b) -> float:
     return float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0
 
 
+def _int32_ops_per_s():
+    """Int32 peak: the Hopper SM's 64 INT32 units at the card's maximum SM
+    clock (nvidia-smi clocks.max.sm), on every SM; (rate, MHz)."""
+    import torch
+
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, timeout=60).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * \
+        INT32_UNITS_PER_SM * mhz * 1e6, mhz
+
+
+def roofline_mixed(nbytes: int, fp32_ops: int, int32_ops: int, int32_rate: float) -> dict:
+    """roofline() for work of both types: the larger of the bytes' time,
+    the fp32 operations' and the int32 operations' (separate pipes)."""
+    r = roofline(nbytes, fp32_ops)
+    t_int = int32_ops / int32_rate * 1e3
+    if t_int > r["bound_ms"]:
+        r.update(bound_ms=t_int, bound_by="operations")
+    return dict(r, bound_ops=int(fp32_ops), bound_int32_ops=int(int32_ops))
+
+
 def phase13(dev, smi):
     """The traversal-iteration probes: each probe's entry point with the
     launch counts from 0 (the timings), then every variant against its
     plain version, and the bounds."""
     import torch
 
-    from raytracer_tpu_torch.probes import (ablate, ablate_v8, floor_probe, load_probe, sass,
-                                            v5_body)
+    from raytracer_tpu_torch.probes import (ablate, ablate_v8, base_probe, floor_probe,
+                                            interleave_probe, load_probe, sass, scalar_cost,
+                                            v5_body, vstack)
 
     t_phase = time.perf_counter()
     res_v8, res_v5 = ablate_v8.kernel_resources(), v5_body.kernel_resources()
@@ -974,14 +1009,16 @@ def phase13(dev, smi):
     node5, tri5, zero_row = v5_body.reference_tables()
     o5, d5, tl5 = (torch.from_numpy(a) for a in v5_body.make_rays(v5_body.N_PACKETS))
     setup_s = time.perf_counter() - t0
+    counters = (ablate_v8, v5_body, interleave_probe, scalar_cost, vstack)
 
     def out(line):
         log(13, "  " + line)
 
     # ---- the path: each entry point as its script's main() runs it
-    for d in (ablate_v8.LAUNCHES, ablate_v8.PLAIN_CALLS, v5_body.LAUNCHES, v5_body.PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
+    for mod in counters:
+        for d in (mod.LAUNCHES, mod.PLAIN_CALLS):
+            for k in d:
+                d[k] = 0
     runs, launches = {}, {}
     log(13, f"ablate_v8.run({ablate_v8.ITERS}, {ablate_v8.N_PACKETS}) (the script's sizes):")
     runs["P-v8"] = ablate_v8.run(ablate_v8.ITERS, ablate_v8.N_PACKETS, out=out)
@@ -990,7 +1027,8 @@ def phase13(dev, smi):
     launches["P-v8"] = ablate_v8.LAUNCHES["probe_v8"]
     v5_probes = {"P-ablate": ("ablate", ablate.VARIANTS),
                  "P-load": ("load_probe", load_probe.MODES),
-                 "P-floor": ("floor_probe", floor_probe.MODES)}
+                 "P-floor": ("floor_probe", floor_probe.MODES),
+                 "P-base": ("base_probe", base_probe.MODES)}
     for key, (script, modes) in v5_probes.items():
         before = v5_body.LAUNCHES["probe_v5"]
         log(13, f"{script} ({v5_body.ITERS} iterations, {v5_body.N_PACKETS} packets, the "
@@ -998,9 +1036,28 @@ def phase13(dev, smi):
         runs[key] = v5_body.run(script, modes, inputs=(node5, tri5, o5, d5, tl5, zero_row),
                                 out=out)
         launches[key] = v5_body.LAUNCHES["probe_v5"] - before
-    plain_calls = ablate_v8.PLAIN_CALLS["probe_v8"] + v5_body.PLAIN_CALLS["probe_v5"]
+    for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
+        log(13, f"interleave_probe.run({interleave_probe.ITERS}, {packets}) (the v5 full body, G "
+                f"packets per block):")
+        runs[f"P-interleave {packets}"] = interleave_probe.run(
+            interleave_probe.ITERS, packets, tables=(node5, tri5, zero_row), out=out)
+    launches["P-interleave"] = interleave_probe.LAUNCHES["probe_interleave"]
+    log(13, f"scalar_cost.run({scalar_cost.ITERS}, {scalar_cost.N_PACKETS}) (the script's sizes):")
+    runs["P-scalar"] = scalar_cost.run(out=out)
+    launches["P-scalar"] = scalar_cost.LAUNCHES["probe_scalar"]
+    launches["P-scalar tables"] = scalar_cost.LAUNCHES["probe_scalar_tables"]
+    log(13, "vstack p1, p2, p3 (in this process; one block of 8 chains):")
+    runs["P-vstack"] = {**vstack.p1(out=out), **vstack.p2(out=out), **vstack.p3(out=out)}
+    if not vstack.ok(runs["P-vstack"]):
+        raise AssertionError(f"vstack: a case disagrees with the push/pop model: "
+                             f"{runs['P-vstack']}")
+    launches["P-vstack"] = vstack.LAUNCHES["probe_vstack"]
+    plain_calls = sum(n for mod in counters for n in mod.PLAIN_CALLS.values())
     want = {"P-v8": 2 * 11 * len(ablate_v8.VARIANTS),
-            **{k: 11 * len(m) for k, (_, m) in v5_probes.items()}}
+            **{k: 11 * len(m) for k, (_, m) in v5_probes.items()},
+            "P-interleave": 2 * 11 * len(interleave_probe.GS),
+            "P-scalar": 11 * len(scalar_cost.VARIANTS), "P-scalar tables": 11,
+            "P-vstack": 11 * len(vstack.CASES)}
     if launches != want or plain_calls:
         raise AssertionError(f"probe paths: launches {launches} (expected {want}), plain calls "
                              f"{plain_calls}")
@@ -1008,6 +1065,31 @@ def phase13(dev, smi):
     # ---- every variant against its plain version, bit for bit
     checked, max_err, plain_ms = [], {}, {}
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def held(key, name, kernel_fn, plain_fn, timed=None):
+        """kernel_fn() ≡ plain_fn() bit for bit (tuples element by element);
+        max_err[key] takes their largest |difference|, plain_ms[timed] the
+        plain call's device ms."""
+        k = kernel_fn()
+        torch.cuda.synchronize()
+        ev0.record()
+        p = plain_fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        ks, ps = (k, p) if isinstance(k, tuple) else ((k,), (p,))
+        for a, b in zip(ks, ps):
+            if a is None and b is None:
+                continue
+            if (a is None or b is None or a.dtype != b.dtype or a.shape != b.shape
+                    or not _bitwise(a, b)):
+                raise AssertionError(f"{name}: kernel != plain")
+            err = _max_abs(a, b) if a.is_floating_point() else float((a - b).abs().max())
+            max_err[key] = max(max_err.get(key, 0.0), err)
+        checked.append(name)
+        if timed:
+            plain_ms[timed] = ev0.elapsed_time(ev1)
+        return k
+
     v8_in = {}
     for packets in (ablate_v8.N_PACKETS, P13_FILL_PACKETS):
         v8_in[packets] = tuple(torch.from_numpy(a).to(dev) for a in ablate_v8.make_inputs(packets))
@@ -1015,41 +1097,81 @@ def phase13(dev, smi):
             sizes = [P13_CHECK_ITERS] + ([ablate_v8.ITERS] if (
                 v == "full" and packets == ablate_v8.N_PACKETS) else [])
             for iters in sizes:
-                k = ablate_v8.ablate_v8(*v8_in[packets], v, iters)
-                torch.cuda.synchronize()
-                ev0.record()
-                p = ablate_v8.ablate_v8_plain(*v8_in[packets], v, iters)
-                ev1.record()
-                torch.cuda.synchronize()
-                if not _bitwise(k, p):
-                    raise AssertionError(f"P-v8 {v} at {packets} packets, {iters} iterations: "
-                                         f"kernel != plain (max |diff| {_max_abs(k, p)})")
-                checked.append(f"v8 {v} P{packets} i{iters}")
-                max_err["P-v8"] = max(max_err.get("P-v8", 0.0), _max_abs(k, p))
-                if iters == ablate_v8.ITERS:
-                    plain_ms["P-v8"] = ev0.elapsed_time(ev1)
+                held("P-v8", f"v8 {v} P{packets} i{iters}",
+                     lambda: ablate_v8.ablate_v8(*v8_in[packets], v, iters),
+                     lambda: ablate_v8.ablate_v8_plain(*v8_in[packets], v, iters),
+                     "P-v8" if iters == ablate_v8.ITERS else None)
     v5_in = tuple(t.to(dev) for t in (node5, tri5, o5, d5, tl5))
+    # The base modes make their rows from t_best: with tlim = 3e38 every row
+    # is 3e38, so they are also held at limits seeded in ±50, where chains
+    # take different tasks and noconcat's cross-warp read matters.
+    tl_var = torch.from_numpy(np.random.default_rng(5).uniform(
+        -50, 50, tuple(tl5.shape)).astype(np.float32)).to(dev)
     body = {}
     for mode in v5_body.MODES:
-        body_mode = mode in ("full", "full16", "prod_smem", "prod_carry")
-        for iters in [P13_CHECK_ITERS] + ([v5_body.ITERS] if body_mode else []):
-            k = v5_body.v5(*v5_in, zero_row, mode, iters)
-            torch.cuda.synchronize()
-            ev0.record()
-            p = v5_body.v5_plain(*v5_in, zero_row, mode, iters)
-            ev1.record()
-            torch.cuda.synchronize()
-            if not _bitwise(k, p):
-                raise AssertionError(f"v5 body {mode}, {iters} iterations: kernel != plain "
-                                     f"(max |diff| {_max_abs(k, p)})")
-            checked.append(f"v5 {mode} i{iters}")
-            key = next(kk for kk, (_, m) in v5_probes.items() if mode in m)
-            max_err[key] = max(max_err.get(key, 0.0), _max_abs(k, p))
-            if iters == v5_body.ITERS:
-                body[mode] = k
-                plain_ms[mode] = ev0.elapsed_time(ev1)
-    if not all(torch.equal(body["full"], b) for b in body.values()):
+        body_mode = mode in ("full", "full16", "prod_smem", "prod_carry", "base", "noconcat")
+        key = next(kk for kk, (_, m) in v5_probes.items() if mode in m)
+        limits = [("", v5_in)] + ([(" tlim±50", v5_in[:4] + (tl_var,))]
+                                  if mode in base_probe.MODES else [])
+        for tag, args in limits:
+            for iters in [P13_CHECK_ITERS] + ([v5_body.ITERS] if body_mode else []):
+                k = held(key, f"v5 {mode}{tag} i{iters}",
+                         lambda: v5_body.v5(*args, zero_row, mode, iters),
+                         lambda: v5_body.v5_plain(*args, zero_row, mode, iters),
+                         mode if (iters == v5_body.ITERS and not tag) else None)
+                if iters == v5_body.ITERS and not tag:
+                    body[mode] = k
+    if not all(torch.equal(body["full"], body[m]) for m in ("full16", "prod_smem", "prod_carry")):
         raise AssertionError("v5 body: full, full16, prod_smem and prod_carry differ")
+    minimal = v5_body.v5(*v5_in, zero_row, "minimal", v5_body.ITERS)
+    if not torch.equal(minimal, v5_body.v5(*v5_in, zero_row, "smem8", v5_body.ITERS)):
+        raise AssertionError("v5 body: minimal != smem8")
+
+    # P-interleave: every G ≡ the v5 full body (its plain version) over all
+    # packets at P13_CHECK_ITERS, and ≡ the v5 full kernel at the script's
+    # iterations, at 128 and at 1,056 packets.
+    il_fill = {}
+    for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
+        o, d, tl = (torch.from_numpy(a).to(dev) for a in v5_body.make_rays(packets))
+        args = (v5_in[0], v5_in[1], o, d, tl, zero_row)
+        plain16 = v5_body.v5_plain(*args, "full", P13_CHECK_ITERS)
+        full = v5_body.v5(*args, "full", interleave_probe.ITERS)
+        for G in interleave_probe.GS:
+            for iters, want_t in ((P13_CHECK_ITERS, plain16), (interleave_probe.ITERS, full)):
+                if not _bitwise(interleave_probe.interleave(*args, G, iters), want_t):
+                    raise AssertionError(f"interleave G={G}, {packets} packets, {iters} "
+                                         f"iterations != the v5 full body")
+                checked.append(f"interleave G{G} P{packets} i{iters}")
+        il_fill[packets] = args
+    held("P-interleave", "interleave plain (timed)",
+         lambda: interleave_probe.interleave(*il_fill[interleave_probe.N_PACKETS], 1,
+                                             interleave_probe.ITERS),
+         lambda: interleave_probe.interleave_plain(*il_fill[interleave_probe.N_PACKETS], 1,
+                                                   interleave_probe.ITERS), "P-interleave")
+
+    # P-scalar: every variant at the script's sizes, acc and the witness.
+    x = torch.from_numpy(scalar_cost.make_input()).to(dev)
+    tables = scalar_cost.smem16_tables(scalar_cost.N_PACKETS, scalar_cost.ITERS, dev)
+    if not torch.equal(tables.cpu(), scalar_cost.smem16_tables(scalar_cost.N_PACKETS,
+                                                               scalar_cost.ITERS, "cpu")):
+        raise AssertionError("scalar cost: the pre-pass tables != smem16_chain's")
+    checked.append("scalar tables")
+    for name in scalar_cost.VARIANTS:
+        mode, iters = scalar_cost.variant(name)
+        held("P-scalar", f"scalar {name}",
+             lambda: scalar_cost.scalar_cost(x, mode, iters, tables if mode == "smem16" else None),
+             lambda: scalar_cost.scalar_plain(x, mode, iters), f"scalar {name}")
+
+    # P-vstack: every case at a small count, p1 / p3 also beyond the row's
+    # 128 entries, the timing cases at 2,000 iterations, p2_vreg (the row's
+    # case) at the script's 20,000 (its plain version takes ~5 s there).
+    for case in vstack.CASES:
+        sizes = ((vstack.CHECK_ITERS, 150) if case in vstack.RECORD else
+                 (300, vstack.TIMING_ITERS if case == "p2_vreg" else 2000))
+        for iters in sizes:
+            held("P-vstack", f"vstack {case} i{iters}", lambda: vstack.vstack(case, iters, dev),
+                 lambda: vstack.vstack_plain(case, iters, dev),
+                 f"vstack {case} i{iters}" if iters == sizes[-1] else None)
 
     # ---- what each knockout left of the kernel: static SASS counts
     if os.path.exists(sass.cuobjdump()):
@@ -1060,6 +1182,14 @@ def phase13(dev, smi):
         for key in v5_probes:
             for mode, r in runs[key]["modes"].items():
                 r["sass"] = sc[f"v5 {mode}"]
+        for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
+            for G, r in runs[f"P-interleave {packets}"]["gs"].items():
+                r["sass"] = sc[f"interleave G{G}"]
+        for name, r in runs["P-scalar"]["variants"].items():
+            r["sass"] = sc[f"scalar {scalar_cost.variant(name)[0]}"]
+        runs["P-scalar"]["tables_sass"] = sc["scalar tables"]
+        for case, r in runs["P-vstack"].items():
+            r["sass"] = sc[f"vstack {case}"]
         log(13, "static SASS instructions per kernel (cuobjdump -sass): " + "; ".join(
             f"{k} {c['total']} (fp32 {c['fp32']}, int {c['int']}, shfl {c['shfl']}, shared "
             f"{c['shared']}, global {c['global']}, local {c['local']}, sync {c['sync']})"
@@ -1068,6 +1198,8 @@ def phase13(dev, smi):
         log(13, "static SASS counts: not measured (no cuobjdump beside nvcc)")
 
     # ---- rows, with the bound of each variant at its size
+    int32_rate, mhz = _int32_ops_per_s()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     for run_ in (runs["P-v8"], runs["P-v8 fill"]):
         node, tri, o, _ = v8_in[run_["packets"]]
@@ -1078,23 +1210,64 @@ def phase13(dev, smi):
         for mode, r in runs[key]["modes"].items():
             w = v5_body.work(v5_in[0], v5_in[1], v5_in[2], mode, v5_body.ITERS)
             r.update(roofline(w["bytes"], w["ops"]))
+    for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
+        w = interleave_probe.work(v5_in[0], v5_in[1], il_fill[packets][2], interleave_probe.ITERS)
+        for r in runs[f"P-interleave {packets}"]["gs"].values():
+            r.update(roofline(w["bytes"], w["ops"]))
+    for name, r in runs["P-scalar"]["variants"].items():
+        mode, iters = scalar_cost.variant(name)
+        w = scalar_cost.work(mode, scalar_cost.N_PACKETS, iters)
+        r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate))
+    for case, r in runs["P-vstack"].items():
+        w = vstack.work(case, r["iters"])
+        r.update(roofline_mixed(w["bytes"], 0, w["int32_ops"], int32_rate))
+        r["bound_one_sm_ms"] = r["bound_ms"] * n_sm   # one block: one SM's share of the peaks
     fill = runs["P-v8 fill"]["variants"]
     rows["P-v8"] = dict(launches=launches["P-v8"], max_abs_err=max_err["P-v8"],
                         plain_ms=plain_ms["P-v8"], **runs["P-v8"]["variants"]["full"],
                         ms_1056=fill["full"]["ms"], bound_1056_ms=fill["full"]["bound_ms"],
                         variants=runs["P-v8"]["variants"], variants_1056=fill)
-    for key, first in (("P-ablate", "full"), ("P-load", "full16"), ("P-floor", "prod_smem")):
+    for key, first in (("P-ablate", "full"), ("P-load", "full16"), ("P-floor", "prod_smem"),
+                       ("P-base", "base")):
         m = runs[key]["modes"]
         rows[key] = dict(launches=launches[key], max_abs_err=max_err[key],
                          plain_ms=plain_ms[first], ms_is=first, **m[first], modes=m)
+    il, il_f = runs[f"P-interleave {interleave_probe.N_PACKETS}"], \
+        runs[f"P-interleave {P13_FILL_PACKETS}"]
+    rows["P-interleave"] = dict(launches=launches["P-interleave"],
+                                max_abs_err=max_err["P-interleave"],
+                                plain_ms=plain_ms["P-interleave"], ms_is="G=1, 128 packets",
+                                **il["gs"][1], ms_1056=il_f["gs"][1]["ms"],
+                                bound_1056_ms=il_f["gs"][1]["bound_ms"], gs=il["gs"],
+                                gs_1056=il_f["gs"])
+    sv = runs["P-scalar"]["variants"]
+    rows["P-scalar"] = dict(launches=launches["P-scalar"], max_abs_err=max_err["P-scalar"],
+                            plain_ms=plain_ms["scalar baseline"], ms_is="baseline",
+                            **sv["baseline"], tables_ms=runs["P-scalar"]["tables_ms"],
+                            tables_launches=launches["P-scalar tables"], variants=sv,
+                            plain_ms_variants={k: v for k, v in plain_ms.items()
+                                               if k.startswith("scalar")},
+                            int32_ops_per_s=int32_rate, max_sm_clock_mhz=mhz)
+    vs = runs["P-vstack"]
+    rows["P-vstack"] = dict(launches=launches["P-vstack"], max_abs_err=max_err["P-vstack"],
+                            plain_ms=plain_ms[f"vstack p2_vreg i{vstack.TIMING_ITERS}"],
+                            ms_is="p2_vreg, 20,000 iterations",
+                            **vs["p2_vreg"], cases=vs,
+                            plain_ms_cases={k: v for k, v in plain_ms.items()
+                                            if k.startswith("vstack")},
+                            int32_ops_per_s=int32_rate)
     secs = time.perf_counter() - t_phase
     log(13, f"every variant == its plain version bit for bit ({len(checked)} checks: "
             f"{P13_CHECK_ITERS} iterations over all packets, the full bodies also at the "
-            f"scripts' iterations); full == full16 == prod_smem == prod_carry; launches "
-            f"{launches} (11 per variant: a warm-up and 10 timed), plain calls {plain_calls}; "
-            f"plain full bodies {', '.join(f'{k} {v:.1f} ms' for k, v in plain_ms.items())}; "
-            f"numRegs / localSizeBytes v8 {res_v8}, v5 {res_v5}; v5 tables built in "
-            f"{setup_s:.2f} s; phase {secs:.1f} s on {smi}")
+            f"scripts' iterations, the base modes also at limits in ±50; interleave every G "
+            f"== v5 full at 128 and {P13_FILL_PACKETS} packets; scalar acc, sc and codes at "
+            f"the script's sizes; vstack at 64/150 and 300/2,000 iterations, p2_vreg also at "
+            f"20,000); full == "
+            f"full16 == prod_smem == prod_carry, minimal == smem8; launches {launches} (11 per "
+            f"variant: a warm-up and 10 timed), plain calls {plain_calls}; plain "
+            f"{', '.join(f'{k} {v:.1f} ms' for k, v in plain_ms.items())}; numRegs / "
+            f"localSizeBytes v8 {res_v8}, v5 {res_v5}; v5 tables built in {setup_s:.2f} s; "
+            f"phase {secs:.1f} s on {smi}")
     return dict(seconds=secs, checks=len(checked), launches=launches, card=smi, runs=runs,
                 rows=rows)
 

@@ -1,4 +1,4 @@
-// P-ablate / P-load / P-floor entry points and the kernels of full, no_leaf,
+// P-ablate / P-load / P-floor / P-base entry points and the kernels of full, no_leaf,
 // no_internal, no_scalar, no_fetch and full16 (the kernel and its design:
 // probe_v5.cuh).
 #include "probe_v5.cuh"

@@ -1,14 +1,16 @@
-// P-ablate, P-load, P-floor: the fixed-iteration v5 traversal body over a
-// 4-wide tree in the v5 tables, one mode per knockout of three scripts.
+// P-ablate, P-load, P-floor, P-base: the fixed-iteration v5 traversal body
+// over a 4-wide tree in the v5 tables, one mode per knockout of four scripts.
 //
 // Replaces scripts/kernel_ablate.py make_kernel (:33; TPU call :213),
-// scripts/kernel_load_probe.py make_kernel (:43; :214) and
-// scripts/kernel_floor_probe.py make_kernel (:48; :263). Wrapper and plain
+// scripts/kernel_load_probe.py make_kernel (:43; :214),
+// scripts/kernel_floor_probe.py make_kernel (:48; :263) and
+// scripts/kernel_base_probe.py make_kernel (:40; :209). Wrapper and plain
 // PyTorch version: raytracer_tpu_torch/probes/v5_body.py (`v5`, `v5_plain`),
 // which take the same operations in the same order, so the two agree bit for
 // bit. Modes, in v5_body.MODES order: full, no_leaf, no_internal, no_scalar,
 // no_fetch (ablate); full16, loads8, loads0 (load); empty, carry8, smem8,
-// prod_smem, prod_carry (floor). full, full16 and prod_smem are one body.
+// prod_smem, prod_carry (floor); base, noconcat, noc_nosc, minimal (base).
+// full, full16 and prod_smem are one body; minimal is smem8's.
 //
 // One block of 8 warps per packet, one warp per chain (probe.cuh). Per
 // iteration a chain reads its task, loads its node row (the task's record of
@@ -20,6 +22,17 @@
 // carry8 and prod_carry. loads0 makes both rows from chain 0's t_best + the
 // task, as the script does: warp 0 publishes its t_best in shared memory
 // (double-buffered, one __syncthreads() per iteration).
+//
+// The base modes make both rows with no loads, as loads0 does, but each
+// chain from its OWN t_best, which a warp stages in its own slice of shared
+// memory (one __syncwarp, no block barrier). base adds the chain's own
+// task; noconcat adds chain 0's task, which warp 0 publishes at the end of
+// each iteration in a double-buffered slot that every warp reads after one
+// __syncthreads(); noc_nosc is noconcat with the task stepping 0..1000
+// instead of push/pop; minimal is the loop and the shared-memory task
+// alone. On the TPU base − noconcat measured the cross-sublane concatenate
+// that assembles 8 chains' rows; a warp has no such assembly, so here it
+// measures the chain's own task against a shared task and a block barrier.
 //
 // What bounds it: the dependence chain of one iteration (task → row load →
 // 8 MT records → slabs → shuffles → push/pop → task), not bytes or fp32
@@ -40,7 +53,7 @@ constexpr int RESTART = 1000;
 constexpr float HALF_BIG = 1.5e38f;  // orders rep-miss (but visited) children last
 enum Mode {
   FULL_BODY, NO_LEAF, NO_INTERNAL, NO_SCALAR, NO_FETCH, FULL16, LOADS8, LOADS0, EMPTY, CARRY8,
-  SMEM8, PROD_SMEM, PROD_CARRY, N_MODES
+  SMEM8, PROD_SMEM, PROD_CARRY, BASE, NOCONCAT, NOC_NOSC, MINIMAL, N_MODES
 };
 
 template <int M>
@@ -50,13 +63,17 @@ __global__ void __launch_bounds__(P_SUB * 32)
                     const float* __restrict__ tlim, int zero_row, int iters,
                     float* __restrict__ out) {
   constexpr bool FETCH = M != NO_FETCH, LEAF = M != NO_LEAF, INTERNAL = M != NO_INTERNAL;
-  constexpr bool SCALAR = M != NO_SCALAR;
-  constexpr int LOADS = M == LOADS8 ? 8 : M == LOADS0 ? 0 : 16;
+  constexpr bool SCALAR = M != NO_SCALAR && M != NOC_NOSC;
+  constexpr bool OWN_ROW = M == BASE || M == NOCONCAT || M == NOC_NOSC;
+  constexpr bool TASK0 = M == NOCONCAT || M == NOC_NOSC;  // rows add chain 0's task
+  constexpr int LOADS = M == LOADS8 ? 8 : (M == LOADS0 || OWN_ROW) ? 0 : 16;
   constexpr bool CARRY = M == CARRY8 || M == PROD_CARRY;
-  constexpr bool LOOP_ONLY = M == EMPTY || M == CARRY8 || M == SMEM8;
+  constexpr bool LOOP_ONLY = M == EMPTY || M == CARRY8 || M == SMEM8 || M == MINIMAL;
   __shared__ int s_task[P_SUB], s_sp[P_SUB];
   __shared__ int s_stack[P_SUB][STACK_CAP];
-  __shared__ float s_row0[LOADS == 0 ? 2 : 1][LOADS == 0 ? P_LANE : 1];
+  __shared__ float s_row0[M == LOADS0 ? 2 : 1][M == LOADS0 ? P_LANE : 1];
+  __shared__ float s_own[OWN_ROW ? P_SUB : 1][OWN_ROW ? P_LANE : 1];
+  __shared__ int s_task0[2];
   const int p = blockIdx.x, s = threadIdx.x >> 5, lane = threadIdx.x & 31;
   Lanes L;
   load_rays(L, o, d, p, s, lane);
@@ -70,6 +87,7 @@ __global__ void __launch_bounds__(P_SUB * 32)
     s_task[s] = 0;
     s_sp[s] = 0;
   }
+  if (TASK0 && threadIdx.x == 0) s_task0[0] = 0;  // read after iteration 0's barrier
   __syncwarp();
   int task_r = 0, sp_r = 0;  // carry8, prod_carry: the state in registers
   int* stack = s_stack[s];
@@ -79,7 +97,7 @@ __global__ void __launch_bounds__(P_SUB * 32)
       if (M == CARRY8) {
         task_r = task_r >= RESTART ? 0 : task_r + 1;
         keep(task_r);
-      } else if (M == SMEM8) {
+      } else if (M == SMEM8 || M == MINIMAL) {
         const int t = s_task[s];
         __syncwarp();
         if (lane == 0) s_task[s] = t >= RESTART ? 0 : t + 1;
@@ -96,7 +114,16 @@ __global__ void __launch_bounds__(P_SUB * 32)
       // ---- the node record and the triangle row
       const float* nrec;
       const float* trow;
-      if constexpr (LOADS == 0) {
+      if constexpr (OWN_ROW) {
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) s_own[s][lane + 32 * j] = L.t_best[j];
+        if (TASK0) {
+          __syncthreads();  // warp 0's task of the last iteration is published
+        } else {
+          __syncwarp();
+        }
+        nrec = trow = s_own[s];
+      } else if constexpr (LOADS == 0) {
         if (s == 0) {
 #pragma unroll
           for (int j = 0; j < LPT; ++j) s_row0[i & 1][lane + 32 * j] = L.t_best[j];
@@ -113,8 +140,9 @@ __global__ void __launch_bounds__(P_SUB * 32)
         nrec = node;
         trow = tri;
       }
-      const float ftask = static_cast<float>(task);
-      // A lane of a row: loads0's rows are chain 0's t_best + the task.
+      const float ftask = static_cast<float>(TASK0 ? s_task0[i & 1] : task);
+      // A lane of a row: the rows of loads0 and the base modes are a t_best
+      // row + a task.
       auto at = [&](const float* row, int c) {
         return LOADS == 0 ? row[c] + ftask : row[c];
       };
@@ -203,6 +231,9 @@ __global__ void __launch_bounds__(P_SUB * 32)
       } else if (lane == 0) {
         s_task[s] = new_task;
         if (SCALAR) s_sp[s] = new_sp;
+        // The slot the other warps read in the last iteration, before this
+        // one's barrier.
+        if (TASK0 && s == 0) s_task0[(i + 1) & 1] = new_task;
       }
       __syncwarp();  // the next iteration reads what lane 0 wrote
     }
@@ -214,9 +245,11 @@ __global__ void __launch_bounds__(P_SUB * 32)
 using KernelFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                           int, int, float*);
 
-// The kernels of loads8 .. prod_carry, instantiated in probe_v5_part2.cu so
-// that nvcc compiles them beside probe_v5.cu's (cudalib starts one nvcc per
-// source, all at once); nullptr for another mode.
+// The kernels of loads8 .. prod_carry, instantiated in probe_v5_part2.cu, and
+// of base .. minimal, in probe_v5_part3.cu, so that nvcc compiles them beside
+// probe_v5.cu's (cudalib starts one nvcc per source, all at once); nullptr
+// for another mode.
 KernelFn part2_kernel(int mode);
+KernelFn part3_kernel(int mode);
 
 }  // namespace probe_v5

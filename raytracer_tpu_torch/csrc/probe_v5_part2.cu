@@ -14,7 +14,7 @@ KernelFn part2_kernel(int mode) {
     case SMEM8: return probe_v5_kernel<SMEM8>;
     case PROD_SMEM: return probe_v5_kernel<PROD_SMEM>;
     case PROD_CARRY: return probe_v5_kernel<PROD_CARRY>;
-    default: return nullptr;
+    default: return part3_kernel(mode);
   }
 }
 

@@ -29,7 +29,11 @@ KINDS = {
 }
 _FUNC = re.compile(r"Function : (\S+)")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
-_KERNEL = re.compile(r"probe_(v8|v5)_kernelILi(\d+)E")
+# A probe kernel's mangled name: its body and template argument (a variant,
+# mode or case id; G itself for the interleave probe), or the scalar
+# probe's tables pre-pass.
+_KERNEL = re.compile(r"probe_(v8|v5|interleave|scalar|vstack)_kernelILi(\d+)E"
+                     r"|probe_(scalar)_(tables)_kernel")
 
 
 def cuobjdump() -> str:
@@ -38,14 +42,21 @@ def cuobjdump() -> str:
 
 
 def parse(sass: str) -> dict:
-    """{("v8" | "v5", instantiation id): {"total": n, kind: n, ...}} of the
-    probe kernels in cuobjdump -sass output."""
+    """{(body, instantiation id): {"total": n, kind: n, ...}} of the probe
+    kernels in cuobjdump -sass output; body is "v8", "v5", "interleave",
+    "scalar" or "vstack", the id an int ("tables" for the scalar probe's
+    pre-pass)."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = _FUNC.search(line)
         if m:
             k = _KERNEL.search(m.group(1))
-            cur = (k.group(1), int(k.group(2))) if k else None
+            if k is None:
+                cur = None
+            elif k.group(1):
+                cur = (k.group(1), int(k.group(2)))
+            else:
+                cur = (k.group(3), k.group(4))
             if cur is not None:
                 out[cur] = dict.fromkeys(["total", *KINDS], 0)
             continue
@@ -71,9 +82,21 @@ def counts(lib_path: str | None = None) -> dict:
     return parse(res.stdout)
 
 
-def by_name() -> dict:
-    """{"v8 <variant>" | "v5 <mode>": counts} in the probes' own names."""
-    from raytracer_tpu_torch.probes import ablate_v8, v5_body
+def name(body: str, i) -> str:
+    """A kernel's name in its probe's own terms: "v8 <variant>", "v5
+    <mode>", "interleave G<G>", "scalar <mode>" (or "scalar tables"),
+    "vstack <case>"."""
+    from raytracer_tpu_torch.probes import ablate_v8, scalar_cost, v5_body, vstack
 
-    names = {"v8": ablate_v8.VARIANTS, "v5": v5_body.MODES}
-    return {f"{body} {names[body][i]}": c for (body, i), c in sorted(counts().items())}
+    if body == "interleave":
+        return f"interleave G{i}"
+    if i == "tables":
+        return "scalar tables"
+    names = {"v8": ablate_v8.VARIANTS, "v5": v5_body.MODES, "scalar": scalar_cost.MODES,
+             "vstack": vstack.CASES}
+    return f"{body} {names[body][i]}"
+
+
+def by_name() -> dict:
+    """{name(body, id): counts} of every probe kernel in the library."""
+    return {name(body, i): c for (body, i), c in sorted(counts().items(), key=str)}

@@ -1,4 +1,4 @@
-"""One fixed-iteration v5 traversal body with the knockouts of three probe
+"""One fixed-iteration v5 traversal body with the knockouts of four probe
 scripts as its modes (kernel: csrc/probe_v5.cu; plain PyTorch version:
 `v5_plain`). Each packet's 8 chains walk a 4-wide tree in the v5 tables
 (probes/v5_tables.py) from the root; a chain whose walk ends restarts at
@@ -21,6 +21,12 @@ the root, so every mode runs exactly `iters` iterations.
     smem8        + the chain's task stepped through shared memory
     prod_smem    the full body, task and stack pointer in shared memory
     prod_carry   the full body, task and stack pointer in registers
+  scripts/kernel_base_probe.py (probes/base_probe.py), no loads:
+    base         both rows from the chain's own t_best + its own task
+    noconcat     the chain's own t_best + chain 0's task
+    noc_nosc     noconcat without push/pop (the task steps through 0..1000)
+    minimal      the loop alone, the task stepped through shared memory
+                 (smem8's body)
 
 On the TPU a chain's task, stack pointer and stack live in SMEM, the
 scalar core's memory; here a chain is a warp and they live in the warp's
@@ -49,18 +55,24 @@ STACK_CAP = 40
 RESTART = 1000  # no_scalar / carry8 / smem8: the task steps 0, 1, ..., 1000, 0, ...
 # Mode → id of its instantiation in csrc/probe_v5.cu (the same order).
 MODES = ("full", "no_leaf", "no_internal", "no_scalar", "no_fetch", "full16", "loads8",
-         "loads0", "empty", "carry8", "smem8", "prod_smem", "prod_carry")
+         "loads0", "empty", "carry8", "smem8", "prod_smem", "prod_carry", "base", "noconcat",
+         "noc_nosc", "minimal")
 LAUNCHES = {"probe_v5": 0}
 PLAIN_CALLS = {"probe_v5": 0}   # calls of the plain version
 
 
 def flags(mode: str) -> dict:
+    """What a mode keeps. loads: table rows loaded per chain (0: both rows
+    made from a t_best row + a task, the row chain 0's where row0, the
+    task chain 0's where task0)."""
     if mode not in MODES:
         raise ValueError(f"v5 body: unknown mode {mode!r}")
+    no_loads = ("loads0", "base", "noconcat", "noc_nosc")
     return dict(fetch=mode != "no_fetch", leaf=mode != "no_leaf",
-                internal=mode != "no_internal", scalar=mode != "no_scalar",
-                loads={"loads8": 8, "loads0": 0}.get(mode, 16),
-                loop_only=mode in ("empty", "carry8", "smem8"))
+                internal=mode != "no_internal", scalar=mode not in ("no_scalar", "noc_nosc"),
+                loads=8 if mode == "loads8" else 0 if mode in no_loads else 16,
+                row0=mode == "loads0", task0=mode in ("noconcat", "noc_nosc"),
+                loop_only=mode in ("empty", "carry8", "smem8", "minimal"))
 
 
 def reference_tables():
@@ -108,7 +120,7 @@ def v5_plain(node, tri, o, d, tlim, zero_row: int, mode: str, iters: int):
     ov, dv, iv = common.rays(o, d)
     t_best = tlim.clone()
     if f["loop_only"]:
-        # The task of carry8 / smem8 reaches no output.
+        # The task of carry8 / smem8 / minimal reaches no output.
         for _ in range(iters):
             t_best = t_best + 1.0
         return t_best
@@ -125,7 +137,9 @@ def v5_plain(node, tri, o, d, tlim, zero_row: int, mode: str, iters: int):
         is_leaf = task <= -2
         code = -task - 2
         if f["loads"] == 0:
-            fake = t_best[:, 0:1] + task.to(torch.float32)[..., None]   # chain 0's t_best
+            row = t_best[:, 0:1] if f["row0"] else t_best
+            tk = task[:, 0:1] if f["task0"] else task
+            fake = row + tk.to(torch.float32)[..., None]
             nrec, trow = fake[..., 0:NODE_STRIDE], fake
         elif f["fetch"]:
             nrow = node[torch.where(is_int, task // 4, zero).long()]
@@ -232,8 +246,8 @@ def kernel_resources(modes=MODES) -> dict:
 
 def lane_ops(mode: str) -> int:
     """fp32 operations of one lane in one iteration (common.MT_OPS,
-    SLAB_OPS): 8 MT records, 4 slab tests, loads0's add making the row,
-    the loop-only modes' t_best + 1."""
+    SLAB_OPS): 8 MT records, 4 slab tests, the add making the row of the
+    modes without loads, the loop-only modes' t_best + 1."""
     f = flags(mode)
     if f["loop_only"]:
         return 1

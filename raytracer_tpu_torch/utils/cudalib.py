@@ -172,10 +172,18 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_v5.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
     L.rt_probe_v8_attrs.argtypes = [ci, ip, ip]
     L.rt_probe_v5_attrs.argtypes = [ci, ip, ip]
+    L.rt_probe_interleave.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
+    L.rt_probe_scalar.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
+    L.rt_probe_scalar_tables.argtypes = [ci, ci, vp, vp]
+    L.rt_probe_vstack.argtypes = [ci, ci, vp, vp, vp, vp]
+    for name in ("interleave", "scalar", "vstack"):
+        getattr(L, f"rt_probe_{name}_attrs").argtypes = [ci, ip, ip]
     for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_trace_closest,
                L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
                L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_probe_v8,
-               L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs):
+               L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs, L.rt_probe_interleave,
+               L.rt_probe_interleave_attrs, L.rt_probe_scalar, L.rt_probe_scalar_tables,
+               L.rt_probe_scalar_attrs, L.rt_probe_vstack, L.rt_probe_vstack_attrs):
         fn.restype = ctypes.c_int
     L.rt_error_string.argtypes = [ci]
     L.rt_error_string.restype = ctypes.c_char_p

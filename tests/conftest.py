@@ -49,6 +49,7 @@ _SLOW_IDS = (
     "test_two_process_distributed_render",
     "test_sharded_wavefront_interleave_active",
     "test_fused_sharded_matches_single_device",
+    "test_interleave_wide_matches_script",
 )
 
 

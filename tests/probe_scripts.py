@@ -1,5 +1,6 @@
 """Helpers of tests/test_torch_probes*.py: the probe scripts of scripts/
-imported as they are, and the tolerance their outputs are held to.
+imported as they are, the v5 tables of a small tree, and the tolerance
+the outputs are held to.
 
 The scripts read sys.argv at import (ITERS, and the packet count of
 kernel_ablate_v8.py), so argv is patched first; kernel_ablate_v8.py calls
@@ -33,6 +34,49 @@ def load_script(monkeypatch, name: str, argv):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def v5_tables():
+    """(node, tri, o, d, tlim, zero_row) as numpy: the v5 tables of a small
+    4-wide tree (400 random triangles and 4 large ones, which the builder
+    splits off as brute rows) and 2 packets of seeded rays. The node table
+    is padded with zero rows to 251, the rows no_scalar's task walks
+    through (0..1000 // 4)."""
+    import torch
+
+    from raytracer_tpu_torch.probes import v5_body
+    from raytracer_tpu_torch.probes.v5_tables import pack_tables
+    from raytracer_tpu_torch.scene.builder import build_scene_bvh4
+    from raytracer_tpu_torch.scene.types import TriMesh
+
+    rng = np.random.default_rng(11)
+    n_small = 400
+    c = rng.uniform(-0.3, 0.3, (n_small, 1, 3))
+    small = c + rng.normal(scale=0.06, size=(n_small, 3, 3))
+    big = np.array([[[-1, -1, -0.5], [1, -1, -0.5], [0, 1, -0.5]],
+                    [[-1, -1, 0.5], [0, 1, 0.5], [1, -1, 0.5]],
+                    [[-1, -0.4, -1], [1, -0.4, -1], [0, -0.4, 1]],
+                    [[-0.5, -1, -1], [-0.5, 1, -1], [-0.5, 0, 1]]])
+    verts = np.concatenate([small, big]).reshape(-1, 3).astype(np.float32)
+    n = verts.shape[0] // 3
+    mesh = TriMesh(vertices=torch.from_numpy(verts),
+                   faces=torch.arange(3 * n, dtype=torch.int32).reshape(n, 3),
+                   face_mat=torch.from_numpy((np.arange(n) % 3).astype(np.int32)))
+    old = os.environ.get("RAYTRACER_TPU_BVH_WIDTH")
+    os.environ["RAYTRACER_TPU_BVH_WIDTH"] = "4"
+    try:
+        bvh = build_scene_bvh4(mesh)
+    finally:
+        if old is None:
+            del os.environ["RAYTRACER_TPU_BVH_WIDTH"]
+        else:
+            os.environ["RAYTRACER_TPU_BVH_WIDTH"] = old
+    assert bvh.children.shape[1] == 4 and bvh.brute_tri is not None
+    node, tri, _, n_brute = pack_tables(bvh, bvh.face_mat)
+    assert n_brute == 1 and bvh.stack_depth + 4 <= v5_body.STACK_CAP
+    node = np.concatenate([node.numpy(), np.zeros((251 - node.shape[0], 128), np.float32)])
+    o, d, tlim = v5_body.make_rays(PACKETS, seed=2)
+    return node, tri.numpy(), o, d, tlim, tri.shape[0] - 1
 
 
 def agree(got, want) -> int:

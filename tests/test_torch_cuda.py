@@ -20,7 +20,8 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.fused import render_image_fused
 from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
 from raytracer_tpu_torch.ops.bvh4 import BIG
-from raytracer_tpu_torch.probes import ablate_v8, v5_body
+from raytracer_tpu_torch.probes import (ablate_v8, base_probe, interleave_probe, scalar_cost,
+                                        v5_body, vstack)
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 from raytracer_tpu_torch.scene.builder import cornell_materials_scene, reference_scene
 from raytracer_tpu_torch.utils import ktf
@@ -233,7 +234,72 @@ def test_probe_v5_equals_plain(dev, v5_inputs, mode):
     assert _bitwise(k, v5_body.v5_plain(node, tri, o, d, tlim, zero_row, mode, 12))
 
 
+@pytest.mark.parametrize("mode", base_probe.MODES)
+def test_probe_v5_base_modes_varied_limits(dev, v5_inputs, mode):
+    """The base modes' rows are t_best + a task: at limits seeded in ±50
+    the chains take different tasks, so noconcat's read of chain 0's task
+    (after a block barrier) is exercised; kernel ≡ plain bit for bit."""
+    node, tri, o, d, tlim, zero_row = v5_inputs
+    tl = torch.from_numpy(np.random.default_rng(5).uniform(-50, 50, tuple(tlim.shape))
+                          .astype(np.float32))
+    k = v5_body.v5(*(t.to(dev) for t in (node, tri, o, d, tl)), zero_row, mode, 24)
+    assert _bitwise(k, v5_body.v5_plain(node, tri, o, d, tl, zero_row, mode, 24))
+
+
+@pytest.mark.parametrize("G", interleave_probe.GS)
+def test_probe_interleave_equals_v5_full(dev, v5_inputs, G):
+    """csrc/probe_interleave.cu at every G ≡ the v5 full body's plain
+    version bit for bit (8 packets, 12 iterations); one launch counted."""
+    node, tri, _, _, _, zero_row = v5_inputs
+    o, d, tlim = (torch.from_numpy(a) for a in v5_body.make_rays(8, seed=3))
+    before = interleave_probe.LAUNCHES["probe_interleave"]
+    k = interleave_probe.interleave(*(t.to(dev) for t in (node, tri, o, d, tlim)), zero_row, G,
+                                    12)
+    assert interleave_probe.LAUNCHES["probe_interleave"] == before + 1
+    assert _bitwise(k, v5_body.v5_plain(node, tri, o, d, tlim, zero_row, "full", 12))
+
+
+@pytest.mark.parametrize("mode", scalar_cost.MODES)
+def test_probe_scalar_equals_plain(dev, mode):
+    """csrc/probe_scalar.cu ≡ scalar_plain bit for bit: acc, the witness sc
+    and vsort's codes (5 packets, 70 iterations: smem16's carried table
+    matters past 64)."""
+    x = torch.from_numpy(scalar_cost.make_input(5, seed=4))
+    before = scalar_cost.LAUNCHES["probe_scalar"]
+    acc, sc, codes = scalar_cost.scalar_cost(x.to(dev), mode, 70)
+    assert scalar_cost.LAUNCHES["probe_scalar"] == before + 1
+    acc_p, sc_p, codes_p = scalar_cost.scalar_plain(x, mode, 70)
+    assert _bitwise(acc, acc_p) and torch.equal(sc.cpu(), sc_p)
+    assert (codes is None) == (codes_p is None)
+    if codes is not None:
+        assert torch.equal(codes.cpu(), codes_p)
+
+
+def test_probe_scalar_tables_equal_chain(dev):
+    """The one-thread pre-pass gives smem16_chain's starting tables."""
+    got = scalar_cost.smem16_tables(9, 150, dev)
+    assert torch.equal(got.cpu(), scalar_cost.smem16_tables(9, 150, "cpu"))
+
+
+@pytest.mark.parametrize("case", vstack.CASES)
+def test_probe_vstack_equals_plain(dev, case):
+    """csrc/probe_vstack.cu ≡ vstack_plain bit for bit (p1 / p3 at 64
+    iterations, where they also equal the push/pop model, and at 150, past
+    the row's 128 entries; the timing cases at 300)."""
+    for iters in ((64, 150) if case in vstack.RECORD else (300,)):
+        k = vstack.vstack(case, iters, dev)
+        p = vstack.vstack_plain(case, iters)
+        if case in vstack.RECORD:
+            assert torch.equal(k[0].cpu(), p[0]) and torch.equal(k[1].cpu(), p[1])
+            if iters == 64:
+                assert vstack.matches_model(case, k[0].cpu(), k[1].cpu(), 64) == (True, True)
+        else:
+            assert _bitwise(k, p)
+
+
 def test_probe_resources(dev):
     regs8, regs5 = ablate_v8.kernel_resources(), v5_body.kernel_resources()
     assert set(regs8) == set(ablate_v8.VARIANTS) and set(regs5) == set(v5_body.MODES)
-    assert all(r > 0 for r, _ in list(regs8.values()) + list(regs5.values()))
+    more = [*interleave_probe.kernel_resources().values(),
+            *scalar_cost.kernel_resources().values(), *vstack.kernel_resources().values()]
+    assert all(r > 0 for r, _ in list(regs8.values()) + list(regs5.values()) + more)

@@ -153,3 +153,28 @@ def test_sass_counts_parse():
     assert (v8["total"], v8["fp32"], v8["shfl"], v8["shared"], v8["branch"]) == (5, 1, 1, 1, 1)
     v5 = c[("v5", 12)]
     assert (v5["total"], v5["sync"], v5["fp32"]) == (2, 1, 1)
+
+
+def test_sass_counts_parse_new_probes():
+    """The P-base, P-interleave, P-scalar and P-vstack kernels (and the
+    scalar probe's tables pre-pass) are parsed and named in their probes'
+    terms."""
+    text = """
+        Function : _ZN16probe_interleave23probe_interleave_kernelILi8EEEvPKfS2_S2_S2_S2_iiPf
+        /*0000*/                   FADD R2, R3, R4 ;
+        Function : _ZN12probe_scalar19probe_scalar_kernelILi4EEEvPKfPKiiPfPiS6_
+        /*0000*/                   SHFL.IDX PT, R5, R2, RZ, 0x1f ;
+        /*0010*/                   STS [R7], R6 ;
+        Function : _ZN12probe_scalar26probe_scalar_tables_kernelEiiPi
+        /*0000*/                   LDS R6, [R7] ;
+        Function : _ZN12probe_vstack19probe_vstack_kernelILi1EEEviPiS1_Pf
+        /*0000*/                   SHFL.UP PT, R5, R2, 0x1, RZ ;
+        Function : _ZN8probe_v515probe_v5_kernelILi16EEEvPKfS2_S2_S2_S2_iiPf
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+    """
+    c = sass.parse(text)
+    assert set(c) == {("interleave", 8), ("scalar", 4), ("scalar", "tables"), ("vstack", 1),
+                      ("v5", 16)}
+    assert (c[("scalar", 4)]["shfl"], c[("scalar", 4)]["shared"]) == (1, 1)
+    assert {sass.name(*k) for k in c} == {"interleave G8", "scalar vsort", "scalar tables",
+                                          "v5 minimal", "vstack p2_vreg"}
