@@ -34,7 +34,21 @@ plain PyTorch version, and drives the port's two paths:
     its plain version bit for bit at a check size over all packets, the
     full bodies also at the scripts' sizes; every interleave G equals the
     v5 full body; scalar_cost's witness (sc, sorted codes) equals the
-    plain version's; vstack's p1 and p3 equal the push/pop model.
+    plain version's; vstack's p1 and p3 equal the push/pop model. The
+    entry points of ktf_probe.py (five [8, 128] cases, each against the
+    script's host expectation and its plain version on the card) and
+    v6.py (the dual-unit traversal on the reference scene's 4-wide tree,
+    128 packets: equal to its plain version bit for bit at a check size
+    and at full length, against K4 on the same tree by the script's rule,
+    timed against it in turns);
+  * the 4-wide tree (phase 14): the reference scene built with
+    RAYTRACER_TPU_BVH_WIDTH=4 through K4, K3, K5 and K3-profile built for
+    width 4: K4 equal to its plain version bit for bit and to K4 on the
+    BVH8 in t, K3 on the preflight frame equal to its plain version bit
+    for bit at the known answer, K5 and K3-profile equal to K3, the 2K
+    kernel at width 4 against width 8 in turns, and the CLI (fused, fused
+    with RAYTRACER_TPU_INTERLEAVE=2, megakernel) on the 4-wide tree with
+    the launch counts from 0.
 
 Every kernel row carries its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -198,7 +212,7 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -207,7 +221,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
-    from raytracer_tpu_torch.camera import generate_rays, showcase_camera
+    from raytracer_tpu_torch.camera import showcase_camera
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.models.fused import _fused_pixel_grid, render_image_fused
     from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
@@ -244,9 +258,15 @@ def main(argv=None) -> int:
            f"(cached={info['cached']})")
     for ln in ptxas:
         log(2, f"  ptxas: {ln}")
+    from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
+
+    res = {**cuda_megakernel.kernel_resources(), **cuda_traverse.kernel_resources()}
+    log(2, "numRegs / localSizeBytes: " + ", ".join(f"{k} {r} / {b}" for k, (r, b) in res.items())
+        + " (width 8 before the kernels took width 4: K3 64 / 1024, K3-profile 67 / 1024, "
+        "K5 128 / 2080, K4 54)")
 
     scene = None
-    if phases & {4, 5, 6, 7, 8, 9, 11, 12}:
+    if phases & {4, 5, 6, 7, 8, 9, 11, 12, 14}:
         t0 = time.perf_counter()
         scene_cpu = reference_scene()
         scene = scene_cpu.to(dev)
@@ -287,22 +307,8 @@ def main(argv=None) -> int:
 
     # ---- 4. K1/K4: traversal vs plain and brute force
     if 4 in phases:
-        gen = np.random.default_rng(4)
-        cfg = RenderConfig(**MAIN)
-        cam = showcase_camera(cfg)
-        m = 65536
-        pxs = torch.from_numpy(gen.integers(0, cfg.width, m).astype(np.int32)).to(dev)
-        pys = torch.from_numpy(gen.integers(0, cfg.height, m).astype(np.int32)).to(dev)
-        o_cam, d_cam = generate_rays(cam, pxs, pys, cfg.width, cfg.height,
-                                     ktf.sampler(0, pys * cfg.width + pxs))
-        v = scene.mesh.vertices
-        lo, hi = v.min(dim=0).values, v.max(dim=0).values
-        span = hi - lo
-        o_box = lo + span * (0.02 + 0.96 * torch.from_numpy(
-            gen.uniform(size=(m, 3)).astype(np.float32)).to(dev))
-        d_box = torch.from_numpy(gen.normal(size=(m, 3)).astype(np.float32)).to(dev)
-        o = torch.cat([o_cam, o_box]).contiguous()
-        d = torch.cat([d_cam, d_box]).contiguous()
+        o, d = phase4_rays(scene, dev)
+        m = o.shape[0] // 2
         before = cuda_traverse.LAUNCHES["trace_closest"]
         rk = cuda_traverse.trace_closest(o, d, scene.bvh4, BIG, sort=False)
         torch.cuda.synchronize()
@@ -574,15 +580,21 @@ def main(argv=None) -> int:
         kernels.update(probes.pop("rows"))
         print(json.dumps({"probes": probes}), flush=True)
 
+    if 14 in phases:
+        r14 = phase14(scene, dev, smi)
+        kernels.update(r14["rows"])
+        log(14, r14["msg"])
+
     # Kernel rows. `launches` counts the launches of the path each kernel
     # serves, with the counters set to 0 just before that path ran: K3 in
     # phase 7 (serving); K4, K4-sort and the standalone K2 in phase 10
     # (training); K5 in phase 11 (the 2K frame with interleave 2);
     # K3-profile in phase 12 (build_schedule at 2K); the probes in phase 13
-    # (their entry points). K1 is __device__ code inside K3 and K4, and K2
+    # (their entry points); the width-4 kernels in phase 14 (the CLI on
+    # the 4-wide tree). K1 is __device__ code inside K3 and K4, and K2
     # runs inline in K3 too: those rows add the serving path's K3 launches.
     # ms / plain_ms / max_abs_err / the bound come from the phase that
-    # times each kernel alone (3, 4, 5/7, 8, 11, 12, 13).
+    # times each kernel alone (3, 4, 5/7, 8, 11, 12, 13, 14).
     src = "raytracer_tpu_torch/csrc/"
     t_k4 = train["k4"] if train else 0
     table = [
@@ -632,6 +644,22 @@ def main(argv=None) -> int:
         ("stack disciplines: shift register, shared memory, pointer (P-vstack, 5 cases)",
          "probe_vstack.cu", "scripts/vstack_probe.py:68 (p1), :130 (p2), :244 and :292 (p3)",
          "P-vstack", kernels.get("P-vstack", {}).get("launches", 0), {}),
+        ("the path loop's random-number operations in a kernel (P-ktf, 5 cases)", "probe_ktf.cu",
+         "scripts/ktf_kernel_probe.py:21 (run_case; calls :34, :141)", "P-ktf",
+         kernels.get("P-ktf", {}).get("launches", 0), {}),
+        ("dual-unit traversal on the row-per-node v6 tables (P-v6)", "probe_v6.cu",
+         "scripts/kernel_v6_probe.py:94 (_make_kernel_v6; call :358)", "P-v6",
+         kernels.get("P-v6", {}).get("launches", 0), {}),
+        ("fused_path_loop (K3) on a 4-wide tree", "megakernel_w4.cu",
+         "raytracer_tpu/ops/pallas_megakernel.py:623 (n_children 4, :146)", "K3/w4",
+         kernels.get("K3/w4", {}).get("launches", 0), {"width": 4}),
+        ("trace_closest (K4, K1 inline) on a 4-wide tree", "trace_closest.cu",
+         "raytracer_tpu/ops/pallas_traverse.py:907 (n_children 4, :909)", "K4/w4",
+         kernels.get("K4/w4", {}).get("launches", 0), {"width": 4}),
+        ("fused_path_loop G=2 (K5) on a 4-wide tree", "interleave.cu",
+         "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair, n_children 4) -> "
+         "raytracer_tpu/ops/pallas_interleave.py:22", "K5/w4",
+         kernels.get("K5/w4", {}).get("launches", 0), {"width": 4}),
     ]
     rows = []
     for name, source, replaces, key, n_launch, extra in table:
@@ -652,6 +680,33 @@ def main(argv=None) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def phase4_rays(scene, dev):
+    """131,072 rays: 65,536 showcase-camera rays of the 2K frame at seeded
+    pixels and 65,536 from seeded points inside the mesh's box in seeded
+    directions (default_rng(4))."""
+    import torch
+
+    from raytracer_tpu_torch.camera import generate_rays, showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.utils import ktf
+
+    gen = np.random.default_rng(4)
+    cfg = RenderConfig(**MAIN)
+    cam = showcase_camera(cfg)
+    m = 65536
+    pxs = torch.from_numpy(gen.integers(0, cfg.width, m).astype(np.int32)).to(dev)
+    pys = torch.from_numpy(gen.integers(0, cfg.height, m).astype(np.int32)).to(dev)
+    o_cam, d_cam = generate_rays(cam, pxs, pys, cfg.width, cfg.height,
+                                 ktf.sampler(0, pys * cfg.width + pxs))
+    v = scene.mesh.vertices
+    lo, hi = v.min(dim=0).values, v.max(dim=0).values
+    span = hi - lo
+    o_box = lo + span * (0.02 + 0.96 * torch.from_numpy(
+        gen.uniform(size=(m, 3)).astype(np.float32)).to(dev))
+    d_box = torch.from_numpy(gen.normal(size=(m, 3)).astype(np.float32)).to(dev)
+    return torch.cat([o_cam, o_box]).contiguous(), torch.cat([d_cam, d_box]).contiguous()
 
 
 def _reset_fused_counts():
@@ -693,7 +748,6 @@ def phase11(scene, dev, smi):
     fused kernels' resources, and the CLI with RAYTRACER_TPU_INTERLEAVE=2."""
     import torch
 
-    from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.camera import showcase_camera
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.models.fused import render_image_fused
@@ -761,21 +815,10 @@ def phase11(scene, dev, smi):
     # the counts can be read.
     png = os.path.join("renders", "chip_smoke_k5_cli.png")
     os.makedirs(os.path.join(ROOT, "renders"), exist_ok=True)
-    old = os.environ.get("RAYTRACER_TPU_INTERLEAVE")
-    os.environ["RAYTRACER_TPU_INTERLEAVE"] = "2"
-    _reset_fused_counts()
-    try:
-        cli.main(["--integrator", "fused", "--scene", "cornell_bunny", "--width", "256",
-                  "--height", "144", "--spp", "4", "--max-bounces", "8",
-                  "--out", os.path.join(ROOT, png)])
-    finally:
-        if old is None:
-            os.environ.pop("RAYTRACER_TPU_INTERLEAVE")
-        else:
-            os.environ["RAYTRACER_TPU_INTERLEAVE"] = old
-    cli_counts = dict(cm.LAUNCHES, **cm.PLAIN_CALLS)
-    with open(os.path.join(ROOT, png), "rb") as f:
-        head = f.read(8)
+    cli_counts, head = _cli_counts(["--integrator", "fused", "--scene", "cornell_bunny",
+                                    "--width", "256", "--height", "144", "--spp", "4",
+                                    "--max-bounces", "8", "--out", png],
+                                   {"RAYTRACER_TPU_INTERLEAVE": "2"})
     if (head != b"\x89PNG\r\n\x1a\n" or cli_counts["render_fused_g2"] < 1
             or cli_counts["render_plain"] or cli_counts["render_fused"]):
         raise AssertionError(f"CLI with RAYTRACER_TPU_INTERLEAVE=2: PNG {head!r}, counts "
@@ -999,17 +1042,20 @@ def phase13(dev, smi):
     plain version, and the bounds."""
     import torch
 
+    from raytracer_tpu_torch.ops.bvh4 import BIG
+    from raytracer_tpu_torch.ops.cuda_traverse import trace_closest_plain
     from raytracer_tpu_torch.probes import (ablate, ablate_v8, base_probe, floor_probe,
-                                            interleave_probe, load_probe, sass, scalar_cost,
-                                            v5_body, vstack)
+                                            interleave_probe, ktf_probe, load_probe, sass,
+                                            scalar_cost, v5_body, v6, vstack)
 
     t_phase = time.perf_counter()
     res_v8, res_v5 = ablate_v8.kernel_resources(), v5_body.kernel_resources()
     t0 = time.perf_counter()
     node5, tri5, zero_row = v5_body.reference_tables()
     o5, d5, tl5 = (torch.from_numpy(a) for a in v5_body.make_rays(v5_body.N_PACKETS))
+    v6_in = v6.reference_inputs(v6.N_PACKETS)
     setup_s = time.perf_counter() - t0
-    counters = (ablate_v8, v5_body, interleave_probe, scalar_cost, vstack)
+    counters = (ablate_v8, v5_body, interleave_probe, scalar_cost, vstack, ktf_probe, v6)
 
     def out(line):
         log(13, "  " + line)
@@ -1052,18 +1098,29 @@ def phase13(dev, smi):
         raise AssertionError(f"vstack: a case disagrees with the push/pop model: "
                              f"{runs['P-vstack']}")
     launches["P-vstack"] = vstack.LAUNCHES["probe_vstack"]
+    log(13, "ktf_probe cases (in this process; one [8, 128] tile each, against the script's "
+            "host expectation):")
+    runs["P-ktf"] = {case: ktf_probe.run_case(case, dev, out=out) for case in ktf_probe.CASES}
+    if not all(r["ok"] for r in runs["P-ktf"].values()):
+        raise AssertionError(f"ktf probe: a case fails its check: {runs['P-ktf']}")
+    launches["P-ktf"] = ktf_probe.LAUNCHES["probe_ktf"]
+    log(13, f"v6.run({v6.N_PACKETS}) (the reference scene's 4-wide tree; v6 against K4 on it, "
+            f"in turns):")
+    runs["P-v6"] = v6.run(v6.N_PACKETS, dev, inputs=v6_in, out=out)
+    launches["P-v6"] = v6.LAUNCHES["probe_v6"]
     plain_calls = sum(n for mod in counters for n in mod.PLAIN_CALLS.values())
     want = {"P-v8": 2 * 11 * len(ablate_v8.VARIANTS),
             **{k: 11 * len(m) for k, (_, m) in v5_probes.items()},
             "P-interleave": 2 * 11 * len(interleave_probe.GS),
             "P-scalar": 11 * len(scalar_cost.VARIANTS), "P-scalar tables": 11,
-            "P-vstack": 11 * len(vstack.CASES)}
+            "P-vstack": 11 * len(vstack.CASES), "P-ktf": 11 * len(ktf_probe.CASES),
+            "P-v6": 12}
     if launches != want or plain_calls:
         raise AssertionError(f"probe paths: launches {launches} (expected {want}), plain calls "
                              f"{plain_calls}")
 
     # ---- every variant against its plain version, bit for bit
-    checked, max_err, plain_ms = [], {}, {}
+    checked, max_err, plain_ms, last_plain = [], {}, {}, {}
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def held(key, name, kernel_fn, plain_fn, timed=None):
@@ -1076,6 +1133,7 @@ def phase13(dev, smi):
         p = plain_fn()
         ev1.record()
         torch.cuda.synchronize()
+        last_plain[key] = p
         ks, ps = (k, p) if isinstance(k, tuple) else ((k,), (p,))
         for a, b in zip(ks, ps):
             if a is None and b is None:
@@ -1173,6 +1231,55 @@ def phase13(dev, smi):
                  lambda: vstack.vstack_plain(case, iters, dev),
                  f"vstack {case} i{iters}" if iters == sizes[-1] else None)
 
+    # P-ktf: each case's kernel against its plain version on the card, by
+    # the script's rules (bitwise, the unit vectors at atol 1e-5 / 1e-6).
+    for case in ktf_probe.CASES:
+        ins = tuple(torch.from_numpy(x).to(dev) for x in ktf_probe.inputs(case))
+        k = ktf_probe.probe_ktf(case, *ins)
+        torch.cuda.synchronize()
+        ev0.record()
+        p = ktf_probe.ktf_plain(case, *ins)
+        ev1.record()
+        torch.cuda.synchronize()
+        ok, err = ktf_probe.agrees(case, [t.cpu().numpy() for t in k], [t.cpu().numpy() for t in p])
+        if not ok:
+            raise AssertionError(f"ktf {case}: kernel != plain (max |diff| {err})")
+        max_err["P-ktf"] = max(max_err.get("P-ktf", 0.0), err)
+        plain_ms[f"ktf {case}"] = ev0.elapsed_time(ev1)
+        runs["P-ktf"][case]["max_abs_err_plain"] = err
+        checked.append(f"ktf {case}")
+
+    # P-v6 ≡ its plain version bit for bit (the six outputs and the chains'
+    # iteration counts): P13_CHECK_ITERS iterations at tlim = BIG and at
+    # limits seeded in (0.05, 0.6), then the script's bound on every packet.
+    # Then the script's rule against K4 on the same tree, for the kernel and
+    # for the plain version: t and hit mismatches none, id and material
+    # flips (near-ties) at most NEAR_TIE_MAX of the hits.
+    bvh6, node6, tri6, nb6, cap6, o6, d6, tl6 = v6_in
+    v6_dev = [t.to(dev) for t in (node6, tri6, o6, d6, tl6)]
+    tl6_var = torch.from_numpy(np.random.default_rng(6).uniform(
+        0.05, 0.6, tuple(tl6.shape)).astype(np.float32)).to(dev)
+    for tag, lim in (("", v6_dev[4]), (" tlim(0.05,0.6)", tl6_var)):
+        held("P-v6", f"v6{tag} i{P13_CHECK_ITERS}",
+             lambda: v6.v6(*v6_dev[:4], lim, nb6, cap6, P13_CHECK_ITERS, count=True),
+             lambda: v6.v6_plain(*v6_dev[:4], lim, nb6, cap6, P13_CHECK_ITERS, count=True))
+    k6 = held("P-v6", "v6 full", lambda: v6.v6(*v6_dev, nb6, cap6, count=True),
+              lambda: v6.v6_plain(*v6_dev, nb6, cap6, count=True), "P-v6")
+    p6 = last_plain["P-v6"]
+    bvh6_dev = bvh6.to(dev)
+    o6f, d6f = v6.unpack(v6_dev[2]), v6.unpack(v6_dev[3])
+    ref6 = trace_closest_plain(o6f, d6f, bvh6_dev, float(BIG))
+    mis_plain = v6.against_k4(p6[:6], ref6)
+    mis_kernel = runs["P-v6"]["mismatches"]
+    for who, mis in (("kernel", mis_kernel), ("plain", mis_plain)):
+        if mis["t"] or mis["hit"] or max(mis["tri"], mis["mat"]) > NEAR_TIE_MAX * mis["hits"]:
+            raise AssertionError(f"v6 ({who}) against K4 on the 4-wide tree: {mis}")
+    if mis_kernel != mis_plain:
+        raise AssertionError(f"v6 against K4: kernel {mis_kernel}, plain {mis_plain}")
+    chain_iters = int(p6[6].sum())
+    if chain_iters != int(k6[6].sum()) or chain_iters != runs["P-v6"]["chain_iters"]:
+        raise AssertionError("v6: the chains' iteration counts differ between runs")
+
     # ---- what each knockout left of the kernel: static SASS counts
     if os.path.exists(sass.cuobjdump()):
         sc = sass.by_name()
@@ -1190,6 +1297,9 @@ def phase13(dev, smi):
         runs["P-scalar"]["tables_sass"] = sc["scalar tables"]
         for case, r in runs["P-vstack"].items():
             r["sass"] = sc[f"vstack {case}"]
+        for case, r in runs["P-ktf"].items():
+            r["sass"] = sc[f"ktf {case}"]
+        runs["P-v6"]["sass"] = sc["v6"]
         log(13, "static SASS instructions per kernel (cuobjdump -sass): " + "; ".join(
             f"{k} {c['total']} (fp32 {c['fp32']}, int {c['int']}, shfl {c['shfl']}, shared "
             f"{c['shared']}, global {c['global']}, local {c['local']}, sync {c['sync']})"
@@ -1222,6 +1332,11 @@ def phase13(dev, smi):
         w = vstack.work(case, r["iters"])
         r.update(roofline_mixed(w["bytes"], 0, w["int32_ops"], int32_rate))
         r["bound_one_sm_ms"] = r["bound_ms"] * n_sm   # one block: one SM's share of the peaks
+    for case, r in runs["P-ktf"].items():
+        w = ktf_probe.work(case)
+        r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate))
+    w = v6.work(node6, tri6, o6, chain_iters, nb6)
+    runs["P-v6"].update(roofline(w["bytes"], w["ops"]))
     fill = runs["P-v8 fill"]["variants"]
     rows["P-v8"] = dict(launches=launches["P-v8"], max_abs_err=max_err["P-v8"],
                         plain_ms=plain_ms["P-v8"], **runs["P-v8"]["variants"]["full"],
@@ -1256,13 +1371,27 @@ def phase13(dev, smi):
                             plain_ms_cases={k: v for k, v in plain_ms.items()
                                             if k.startswith("vstack")},
                             int32_ops_per_s=int32_rate)
+    kt = runs["P-ktf"]
+    rows["P-ktf"] = dict(launches=launches["P-ktf"], max_abs_err=max_err["P-ktf"],
+                         plain_ms=plain_ms["ktf sampler_tile"], ms_is="sampler_tile",
+                         **kt["sampler_tile"], cases=kt,
+                         plain_ms_cases={k: v for k, v in plain_ms.items() if k.startswith("ktf")},
+                         int32_ops_per_s=int32_rate)
+    r6 = runs["P-v6"]
+    rows["P-v6"] = dict(launches=launches["P-v6"], max_abs_err=max_err["P-v6"],
+                        plain_ms=plain_ms["P-v6"], ms_is=f"{v6.N_PACKETS} packets, full length",
+                        **{k: v for k, v in r6.items() if k != "times_ms"},
+                        mismatches_plain=mis_plain)
     secs = time.perf_counter() - t_phase
     log(13, f"every variant == its plain version bit for bit ({len(checked)} checks: "
             f"{P13_CHECK_ITERS} iterations over all packets, the full bodies also at the "
             f"scripts' iterations, the base modes also at limits in ±50; interleave every G "
             f"== v5 full at 128 and {P13_FILL_PACKETS} packets; scalar acc, sc and codes at "
             f"the script's sizes; vstack at 64/150 and 300/2,000 iterations, p2_vreg also at "
-            f"20,000); full == "
+            f"20,000; ktf every case by the script's rules; v6 at {P13_CHECK_ITERS} iterations "
+            f"(tlim BIG and in (0.05, 0.6)) and at full length on all {v6.N_PACKETS} packets, "
+            f"chain iterations {chain_iters}; v6 against K4 on the 4-wide tree: kernel "
+            f"{mis_kernel}, plain {mis_plain}); full == "
             f"full16 == prod_smem == prod_carry, minimal == smem8; launches {launches} (11 per "
             f"variant: a warm-up and 10 timed), plain calls {plain_calls}; plain "
             f"{', '.join(f'{k} {v:.1f} ms' for k, v in plain_ms.items())}; numRegs / "
@@ -1270,6 +1399,234 @@ def phase13(dev, smi):
             f"phase {secs:.1f} s on {smi}")
     return dict(seconds=secs, checks=len(checked), launches=launches, card=smi, runs=runs,
                 rows=rows)
+
+
+def _cli_counts(argv, env):
+    """The CLI in this process with `env` set, the launch counts from 0:
+    (counts of the fused and the differentiable paths, the PNG's head)."""
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.ops import cuda_megakernel as cm
+
+    out = argv.index("--out") + 1
+    argv = argv[:out] + [os.path.join(ROOT, argv[out])] + argv[out + 1:]
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    _reset_fused_counts()
+    _reset_counts()
+    try:
+        cli.main(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    with open(argv[out], "rb") as f:
+        head = f.read(8)
+    return dict(cm.LAUNCHES, **cm.PLAIN_CALLS, **_counts()), head
+
+
+def phase14(scene8, dev, smi):
+    """K4, K3, K5 and K3-profile on the reference scene's 4-wide tree,
+    against their plain versions and the width-8 kernels, and the CLI on
+    that tree."""
+    import torch
+
+    from raytracer_tpu_torch.camera import showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.models.fused import render_image_fused
+    from raytracer_tpu_torch.ops import cuda_megakernel as cm
+    from raytracer_tpu_torch.ops import cuda_traverse as ct
+    from raytracer_tpu_torch.ops.bvh4 import BIG
+    from raytracer_tpu_torch.schedule import _tiled_pixel_grid, blocked_pixel_grid
+    from raytracer_tpu_torch.scene.builder import reference_scene, tree_width
+
+    t0 = time.perf_counter()
+    with tree_width(4):
+        scene4 = reference_scene().to(dev)
+    build_s = time.perf_counter() - t0
+    b4, b8 = scene4.bvh4, scene8.bvh4
+    if b4.children.shape[1] != 4 or not torch.equal(b4.tri, b8.tri):
+        raise AssertionError("the 4-wide tree is not the BVH8's native tree unwidened")
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def plain_ms_of(fn):
+        torch.cuda.synchronize()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return out, ev0.elapsed_time(ev1)
+
+    # ---- K4<4>: phase 4's 131,072 rays, against its plain version (bit for
+    # bit) and against K4<8> (t bit for bit; ids equal but at equal t).
+    o, d = phase4_rays(scene8, dev)
+    n = o.shape[0]
+    tl = torch.full((n,), float(BIG), device=dev)
+    k4 = ct.trace_closest(o, d, b4, BIG, sort=False)
+    k8 = ct.trace_closest(o, d, b8, BIG, sort=False)
+    plain, plain_ms_k4 = plain_ms_of(lambda: ct._traverse_plain(o, d, b4, tl, 1e-3, count=True))
+    p4, steps4 = ct._finish(*plain[:4]), plain[4]
+    steps8 = ct._traverse_plain(o, d, b8, tl, 1e-3, count=True)[4]
+    differ = [k for k in k4 if not (_bitwise(k4[k], p4[k]) if k4[k].is_floating_point()
+                                    else torch.equal(k4[k], p4[k]))]
+    if differ:
+        raise AssertionError(f"K4<4> vs plain: fields {differ} differ")
+    hit = k4["hit"]
+    flips = int((k4["tri_id"] != k8["tri_id"])[hit].sum())
+    n_hit = int(hit.sum())
+    if not (_bitwise(k4["t"], k8["t"]) and torch.equal(hit, k8["hit"])):
+        raise AssertionError("K4<4> vs K4<8>: t or the hit mask differ")
+    if flips > NEAR_TIE_MAX * max(n_hit, 1):
+        raise AssertionError(f"K4<4> vs K4<8>: {flips} id flips in {n_hit} hits")
+    rs = ct.trace_closest(o, d, b4, BIG, sort=True)
+    if [k for k in rs if not torch.equal(rs[k], k4[k])]:
+        raise AssertionError("K4-sort on the 4-wide tree differs from K4 unsorted")
+    t4 = _frames_in_turns({"K4<4>": lambda: ct.trace_closest(o, d, b4, BIG, sort=False),
+                           "K4<8>": lambda: ct.trace_closest(o, d, b8, BIG, sort=False)}, 10)
+    ms4 = {k: float(np.median(v[1])) * 1e3 for k, v in t4.items()}
+    res = {**cm.kernel_resources(), **ct.kernel_resources()}
+
+    # ---- the preflight frame through K3<4>, K5<4> and K3-profile<4>
+    with open(EXPECTED) as f:
+        expected = json.load(f)["mean_rgb_ktf"]
+    cfg = RenderConfig(**PREFLIGHT)
+    cam = showcase_camera(cfg)
+    img4 = render_image_fused(scene4, cam, cfg, 0)
+    img8 = render_image_fused(scene8, cam, cfg, 0)
+    img_p, plain_ms_k3 = plain_ms_of(lambda: render_image_fused(scene4, cam, cfg, 0, plain=True))
+    mean4 = img4.mean().item()
+    rel = abs(mean4 - expected) / expected
+    if not (bool(torch.isfinite(img4).all()) and rel <= PREFLIGHT_RTOL):
+        raise AssertionError(f"preflight mean at width 4 {mean4} vs {expected}: rel {rel}")
+    if not torch.equal(img4, img_p):
+        raise AssertionError("K3<4> vs plain on the preflight frame: not bitwise equal")
+    bad8, mean_diff8, max_err8 = image_agreement(img4, img8)
+    if not (bad8 <= IMG_BAD_FRAC and mean_diff8 <= MEAN_TOL):
+        raise AssertionError(f"preflight K3<4> vs K3<8>: {bad8:.4%} elements beyond tolerance, "
+                             f"mean diff {mean_diff8}")
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    k3 = cm.render_tiles_fused(scene4, cam, cfg, 0, px, py, interleave=1)
+    k5 = cm.render_tiles_fused(scene4, cam, cfg, 0, px, py, interleave=2)
+    rgb, cost, aux, pk1, pit = cm.render_tiles_fused(scene4, cam, cfg, 0, px, py, profile=True,
+                                                     lane_counts=True)
+    p_rgb, p_cost, p_aux = cm.render_tiles_fused_plain(scene4, cam, cfg, 0, px, py, profile=True)
+    checks = {"K5 == K3": torch.equal(k5, k3), "profile rgb == K3": torch.equal(rgb, k3),
+              "profile cost == plain": torch.equal(cost, p_cost),
+              "profile aux == plain": torch.equal(aux, p_aux),
+              "K3 lanes == plain": torch.equal(k3, p_rgb)}
+    if not all(checks.values()):
+        raise AssertionError(f"width 4 at the preflight size: {checks}")
+    ms_k3 = cuda_ms(lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, px, py, interleave=1), 20)
+    ms_k5 = cuda_ms(lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, px, py, interleave=2), 20)
+    ms_k3_8 = cuda_ms(lambda: cm.render_tiles_fused(scene8, cam, cfg, 0, px, py, interleave=1), 20)
+    bound_pre = path_bound(b4, px.shape[0], cfg.spp, int(pk1.sum()), int(pit.sum()))
+
+    # ---- 2K spp8 mb20 on the blocked grid: width 4 against width 8
+    cfg = RenderConfig(**MAIN)
+    cam = showcase_camera(cfg)
+    bx, by, _ = (t.to(dev) for t in blocked_pixel_grid(cfg, 32, 32, 8, 16))
+    f4 = cm.render_tiles_fused(scene4, cam, cfg, 0, bx, by)
+    f8 = cm.render_tiles_fused(scene8, cam, cfg, 0, bx, by)
+    bad2k, mean_diff2k, max_err2k = image_agreement(f4[None], f8[None])
+    if not (bool(torch.isfinite(f4).all()) and bad2k <= IMG_BAD_FRAC
+            and mean_diff2k <= MEAN_TOL):
+        raise AssertionError(f"2K K3<4> vs K3<8>: {bad2k:.4%} elements beyond tolerance, mean "
+                             f"diff {mean_diff2k}")
+    t2k = _frames_in_turns({"K3<4>": lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, bx, by),
+                            "K3<8>": lambda: cm.render_tiles_fused(scene8, cam, cfg, 0, bx, by)},
+                           10)
+    med = {k: float(np.median(v[0])) for k, v in t2k.items()}
+    med_dev = {k: float(np.median(v[1])) for k, v in t2k.items()}
+    lanes2k = {}
+    for w, sc in ((4, scene4), (8, scene8)):
+        _, _, _, k1, it = cm.render_tiles_fused(sc, cam, cfg, 0, bx, by, profile=True,
+                                                lane_counts=True)
+        wk = k1.reshape(-1, 32).float()
+        lanes2k[w] = dict(k1_steps=int(k1.sum()), path_iters=int(it.sum()),
+                          k1_mean=wk.mean().item(),
+                          divergence=(wk.amax(dim=1) / wk.mean(dim=1).clamp_min(1e-9)).mean().item())
+    bound_2k = path_bound(b4, bx.shape[0], cfg.spp, lanes2k[4]["k1_steps"],
+                          lanes2k[4]["path_iters"])
+
+    # ---- the CLI on the 4-wide tree, each path with its counts from 0
+    os.makedirs(os.path.join(ROOT, "renders"), exist_ok=True)
+    size = ["--scene", "cornell_bunny", "--width", "256", "--height", "144", "--spp", "4",
+            "--max-bounces", "8"]
+    clis = {}
+    for name, tag, argv, env in (
+            ("fused", "fused", ["--integrator", "fused"], {}),
+            ("fused G=2", "fused_g2", ["--integrator", "fused"], {"RAYTRACER_TPU_INTERLEAVE": "2"}),
+            ("megakernel", "megakernel", ["--integrator", "megakernel"], {})):
+        png = os.path.join("renders", f"chip_smoke_w4_{tag}.png")
+        counts, head = _cli_counts(argv + size + ["--out", png],
+                                   {"RAYTRACER_TPU_BVH_WIDTH": "4", **env})
+        if head != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"CLI {name} on the 4-wide tree wrote no PNG ({head!r})")
+        clis[name] = dict(png=png, **counts)
+    c = clis["fused"]
+    if c["render_fused"] != 1 or c["render_plain"] or c["render_fused_g2"]:
+        raise AssertionError(f"CLI fused on the 4-wide tree: counts {c}")
+    c = clis["fused G=2"]
+    if c["render_fused_g2"] < 1 or c["render_plain"] or c["render_fused"]:
+        raise AssertionError(f"CLI fused G=2 on the 4-wide tree: counts {c}")
+    c = clis["megakernel"]
+    if c["k4"] < 1 or c["k4_sorted"] != c["k4"] or c["k2"] < 1 or c["plain"]:
+        raise AssertionError(f"CLI megakernel on the 4-wide tree: counts {c}")
+
+    tree = dict(nodes=int(b4.children.shape[0]), nodes_w8=int(b8.children.shape[0]),
+                stack_depth=b4.stack_depth, stack_depth_w8=b8.stack_depth, build_s=build_s)
+    rows = {
+        "K3/w4": dict(launches=clis["fused"]["render_fused"], max_abs_err=_max_abs(k3, p_rgb),
+                      ms=ms_k3, plain_ms=plain_ms_k3, ms_w8_same_lanes=ms_k3_8,
+                      **bound_pre, bound_2k_ms=bound_2k["bound_ms"],
+                      bound_2k_by=bound_2k["bound_by"], kernel_2k_median_s=med["K3<4>"],
+                      kernel_2k_median_s_w8=med["K3<8>"],
+                      kernel_2k_median_device_s=med_dev["K3<4>"],
+                      kernel_2k_median_device_s_w8=med_dev["K3<8>"],
+                      preflight_mean=mean4, lanes_2k=lanes2k,
+                      num_regs=res["K3/w4"][0], local_bytes=res["K3/w4"][1],
+                      profile_num_regs=res["K3-profile/w4"][0], tree=tree,
+                      max_abs_err_is="K3<4> lanes vs plain at the preflight size"),
+        "K4/w4": dict(launches=clis["megakernel"]["k4"], max_abs_err=_max_abs(k4["t"], p4["t"]),
+                      ms=ms4["K4<4>"], plain_ms=plain_ms_k4, ms_w8=ms4["K4<8>"],
+                      **trace_bound(b4, n, int(steps4.sum())), k1_steps=int(steps4.sum()),
+                      k1_steps_w8=int(steps8.sum()), id_flips_vs_w8=flips, hits=n_hit,
+                      sorted_launches=clis["megakernel"]["k4_sorted"],
+                      num_regs=res["K4/w4"][0], local_bytes=res["K4/w4"][1],
+                      num_regs_w8=res["K4"][0]),
+        "K5/w4": dict(launches=clis["fused G=2"]["render_fused_g2"],
+                      max_abs_err=_max_abs(k5, p_rgb), ms=ms_k5, plain_ms=plain_ms_k3,
+                      **bound_pre, num_regs=res["K5/w4"][0], local_bytes=res["K5/w4"][1],
+                      max_abs_err_is="K5<4> lanes vs plain at the preflight size (== K3<4>)"),
+    }
+    msg = (f"reference scene built 4-wide in {build_s:.2f} s: {tree['nodes']} nodes (BVH8 "
+           f"{tree['nodes_w8']}), stack_depth {tree['stack_depth']} (BVH8 "
+           f"{tree['stack_depth_w8']}); K4<4> on {n} rays (phase 4's): == plain bitwise, {n_hit} "
+           f"hits, t == K4<8> bitwise, {flips} id flips at equal t (limit 1 in 5000), K4-sort == "
+           f"K4; K1 steps {int(steps4.sum())} vs {int(steps8.sum())} at width 8; in turns, median "
+           f"of 10 (CUDA events): K4<4> {ms4['K4<4>']:.4f} ms, K4<8> {ms4['K4<8>']:.4f} ms "
+           f"(ratio {ms4['K4<4>'] / ms4['K4<8>']:.3f}); plain {plain_ms_k4:.1f} ms; preflight "
+           f"128x40 spp2 mb12 through K3<4>: mean {mean4:.6f} vs {expected:.6f} (rel {rel:.2e}), "
+           f"== plain bitwise, vs K3<8> {bad8:.4%} elements beyond tolerance (max abs "
+           f"{max_err8:.3g}); {checks}; preflight lanes K3<4> {ms_k3:.3f} ms, K5<4> "
+           f"{ms_k5:.3f} ms, K3<8> {ms_k3_8:.3f} ms, plain {plain_ms_k3:.1f} ms; 2K spp8 mb20 "
+           f"blocked grid in turns, median of 10 (host s / CUDA events s): K3<4> "
+           f"{med['K3<4>']:.4f} / {med_dev['K3<4>']:.4f}, K3<8> {med['K3<8>']:.4f} / "
+           f"{med_dev['K3<8>']:.4f} (ratio {med['K3<4>'] / med['K3<8>']:.3f}); K3<4> host s "
+           f"{_fmt(t2k['K3<4>'][0])}; K3<8> host s {_fmt(t2k['K3<8>'][0])}; 2K frames K3<4> vs "
+           f"K3<8>: {bad2k:.4%} elements beyond tolerance, mean diff {mean_diff2k:.2e}; 2K lane "
+           f"counts (K1 steps, path iterations, K1 mean, warp divergence): "
+           + "; ".join(f"width {w} {v['k1_steps']}, {v['path_iters']}, {v['k1_mean']:.2f}, "
+                       f"{v['divergence']:.4f}" for w, v in lanes2k.items())
+           + f"; bounds: preflight {bound_pre['bound_ms']:.5f} ms ({bound_pre['bound_by']}), 2K "
+           f"{bound_2k['bound_ms']:.4f} ms ({bound_2k['bound_by']}); numRegs / localSizeBytes: "
+           + ", ".join(f"{k} {r} / {b}" for k, (r, b) in res.items())
+           + "; CLI with RAYTRACER_TPU_BVH_WIDTH=4: "
+           + "; ".join(f"{k} wrote {v['png']}, counts {dict((c, n) for c, n in v.items() if c != 'png')}"
+                       for k, v in clis.items())
+           + f" on {smi}")
+    return dict(rows=rows, msg=msg)
 
 
 def _counts():

@@ -87,8 +87,9 @@ def main(argv=None):
         from raytracer_tpu_torch.models.fused import fused_available, render_image_fused
 
         if not fused_available(scene, cfg):
-            raise SystemExit("--integrator fused needs a bvh4 scene within the kernel's "
-                             "sphere/material budgets (use cornell_bunny / cornell_materials)")
+            raise SystemExit("--integrator fused needs a bvh4 scene of width 4 or 8 within "
+                             "the kernel's sphere/material budgets (use cornell_bunny / "
+                             "cornell_materials with RAYTRACER_TPU_BVH_WIDTH 4 or 8)")
         linear = render_image_fused(scene, cam, cfg, args.seed)
     else:
         from raytracer_tpu_torch.render import render_image_chunked

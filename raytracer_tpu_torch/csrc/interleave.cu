@@ -6,7 +6,9 @@
 // raytracer_tpu/ops/pallas_interleave.py traverse_tiles (:22). The wrapper
 // is raytracer_tpu_torch/ops/cuda_megakernel.py render_tiles_fused
 // (interleave=2, or RAYTRACER_TPU_INTERLEAVE=2); the plain version is
-// _render_plain there, since G = 2 equals G = 1 per lane.
+// _render_plain there, since G = 2 equals G = 1 per lane. One
+// instantiation per built tree width (traverse.cuh), chosen by
+// BvhView::width.
 //
 // Shape: thread t carries lanes 2t and 2t+1, so a warp covers 64
 // neighbouring lanes (an odd lane count leaves the last thread one lane).
@@ -109,6 +111,7 @@ __device__ __forceinline__ Lane load_lane(const FusedParams& p, const int* __res
   return L;
 }
 
+template <int K>
 __global__ void fused_path_g2_kernel(FusedParams p, trav::BvhView bvh,
                                      const int* __restrict__ pix, const int* __restrict__ pxi,
                                      const int* __restrict__ pyi, path::Tables tb, int n,
@@ -125,7 +128,7 @@ __global__ void fused_path_g2_kernel(FusedParams p, trav::BvhView bvh,
     begin(p, tb, a, sa);
     begin(p, tb, b, sb);
     trav::Hit ha, hb;
-    trav::traverse2(bvh, sa.ray, sb.ray, p.t_min, ha, hb);
+    trav::traverse2<K>(bvh, sa.ray, sb.ray, p.t_min, ha, hb);
     finish(p, tb, a, sa, ha);
     finish(p, tb, b, sb, hb);
   }
@@ -146,19 +149,26 @@ extern "C" int rt_render_fused_g2(const FusedParams* p, const trav::BvhView* bvh
                                   const int* px, const int* py, const float* sph,
                                   const int* sph_mat, const float* mat, const int* mat_type, int n,
                                   float* out, int block, void* stream) {
-  if (bvh->width != trav::K) return static_cast<int>(cudaErrorInvalidValue);
+  if (!trav::built_width(bvh->width)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const int threads = (n + 1) / 2;
     const int grid = (threads + block - 1) / block;
-    fused_path_g2_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        *p, *bvh, pix, px, py, path::Tables{sph, sph_mat, mat, mat_type}, n, out);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const path::Tables tb{sph, sph_mat, mat, mat_type};
+    if (bvh->width == 4)
+      fused_path_g2_kernel<4><<<grid, block, 0, s>>>(*p, *bvh, pix, px, py, tb, n, out);
+    else
+      fused_path_g2_kernel<8><<<grid, block, 0, s>>>(*p, *bvh, pix, px, py, tb, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rt_render_fused_g2_attrs(int* num_regs, int* local_bytes) {
+// Registers and local memory (bytes per thread) of K5 at tree width 4 or 8.
+extern "C" int rt_render_fused_g2_attrs(int width, int* num_regs, int* local_bytes) {
+  if (!trav::built_width(width)) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a{};
-  const cudaError_t e = cudaFuncGetAttributes(&a, fused_path_g2_kernel);
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, width == 4 ? fused_path_g2_kernel<4> : fused_path_g2_kernel<8>);
   *num_regs = a.numRegs;
   *local_bytes = static_cast<int>(a.localSizeBytes);
   return static_cast<int>(e);

@@ -78,17 +78,9 @@ struct Sampler {
     threefry2x32(k0, k1, pixel, counter(sample, bounce, purpose), x0, x1);
     return u01(x0);
   }
-  // Uniform direction on the sphere: z = 1-2u1, phi = 2*pi*u2.
+  // Uniform direction on the sphere (ktf::unit_vector below).
   __device__ __forceinline__ void unit_vector(uint32_t purpose, float& x, float& y,
-                                              float& z) const {
-    float u1, u2;
-    uniform_pair(purpose, u1, u2);
-    z = 1.0f - 2.0f * u1;
-    const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
-    const float phi = TWO_PI * u2;
-    x = r * cosf(phi);
-    y = r * sinf(phi);
-  }
+                                              float& z) const;
   // Uniform point in the unit disk (polar closed form).
   __device__ __forceinline__ void disk(uint32_t purpose, float& x, float& y) const {
     float u1, u2;
@@ -99,5 +91,21 @@ struct Sampler {
     y = r * sinf(theta);
   }
 };
+
+// Uniform direction on the sphere from two uniforms: z = 1-2u1, phi = 2*pi*u2.
+__device__ __forceinline__ void unit_vector(float u1, float u2, float& x, float& y, float& z) {
+  z = 1.0f - 2.0f * u1;
+  const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  const float phi = TWO_PI * u2;
+  x = r * cosf(phi);
+  y = r * sinf(phi);
+}
+
+__device__ __forceinline__ void Sampler::unit_vector(uint32_t purpose, float& x, float& y,
+                                                     float& z) const {
+  float u1, u2;
+  uniform_pair(purpose, u1, u2);
+  ktf::unit_vector(u1, u2, x, y, z);
+}
 
 }  // namespace ktf

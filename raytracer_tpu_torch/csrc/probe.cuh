@@ -36,6 +36,9 @@ __device__ __forceinline__ float qnan() { return __int_as_float(0x7fffffff); }
 __device__ __forceinline__ float jmin(float a, float b) {
   return (isnan(a) || isnan(b)) ? qnan() : fminf(a, b);
 }
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (isnan(a) || isnan(b)) ? qnan() : fmaxf(a, b);
+}
 
 // astype(int32) of a float-encoded id, as XLA converts: toward zero,
 // saturating, NaN -> 0.

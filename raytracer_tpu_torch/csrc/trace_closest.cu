@@ -10,10 +10,13 @@
 // (ops/intersect.intersect_scene) launches it once per bounce; the fused
 // path loop calls K1 inline instead. Bound like K1: dependent BVH loads
 // and divergence; the ray I/O is 7 floats in and 6 words out per thread.
+// One instantiation per built tree width (traverse.cuh), chosen by
+// BvhView::width.
 #include <cuda_runtime.h>
 
 #include "traverse.cuh"
 
+template <int K>
 __global__ void trace_closest_kernel(trav::BvhView bvh, const float* __restrict__ o,
                                      const float* __restrict__ d, const float* __restrict__ tlim,
                                      float t_min, int n, float* __restrict__ t_out,
@@ -21,7 +24,7 @@ __global__ void trace_closest_kernel(trav::BvhView bvh, const float* __restrict_
                                      float* __restrict__ n_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const trav::Hit h = trav::traverse(bvh, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+  const trav::Hit h = trav::traverse<K>(bvh, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
                                      d[3 * i + 1], d[3 * i + 2], tlim[i], t_min);
   t_out[i] = h.t;
   id_out[i] = h.prim;
@@ -34,11 +37,27 @@ __global__ void trace_closest_kernel(trav::BvhView bvh, const float* __restrict_
 extern "C" int rt_trace_closest(const trav::BvhView* bvh, const float* o, const float* d,
                                 const float* tlim, float t_min, int n, float* t_out, int* id_out,
                                 int* mat_out, float* n_out, int block, void* stream) {
-  if (bvh->width != trav::K) return static_cast<int>(cudaErrorInvalidValue);
+  if (!trav::built_width(bvh->width)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const int grid = (n + block - 1) / block;
-    trace_closest_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        *bvh, o, d, tlim, t_min, n, t_out, id_out, mat_out, n_out);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (bvh->width == 4)
+      trace_closest_kernel<4><<<grid, block, 0, s>>>(*bvh, o, d, tlim, t_min, n, t_out, id_out,
+                                                     mat_out, n_out);
+    else
+      trace_closest_kernel<8><<<grid, block, 0, s>>>(*bvh, o, d, tlim, t_min, n, t_out, id_out,
+                                                     mat_out, n_out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local memory (bytes per thread) of K4 at tree width 4 or 8.
+extern "C" int rt_trace_closest_attrs(int width, int* num_regs, int* local_bytes) {
+  if (!trav::built_width(width)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a{};
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, width == 4 ? trace_closest_kernel<4> : trace_closest_kernel<8>);
+  *num_regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(e);
 }

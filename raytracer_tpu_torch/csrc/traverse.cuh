@@ -34,11 +34,16 @@ namespace trav {
 constexpr float BIG = 3.0e38f;
 constexpr int NONE = -1;
 constexpr int STACK_CAP = 256;  // utils/cudalib.STACK_CAP; the wrapper checks stack_depth+4
-constexpr int K = 8;            // BVH width: scene/builder always widens to BVH8
+
+// The tree widths K the kernels are built for (utils/cudalib.BVH_WIDTHS):
+// 8, scene/builder's default, and 4, the native builder's own tree
+// (RAYTRACER_TPU_BVH_WIDTH=4). Each entry point dispatches on
+// BvhView::width and refuses any other.
+__host__ __device__ constexpr bool built_width(int k) { return k == 4 || k == 8; }
 
 struct BvhView {
-  const float* bounds;    // [n_nodes, K, 6] child boxes (min xyz, max xyz)
-  const int* children;    // [n_nodes, K]; >=0 node, -1 empty, <=-2 leaf -(2+lo*8+cnt-1)
+  const float* bounds;    // [n_nodes, width, 6] child boxes (min xyz, max xyz)
+  const int* children;    // [n_nodes, width]; >=0 node, -1 empty, <=-2 leaf -(2+lo*8+cnt-1)
   const float* tri;       // [T, 9] v0, e1, e2 in leaf order
   const int* prim;        // [T] original face ids
   const int* fmat;        // [T] material ids
@@ -46,7 +51,7 @@ struct BvhView {
   const int* bprim;       // [Tb]
   const int* bmat;        // [Tb]
   int n_brute;
-  int width;              // must equal K (checked by each entry point)
+  int width;              // 4 or 8: the K of the instantiation each entry point launches
 };
 
 struct Hit {
@@ -124,14 +129,22 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b, float ox, floa
     code[j] = cj;                                  \
   }
 
-// ops/bvh4.SORT_PAIRS[8]: keys ascending; a swap only on a strictly greater key.
+// ops/bvh4.SORT_PAIRS[K]: keys ascending; a swap only on a strictly greater
+// key. Another network would order equal keys differently, and the kernel
+// would then part from the plain version at ties.
+template <int K>
 __device__ __forceinline__ void sort_children(float (&key)[K], int (&code)[K]) {
-  TRAV_CSWAP(0, 1) TRAV_CSWAP(2, 3) TRAV_CSWAP(4, 5) TRAV_CSWAP(6, 7)
-  TRAV_CSWAP(0, 2) TRAV_CSWAP(1, 3) TRAV_CSWAP(4, 6) TRAV_CSWAP(5, 7)
-  TRAV_CSWAP(1, 2) TRAV_CSWAP(5, 6)
-  TRAV_CSWAP(0, 4) TRAV_CSWAP(1, 5) TRAV_CSWAP(2, 6) TRAV_CSWAP(3, 7)
-  TRAV_CSWAP(2, 4) TRAV_CSWAP(3, 5)
-  TRAV_CSWAP(1, 2) TRAV_CSWAP(3, 4) TRAV_CSWAP(5, 6)
+  static_assert(built_width(K), "the kernels are built for widths 4 and 8");
+  if constexpr (K == 8) {
+    TRAV_CSWAP(0, 1) TRAV_CSWAP(2, 3) TRAV_CSWAP(4, 5) TRAV_CSWAP(6, 7)
+    TRAV_CSWAP(0, 2) TRAV_CSWAP(1, 3) TRAV_CSWAP(4, 6) TRAV_CSWAP(5, 7)
+    TRAV_CSWAP(1, 2) TRAV_CSWAP(5, 6)
+    TRAV_CSWAP(0, 4) TRAV_CSWAP(1, 5) TRAV_CSWAP(2, 6) TRAV_CSWAP(3, 7)
+    TRAV_CSWAP(2, 4) TRAV_CSWAP(3, 5)
+    TRAV_CSWAP(1, 2) TRAV_CSWAP(3, 4) TRAV_CSWAP(5, 6)
+  } else {
+    TRAV_CSWAP(0, 2) TRAV_CSWAP(1, 3) TRAV_CSWAP(0, 1) TRAV_CSWAP(2, 3) TRAV_CSWAP(1, 2)
+  }
 }
 #undef TRAV_CSWAP
 
@@ -144,6 +157,7 @@ __device__ __forceinline__ void sort_children(float (&key)[K], int (&code)[K]) {
 // to 47.39 ms, median of 10 in alternating turns with non-overlapping
 // ranges (NVIDIA H100 80GB HBM3, 700 W). K4 went from 54 to 50 registers
 // and 8.45 to 7.96 ms per 20 calls, within its run-to-run spread.
+template <int K>
 __device__ __forceinline__ bool step(const BvhView& bvh, float ox, float oy, float oz, float dx,
                                      float dy, float dz, float ix, float iy, float iz,
                                      float t_min, Hit& h, int (&stack)[STACK_CAP], int& sp,
@@ -165,7 +179,7 @@ __device__ __forceinline__ bool step(const BvhView& bvh, float ox, float oy, flo
       code[k] = c;
       nhit += valid ? 1 : 0;
     }
-    sort_children(key, code);
+    sort_children<K>(key, code);
     if (nhit > 0) next = code[0];
     // Push the other hit children far to near, so the nearest pops first.
 #pragma unroll
@@ -193,7 +207,7 @@ __device__ __forceinline__ bool step(const BvhView& bvh, float ox, float oy, flo
 // per-chain count (pallas_traverse.py:333-345). The production
 // instantiation (COUNT = false) has no counter and compiles as it did
 // before the counter existed.
-template <bool COUNT = false>
+template <int K, bool COUNT = false>
 __device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz, float dx,
                                float dy, float dz, float t_lim, float t_min,
                                int* iters = nullptr) {
@@ -227,7 +241,7 @@ __device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz,
         code[k] = c;
         nhit += valid ? 1 : 0;
       }
-      sort_children(key, code);
+      sort_children<K>(key, code);
       if (nhit > 0) next = code[0];
       // Push the other hit children far to near, so the nearest pops first.
 #pragma unroll
@@ -262,6 +276,7 @@ struct Ray {
 // while the other goes on. Each ray takes exactly the steps traverse
 // takes for it, in the same order, so h0 and h1 equal traverse's bit for
 // bit.
+template <int K>
 __device__ inline void traverse2(const BvhView& bvh, const Ray& r0, const Ray& r1, float t_min,
                                  Hit& h0, Hit& h1) {
   h0 = Hit{r0.t_lim, NONE, 0, 0.0f, 0.0f, 0.0f};
@@ -285,10 +300,10 @@ __device__ inline void traverse2(const BvhView& bvh, const Ray& r0, const Ray& r
   int task0 = 0, task1 = 0;  // the root
   while (go0 || go1) {
     if (go0)
-      go0 = step(bvh, r0.ox, r0.oy, r0.oz, r0.dx, r0.dy, r0.dz, ix0, iy0, iz0, t_min, h0, stack0,
+      go0 = step<K>(bvh, r0.ox, r0.oy, r0.oz, r0.dx, r0.dy, r0.dz, ix0, iy0, iz0, t_min, h0, stack0,
                  sp0, task0);
     if (go1)
-      go1 = step(bvh, r1.ox, r1.oy, r1.oz, r1.dx, r1.dy, r1.dz, ix1, iy1, iz1, t_min, h1, stack1,
+      go1 = step<K>(bvh, r1.ox, r1.oy, r1.oz, r1.dx, r1.dy, r1.dz, ix1, iy1, iz1, t_min, h1, stack1,
                  sp1, task1);
   }
 }

@@ -62,9 +62,11 @@ def _default_interleave() -> int:
 
 
 def fused_megakernel_available(scene) -> bool:
-    """True when the fused path loop can render this scene."""
+    """True when the fused path loop can render this scene: a tree of a
+    width the kernels are built for (4 or 8) within their budgets."""
     return (scene.bvh4 is not None
             and scene.bvh4.face_mat is not None
+            and int(scene.bvh4.children.shape[1]) in cudalib.BVH_WIDTHS
             and scene.spheres.count <= MAX_SPHERES
             and scene.materials.count <= MAX_MATERIALS)
 
@@ -267,23 +269,28 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, kin
 
 def kernel_resources() -> dict:
     """{kernel: (registers per thread, local memory bytes per thread)} of
-    K3, K3-profile and K5 on the card (cudaFuncGetAttributes)."""
+    K3, K3-profile and K5 on the card (cudaFuncGetAttributes), for each
+    tree width: "K3" etc. at width 8, "K3/w4" etc. at width 4."""
     L = cudalib.lib()
     out = {}
-    for name, call in (("K3", lambda r, b: L.rt_render_fused_attrs(0, r, b)),
-                       ("K3-profile", lambda r, b: L.rt_render_fused_attrs(1, r, b)),
-                       ("K5", L.rt_render_fused_g2_attrs)):
-        regs, local = ctypes.c_int(0), ctypes.c_int(0)
-        cudalib.check(call(ctypes.byref(regs), ctypes.byref(local)), f"{name} attributes")
-        out[name] = (regs.value, local.value)
+    for width in cudalib.BVH_WIDTHS[::-1]:
+        tag = "" if width == 8 else f"/w{width}"
+        for name, call in (("K3", lambda w, r, b: L.rt_render_fused_attrs(w, 0, r, b)),
+                           ("K3-profile", lambda w, r, b: L.rt_render_fused_attrs(w, 1, r, b)),
+                           ("K5", L.rt_render_fused_g2_attrs)):
+            regs, local = ctypes.c_int(0), ctypes.c_int(0)
+            cudalib.check(call(width, ctypes.byref(regs), ctypes.byref(local)),
+                          f"{name}{tag} attributes")
+            out[name + tag] = (regs.value, local.value)
     return out
 
 
 def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets, block,
             use_kernel: bool, profile: bool, interleave, lane_counts: bool = False):
     if not fused_megakernel_available(scene):
-        raise ValueError("the fused path loop needs a bvh4 scene within the kernel's "
-                         f"budgets ({MAX_SPHERES} spheres, {MAX_MATERIALS} materials)")
+        raise ValueError(f"the fused path loop needs a bvh4 scene of width {cudalib.BVH_WIDTHS} "
+                         f"within the kernel's budgets ({MAX_SPHERES} spheres, "
+                         f"{MAX_MATERIALS} materials)")
     g = _default_interleave() if interleave is None else _check_interleave(int(interleave))
     n = px.shape[0]
     if profile and g != 1:

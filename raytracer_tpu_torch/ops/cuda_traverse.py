@@ -8,7 +8,8 @@ unnormalized cross(e1, e2)), hit}. `intersect_bvh4` is
 `intersect_bvh4_pallas`: the (t, tri_id) pair of that record.
 
 On a CUDA tensor it launches kernel K4 (csrc/trace_closest.cu), one
-thread per ray calling K1 (csrc/traverse.cuh); on a CPU tensor it runs
+thread per ray calling K1 (csrc/traverse.cuh), instantiated for the
+tree's width (4 or 8; cudalib.bvh_view refuses others); on a CPU tensor it runs
 `_traverse_plain`, the plain PyTorch version. `_traverse_plain` takes
 the kernel's steps in the kernel's order — brute-force pre-pass, then
 the wide BVH nearest child first from a per-ray stack (children ordered
@@ -27,6 +28,8 @@ sort can only change how coherent the rays of one warp are.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -212,6 +215,18 @@ def _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min: float):
     cudalib.check(code, "trace_closest kernel")
     LAUNCHES["trace_closest"] += 1
     return _finish(t, ids, mat, nrm)
+
+
+def kernel_resources() -> dict:
+    """{"K4" (width 8), "K4/w4": (registers per thread, local memory bytes
+    per thread)} on the card (cudaFuncGetAttributes)."""
+    out = {}
+    for width in cudalib.BVH_WIDTHS[::-1]:
+        regs, local = ctypes.c_int(0), ctypes.c_int(0)
+        cudalib.check(cudalib.lib().rt_trace_closest_attrs(width, ctypes.byref(regs),
+                                                           ctypes.byref(local)), "K4 attributes")
+        out["K4" if width == 8 else f"K4/w{width}"] = (regs.value, local.value)
+    return out
 
 
 def _trace_closest_cuda_sorted(origins, dirs, bvh4, t_max, t_min: float):

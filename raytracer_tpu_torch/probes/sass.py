@@ -30,10 +30,10 @@ KINDS = {
 _FUNC = re.compile(r"Function : (\S+)")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 # A probe kernel's mangled name: its body and template argument (a variant,
-# mode or case id; G itself for the interleave probe), or the scalar
-# probe's tables pre-pass.
-_KERNEL = re.compile(r"probe_(v8|v5|interleave|scalar|vstack)_kernelILi(\d+)E"
-                     r"|probe_(scalar)_(tables)_kernel")
+# mode or case id; G itself for the interleave probe), the scalar probe's
+# tables pre-pass, or the v6 body (one kernel).
+_KERNEL = re.compile(r"probe_(v8|v5|interleave|scalar|vstack|ktf)_kernelILi(\d+)E"
+                     r"|probe_(scalar)_(tables)_kernel|probe_(v6)_kernelE")
 
 
 def cuobjdump() -> str:
@@ -44,8 +44,8 @@ def cuobjdump() -> str:
 def parse(sass: str) -> dict:
     """{(body, instantiation id): {"total": n, kind: n, ...}} of the probe
     kernels in cuobjdump -sass output; body is "v8", "v5", "interleave",
-    "scalar" or "vstack", the id an int ("tables" for the scalar probe's
-    pre-pass)."""
+    "scalar", "vstack", "ktf" or "v6", the id an int ("tables" for the
+    scalar probe's pre-pass, 0 for v6)."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = _FUNC.search(line)
@@ -55,8 +55,10 @@ def parse(sass: str) -> dict:
                 cur = None
             elif k.group(1):
                 cur = (k.group(1), int(k.group(2)))
-            else:
+            elif k.group(3):
                 cur = (k.group(3), k.group(4))
+            else:
+                cur = (k.group(5), 0)
             if cur is not None:
                 out[cur] = dict.fromkeys(["total", *KINDS], 0)
             continue
@@ -85,15 +87,17 @@ def counts(lib_path: str | None = None) -> dict:
 def name(body: str, i) -> str:
     """A kernel's name in its probe's own terms: "v8 <variant>", "v5
     <mode>", "interleave G<G>", "scalar <mode>" (or "scalar tables"),
-    "vstack <case>"."""
-    from raytracer_tpu_torch.probes import ablate_v8, scalar_cost, v5_body, vstack
+    "vstack <case>", "ktf <case>", "v6"."""
+    from raytracer_tpu_torch.probes import ablate_v8, ktf_probe, scalar_cost, v5_body, vstack
 
     if body == "interleave":
         return f"interleave G{i}"
     if i == "tables":
         return "scalar tables"
+    if body == "v6":
+        return "v6"
     names = {"v8": ablate_v8.VARIANTS, "v5": v5_body.MODES, "scalar": scalar_cost.MODES,
-             "vstack": vstack.CASES}
+             "vstack": vstack.CASES, "ktf": ktf_probe.CASES}
     return f"{body} {names[body][i]}"
 
 

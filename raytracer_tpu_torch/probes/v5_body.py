@@ -39,7 +39,6 @@ probe measures on this card.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 import torch
@@ -78,17 +77,10 @@ def flags(mode: str) -> dict:
 def reference_tables():
     """(node, tri, zero_row) of the reference scene built 4-wide, as the
     scripts' main() packs them (pallas_traverse._pack_tables)."""
-    from raytracer_tpu_torch.scene.builder import reference_scene
+    from raytracer_tpu_torch.scene.builder import reference_scene, tree_width
 
-    old = os.environ.get("RAYTRACER_TPU_BVH_WIDTH")
-    os.environ["RAYTRACER_TPU_BVH_WIDTH"] = "4"
-    try:
+    with tree_width(4):
         scene = reference_scene()
-    finally:
-        if old is None:
-            del os.environ["RAYTRACER_TPU_BVH_WIDTH"]
-        else:
-            os.environ["RAYTRACER_TPU_BVH_WIDTH"] = old
     node, tri, _, _ = pack_tables(scene.bvh4, scene.bvh4.face_mat)
     return node, tri, tri.shape[0] - 1
 

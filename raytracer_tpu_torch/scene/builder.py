@@ -16,6 +16,7 @@ scene/assets.py are not ported yet); the native BVH builder must build
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import warnings
@@ -43,6 +44,21 @@ MIRROR_SPHERE = dict(center=(0.2, 0.2, 0.0), radius=0.05, albedo=(0.7, 0.6, 0.5)
 BVH_WIDTH = 8  # default tree width; RAYTRACER_TPU_BVH_WIDTH overrides it
 ASSETS_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
                                           "assets", "models"))
+
+
+@contextlib.contextmanager
+def tree_width(width: int):
+    """RAYTRACER_TPU_BVH_WIDTH set to `width` for the builds inside the
+    block, restored after it."""
+    old = os.environ.get("RAYTRACER_TPU_BVH_WIDTH")
+    os.environ["RAYTRACER_TPU_BVH_WIDTH"] = str(width)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RAYTRACER_TPU_BVH_WIDTH"]
+        else:
+            os.environ["RAYTRACER_TPU_BVH_WIDTH"] = old
 
 
 def _asset_paths(assets_dir: str | None) -> dict:
@@ -202,8 +218,8 @@ def build_scene_bvh4(mesh: TriMesh):
     faces, widened to RAYTRACER_TPU_BVH_WIDTH (8 by default) as the JAX
     builder reads it, with oversized triangles split off for the
     brute-force pre-pass. prim ids in both halves are ORIGINAL face
-    indices. The kernels of csrc/ take width 8 only (utils/cudalib.bvh_view);
-    a 4-wide tree serves the v5-layout probes (probes/v5_tables.py)."""
+    indices. The kernels of csrc/ take widths 4 and 8 (utils/cudalib.bvh_view);
+    a 4-wide tree also serves the v5- and v6-layout probes (probes/)."""
     brute_ids, tree_ids = partition_brute_faces(mesh)
     if brute_ids.size:
         sub = TriMesh(vertices=mesh.vertices,

@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 STACK_CAP = 256  # per-thread traversal stack entries (csrc/traverse.cuh)
-BVH_WIDTH = 8    # the kernels' only tree width (csrc/traverse.cuh K)
+BVH_WIDTHS = (4, 8)  # the tree widths the kernels are built for (csrc/traverse.cuh)
 MAX_SPHERES = 16
 MAX_MATERIALS = 28
 
@@ -161,13 +161,14 @@ def lib() -> ctypes.CDLL:
     L.rt_ktf_threefry_keyed.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, vp]
     L.rt_trace_closest.argtypes = [ctypes.POINTER(BvhView), vp, vp, vp, cf, ci,
                                    vp, vp, vp, vp, ci, vp]
+    ip = ctypes.POINTER(ctypes.c_int)
+    L.rt_trace_closest_attrs.argtypes = [ci, ip, ip]
     fused = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView), vp, vp, vp, vp, vp, vp, vp, ci]
     L.rt_render_fused.argtypes = fused + [vp, ci, vp]
     L.rt_render_fused_g2.argtypes = fused + [vp, ci, vp]
     L.rt_render_fused_profile.argtypes = fused + [vp, vp, vp, vp, vp, ci, vp]
-    ip = ctypes.POINTER(ctypes.c_int)
-    L.rt_render_fused_attrs.argtypes = [ci, ip, ip]
-    L.rt_render_fused_g2_attrs.argtypes = [ip, ip]
+    L.rt_render_fused_attrs.argtypes = [ci, ci, ip, ip]
+    L.rt_render_fused_g2_attrs.argtypes = [ci, ip, ip]
     L.rt_probe_v8.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
     L.rt_probe_v5.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
     L.rt_probe_v8_attrs.argtypes = [ci, ip, ip]
@@ -176,14 +177,19 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_scalar.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
     L.rt_probe_scalar_tables.argtypes = [ci, ci, vp, vp]
     L.rt_probe_vstack.argtypes = [ci, ci, vp, vp, vp, vp]
-    for name in ("interleave", "scalar", "vstack"):
+    L.rt_probe_ktf.argtypes = [ci, vp, vp, cu, cu, vp, vp, vp, vp, vp]
+    L.rt_probe_v6.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp,
+                              vp]
+    L.rt_probe_v6_attrs.argtypes = [ip, ip]
+    for name in ("interleave", "scalar", "vstack", "ktf"):
         getattr(L, f"rt_probe_{name}_attrs").argtypes = [ci, ip, ip]
     for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_trace_closest,
-               L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
+               L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
                L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_probe_v8,
                L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs, L.rt_probe_interleave,
                L.rt_probe_interleave_attrs, L.rt_probe_scalar, L.rt_probe_scalar_tables,
-               L.rt_probe_scalar_attrs, L.rt_probe_vstack, L.rt_probe_vstack_attrs):
+               L.rt_probe_scalar_attrs, L.rt_probe_vstack, L.rt_probe_vstack_attrs,
+               L.rt_probe_ktf, L.rt_probe_ktf_attrs, L.rt_probe_v6, L.rt_probe_v6_attrs):
         fn.restype = ctypes.c_int
     L.rt_error_string.argtypes = [ci]
     L.rt_error_string.restype = ctypes.c_char_p
@@ -215,12 +221,12 @@ def stream_handle() -> int:
 
 
 def bvh_view(bvh) -> BvhView:
-    """BvhView over a Bvh4 whose tensors are on the card (the caller keeps
-    `bvh` alive across the launch)."""
+    """BvhView over a 4- or 8-wide Bvh4 whose tensors are on the card (the
+    caller keeps `bvh` alive across the launch)."""
     k = int(bvh.children.shape[1])
-    if k != BVH_WIDTH:
-        raise ValueError(f"BVH width {k} not supported by the kernels (only {BVH_WIDTH}; "
-                         "scene/builder widens to it)")
+    if k not in BVH_WIDTHS:
+        raise ValueError(f"BVH width {k} not supported by the kernels (built for widths "
+                         f"{BVH_WIDTHS}; RAYTRACER_TPU_BVH_WIDTH picks the builder's)")
     if bvh.stack_depth + 4 > STACK_CAP:
         raise ValueError(f"BVH stack bound {bvh.stack_depth}+4 exceeds kernel capacity {STACK_CAP}")
     n4, t = bvh.children.shape[0], bvh.tri.shape[0]

@@ -110,6 +110,15 @@ def counter(sample, bounce, purpose: int) -> torch.Tensor:
     return (s << 9) | (b << 4) | purpose
 
 
+def unit_vector_parts(u1: torch.Tensor, u2: torch.Tensor):
+    """Uniform direction on the unit sphere from 2 uniforms: z = 1-2u1,
+    phi = 2*pi*u2 (Core/Utility.cuh:73-76 distribution)."""
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = TWO_PI * u2
+    return r * torch.cos(phi), r * torch.sin(phi), z
+
+
 @dataclass(frozen=True)
 class KtfSampler:
     """Per-lane draw context: pixel ids + the (sample, bounce) word.
@@ -142,13 +151,9 @@ class KtfSampler:
         return u01(a), u01(b)
 
     def unit_vector_parts(self, purpose: int):
-        """Uniform direction on the unit sphere from 2 uniforms:
-        z = 1-2u1, phi = 2*pi*u2 (Core/Utility.cuh:73-76 distribution)."""
-        u1, u2 = self.uniform_pair(purpose)
-        z = 1.0 - 2.0 * u1
-        r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
-        phi = TWO_PI * u2
-        return r * torch.cos(phi), r * torch.sin(phi), z
+        """Uniform direction on the unit sphere (`unit_vector_parts` of
+        the module) from the block's two uniforms."""
+        return unit_vector_parts(*self.uniform_pair(purpose))
 
     def unit_vector(self, purpose: int) -> torch.Tensor:
         return torch.stack(self.unit_vector_parts(purpose), dim=-1)

@@ -36,17 +36,12 @@ def load_script(monkeypatch, name: str, argv):
     return mod
 
 
-def v5_tables():
-    """(node, tri, o, d, tlim, zero_row) as numpy: the v5 tables of a small
-    4-wide tree (400 random triangles and 4 large ones, which the builder
-    splits off as brute rows) and 2 packets of seeded rays. The node table
-    is padded with zero rows to 251, the rows no_scalar's task walks
-    through (0..1000 // 4)."""
+def small_tree():
+    """A small 4-wide tree: 400 random triangles and 4 large ones, which the
+    builder splits off as brute rows."""
     import torch
 
-    from raytracer_tpu_torch.probes import v5_body
-    from raytracer_tpu_torch.probes.v5_tables import pack_tables
-    from raytracer_tpu_torch.scene.builder import build_scene_bvh4
+    from raytracer_tpu_torch.scene.builder import build_scene_bvh4, tree_width
     from raytracer_tpu_torch.scene.types import TriMesh
 
     rng = np.random.default_rng(11)
@@ -62,16 +57,21 @@ def v5_tables():
     mesh = TriMesh(vertices=torch.from_numpy(verts),
                    faces=torch.arange(3 * n, dtype=torch.int32).reshape(n, 3),
                    face_mat=torch.from_numpy((np.arange(n) % 3).astype(np.int32)))
-    old = os.environ.get("RAYTRACER_TPU_BVH_WIDTH")
-    os.environ["RAYTRACER_TPU_BVH_WIDTH"] = "4"
-    try:
+    with tree_width(4):
         bvh = build_scene_bvh4(mesh)
-    finally:
-        if old is None:
-            del os.environ["RAYTRACER_TPU_BVH_WIDTH"]
-        else:
-            os.environ["RAYTRACER_TPU_BVH_WIDTH"] = old
     assert bvh.children.shape[1] == 4 and bvh.brute_tri is not None
+    return bvh
+
+
+def v5_tables():
+    """(node, tri, o, d, tlim, zero_row) as numpy: the v5 tables of the
+    small tree and 2 packets of seeded rays. The node table is padded with
+    zero rows to 251, the rows no_scalar's task walks through
+    (0..1000 // 4)."""
+    from raytracer_tpu_torch.probes import v5_body
+    from raytracer_tpu_torch.probes.v5_tables import pack_tables
+
+    bvh = small_tree()
     node, tri, _, n_brute = pack_tables(bvh, bvh.face_mat)
     assert n_brute == 1 and bvh.stack_depth + 4 <= v5_body.STACK_CAP
     node = np.concatenate([node.numpy(), np.zeros((251 - node.shape[0], 128), np.float32)])

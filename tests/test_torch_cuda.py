@@ -8,8 +8,9 @@ K2 on 2^20 counters, K4 on 131,072 rays, K3 on the preflight frame and
 on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path frame,
 K4's sort path on a 262,144-ray bounce wavefront, the training step
 at the INVERSE_r05 width, K5 against K3 on the whole 2K frame,
-K3-profile against K3 and its plain version, and the traversal-iteration
-probes at the scripts' sizes (phase 13)."""
+K3-profile against K3 and its plain version, the traversal-iteration
+probes at the scripts' sizes (phase 13), and the kernels on the reference
+scene's 4-wide tree (phase 14)."""
 
 import numpy as np
 import pytest
@@ -20,10 +21,11 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.fused import render_image_fused
 from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
 from raytracer_tpu_torch.ops.bvh4 import BIG
-from raytracer_tpu_torch.probes import (ablate_v8, base_probe, interleave_probe, scalar_cost,
-                                        v5_body, vstack)
+from raytracer_tpu_torch.probes import (ablate_v8, base_probe, interleave_probe, ktf_probe,
+                                        scalar_cost, v5_body, v6, vstack)
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
-from raytracer_tpu_torch.scene.builder import cornell_materials_scene, reference_scene
+from raytracer_tpu_torch.scene.builder import (cornell_materials_scene, reference_scene,
+                                               tree_width)
 from raytracer_tpu_torch.utils import ktf
 
 pytestmark = pytest.mark.cuda
@@ -115,7 +117,8 @@ def test_k3_profile_equals_k3_and_plain(dev, bunny):
     assert torch.equal(cost, p_cost) and torch.equal(aux, p_aux)
     assert torch.equal(k1, p_k1) and torch.equal(it, p_it)
     regs = cuda_megakernel.kernel_resources()
-    assert set(regs) == {"K3", "K3-profile", "K5"} and all(r > 0 for r, _ in regs.values())
+    assert set(regs) == {"K3", "K3-profile", "K5", "K3/w4", "K3-profile/w4", "K5/w4"}
+    assert all(r > 0 for r, _ in regs.values())
 
 
 def test_k3_preflight_known_answer(dev, bunny):
@@ -303,3 +306,76 @@ def test_probe_resources(dev):
     more = [*interleave_probe.kernel_resources().values(),
             *scalar_cost.kernel_resources().values(), *vstack.kernel_resources().values()]
     assert all(r > 0 for r, _ in list(regs8.values()) + list(regs5.values()) + more)
+
+
+@pytest.fixture(scope="module")
+def bunny4(dev):
+    with tree_width(4):
+        scene = reference_scene()
+    assert scene.bvh4.children.shape[1] == 4
+    return scene.to(dev)
+
+
+def test_k4_width4_matches_plain(dev, bunny4):
+    """K4 on the 4-wide tree ≡ its plain version on every field."""
+    rng = np.random.default_rng(1)
+    o = torch.from_numpy(rng.uniform(-0.28, 0.28, (8192, 3)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(rng.normal(size=(8192, 3)).astype(np.float32)).to(dev)
+    t_max = torch.from_numpy(rng.uniform(-1.0, 2.0, 8192).astype(np.float32)).to(dev)
+    before = cuda_traverse.LAUNCHES["trace_closest"]
+    k = cuda_traverse.trace_closest(o, d, bunny4.bvh4, t_max, sort=False)
+    assert cuda_traverse.LAUNCHES["trace_closest"] == before + 1
+    p = cuda_traverse.trace_closest_plain(o.cpu(), d.cpu(), bunny4.to("cpu").bvh4, t_max.cpu())
+    for key in ("t", "tri_id", "mat_id", "hit", "normal"):
+        assert torch.equal(k[key].cpu(), p[key]), key
+    regs = cuda_traverse.kernel_resources()
+    assert set(regs) == {"K4", "K4/w4"} and all(r > 0 for r, _ in regs.values())
+
+
+def test_k3_k5_profile_width4(dev, bunny4):
+    """On the 4-wide tree: K3 within the image tolerance of its plain
+    version and at the preflight known answer; K5 ≡ K3 and K3-profile's
+    rgb ≡ K3 bit for bit; K3-profile's cost and aux ≡ the plain version's."""
+    cfg = RenderConfig(width=128, height=40, spp=2, max_bounces=12)
+    cam = showcase_camera(cfg)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    k3 = cuda_megakernel.render_tiles_fused(bunny4, cam, cfg, 0, px, py, interleave=1)
+    k5 = cuda_megakernel.render_tiles_fused(bunny4, cam, cfg, 0, px, py, interleave=2)
+    rgb, cost, aux = cuda_megakernel.render_tiles_fused(bunny4, cam, cfg, 0, px, py, profile=True)
+    p, p_cost, p_aux = cuda_megakernel.render_tiles_fused_plain(bunny4, cam, cfg, 0, px, py,
+                                                                profile=True)
+    assert torch.equal(k5, k3) and torch.equal(rgb, k3)
+    assert torch.equal(cost, p_cost) and torch.equal(aux, p_aux)
+    bad = (k3 - p).abs() > 5e-4 + 2e-4 * p.abs()
+    assert bad.float().mean().item() < 0.005
+    assert abs(k3.mean().item() - 0.276287317276001) <= 0.02 * 0.276287317276001
+
+
+@pytest.mark.parametrize("case", ktf_probe.CASES)
+def test_probe_ktf_case(dev, case):
+    """csrc/probe_ktf.cu: each case against the script's expectation and
+    against its plain version on the card, by the script's rules."""
+    before = ktf_probe.LAUNCHES["probe_ktf"]
+    assert ktf_probe.run_case(case, dev, out=lambda line: None)["ok"]
+    assert ktf_probe.LAUNCHES["probe_ktf"] == before + 1 + 10
+    ins = tuple(torch.from_numpy(x).to(dev) for x in ktf_probe.inputs(case))
+    k, p = ktf_probe.probe_ktf(case, *ins), ktf_probe.ktf_plain(case, *ins)
+    assert ktf_probe.agrees(case, [t.cpu().numpy() for t in k], [t.cpu().numpy() for t in p])[0]
+
+
+def test_probe_v6_equals_plain(dev):
+    """csrc/probe_v6.cu ≡ v6_plain bit for bit on all six outputs and the
+    chains' iteration counts (2 packets of the reference scene's 4-wide
+    tree, at 12 iterations and at the script's bound), and the rule against
+    K4 holds."""
+    bvh, node, tri, n_brute, cap, o, d, tlim = v6.reference_inputs(2)
+    args = [t.to(dev) for t in (node, tri, o, d, tlim)]
+    for iters in (12, None):
+        before = v6.LAUNCHES["probe_v6"]
+        k = v6.v6(*args, n_brute, cap, max_iters=iters, count=True)
+        assert v6.LAUNCHES["probe_v6"] == before + 1
+        p = v6.v6_plain(node, tri, o, d, tlim, n_brute, cap, max_iters=iters, count=True)
+        assert all(_bitwise(a, b) if a.is_floating_point() else torch.equal(a.cpu(), b)
+                   for a, b in zip(k, p))
+    r = v6.run(2, dev, inputs=(bvh, node, tri, n_brute, cap, o, d, tlim), out=lambda line: None)
+    assert sum(r["mismatches"][key] for key in ("t", "tri", "mat", "hit")) == 0

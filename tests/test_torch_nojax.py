@@ -32,7 +32,9 @@ for name in ("raytracer_tpu_torch.render", "raytracer_tpu_torch.models.megakerne
              "raytracer_tpu_torch.probes.v5_tables", "raytracer_tpu_torch.probes.ablate",
              "raytracer_tpu_torch.probes.load_probe", "raytracer_tpu_torch.probes.floor_probe",
              "raytracer_tpu_torch.probes.base_probe", "raytracer_tpu_torch.probes.interleave_probe",
-             "raytracer_tpu_torch.probes.scalar_cost", "raytracer_tpu_torch.probes.vstack"):
+             "raytracer_tpu_torch.probes.scalar_cost", "raytracer_tpu_torch.probes.vstack",
+             "raytracer_tpu_torch.probes.ktf_probe", "raytracer_tpu_torch.probes.v6",
+             "raytracer_tpu_torch.probes.v6_tables"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "raytracer_tpu") for m in sys.modules)

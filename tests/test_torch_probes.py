@@ -178,3 +178,24 @@ def test_sass_counts_parse_new_probes():
     assert (c[("scalar", 4)]["shfl"], c[("scalar", 4)]["shared"]) == (1, 1)
     assert {sass.name(*k) for k in c} == {"interleave G8", "scalar vsort", "scalar tables",
                                           "v5 minimal", "vstack p2_vreg"}
+
+
+def test_sass_counts_parse_ktf_v6():
+    """The P-ktf kernels (one per case) and the P-v6 kernel are parsed and
+    named in their probes' terms; the production kernels are not counted."""
+    text = """
+        Function : _ZN9probe_ktf16probe_ktf_kernelILi4EEEvPKiS2_jjPvS3_S3_S3_
+        /*0000*/                   IADD3 R2, R3, R4, RZ ;
+        /*0010*/                   MUFU.COS R5, R2 ;
+        Function : _ZN8probe_v615probe_v6_kernelEPKfS1_S1_S1_S1_iiiiPfPiS3_S2_S2_S2_S3_
+        /*0000*/                   SHFL.BFLY PT, R5, R2, 0x10, 0x1f ;
+        /*0010*/                   STS [R7], R6 ;
+        /*0020*/                   FSETP.GT.AND P0, PT, R1, R2, PT ;
+        Function : _ZN2mk17fused_path_kernelILi4ELb0EEEv11FusedParamsN4trav7BvhViewEPKiS5_S5_
+        /*0000*/                   FMUL R1, R2, R3 ;
+    """
+    c = sass.parse(text)
+    assert set(c) == {("ktf", 4), ("v6", 0)}
+    assert (c[("ktf", 4)]["int"], c[("ktf", 4)]["fp32"]) == (1, 1)
+    assert (c[("v6", 0)]["total"], c[("v6", 0)]["shfl"], c[("v6", 0)]["shared"]) == (3, 1, 1)
+    assert {sass.name(*k) for k in c} == {"ktf sampler_tile", "v6"}

@@ -121,9 +121,11 @@ def test_two_level_scene_matches_brute_force():
 
 
 def test_kernels_take_only_bvh8():
-    """The CUDA kernels are built for BVH8 alone: a BVH4 (the JAX
-    builder's, through convert.py) is refused before any launch, while a
-    BVH8 passes the width check and stops only at the CPU-tensor check."""
+    """The CUDA kernels are built for widths 4 and 8: a BVH4 (the JAX
+    builder's LBVH collapse, through convert.py) and the port's BVH8 pass
+    bvh_view's width check and stop only at the CPU-tensor check, while a
+    tree widened to 16 is refused before any launch."""
+    from raytracer_tpu_torch.ops.bvh4 import widen_bvh
     from raytracer_tpu_torch.utils import cudalib
 
     verts, faces, fmat = _random_mesh(3)
@@ -131,8 +133,12 @@ def test_kernels_take_only_bvh8():
                      face_mat=jnp.asarray(fmat))
     b4 = bvh4_from_numpy(to_numpy_tree(build_bvh4(jmesh, build_lbvh(jmesh))))
     assert b4.children.shape[1] == 4
-    with pytest.raises(ValueError, match="width 4"):
-        cudalib.bvh_view(b4)
     b8 = build_scene_bvh4(TriMesh.from_arrays(verts, faces, fmat))
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        cudalib.bvh_view(b8)
+    assert b8.children.shape[1] == 8
+    for b in (b4, b8):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            cudalib.bvh_view(b)
+    b16 = widen_bvh(b4, 16)
+    assert b16.children.shape[1] == 16
+    with pytest.raises(ValueError, match="width 16"):
+        cudalib.bvh_view(b16)
