@@ -40,7 +40,13 @@ plain PyTorch version, and drives the port's two paths:
     v6.py (the dual-unit traversal on the reference scene's 4-wide tree,
     128 packets: equal to its plain version bit for bit at a check size
     and at full length, against K4 on the same tree by the script's rule,
-    timed against it in turns);
+    timed against it in turns); morph.py (the 13 variants of the v5 body
+    morphed toward K4, at the script's 8 packets and at 1,056, each equal
+    to its plain version bit for bit, the packets' loop counts included);
+    mosaic.py, bitcast.py and feature.py (single-tile cases, each against
+    the script's own check and its plain version bit for bit; bitcast's
+    p1, p3 and p4 say BAD as the script does, the ids being float-encoded;
+    feature's s7 is one K4 launch on the box-only scene);
   * the 4-wide tree (phase 14): the reference scene built with
     RAYTRACER_TPU_BVH_WIDTH=4 through K4, K3, K5 and K3-profile built for
     width 4: K4 equal to its plain version bit for bit and to K4 on the
@@ -650,6 +656,19 @@ def main(argv=None) -> int:
         ("dual-unit traversal on the row-per-node v6 tables (P-v6)", "probe_v6.cu",
          "scripts/kernel_v6_probe.py:94 (_make_kernel_v6; call :358)", "P-v6",
          kernels.get("P-v6", {}).get("launches", 0), {}),
+        ("the v5 body morphed toward K4 one delta at a time (P-morph, 13 variants)",
+         "probe_morph.cuh", "scripts/kernel_morph.py:52 (run_variant; call :324)", "P-morph",
+         kernels.get("P-morph", {}).get("launches", 0), {}),
+        ("Mosaic primitives of the sub-warp kernel (P-mosaic, 7 cases)", "probe_mosaic.cu",
+         "scripts/mosaic_probe.py:21 (run; call :22)", "P-mosaic",
+         kernels.get("P-mosaic", {}).get("launches", 0), {}),
+        ("id bitcasts and int broadcast-selects on the v5 tables (P-bitcast, p1-p4)",
+         "probe_bitcast.cu", "scripts/bitcast_probe.py:48 (p1), :83 (p2), :116 (p3), :149 (p4); "
+         "calls :69, :101, :136, :173", "P-bitcast",
+         kernels.get("P-bitcast", {}).get("launches", 0), {}),
+        ("one kernel construct per stage (P-feature, s1-s6; s7 is K4)", "probe_feature.cu",
+         "scripts/kernel_feature_probe.py:36 (s1) .. :196 (s6); calls :46, :72, :103, :142, "
+         ":186, :232", "P-feature", kernels.get("P-feature", {}).get("launches", 0), {}),
         ("fused_path_loop (K3) on a 4-wide tree", "megakernel_w4.cu",
          "raytracer_tpu/ops/pallas_megakernel.py:623 (n_children 4, :146)", "K3/w4",
          kernels.get("K3/w4", {}).get("launches", 0), {"width": 4}),
@@ -1044,9 +1063,11 @@ def phase13(dev, smi):
 
     from raytracer_tpu_torch.ops.bvh4 import BIG
     from raytracer_tpu_torch.ops.cuda_traverse import trace_closest_plain
-    from raytracer_tpu_torch.probes import (ablate, ablate_v8, base_probe, floor_probe,
-                                            interleave_probe, ktf_probe, load_probe, sass,
-                                            scalar_cost, v5_body, v6, vstack)
+    from raytracer_tpu_torch.ops import cuda_traverse
+    from raytracer_tpu_torch.probes import (ablate, ablate_v8, base_probe, bitcast, common,
+                                            feature, floor_probe, interleave_probe, ktf_probe,
+                                            load_probe, morph, mosaic, sass, scalar_cost, v5_body,
+                                            v6, vstack)
 
     t_phase = time.perf_counter()
     res_v8, res_v5 = ablate_v8.kernel_resources(), v5_body.kernel_resources()
@@ -1054,8 +1075,11 @@ def phase13(dev, smi):
     node5, tri5, zero_row = v5_body.reference_tables()
     o5, d5, tl5 = (torch.from_numpy(a) for a in v5_body.make_rays(v5_body.N_PACKETS))
     v6_in = v6.reference_inputs(v6.N_PACKETS)
+    morph_in = {p: morph.reference_inputs(p) for p in (morph.N_PACKETS, P13_FILL_PACKETS)}
+    bc_tabs = bitcast.reference_tables()
     setup_s = time.perf_counter() - t0
-    counters = (ablate_v8, v5_body, interleave_probe, scalar_cost, vstack, ktf_probe, v6)
+    counters = (ablate_v8, v5_body, interleave_probe, scalar_cost, vstack, ktf_probe, v6, morph,
+                mosaic, bitcast, feature)
 
     def out(line):
         log(13, "  " + line)
@@ -1108,13 +1132,39 @@ def phase13(dev, smi):
             f"in turns):")
     runs["P-v6"] = v6.run(v6.N_PACKETS, dev, inputs=v6_in, out=out)
     launches["P-v6"] = v6.LAUNCHES["probe_v6"]
+    for packets in morph_in:
+        log(13, f"morph.run({packets}) (every variant in this process; the reference scene's "
+                f"4-wide tree, stack bound {morph_in[packets][3]}):")
+        runs[f"P-morph {packets}"] = morph.run(packets, dev, inputs=morph_in[packets], out=out)
+    launches["P-morph"] = morph.LAUNCHES["probe_morph"]
+    log(13, "mosaic cases (in this process; one [8, 128] tile each, against the script's NumPy "
+            "expectation):")
+    runs["P-mosaic"] = {case: mosaic.run_case(case, dev, out=out) for case in mosaic.CASES}
+    if not all(r["ok"] for r in runs["P-mosaic"].values()):
+        raise AssertionError(f"mosaic probe: a case fails the script's check: {runs['P-mosaic']}")
+    launches["P-mosaic"] = mosaic.LAUNCHES["probe_mosaic"]
+    log(13, "bitcast p1-p4 (in this process; the reference scene's v5 tables; p1, p3 and p4 "
+            "bitcast float-encoded ids and say BAD, as the script does):")
+    runs["P-bitcast"] = {case: bitcast.run_case(case, dev, bc_tabs, out=out)
+                         for case in bitcast.CASES}
+    launches["P-bitcast"] = bitcast.LAUNCHES["probe_bitcast"]
+    log(13, "feature s1-s7 (in this process; s7 is K4 on the box-only scene):")
+    k4_before = cuda_traverse.LAUNCHES["trace_closest"]
+    runs["P-feature"] = {case: feature.run_case(case, dev, out=out) for case in feature.STAGES}
+    if not all(r["ok"] for r in runs["P-feature"].values()):
+        raise AssertionError(f"feature probe: a stage fails the script's check: "
+                             f"{runs['P-feature']}")
+    launches["P-feature"] = feature.LAUNCHES["probe_feature"]
+    launches["P-feature s7 (K4)"] = cuda_traverse.LAUNCHES["trace_closest"] - k4_before
     plain_calls = sum(n for mod in counters for n in mod.PLAIN_CALLS.values())
     want = {"P-v8": 2 * 11 * len(ablate_v8.VARIANTS),
             **{k: 11 * len(m) for k, (_, m) in v5_probes.items()},
             "P-interleave": 2 * 11 * len(interleave_probe.GS),
             "P-scalar": 11 * len(scalar_cost.VARIANTS), "P-scalar tables": 11,
             "P-vstack": 11 * len(vstack.CASES), "P-ktf": 11 * len(ktf_probe.CASES),
-            "P-v6": 12}
+            "P-v6": 12, "P-morph": 2 * 11 * len(morph.VARIANTS),
+            "P-mosaic": 11 * len(mosaic.CASES), "P-bitcast": 11 * len(bitcast.CASES),
+            "P-feature": 11 * len(feature.CASES), "P-feature s7 (K4)": 1}
     if launches != want or plain_calls:
         raise AssertionError(f"probe paths: launches {launches} (expected {want}), plain calls "
                              f"{plain_calls}")
@@ -1280,6 +1330,49 @@ def phase13(dev, smi):
     if chain_iters != int(k6[6].sum()) or chain_iters != runs["P-v6"]["chain_iters"]:
         raise AssertionError("v6: the chains' iteration counts differ between runs")
 
+    # P-morph: every variant ≡ its plain version bit for bit, the packets'
+    # loop counts included, at the script's 8 packets and at 1,056, and the
+    # same loop counts as the entry point's run.
+    morph_dev = {p: [t.to(dev) for t in (node, tri, o, d, tl)]
+                 for p, (node, tri, _, _, o, d, tl) in morph_in.items()}
+    for packets, (node, tri, nb, cap, *_) in morph_in.items():
+        for v in morph.VARIANTS:
+            args = (*morph_dev[packets], nb, cap, v)
+            k = held("P-morph", f"morph {v} P{packets}", lambda: morph.morph(*args),
+                     lambda: morph.morph_plain(*args), f"morph {v} P{packets}")
+            r = runs[f"P-morph {packets}"][v]
+            if k[-1].cpu().tolist() != r["iters"]:
+                raise AssertionError(f"morph {v}: the loop counts differ between runs")
+            it = r.pop("iters")   # kept short for the JSON lines
+            r["loop_iters"] = dict(min=min(it), max=max(it), total=sum(it))
+
+    # P-mosaic, P-bitcast, P-feature: every case's kernel ≡ its plain version
+    # on the card bit for bit; a bitcast verdict as the plain version's.
+    for case in mosaic.CASES:
+        ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in mosaic.inputs(case))
+        held("P-mosaic", f"mosaic {case}", lambda: mosaic.probe_mosaic(case, *ins),
+             lambda: mosaic.mosaic_plain(case, *ins), f"mosaic {case}")
+    for case in bitcast.CASES:
+        tab, r0 = bitcast.case_input(case, bc_tabs, dev)
+        held("P-bitcast", f"bitcast {case}", lambda: bitcast.probe_bitcast(case, tab, r0),
+             lambda: bitcast.bitcast_plain(case, tab, r0), f"bitcast {case}")
+        plain_ok = bitcast.verdict(case, [t.cpu().numpy() for t in last_plain["P-bitcast"]],
+                                   bc_tabs)[0]
+        if plain_ok != runs["P-bitcast"][case]["verdict"]:
+            raise AssertionError(f"bitcast {case}: the kernel's verdict differs from the plain "
+                                 f"version's")
+    for case in feature.CASES:
+        ins = tuple(torch.from_numpy(a).to(dev) for a in feature.inputs(case))
+        held("P-feature", f"feature {case}", lambda: feature.probe_feature(case, *ins),
+             lambda: feature.feature_plain(case, *ins), f"feature {case}")
+    # library_ms: the one PyTorch call that computes a representative case
+    # (mosaic colbcast: torch.mul with the column broadcast; feature s2:
+    # torch.mul by 2 of the 4 packets); none for bitcast and morph.
+    x_m = torch.from_numpy(mosaic.inputs("colbcast")[0]).to(dev)
+    x_s2 = torch.from_numpy(feature.inputs("s2")[0]).to(dev)
+    library = {key: common.median(common.time_launches(fn)) for key, fn in (
+        ("P-mosaic", lambda: torch.mul(x_m, x_m[:, 3:4])), ("P-feature", lambda: x_s2 * 2.0))}
+
     # ---- what each knockout left of the kernel: static SASS counts
     if os.path.exists(sass.cuobjdump()):
         sc = sass.by_name()
@@ -1300,6 +1393,14 @@ def phase13(dev, smi):
         for case, r in runs["P-ktf"].items():
             r["sass"] = sc[f"ktf {case}"]
         runs["P-v6"]["sass"] = sc["v6"]
+        for packets in morph_in:
+            for v, r in runs[f"P-morph {packets}"].items():
+                r["sass"] = sc[f"morph {v}"]
+        for key, mod in (("P-mosaic", "mosaic"), ("P-bitcast", "bitcast"),
+                         ("P-feature", "feature")):
+            for case, r in runs[key].items():
+                if case != "s7":
+                    r["sass"] = sc[f"{mod} {case}"]
         log(13, "static SASS instructions per kernel (cuobjdump -sass): " + "; ".join(
             f"{k} {c['total']} (fp32 {c['fp32']}, int {c['int']}, shfl {c['shfl']}, shared "
             f"{c['shared']}, global {c['global']}, local {c['local']}, sync {c['sync']})"
@@ -1337,6 +1438,15 @@ def phase13(dev, smi):
         r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate))
     w = v6.work(node6, tri6, o6, chain_iters, nb6)
     runs["P-v6"].update(roofline(w["bytes"], w["ops"]))
+    for packets, (node, tri, nb, *_) in morph_in.items():
+        for v, r in runs[f"P-morph {packets}"].items():
+            w = morph.work(node, tri, morph_in[packets][4], v, r["chain_iters"], nb)
+            r.update(roofline(w["bytes"], w["ops"]))
+    for key, mod in (("P-mosaic", mosaic), ("P-bitcast", bitcast), ("P-feature", feature)):
+        for case, r in runs[key].items():
+            if case != "s7":
+                w = mod.work(case)
+                r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate))
     fill = runs["P-v8 fill"]["variants"]
     rows["P-v8"] = dict(launches=launches["P-v8"], max_abs_err=max_err["P-v8"],
                         plain_ms=plain_ms["P-v8"], **runs["P-v8"]["variants"]["full"],
@@ -1382,6 +1492,25 @@ def phase13(dev, smi):
                         plain_ms=plain_ms["P-v6"], ms_is=f"{v6.N_PACKETS} packets, full length",
                         **{k: v for k, v in r6.items() if k != "times_ms"},
                         mismatches_plain=mis_plain)
+    m8, mf = runs[f"P-morph {morph.N_PACKETS}"], runs[f"P-morph {P13_FILL_PACKETS}"]
+    rows["P-morph"] = dict(launches=launches["P-morph"], max_abs_err=max_err["P-morph"],
+                           plain_ms=plain_ms[f"morph v0_ablate P{morph.N_PACKETS}"],
+                           ms_is=f"v0_ablate, {morph.N_PACKETS} packets", **m8["v0_ablate"],
+                           ms_1056=mf["v0_ablate"]["ms"],
+                           bound_1056_ms=mf["v0_ablate"]["bound_ms"], variants=m8,
+                           variants_1056=mf,
+                           plain_ms_variants={k: v for k, v in plain_ms.items()
+                                              if k.startswith("morph")})
+    for key, first, mod in (("P-mosaic", "colbcast", "mosaic"), ("P-bitcast", "p1", "bitcast"),
+                            ("P-feature", "s2", "feature")):
+        cases = runs[key]
+        rows[key] = dict(launches=launches[key], max_abs_err=max_err[key],
+                         plain_ms=plain_ms[f"{mod} {first}"], ms_is=first, **cases[first],
+                         library_ms=library.get(key), cases=cases,
+                         plain_ms_cases={k: v for k, v in plain_ms.items()
+                                         if k.startswith(mod)},
+                         int32_ops_per_s=int32_rate)
+    rows["P-feature"]["s7_k4_launches"] = launches["P-feature s7 (K4)"]
     secs = time.perf_counter() - t_phase
     log(13, f"every variant == its plain version bit for bit ({len(checked)} checks: "
             f"{P13_CHECK_ITERS} iterations over all packets, the full bodies also at the "
@@ -1391,7 +1520,9 @@ def phase13(dev, smi):
             f"20,000; ktf every case by the script's rules; v6 at {P13_CHECK_ITERS} iterations "
             f"(tlim BIG and in (0.05, 0.6)) and at full length on all {v6.N_PACKETS} packets, "
             f"chain iterations {chain_iters}; v6 against K4 on the 4-wide tree: kernel "
-            f"{mis_kernel}, plain {mis_plain}); full == "
+            f"{mis_kernel}, plain {mis_plain}; morph every variant at {morph.N_PACKETS} and "
+            f"{P13_FILL_PACKETS} packets, loop counts included; mosaic, bitcast and feature "
+            f"every case); full == "
             f"full16 == prod_smem == prod_carry, minimal == smem8; launches {launches} (11 per "
             f"variant: a warm-up and 10 timed), plain calls {plain_calls}; plain "
             f"{', '.join(f'{k} {v:.1f} ms' for k, v in plain_ms.items())}; numRegs / "

@@ -35,8 +35,6 @@ namespace probe_interleave {
 using namespace probe;
 
 constexpr int STACK_CAP = 40;
-constexpr int NODE_STRIDE = 32;
-constexpr float HALF_BIG = 1.5e38f;
 constexpr int N_G = 4;  // G = 1, 2, 4, 8
 
 template <int G>

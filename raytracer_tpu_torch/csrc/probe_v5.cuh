@@ -48,9 +48,7 @@ namespace probe_v5 {
 using namespace probe;
 
 constexpr int STACK_CAP = 40;
-constexpr int NODE_STRIDE = 32;
 constexpr int RESTART = 1000;
-constexpr float HALF_BIG = 1.5e38f;  // orders rep-miss (but visited) children last
 enum Mode {
   FULL_BODY, NO_LEAF, NO_INTERNAL, NO_SCALAR, NO_FETCH, FULL16, LOADS8, LOADS0, EMPTY, CARRY8,
   SMEM8, PROD_SMEM, PROD_CARRY, BASE, NOCONCAT, NOC_NOSC, MINIMAL, N_MODES

@@ -40,59 +40,7 @@ namespace probe_v6 {
 
 using namespace probe;
 
-constexpr float HALF_BIG = 1.5e38f;  // orders rep-miss (but visited) children last
 constexpr int IDLE = -1;             // leaf unit idle: it sweeps the zero row
-constexpr float T_MIN = 1e-3f;
-
-// What a hit carries besides t_best and best (probe::Lanes).
-struct Rec {
-  int mat[LPT];
-  float nx[LPT], ny[LPT], nz[LPT];
-};
-
-// The script's mt_record for the thread's lanes: record rec (v0, e1, e2,
-// float-encoded prim and material ids) of the chain's row.
-__device__ __forceinline__ void mt_record(Lanes& L, Rec& R, const float* __restrict__ rec) {
-  const float v0x = rec[0], v0y = rec[1], v0z = rec[2];
-  const float e1x = rec[3], e1y = rec[4], e1z = rec[5];
-  const float e2x = rec[6], e2y = rec[7], e2z = rec[8];
-  const int prim = f2i(rec[9]), matid = f2i(rec[10]);
-  const float cx = e1y * e2z - e1z * e2y;
-  const float cy = e1z * e2x - e1x * e2z;
-  const float cz = e1x * e2y - e1y * e2x;
-#pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    const float dx = L.dx[j], dy = L.dy[j], dz = L.dz[j];
-    const float hx = dy * e2z - dz * e2y;
-    const float hy = dz * e2x - dx * e2z;
-    const float hz = dx * e2y - dy * e2x;
-    const float a = e1x * hx + e1y * hy + e1z * hz;
-    bool ok = fabsf(a) >= 1e-8f;
-    const float f = 1.0f / (ok ? a : 1.0f);
-    const float sx = L.ox[j] - v0x, sy = L.oy[j] - v0y, sz = L.oz[j] - v0z;
-    const float u = f * (sx * hx + sy * hy + sz * hz);
-    ok = ok & (u >= 0.0f) & (u <= 1.0f);
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float v = f * (dx * qx + dy * qy + dz * qz);
-    ok = ok & (v >= 0.0f) & (u + v <= 1.0f);
-    const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-    ok = ok & (t >= T_MIN) & (t < L.t_best[j]);
-    L.t_best[j] = ok ? t : L.t_best[j];
-    L.best[j] = ok ? prim : L.best[j];
-    R.mat[j] = ok ? matid : R.mat[j];
-    R.nx[j] = ok ? cx : R.nx[j];
-    R.ny[j] = ok ? cy : R.ny[j];
-    R.nz[j] = ok ? cz : R.nz[j];
-  }
-}
-
-// The 8 records of one triangle row.
-__device__ __forceinline__ void mt_row8(Lanes& L, Rec& R, const float* __restrict__ row) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) mt_record(L, R, row + k * TRI_STRIDE);
-}
 
 __global__ void __launch_bounds__(P_SUB * 32)
     probe_v6_kernel(const float* __restrict__ node, const float* __restrict__ tri,

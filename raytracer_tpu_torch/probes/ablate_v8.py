@@ -25,7 +25,6 @@ memory); `ablate_v8_plain` is its plain PyTorch version.
 
 from __future__ import annotations
 
-import ctypes
 import sys
 
 import numpy as np
@@ -253,14 +252,8 @@ def ablate_v8(node, tri, o, d, variant: str, iters: int = ITERS):
 
 def kernel_resources() -> dict:
     """{variant: (registers per thread, local memory bytes per thread)}."""
-    L = cudalib.lib()
-    out = {}
-    for v, name in enumerate(VARIANTS):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        cudalib.check(L.rt_probe_v8_attrs(v, ctypes.byref(regs), ctypes.byref(local)),
-                      "probe_v8 attributes")
-        out[name] = (regs.value, local.value)
-    return out
+    return common.kernel_attrs(cudalib.lib().rt_probe_v8_attrs,
+                               {name: v for v, name in enumerate(VARIANTS)}, "probe_v8")
 
 
 def lane_ops(variant: str) -> int:

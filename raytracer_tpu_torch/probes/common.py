@@ -5,10 +5,14 @@ counting of kernel launches on the card."""
 
 from __future__ import annotations
 
+import ctypes
+import subprocess
+import sys
+
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.probes.v5_tables import BIG
+from raytracer_tpu_torch.probes.v5_tables import BIG, TRI_STRIDE
 
 INT_MAX = 2**31 - 1
 # fp32 operations (arithmetic and compares, not selects) of one lane,
@@ -73,6 +77,74 @@ def mt_record(fields, prim, o, d, t_best, best):
     return torch.where(ok, t, t_best), torch.where(ok, prim, best)
 
 
+def mt_record6(fields, prim, matid, o, d, state):
+    """The 6-field mt_record of the v6 and morph scripts: one record (nine [..., 1] columns
+    v0, e1, e2) against every lane; a strictly closer hit with t >= 1e-3
+    takes t, the ids and cross(e1, e2)."""
+    t_best, best, mat, nx, ny, nz = state
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = fields
+    ox, oy, oz = o
+    dx, dy, dz = d
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    ok = a.abs() >= 1e-8
+    f = 1.0 / torch.where(ok, a, torch.ones_like(a))
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    u = f * (sx * hx + sy * hy + sz * hz)
+    ok = ok & (u >= 0.0) & (u <= 1.0)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    ok = ok & (v >= 0.0) & (u + v <= 1.0)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    ok = ok & (t >= 1e-3) & (t < t_best)
+    return (torch.where(ok, t, t_best), torch.where(ok, prim, best),
+            torch.where(ok, matid, mat), torch.where(ok, e1y * e2z - e1z * e2y, nx),
+            torch.where(ok, e1z * e2x - e1x * e2z, ny), torch.where(ok, e1x * e2y - e1y * e2x, nz))
+
+
+def mt_row8(row, o, d, state):
+    """The 8 records of a triangle row per chain, row [..., 128]."""
+    for k in range(8):
+        trec = row[..., k * TRI_STRIDE:(k + 1) * TRI_STRIDE, None]
+        ids = f2i(trec[..., 9:11, :])
+        state = mt_record6(tuple(trec[..., c, :] for c in range(9)), ids[..., 0, :],
+                           ids[..., 1, :], o, d, state)
+    return state
+
+
+def sort4(keys, codes):
+    """The scripts' 4-key sort network (kernel_v6_probe.py vsort4 :275-284,
+    kernel_morph.py :242-248): keys ascending, a swap only on a
+    strictly greater key."""
+    kc, cc = list(keys), list(codes)
+    for i, j in ((0, 2), (1, 3), (0, 1), (2, 3), (1, 2)):
+        sw = kc[i] > kc[j]
+        kc[i], kc[j] = torch.where(sw, kc[j], kc[i]), torch.where(sw, kc[i], kc[j])
+        cc[i], cc[j] = torch.where(sw, cc[j], cc[i]), torch.where(sw, cc[i], cc[j])
+    return kc, cc
+
+
+def root_hit(node, o, inv, t_best):
+    """Lanes that hit the union of the root's child boxes (node row 0's
+    record 0 in the v5 / v6 layouts): the min side the min of the four
+    children's raw bounds, the max side the max of those whose max x is
+    above -BIG (-BIG for the others); jnp's NaN-propagating min / max."""
+    rec0 = node[0, 0:24]
+    neg = torch.tensor(-float(BIG), dtype=torch.float32, device=node.device)
+    lo = [torch.minimum(torch.minimum(rec0[c], rec0[6 + c]),
+                        torch.minimum(rec0[12 + c], rec0[18 + c])) for c in range(3)]
+    hi = []
+    for c in range(3):
+        v = [torch.where(rec0[6 * k + 3] > -float(BIG), rec0[6 * k + 3 + c], neg)
+             for k in range(4)]
+        hi.append(torch.maximum(torch.maximum(v[0], v[1]), torch.maximum(v[2], v[3])))
+    return slab((*lo, *hi), o, inv, t_best)[0]
+
+
 def rays(o: torch.Tensor, d: torch.Tensor):
     """Lane tensors (o xyz, d xyz, 1/d xyz) of o, d f32[P, 3, 8, 128]."""
     ov, dv = o.unbind(1), d.unbind(1)
@@ -109,3 +181,68 @@ def time_launches(fn) -> list[float]:
 
 def median(xs) -> float:
     return float(np.median(xs))
+
+
+def kernel_attrs(attrs_fn, ids: dict, what: str) -> dict:
+    """{name: (registers per thread, local memory bytes per thread)} of the
+    kernels `ids` ({name: id}) through a C entry point attrs_fn(id, &regs,
+    &local)."""
+    from raytracer_tpu_torch.utils import cudalib
+
+    out = {}
+    for name, i in ids.items():
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        cudalib.check(attrs_fn(i, ctypes.byref(regs), ctypes.byref(local)), f"{what} attributes")
+        out[name] = (regs.value, local.value)
+    return out
+
+
+def run_tile_case(call, on_card: bool, resources) -> tuple[dict, object]:
+    """(timing, the output of call()) of a single-tile case: on the card
+    TIMED_LAUNCHES timed calls after a warm-up (the last call's output is
+    returned) with the kernel's resources(); on the CPU one call."""
+    if not on_card:
+        return {}, call()
+    got = {}
+
+    def timed():
+        got["out"] = call()
+
+    r = dict(ms=median(time_launches(timed)))
+    r["num_regs"], r["local_bytes"] = resources()
+    return r, got["out"]
+
+
+def timing_suffix(r: dict) -> str:
+    return f"; {r['ms']:.4f} ms, regs {r['num_regs']} local {r['local_bytes']} B" if "ms" in r \
+        else ""
+
+
+def device_arg(argv: list, what: str) -> str:
+    """Pops `--device <dev>` from argv (default cuda); a CUDA run without a
+    card stops here."""
+    device = "cuda"
+    if "--device" in argv:
+        i = argv.index("--device")
+        device = argv[i + 1]
+        del argv[i:i + 2]
+    if device != "cpu":
+        require_card(what)
+    return device
+
+
+def in_subprocesses(module: str, names, device: str, status=("PASS", "FAIL")) -> dict:
+    """What the probe scripts do without arguments: each case `python -m
+    module <name>` in a fresh process (a device fault then ends one case, not the
+    run), printing "<status> <name>: <its last line>" (or its last error
+    line). Returns {name: passed}."""
+    res = {}
+    for name in names:
+        p = subprocess.run([sys.executable, "-u", "-m", module, name, "--device", device],
+                           capture_output=True, text=True, timeout=600)
+        line = (p.stdout.strip().splitlines() or ["<no output>"])[-1]
+        err = (p.stderr.strip().splitlines() or [""])[-1]
+        res[name] = p.returncode == 0
+        print(f"{status[0] if res[name] else status[1]} {name}: "
+              f"{line if res[name] else err[:160]}", flush=True)
+    return res

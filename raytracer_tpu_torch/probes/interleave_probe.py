@@ -16,7 +16,6 @@ then fills the 132 SMs with one block each).
 
 from __future__ import annotations
 
-import ctypes
 import sys
 
 import torch
@@ -68,15 +67,8 @@ def interleave(node, tri, o, d, tlim, zero_row: int, G: int, iters: int = ITERS)
 
 def kernel_resources(gs=GS) -> dict:
     """{G: (registers per thread, local memory bytes per thread)}."""
-    L = cudalib.lib()
-    out = {}
-    for G in gs:
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        cudalib.check(L.rt_probe_interleave_attrs(GS.index(G), ctypes.byref(regs),
-                                                  ctypes.byref(local)),
-                      "probe_interleave attributes")
-        out[G] = (regs.value, local.value)
-    return out
+    return common.kernel_attrs(cudalib.lib().rt_probe_interleave_attrs,
+                               {G: GS.index(G) for G in gs}, "probe_interleave")
 
 
 def work(node, tri, o, iters: int) -> dict:

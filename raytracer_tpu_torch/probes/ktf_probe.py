@@ -26,7 +26,6 @@ not the run; a case that fails a check exits 1.
 
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 
@@ -183,14 +182,8 @@ def work(case: str) -> dict:
 
 def kernel_resources(cases=CASES) -> dict:
     """{case: (registers per thread, local memory bytes per thread)}."""
-    L = cudalib.lib()
-    out = {}
-    for case in cases:
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        cudalib.check(L.rt_probe_ktf_attrs(CASES.index(case), ctypes.byref(regs),
-                                           ctypes.byref(local)), "probe_ktf attributes")
-        out[case] = (regs.value, local.value)
-    return out
+    return common.kernel_attrs(cudalib.lib().rt_probe_ktf_attrs,
+                               {case: CASES.index(case) for case in cases}, "probe_ktf")
 
 
 def run_case(case: str, device="cuda", out=print) -> dict:
@@ -226,13 +219,7 @@ def run_case(case: str, device="cuda", out=print) -> dict:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        device = argv[i + 1]
-        del argv[i:i + 2]
-    if device != "cpu":
-        common.require_card("ktf_probe")
+    device = common.device_arg(argv, "ktf_probe")
     if argv:
         return 0 if run_case(argv[0], device)["ok"] else 1
     fails = []

@@ -31,9 +31,12 @@ _FUNC = re.compile(r"Function : (\S+)")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 # A probe kernel's mangled name: its body and template argument (a variant,
 # mode or case id; G itself for the interleave probe), the scalar probe's
-# tables pre-pass, or the v6 body (one kernel).
-_KERNEL = re.compile(r"probe_(v8|v5|interleave|scalar|vstack|ktf)_kernelILi(\d+)E"
-                     r"|probe_(scalar)_(tables)_kernel|probe_(v6)_kernelE")
+# tables pre-pass, the v6 body (one kernel), or a morph variant (its five
+# template arguments: the loop, then four flags).
+_KERNEL = re.compile(r"probe_(v8|v5|interleave|scalar|vstack|ktf|mosaic|feature|bitcast)"
+                     r"_kernelILi(\d+)E"
+                     r"|probe_(scalar)_(tables)_kernel|probe_(v6)_kernelE"
+                     r"|probe_(morph)_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E")
 
 
 def cuobjdump() -> str:
@@ -44,8 +47,9 @@ def cuobjdump() -> str:
 def parse(sass: str) -> dict:
     """{(body, instantiation id): {"total": n, kind: n, ...}} of the probe
     kernels in cuobjdump -sass output; body is "v8", "v5", "interleave",
-    "scalar", "vstack", "ktf" or "v6", the id an int ("tables" for the
-    scalar probe's pre-pass, 0 for v6)."""
+    "scalar", "vstack", "ktf", "mosaic", "feature", "bitcast", "v6" or
+    "morph", the id an int ("tables" for the scalar probe's pre-pass, 0 for
+    v6, the five template arguments for morph)."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = _FUNC.search(line)
@@ -57,8 +61,10 @@ def parse(sass: str) -> dict:
                 cur = (k.group(1), int(k.group(2)))
             elif k.group(3):
                 cur = (k.group(3), k.group(4))
-            else:
+            elif k.group(5):
                 cur = (k.group(5), 0)
+            else:
+                cur = ("morph", tuple(int(g) for g in k.groups()[6:11]))
             if cur is not None:
                 out[cur] = dict.fromkeys(["total", *KINDS], 0)
             continue
@@ -87,9 +93,13 @@ def counts(lib_path: str | None = None) -> dict:
 def name(body: str, i) -> str:
     """A kernel's name in its probe's own terms: "v8 <variant>", "v5
     <mode>", "interleave G<G>", "scalar <mode>" (or "scalar tables"),
-    "vstack <case>", "ktf <case>", "v6"."""
-    from raytracer_tpu_torch.probes import ablate_v8, ktf_probe, scalar_cost, v5_body, vstack
+    "vstack <case>", "ktf <case>", "mosaic <case>", "feature <stage>",
+    "bitcast <probe>", "v6", "morph <variant>"."""
+    from raytracer_tpu_torch.probes import (ablate_v8, bitcast, feature, ktf_probe, morph, mosaic,
+                                            scalar_cost, v5_body, vstack)
 
+    if body == "morph":
+        return f"morph {morph.variant_of(i)}"
     if body == "interleave":
         return f"interleave G{i}"
     if i == "tables":
@@ -97,7 +107,8 @@ def name(body: str, i) -> str:
     if body == "v6":
         return "v6"
     names = {"v8": ablate_v8.VARIANTS, "v5": v5_body.MODES, "scalar": scalar_cost.MODES,
-             "vstack": vstack.CASES, "ktf": ktf_probe.CASES}
+             "vstack": vstack.CASES, "ktf": ktf_probe.CASES, "mosaic": mosaic.CASES,
+             "feature": feature.CASES, "bitcast": bitcast.CASES}
     return f"{body} {names[body][i]}"
 
 

@@ -20,7 +20,6 @@ starting table (a one-thread pre-pass kernel on the card, timed apart).
 
 from __future__ import annotations
 
-import ctypes
 import sys
 
 import numpy as np
@@ -167,15 +166,10 @@ def scalar_cost(x, mode: str, iters: int = ITERS, tables=None):
 def kernel_resources(modes=MODES + ("tables",)) -> dict:
     """{mode: (registers per thread, local memory bytes per thread)};
     "tables" is smem16's pre-pass."""
-    L = cudalib.lib()
-    out = {}
-    for mode in modes:
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        m = len(MODES) if mode == "tables" else MODES.index(mode)
-        cudalib.check(L.rt_probe_scalar_attrs(m, ctypes.byref(regs), ctypes.byref(local)),
-                      "probe_scalar attributes")
-        out[mode] = (regs.value, local.value)
-    return out
+    return common.kernel_attrs(
+        cudalib.lib().rt_probe_scalar_attrs,
+        {mode: len(MODES) if mode == "tables" else MODES.index(mode) for mode in modes},
+        "probe_scalar")
 
 
 def work(mode: str, packets: int, iters: int) -> dict:

@@ -38,7 +38,6 @@ probe measures on this card.
 
 from __future__ import annotations
 
-import ctypes
 
 import numpy as np
 import torch
@@ -226,14 +225,8 @@ def v5(node, tri, o, d, tlim, zero_row: int, mode: str, iters: int = ITERS):
 
 def kernel_resources(modes=MODES) -> dict:
     """{mode: (registers per thread, local memory bytes per thread)}."""
-    L = cudalib.lib()
-    out = {}
-    for mode in modes:
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        cudalib.check(L.rt_probe_v5_attrs(MODES.index(mode), ctypes.byref(regs),
-                                          ctypes.byref(local)), "probe_v5 attributes")
-        out[mode] = (regs.value, local.value)
-    return out
+    return common.kernel_attrs(cudalib.lib().rt_probe_v5_attrs,
+                               {mode: MODES.index(mode) for mode in modes}, "probe_v5")
 
 
 def lane_ops(mode: str) -> int:

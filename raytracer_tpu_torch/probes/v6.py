@@ -30,7 +30,7 @@ import torch
 
 from raytracer_tpu_torch.probes import common, v5_body
 from raytracer_tpu_torch.probes.common import MT_OPS, SLAB_OPS, big_like, f2i
-from raytracer_tpu_torch.probes.v5_tables import BIG, HALF_BIG, NONE, P_LANE, P_SUB, TRI_STRIDE
+from raytracer_tpu_torch.probes.v5_tables import BIG, HALF_BIG, NONE, P_LANE, P_SUB
 from raytracer_tpu_torch.probes.v6_tables import pack_tables_v6
 from raytracer_tpu_torch.utils import cudalib
 
@@ -44,56 +44,6 @@ PLAIN_CALLS = {"probe_v6": 0}
 def default_max_iters(node, tri, n_brute_rows: int) -> int:
     """The script's loop bound (:357): node rows + leaf rows + 8."""
     return node.shape[0] + (tri.shape[0] - 1 - n_brute_rows) + 8
-
-
-def _mt_record(fields, prim, matid, o, d, state):
-    """The script's mt_record (:153-178): one record (nine [..., 1] columns
-    v0, e1, e2) against every lane; a strictly closer hit with t >= 1e-3
-    takes t, the ids and cross(e1, e2)."""
-    t_best, best, mat, nx, ny, nz = state
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = fields
-    ox, oy, oz = o
-    dx, dy, dz = d
-    hx = dy * e2z - dz * e2y
-    hy = dz * e2x - dx * e2z
-    hz = dx * e2y - dy * e2x
-    a = e1x * hx + e1y * hy + e1z * hz
-    ok = a.abs() >= 1e-8
-    f = 1.0 / torch.where(ok, a, torch.ones_like(a))
-    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-    u = f * (sx * hx + sy * hy + sz * hz)
-    ok = ok & (u >= 0.0) & (u <= 1.0)
-    qx = sy * e1z - sz * e1y
-    qy = sz * e1x - sx * e1z
-    qz = sx * e1y - sy * e1x
-    v = f * (dx * qx + dy * qy + dz * qz)
-    ok = ok & (v >= 0.0) & (u + v <= 1.0)
-    t = f * (e2x * qx + e2y * qy + e2z * qz)
-    ok = ok & (t >= 1e-3) & (t < t_best)
-    return (torch.where(ok, t, t_best), torch.where(ok, prim, best),
-            torch.where(ok, matid, mat), torch.where(ok, e1y * e2z - e1z * e2y, nx),
-            torch.where(ok, e1z * e2x - e1x * e2z, ny), torch.where(ok, e1x * e2y - e1y * e2x, nz))
-
-
-def _mt_row8(row, o, d, state):
-    """The 8 records of a triangle row per chain, row [..., 128]."""
-    for k in range(8):
-        trec = row[..., k * TRI_STRIDE:(k + 1) * TRI_STRIDE, None]
-        ids = f2i(trec[..., 9:11, :])
-        state = _mt_record(tuple(trec[..., c, :] for c in range(9)), ids[..., 0, :],
-                           ids[..., 1, :], o, d, state)
-    return state
-
-
-def _sort4(keys, codes):
-    """The script's vsort4 (:275-284): keys ascending, a swap only on a
-    strictly greater key."""
-    kc, cc = list(keys), list(codes)
-    for i, j in ((0, 2), (1, 3), (0, 1), (2, 3), (1, 2)):
-        sw = kc[i] > kc[j]
-        kc[i], kc[j] = torch.where(sw, kc[j], kc[i]), torch.where(sw, kc[i], kc[j])
-        cc[i], cc[j] = torch.where(sw, cc[j], cc[i]), torch.where(sw, cc[i], cc[j])
-    return kc, cc
 
 
 def v6_plain(node, tri, o, d, tlim, n_brute_rows: int, stack_cap: int, max_iters=None,
@@ -115,19 +65,10 @@ def v6_plain(node, tri, o, d, tlim, n_brute_rows: int, stack_cap: int, max_iters
 
     # Brute pre-pass: the rows before the zero row.
     for r in range(zero_row - n_brute_rows, zero_row):
-        state = _mt_row8(tri[r], ov, dv, state)
+        state = common.mt_row8(tri[r], ov, dv, state)
 
     # Root test: the union of the root's child boxes (:196-214).
-    rec0 = node[0, 0:24]
-    neg = torch.tensor(-float(BIG), dtype=torch.float32, device=dev)
-    lo = [torch.minimum(torch.minimum(rec0[c], rec0[6 + c]),
-                        torch.minimum(rec0[12 + c], rec0[18 + c])) for c in range(3)]
-    hi = []
-    for c in range(3):
-        v = [torch.where(rec0[6 * k + 3] > -float(BIG), rec0[6 * k + 3 + c], neg)
-             for k in range(4)]
-        hi.append(torch.maximum(torch.maximum(v[0], v[1]), torch.maximum(v[2], v[3])))
-    rhit, _ = common.slab((*lo, *hi), ov, iv, state[0])
+    rhit = common.root_hit(node, ov, iv, state[0])
     zero = torch.zeros((P, P_SUB), **i32)
     none = torch.full_like(zero, int(NONE))
     ntask = torch.where(rhit.sum(2) > 0, zero, none)
@@ -147,7 +88,7 @@ def v6_plain(node, tri, o, d, tlim, n_brute_rows: int, stack_cap: int, max_iters
         ch = f2i(nrow[..., 24:28])
 
         # Leaf unit, then the internal unit against the updated t_best.
-        state = _mt_row8(trow, ov, dv, state)
+        state = common.mt_row8(trow, ov, dv, state)
         hks, reps = [], []
         for k in range(4):
             hk, tk = common.slab(tuple(nrow[..., k * 6 + j, None] for j in range(6)), ov, iv,
@@ -160,9 +101,9 @@ def v6_plain(node, tri, o, d, tlim, n_brute_rows: int, stack_cap: int, max_iters
         codes = [ch[..., k] for k in range(4)]
         valid = [anyk[k] & (codes[k] != NONE) for k in range(4)]
         leaf = [c <= -2 for c in codes]
-        ki, ci = _sort4([torch.where(valid[k] & ~leaf[k], reps[k], big_like(reps[k]))
+        ki, ci = common.sort4([torch.where(valid[k] & ~leaf[k], reps[k], big_like(reps[k]))
                          for k in range(4)], codes)
-        kl, cl = _sort4([torch.where(valid[k] & leaf[k], reps[k], big_like(reps[k]))
+        kl, cl = common.sort4([torch.where(valid[k] & leaf[k], reps[k], big_like(reps[k]))
                          for k in range(4)], codes)
         n_int = sum((x < float(BIG)).to(torch.int32) for x in ki)
         n_leaf = sum((x < float(BIG)).to(torch.int32) for x in kl)
@@ -349,11 +290,7 @@ def run(packets: int = N_PACKETS, device="cuda", inputs=None, out=print) -> dict
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        device = argv[i + 1]
-        del argv[i:i + 2]
+    device = common.device_arg(argv, "v6")
     packets = int(argv[0]) if argv else N_PACKETS
     run(packets, device)
     return 0

@@ -25,7 +25,6 @@ subtracted, as the script did for its tunnel: CUDA events time the kernel.
 
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 
@@ -161,14 +160,8 @@ def vstack(case: str, iters: int, device="cuda"):
 
 def kernel_resources(cases=CASES) -> dict:
     """{case: (registers per thread, local memory bytes per thread)}."""
-    L = cudalib.lib()
-    out = {}
-    for case in cases:
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        cudalib.check(L.rt_probe_vstack_attrs(CASES.index(case), ctypes.byref(regs),
-                                              ctypes.byref(local)), "probe_vstack attributes")
-        out[case] = (regs.value, local.value)
-    return out
+    return common.kernel_attrs(cudalib.lib().rt_probe_vstack_attrs,
+                               {case: CASES.index(case) for case in cases}, "probe_vstack")
 
 
 def work(case: str, iters: int) -> dict:

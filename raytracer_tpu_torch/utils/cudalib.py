@@ -181,7 +181,13 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_v6.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp,
                               vp]
     L.rt_probe_v6_attrs.argtypes = [ip, ip]
-    for name in ("interleave", "scalar", "vstack", "ktf"):
+    L.rt_probe_mosaic.argtypes = [ci, vp, vp, ci, vp, vp]
+    L.rt_probe_feature.argtypes = [ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp]
+    L.rt_probe_bitcast.argtypes = [ci, vp, ci, vp, vp, vp]
+    L.rt_probe_morph.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp,
+                                 vp, vp, vp, vp]
+    for name in ("interleave", "scalar", "vstack", "ktf", "mosaic", "feature", "bitcast",
+                 "morph"):
         getattr(L, f"rt_probe_{name}_attrs").argtypes = [ci, ip, ip]
     for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_trace_closest,
                L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
@@ -189,7 +195,10 @@ def lib() -> ctypes.CDLL:
                L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs, L.rt_probe_interleave,
                L.rt_probe_interleave_attrs, L.rt_probe_scalar, L.rt_probe_scalar_tables,
                L.rt_probe_scalar_attrs, L.rt_probe_vstack, L.rt_probe_vstack_attrs,
-               L.rt_probe_ktf, L.rt_probe_ktf_attrs, L.rt_probe_v6, L.rt_probe_v6_attrs):
+               L.rt_probe_ktf, L.rt_probe_ktf_attrs, L.rt_probe_v6, L.rt_probe_v6_attrs,
+               L.rt_probe_mosaic, L.rt_probe_mosaic_attrs, L.rt_probe_feature,
+               L.rt_probe_feature_attrs, L.rt_probe_bitcast, L.rt_probe_bitcast_attrs,
+               L.rt_probe_morph, L.rt_probe_morph_attrs):
         fn.restype = ctypes.c_int
     L.rt_error_string.argtypes = [ci]
     L.rt_error_string.restype = ctypes.c_char_p

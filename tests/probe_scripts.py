@@ -1,6 +1,7 @@
 """Helpers of tests/test_torch_probes*.py: the probe scripts of scripts/
-imported as they are, the v5 tables of a small tree, and the tolerance
-the outputs are held to.
+imported as they are, the v5 tables of a small tree (and its fields as the
+scripts' `scene.bvh4`), pallas_call recorded in interpret mode, and the
+tolerance the outputs are held to.
 
 The scripts read sys.argv at import (ITERS, and the packet count of
 kernel_ablate_v8.py), so argv is patched first; kernel_ablate_v8.py calls
@@ -14,6 +15,7 @@ beyond 1e-4·|x| + 1e-6 (NaN equals NaN)."""
 import importlib.util
 import os
 import sys
+import types
 
 import numpy as np
 
@@ -86,3 +88,41 @@ def agree(got, want) -> int:
     bad = ~both_nan & ~(np.abs(got - want) <= ATOL + RTOL * np.abs(want))
     assert bad.mean() <= BAD_FRAC, f"{bad.sum()} of {bad.size} elements differ"
     return int(bad.sum())
+
+
+def jax_tree(bvh):
+    """The fields of a port Bvh4 that the scripts read, as jnp arrays on a
+    namespace (what the scripts take as `scene.bvh4`)."""
+    import jax.numpy as jnp
+
+    fields = ("bounds", "children", "tri", "prim_index", "face_mat", "brute_tri", "brute_prim",
+              "brute_mat")
+    return types.SimpleNamespace(**{f: jnp.asarray(getattr(bvh, f).numpy()) for f in fields},
+                                 stack_depth=bvh.stack_depth)
+
+
+def record_pallas(monkeypatch):
+    """pl.pallas_call in interpret mode, each call's (inputs, outputs) as
+    lists of numpy arrays appended to the returned list (through
+    jax.debug.callback, so under jax.jit too)."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    calls = []
+    real = pl.pallas_call
+
+    def recording(kernel, **kw):
+        fn = real(kernel, interpret=True, **kw)
+
+        def run(*args):
+            out = fn(*args)
+            flat = list(out) if isinstance(out, (list, tuple)) else [out]
+            n = len(args)
+            jax.debug.callback(lambda *xs: calls.append(([np.asarray(x) for x in xs[:n]],
+                                                         [np.asarray(x) for x in xs[n:]])),
+                               *args, *flat)
+            return out
+        return run
+
+    monkeypatch.setattr(pl, "pallas_call", recording)
+    return calls

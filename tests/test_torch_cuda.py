@@ -9,8 +9,8 @@ on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path frame,
 K4's sort path on a 262,144-ray bounce wavefront, the training step
 at the INVERSE_r05 width, K5 against K3 on the whole 2K frame,
 K3-profile against K3 and its plain version, the traversal-iteration
-probes at the scripts' sizes (phase 13), and the kernels on the reference
-scene's 4-wide tree (phase 14)."""
+probes at the scripts' sizes (phase 13; P-morph also at 1,056 packets),
+and the kernels on the reference scene's 4-wide tree (phase 14)."""
 
 import numpy as np
 import pytest
@@ -21,8 +21,8 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.fused import render_image_fused
 from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
 from raytracer_tpu_torch.ops.bvh4 import BIG
-from raytracer_tpu_torch.probes import (ablate_v8, base_probe, interleave_probe, ktf_probe,
-                                        scalar_cost, v5_body, v6, vstack)
+from raytracer_tpu_torch.probes import (ablate_v8, base_probe, bitcast, feature, interleave_probe,
+                                        ktf_probe, morph, mosaic, scalar_cost, v5_body, v6, vstack)
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 from raytracer_tpu_torch.scene.builder import (cornell_materials_scene, reference_scene,
                                                tree_width)
@@ -379,3 +379,71 @@ def test_probe_v6_equals_plain(dev):
                    for a, b in zip(k, p))
     r = v6.run(2, dev, inputs=(bvh, node, tri, n_brute, cap, o, d, tlim), out=lambda line: None)
     assert sum(r["mismatches"][key] for key in ("t", "tri", "mat", "hit")) == 0
+
+
+@pytest.mark.parametrize("case", mosaic.CASES)
+def test_probe_mosaic_case(dev, case):
+    """csrc/probe_mosaic.cu: each case passes the script's check, and equals
+    its plain version on the card bit for bit."""
+    before = mosaic.LAUNCHES["probe_mosaic"]
+    assert mosaic.run_case(case, dev, out=lambda line: None)["ok"]
+    assert mosaic.LAUNCHES["probe_mosaic"] == before + 1 + 10
+    ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in mosaic.inputs(case))
+    assert _bitwise(mosaic.probe_mosaic(case, *ins), mosaic.mosaic_plain(case, *ins))
+
+
+@pytest.mark.parametrize("case", feature.CASES)
+def test_probe_feature_stage(dev, case):
+    """csrc/probe_feature.cu: each stage passes the script's check, and
+    equals its plain version on the card bit for bit."""
+    before = feature.LAUNCHES["probe_feature"]
+    assert feature.run_case(case, dev, out=lambda line: None)["ok"]
+    assert feature.LAUNCHES["probe_feature"] == before + 1 + 10
+    ins = tuple(torch.from_numpy(a).to(dev) for a in feature.inputs(case))
+    k, p = feature.probe_feature(case, *ins), feature.feature_plain(case, *ins)
+    assert len(k) == len(p) and all(_bitwise(a, b) for a, b in zip(k, p))
+
+
+def test_probe_feature_s7_launches_k4(dev):
+    before = cuda_traverse.LAUNCHES["trace_closest"]
+    r = feature.run_case("s7", dev, out=lambda line: None)
+    assert cuda_traverse.LAUNCHES["trace_closest"] == before + 1
+    assert r["hit"] == feature.run_case("s7", "cpu", out=lambda line: None)["hit"]
+
+
+@pytest.mark.parametrize("case", bitcast.CASES)
+def test_probe_bitcast_case(dev, case):
+    """csrc/probe_bitcast.cu ≡ its plain version bit for bit on the
+    reference scene's v5 tables, with the same verdict (BAD but for p2)."""
+    tabs = bitcast.reference_tables()
+    tab, r0 = bitcast.case_input(case, tabs, dev)
+    k = bitcast.probe_bitcast(case, tab, r0)
+    p = bitcast.bitcast_plain(case, tab.cpu(), r0)
+    assert len(k) == len(p) and all(torch.equal(a.cpu(), b) for a, b in zip(k, p))
+    ok = bitcast.verdict(case, [t.cpu().numpy() for t in k], tabs)[0]
+    assert ok == bitcast.verdict(case, [t.numpy() for t in p], tabs)[0] == (case == "p2")
+
+
+@pytest.fixture(scope="module")
+def morph_inputs():
+    return morph.reference_inputs(morph.N_PACKETS)
+
+
+@pytest.mark.parametrize("variant", list(morph.VARIANTS))
+def test_probe_morph_equals_plain(dev, morph_inputs, variant):
+    """csrc/probe_morph.cuh ≡ morph_plain bit for bit, the packets' loop
+    counts included, at the script's 8 packets with the tree's stack bound."""
+    node, tri, n_brute, cap, o, d, tlim = morph_inputs
+    before = morph.LAUNCHES["probe_morph"]
+    k = morph.morph(*(t.to(dev) for t in (node, tri, o, d, tlim)), n_brute, cap, variant)
+    assert morph.LAUNCHES["probe_morph"] == before + 1
+    p = morph.morph_plain(node, tri, o, d, tlim, n_brute, cap, variant)
+    assert len(k) == len(p) == morph.VARIANTS[variant][1] + 1
+    assert all(_bitwise(a, b) if a.is_floating_point() else torch.equal(a.cpu(), b)
+               for a, b in zip(k, p))
+
+
+def test_probe_tile_and_morph_resources(dev):
+    res = [*mosaic.kernel_resources().values(), *feature.kernel_resources().values(),
+           *bitcast.kernel_resources().values(), *morph.kernel_resources().values()]
+    assert len(res) == 7 + 6 + 4 + 13 and all(r > 0 for r, _ in res)

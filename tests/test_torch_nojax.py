@@ -34,7 +34,9 @@ for name in ("raytracer_tpu_torch.render", "raytracer_tpu_torch.models.megakerne
              "raytracer_tpu_torch.probes.base_probe", "raytracer_tpu_torch.probes.interleave_probe",
              "raytracer_tpu_torch.probes.scalar_cost", "raytracer_tpu_torch.probes.vstack",
              "raytracer_tpu_torch.probes.ktf_probe", "raytracer_tpu_torch.probes.v6",
-             "raytracer_tpu_torch.probes.v6_tables"):
+             "raytracer_tpu_torch.probes.v6_tables", "raytracer_tpu_torch.probes.morph",
+             "raytracer_tpu_torch.probes.mosaic", "raytracer_tpu_torch.probes.bitcast",
+             "raytracer_tpu_torch.probes.feature"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "raytracer_tpu") for m in sys.modules)

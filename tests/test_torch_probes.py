@@ -199,3 +199,25 @@ def test_sass_counts_parse_ktf_v6():
     assert (c[("ktf", 4)]["int"], c[("ktf", 4)]["fp32"]) == (1, 1)
     assert (c[("v6", 0)]["total"], c[("v6", 0)]["shfl"], c[("v6", 0)]["shared"]) == (3, 1, 1)
     assert {sass.name(*k) for k in c} == {"ktf sampler_tile", "v6"}
+
+
+def test_sass_counts_parse_tile_and_morph_probes():
+    """The P-mosaic, P-feature and P-bitcast kernels (one per case) and the
+    P-morph kernels (one per variant, named by their five template
+    arguments) are parsed and named in their probes' terms."""
+    text = """
+        Function : _ZN12probe_mosaic19probe_mosaic_kernelILi1EEEvPKfPKiiPv
+        /*0000*/                   SHFL.BFLY PT, R5, R2, 0x10, 0x1f ;
+        Function : _ZN13probe_feature20probe_feature_kernelILi3EEEvPKfPKiiPfS5_S5_S5_S5_S5_
+        /*0000*/                   BAR.RED.POPC RZ, 0x0, P0 ;
+        Function : _ZN13probe_bitcast20probe_bitcast_kernelILi2EEEvPKfiPiS3_
+        /*0000*/                   LDG.E R2, [R4.64] ;
+        Function : _ZN11probe_morph18probe_morph_kernelILi3ELb1ELb1ELb1ELb0EEEvPKfS2_S2_S2_S2_iiiiiPfPiS4_S3_S3_S3_S4_
+        /*0000*/                   FADD R2, R3, R4 ;
+        Function : _ZN11probe_morph18probe_morph_kernelILi0ELb0ELb0ELb0ELb1EEEvPKfS2_S2_S2_S2_iiiiiPfPiS4_S3_S3_S3_S4_
+        /*0000*/                   FADD R2, R3, R4 ;
+    """
+    c = sass.parse(text)
+    assert {sass.name(*k) for k in c} == {"mosaic lanesum", "feature s4", "bitcast p3",
+                                          "morph v11_cap_noclamp", "morph v0_ablate"}
+    assert (c[("feature", 3)]["sync"], c[("bitcast", 2)]["global"]) == (1, 1)

@@ -13,8 +13,7 @@ PyTorch's here."""
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
-from probe_scripts import load_script
+from probe_scripts import load_script, record_pallas
 
 from raytracer_tpu_torch.probes import ktf_probe
 
@@ -25,20 +24,7 @@ torch.set_num_threads(2)
 def script(monkeypatch):
     """(the script module, the list of (inputs, outputs) of its pallas calls)."""
     mod = load_script(monkeypatch, "ktf_kernel_probe.py", [])
-    calls = []
-    real = pl.pallas_call
-
-    def recording(kernel, **kw):
-        fn = real(kernel, interpret=True, **kw)
-
-        def run(*args):
-            out = fn(*args)
-            calls.append(([np.asarray(a) for a in args], [np.asarray(x) for x in out]))
-            return out
-        return run
-
-    monkeypatch.setattr(pl, "pallas_call", recording)
-    return mod, calls
+    return mod, record_pallas(monkeypatch)
 
 
 @pytest.mark.parametrize("case", ktf_probe.CASES)
