@@ -47,6 +47,13 @@ plain PyTorch version, and drives the port's two paths:
     the script's own check and its plain version bit for bit; bitcast's
     p1, p3 and p4 say BAD as the script does, the ids being float-encoded;
     feature's s7 is one K4 launch on the box-only scene);
+  * old against new (phase 15, only with --parent DIR, a tree holding the
+    parent commit's raytracer_tpu_torch/csrc): the parent's K3,
+    K3-profile, K5 and K4 built from DIR against this tree's, each equal
+    to the parent's bit for bit, timed in turns at the main path's sizes,
+    with knock-outs and K3's chunk sizes; phases 4, 7, 8 and 12 count the brute MT records
+    the cull leaves per traced ray (brute_may_hit) and give K1, K3 and K4
+    a culled bound beside the exhaustive one;
   * the 4-wide tree (phase 14): the reference scene built with
     RAYTRACER_TPU_BVH_WIDTH=4 through K4, K3, K5 and K3-profile built for
     width 4: K4 equal to its plain version bit for bit and to K4 on the
@@ -61,8 +68,9 @@ read once, each output written once) over 3.35 TB/s and its operations
 over the peak rate of their type (fp32: 67 TFLOP/s), counted from this
 run's inputs (H100 SXM datasheet peaks).
 
-    python3 chip_smoke.py              # every phase (what CI runs)
+    python3 chip_smoke.py              # phases 1-14 (what CI runs)
     python3 chip_smoke.py --phases 1,2,3   # a subset, while debugging
+    python3 chip_smoke.py --phases 15 --parent renders/parent   # old against new
 
 Every phase raises on failure, so the script exits non-zero. The last
 lines are a `train` JSON line (phase 10), a `probes` JSON line (phase 13),
@@ -131,6 +139,9 @@ HBM_BYTES_PER_S, FP32_OPS_PER_S, INT32_UNITS_PER_SM = 3.35e12, 67e12, 64
 # Threefry-2x32 per block: 2 adds, 20 rounds of add / rotate / xor, 5 key
 # injections of 2 adds (the key sums folded): 72 int32 operations.
 THREEFRY_OPS = 72
+# K1's cull of one brute triangle (csrc/traverse.cuh brute_skip): the box
+# slab (25, as a node slab) plus the guard's dot product and compare (6).
+CULL_OPS = 31
 
 
 def log(phase, msg):
@@ -193,6 +204,65 @@ def trace_bound(bvh, n_rays: int, k1_steps: int) -> dict:
                     MT_OPS * (k1_steps + n_brute * n_rays))
 
 
+def trace_bound_cull(bvh, n_rays: int, k1_steps: int, brute_mts: int) -> dict:
+    """trace_bound for the work K1 does since it culls its brute pre-pass:
+    every live ray's cull of each brute triangle, and MT records for the
+    brute_mts triangles the cull left (brute_may_hit's count)."""
+    from raytracer_tpu_torch.probes.common import MT_OPS
+
+    n_brute = 0 if bvh.brute_tri is None else bvh.brute_tri.shape[0]
+    return roofline(bvh_bytes(bvh) + n_rays * (24 + 4 + 24),
+                    MT_OPS * (k1_steps + brute_mts) + CULL_OPS * n_brute * n_rays)
+
+
+def brute_mts(bvh, o, d, t_lim, t_min: float = 1e-3):
+    """(MT records the culled pre-pass runs, traced rays) for rays o/d with
+    limits t_lim: ops/cuda_traverse.brute_may_hit's rule, triangle by
+    triangle against the running best, as K1 takes it."""
+    from raytracer_tpu_torch.ops import cuda_traverse as ct
+
+    tests, traced = 0, 0
+    for lo in range(0, o.shape[0], 1 << 18):
+        sl = slice(lo, lo + (1 << 18))
+        tests += int(ct.brute_prepass_plain(o[sl], d[sl], bvh, t_lim[sl], t_min)[4].sum())
+        traced += int((t_lim[sl] > t_min).sum())
+    return tests, traced
+
+
+def recorded_rays(fn):
+    """fn() with the plain path loop's traversal calls recorded: (fn's
+    result, the traced rays o, d and their limits t_lim)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import cuda_megakernel as cm
+
+    calls, plain = [], cm._traverse_plain
+
+    def record(o, d, bvh, t_lim, t_min, count=False):
+        calls.append((o, d, t_lim))
+        return plain(o, d, bvh, t_lim, t_min, count=count)
+
+    cm._traverse_plain = record
+    try:
+        out = fn()
+    finally:
+        cm._traverse_plain = plain
+    return out, *(torch.cat(x) for x in zip(*calls))
+
+
+def path_bound_cull(bvh, n_lanes: int, spp: int, k1_steps: int, path_iters: int,
+                    mts_per_traced: float) -> dict:
+    """path_bound for the culled pre-pass: each traced ray culls every
+    brute triangle and runs mts_per_traced MT records (the culled count on
+    a sample of the same frame's rays)."""
+    from raytracer_tpu_torch.probes.common import MT_OPS
+
+    n_brute = 0 if bvh.brute_tri is None else bvh.brute_tri.shape[0]
+    traced = max(path_iters - spp * n_lanes, 0)
+    return roofline(bvh_bytes(bvh) + n_lanes * (12 + 12),
+                    MT_OPS * (k1_steps + mts_per_traced * traced) + CULL_OPS * n_brute * traced)
+
+
 def path_bound(bvh, n_lanes: int, spp: int, k1_steps: int, path_iters: int) -> dict:
     """K3 / K5 / K3-profile on n_lanes lanes, from K3-profile's lane
     counts: the tables and the lanes' pixel ids in, rgb out; K1's steps as
@@ -219,7 +289,10 @@ def image_agreement(a, b):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
-                    help="comma-separated phases to run (default: all)")
+                    help="comma-separated phases to run (default: 1-14; phase 15 needs --parent)")
+    ap.add_argument("--parent", default=None,
+                    help="phase 15: a directory holding the parent commit's "
+                         "raytracer_tpu_torch/csrc (e.g. from git archive)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -268,11 +341,14 @@ def main(argv=None) -> int:
 
     res = {**cuda_megakernel.kernel_resources(), **cuda_traverse.kernel_resources()}
     log(2, "numRegs / localSizeBytes: " + ", ".join(f"{k} {r} / {b}" for k, (r, b) in res.items())
-        + " (width 8 before the kernels took width 4: K3 64 / 1024, K3-profile 67 / 1024, "
-        "K5 128 / 2080, K4 54)")
+        + " (before the culled pre-pass and the refilling lanes: K3 64 / 1024, K3-profile "
+        "67 / 1024, K5 128 / 2080, K4 54 / 1024; width 4 K3 62 / 1056, K3-profile 64, K5 122, "
+        "K4 50)")
 
     scene = None
-    if phases & {4, 5, 6, 7, 8, 9, 11, 12, 14}:
+    if 15 in phases and not args.parent:
+        raise SystemExit("chip_smoke: phase 15 needs --parent DIR (the parent commit's tree)")
+    if phases & {4, 5, 6, 7, 8, 9, 11, 12, 14, 15}:
         t0 = time.perf_counter()
         scene_cpu = reference_scene()
         scene = scene_cpu.to(dev)
@@ -347,16 +423,24 @@ def main(argv=None) -> int:
         sub = {k2: v2[sel] for k2, v2 in rk.items()}
         f2, h2 = compare(tb, ib, tb < BIG, sub, "brute force")
         max_err = float((rk["t"] - rp["t"]).abs()[rk["hit"]].max()) if h1 else 0.0
+        mts, traced = brute_mts(scene.bvh4, o, d, torch.full_like(o[:, 0], float(BIG)))
+        n_brute = scene.bvh4.brute_tri.shape[0]
+        cull = trace_bound_cull(scene.bvh4, o.shape[0], int(steps.sum()), mts)
         ms = cuda_ms(lambda: cuda_traverse.trace_closest(o, d, scene.bvh4, BIG, sort=False), 20)
         plain_ms = cuda_ms(lambda: cuda_traverse.trace_closest_plain(o, d, scene.bvh4, BIG), 3)
         kernels["K1"] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                              **trace_bound(scene.bvh4, o.shape[0], int(steps.sum())),
-                             k1_steps=int(steps.sum()))
+                             k1_steps=int(steps.sum()), bound_cull_ms=cull["bound_ms"],
+                             bound_cull_by=cull["bound_by"], bound_cull_ops=cull["bound_ops"],
+                             brute_mts_per_ray=mts / max(traced, 1))
         log(4, f"K4/K1 trace_closest on {2 * m} rays ({m} showcase-camera + {m} in-box): "
                f"{h1} hits; vs plain: hit masks equal, t within rtol {T_RTOL} "
                f"(max |dt| {max_err:.3g}), {f1} near-tie id flips; vs brute force on {nb} "
                f"rays x {scene.mesh.num_tris} tris: {h2} hits, {f2} near-tie id flips "
-               f"(limit 1 in 5000); kernel {ms:.3f} ms vs plain {plain_ms:.1f} ms on {smi}")
+               f"(limit 1 in 5000); the culled brute pre-pass runs {mts / max(traced, 1):.4f} of "
+               f"{n_brute} MT records per ray (brute_may_hit); bound exhaustive "
+               f"{kernels['K1']['bound_ms']:.5f} ms, culled {cull['bound_ms']:.5f} ms "
+               f"({cull['bound_by']}); kernel {ms:.3f} ms vs plain {plain_ms:.1f} ms on {smi}")
 
     # ---- 5. preflight known answer, kernel vs plain
     if 5 in phases:
@@ -447,9 +531,11 @@ def main(argv=None) -> int:
             cfg.width * cfg.height, MAIN_SAMPLE, replace=False)).to(dev)
         lane = inv[pick]
         t0 = time.perf_counter()
-        ref = cuda_megakernel.render_tiles_fused_plain(scene, cam, cfg, 0, px[lane], py[lane])
+        ref, ro, rd, rt = recorded_rays(lambda: cuda_megakernel.render_tiles_fused_plain(
+            scene, cam, cfg, 0, px[lane], py[lane]))
         torch.cuda.synchronize()
         sample_plain_s = time.perf_counter() - t0
+        mts7, traced7 = brute_mts(scene.bvh4, ro, rd, rt, cfg.t_min)
         got = img.reshape(-1, 3)[pick]
         bad_s, mean_diff_s, max_err_s = image_agreement(got[None], ref[None])
         if not (bad_s <= IMG_BAD_FRAC and mean_diff_s <= MEAN_TOL):
@@ -459,7 +545,9 @@ def main(argv=None) -> int:
                f"spp {cfg.spp}, mb {cfg.max_bounces}): {bad_s:.4%} elements beyond "
                f"5e-4+2e-4|x| (limit 0.5%), mean diff {mean_diff_s:.2e}, max abs "
                f"{max_err_s:.3g}, bitwise equal {torch.equal(got, ref)}; plain took "
-               f"{sample_plain_s:.2f} s for them")
+               f"{sample_plain_s:.2f} s for them; their {traced7} traced rays run "
+               f"{mts7 / max(traced7, 1):.4f} brute MT records each after the cull "
+               f"(brute_may_hit)")
         rays = cfg.width * cfg.height * cfg.spp
         # Spread: ten more frames, timed the same way (host clock around a
         # synchronized frame; one K3 launch each). CUDA events around the
@@ -483,7 +571,9 @@ def main(argv=None) -> int:
         write_png(png, to_rgba8(img).cpu().numpy())
         med = float(np.median(repeats))
         kernels.setdefault("K3", {}).update(main_s=secs, main_median_s=med,
-                                            max_abs_err=max_err_s)
+                                            max_abs_err=max_err_s,
+                                            brute_mts_per_traced_ray=mts7 / max(traced7, 1),
+                                            traced_rays_sampled=traced7)
         log(7, f"main path 2560x1440 spp8 mb20 (reference_scene, showcase camera): "
                f"{secs:.4f} s, {rays / secs / 1e6:.2f} M camera rays/s on {smi}; median of "
                f"{len(repeats)} repeats {med:.4f} s ({rays / med / 1e6:.2f} M camera rays/s); "
@@ -500,8 +590,12 @@ def main(argv=None) -> int:
     if 8 in phases:
         r8 = phase8(scene, dev)
         bound = trace_bound(scene.bvh4, r8["rays"], r8["k1_steps"])
+        cull = trace_bound_cull(scene.bvh4, r8["rays"], r8["k1_steps"], r8["brute_mts"])
         kernels["K4"] = dict(max_abs_err=r8["max_abs_err"], ms=r8["ms_unsorted"],
-                             plain_ms=r8["plain_ms_unsorted"], k1_steps=r8["k1_steps"], **bound)
+                             plain_ms=r8["plain_ms_unsorted"], k1_steps=r8["k1_steps"], **bound,
+                             bound_cull_ms=cull["bound_ms"], bound_cull_by=cull["bound_by"],
+                             bound_cull_ops=cull["bound_ops"],
+                             brute_mts_per_ray=r8["brute_mts"] / r8["rays"])
         kernels["K4-sort"] = dict(max_abs_err=r8["max_abs_err"], ms=r8["ms_sorted"],
                                   plain_ms=r8["plain_ms_sorted"], ms_unsorted=r8["ms_unsorted"],
                                   ms_kernel_presorted=r8["ms_kernel_presorted"],
@@ -517,7 +611,9 @@ def main(argv=None) -> int:
                f"{r8['ms_kernel_presorted']:.4f} ms (CUDA events); plain sorted "
                f"{r8['plain_ms_sorted']:.1f} ms, unsorted {r8['plain_ms_unsorted']:.1f} ms; "
                f"the argsort alone {r8['argsort_ms']:.4f} ms; {r8['k1_steps']} K1 steps "
-               f"(plain count), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
+               f"(plain count), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), culled "
+               f"{cull['bound_ms']:.4f} ms ({cull['bound_by']}: "
+               f"{r8['brute_mts'] / r8['rays']:.4f} brute MT records per ray after the cull) "
                f"on {smi}")
 
     if 9 in phases:
@@ -578,6 +674,9 @@ def main(argv=None) -> int:
             if key in kernels:
                 kernels[key].update(**b["preflight"], bound_2k_ms=b["2k"]["bound_ms"],
                                     bound_2k_by=b["2k"]["bound_by"])
+        if "K3" in kernels:   # K5 keeps the exhaustive pre-pass
+            kernels["K3"].update(bound_cull_2k_ms=b["2k_cull"]["bound_ms"],
+                                 bound_cull_2k_by=b["2k_cull"]["bound_by"])
         log(12, r12["msg"])
 
     probes = None
@@ -590,6 +689,11 @@ def main(argv=None) -> int:
         r14 = phase14(scene, dev, smi)
         kernels.update(r14["rows"])
         log(14, r14["msg"])
+
+    if 15 in phases:
+        r15 = phase15(scene, dev, smi, args.parent)
+        print(json.dumps({"old_vs_new": r15["json"]}), flush=True)
+        log(15, r15["msg"])
 
     # Kernel rows. `launches` counts the launches of the path each kernel
     # serves, with the counters set to 0 just before that path ran: K3 in
@@ -675,6 +779,9 @@ def main(argv=None) -> int:
         ("trace_closest (K4, K1 inline) on a 4-wide tree", "trace_closest.cu",
          "raytracer_tpu/ops/pallas_traverse.py:907 (n_children 4, :909)", "K4/w4",
          kernels.get("K4/w4", {}).get("launches", 0), {"width": 4}),
+        ("fused_path_loop profile (K3-profile) on a 4-wide tree", "megakernel_w4.cu",
+         "raytracer_tpu/ops/pallas_megakernel.py:493 (profile=True, n_children 4)",
+         "K3-profile/w4", 0, {"width": 4}),
         ("fused_path_loop G=2 (K5) on a 4-wide tree", "interleave.cu",
          "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair, n_children 4) -> "
          "raytracer_tpu/ops/pallas_interleave.py:22", "K5/w4",
@@ -897,7 +1004,8 @@ def phase12(scene, dev, smi):
     ms = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py, profile=True), 20)
     ms_k3 = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py), 20)
     # The work of a preflight frame, from its lane counts: the bound of
-    # K3, K5 and K3-profile at the size their `ms` is timed at.
+    # K3, K5 and K3-profile at the size their `ms` is timed at (the
+    # exhaustive brute pre-pass, the work of the JAX kernel).
     _, _, _, pk1, pit = cm.render_tiles_fused(scene, cam, cfg, 0, px, py, profile=True,
                                               lane_counts=True)
     bounds = {"preflight": path_bound(scene.bvh4, px.shape[0], cfg.spp, int(pk1.sum()),
@@ -941,10 +1049,13 @@ def phase12(scene, dev, smi):
                                                   replace=False))
     lanes = torch.from_numpy((pk[:, None] * cm.PACKET + np.arange(cm.PACKET)).reshape(-1)).to(dev)
     t0 = time.perf_counter()
-    p_rgb, p_cost2, p_aux2, p_k1, p_it = cm.render_tiles_fused_plain(
-        scene, cam, cfg, 0, tpx[lanes], tpy[lanes], spp=2, profile=True, lane_counts=True)
+    (p_rgb, p_cost2, p_aux2, p_k1, p_it), ro, rd, rt = recorded_rays(
+        lambda: cm.render_tiles_fused_plain(scene, cam, cfg, 0, tpx[lanes], tpy[lanes], spp=2,
+                                            profile=True, lane_counts=True))
     torch.cuda.synchronize()
     main_plain_s = time.perf_counter() - t0
+    mts12, traced12 = brute_mts(scene.bvh4, ro, rd, rt, cfg.t_min)
+    mts_per_traced = mts12 / max(traced12, 1)
     bad_m, mean_diff_m, max_err_m = image_agreement(m_rgb[lanes][None], p_rgb[None])
     main_checks = {
         "rgb == K3 on every lane": torch.equal(m_rgb, m_k3),
@@ -975,10 +1086,16 @@ def phase12(scene, dev, smi):
         if name == "tiled":   # the same paths on every layout
             bounds["2k"] = path_bound(scene.bvh4, gx.shape[0], cfg.spp, int(k1.sum()),
                                       int(it.sum()))
+            bounds["2k_cull"] = path_bound_cull(scene.bvh4, gx.shape[0], cfg.spp, int(k1.sum()),
+                                                int(it.sum()), mts_per_traced)
         w = k1.reshape(-1, 32).float()
+        wi = it.reshape(-1, 32).float()
         stats[name] = dict(cost_mean=c.mean().item(), cost_max=c.max().item(),
                            k1_mean=w.mean().item(),
                            divergence=(w.amax(dim=1) / w.mean(dim=1).clamp_min(1e-9)).mean().item(),
+                           iter_mean=wi.mean().item(),
+                           iter_divergence=(wi.amax(dim=1)
+                                            / wi.mean(dim=1).clamp_min(1e-9)).mean().item(),
                            lockstep_sum=float(a.reshape(-1, 8, 128)[:, 0, 0].sum().item()))
     layouts = {name: (lambda g=g: cm.render_tiles_fused(scene, cam, cfg, 0, g[0], g[1]))
                for name, g in grids.items()}
@@ -992,7 +1109,9 @@ def phase12(scene, dev, smi):
                lane_stats=stats, main_packets_checked=P12_PACKETS,
                **bounds["preflight"], bound_2k_ms=bounds["2k"]["bound_ms"],
                bound_2k_by=bounds["2k"]["bound_by"],
-               main_max_abs_err_vs_plain=max_err_m,
+               bound_cull_2k_ms=bounds["2k_cull"]["bound_ms"],
+               bound_cull_2k_by=bounds["2k_cull"]["bound_by"],
+               brute_mts_per_traced_ray=mts_per_traced, main_max_abs_err_vs_plain=max_err_m,
                max_abs_err_is="rgb vs K3 at the preflight size and on the 2K spp2 profile; cost, "
                               "aux and lane counts equal plain there and on "
                               f"{P12_PACKETS} 2K packets")
@@ -1005,10 +1124,13 @@ def phase12(scene, dev, smi):
            f"median of 10: K3 {over['K3']:.4f} s, K3-profile {over['K3-profile']:.4f} s "
            f"(overhead {over['K3-profile'] / over['K3'] - 1:+.4f}); K3-profile host s "
            f"{_fmt(times['K3-profile'][0])}; lane statistics (cost mean/max, K1 mean, "
-           f"divergence, lockstep sum): "
+           f"K1 divergence, path-iteration mean, path-iteration divergence, lockstep sum; a "
+           f"divergence is the mean over warps of the warp max / warp mean): "
            + "; ".join(f"{k} {v['cost_mean']:.2f}/{v['cost_max']:.0f}, {v['k1_mean']:.2f}, "
-                       f"{v['divergence']:.4f}, {v['lockstep_sum']:.0f}"
-                       for k, v in stats.items())
+                       f"{v['divergence']:.4f}, {v['iter_mean']:.2f}, {v['iter_divergence']:.4f}, "
+                       f"{v['lockstep_sum']:.0f}" for k, v in stats.items())
+           + f"; the {traced12} traced rays of the {P12_PACKETS} packets' plain render run "
+           f"{mts_per_traced:.4f} brute MT records each after the cull"
            + f"; build_schedule(profile_spp=2) {schedule_s:.3f} s, path counts {counts}; the "
            f"scheduled frame == tiled == blocked bitwise; frames in turns, median of 10: "
            + ", ".join(f"{k} {v:.4f} s (events {lay_dev[k]:.4f})" for k, v in lay.items())
@@ -1650,6 +1772,7 @@ def phase14(scene8, dev, smi):
         raise AssertionError(f"width 4 at the preflight size: {checks}")
     ms_k3 = cuda_ms(lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, px, py, interleave=1), 20)
     ms_k5 = cuda_ms(lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, px, py, interleave=2), 20)
+    ms_prof = cuda_ms(lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, px, py, profile=True), 20)
     ms_k3_8 = cuda_ms(lambda: cm.render_tiles_fused(scene8, cam, cfg, 0, px, py, interleave=1), 20)
     bound_pre = path_bound(b4, px.shape[0], cfg.spp, int(pk1.sum()), int(pit.sum()))
 
@@ -1665,7 +1788,9 @@ def phase14(scene8, dev, smi):
         raise AssertionError(f"2K K3<4> vs K3<8>: {bad2k:.4%} elements beyond tolerance, mean "
                              f"diff {mean_diff2k}")
     t2k = _frames_in_turns({"K3<4>": lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, bx, by),
-                            "K3<8>": lambda: cm.render_tiles_fused(scene8, cam, cfg, 0, bx, by)},
+                            "K3<8>": lambda: cm.render_tiles_fused(scene8, cam, cfg, 0, bx, by),
+                            "K3-profile<4>": lambda: cm.render_tiles_fused(
+                                scene4, cam, cfg, 0, bx, by, profile=True)},
                            10)
     med = {k: float(np.median(v[0])) for k, v in t2k.items()}
     med_dev = {k: float(np.median(v[1])) for k, v in t2k.items()}
@@ -1726,6 +1851,16 @@ def phase14(scene8, dev, smi):
                       sorted_launches=clis["megakernel"]["k4_sorted"],
                       num_regs=res["K4/w4"][0], local_bytes=res["K4/w4"][1],
                       num_regs_w8=res["K4"][0]),
+        "K3-profile/w4": dict(launches=0, max_abs_err=_max_abs(rgb, k3), ms=ms_prof,
+                              plain_ms=plain_ms_k3, **bound_pre,
+                              bound_2k_ms=bound_2k["bound_ms"], bound_2k_by=bound_2k["bound_by"],
+                              kernel_2k_median_s=med["K3-profile<4>"],
+                              kernel_2k_median_device_s=med_dev["K3-profile<4>"],
+                              num_regs=res["K3-profile/w4"][0],
+                              local_bytes=res["K3-profile/w4"][1],
+                              launches_are="no path builds a schedule on a 4-wide tree",
+                              max_abs_err_is="profile rgb vs K3<4> at the preflight size; cost "
+                                             "and aux == plain"),
         "K5/w4": dict(launches=clis["fused G=2"]["render_fused_g2"],
                       max_abs_err=_max_abs(k5, p_rgb), ms=ms_k5, plain_ms=plain_ms_k3,
                       **bound_pre, num_regs=res["K5/w4"][0], local_bytes=res["K5/w4"][1],
@@ -1741,10 +1876,12 @@ def phase14(scene8, dev, smi):
            f"128x40 spp2 mb12 through K3<4>: mean {mean4:.6f} vs {expected:.6f} (rel {rel:.2e}), "
            f"== plain bitwise, vs K3<8> {bad8:.4%} elements beyond tolerance (max abs "
            f"{max_err8:.3g}); {checks}; preflight lanes K3<4> {ms_k3:.3f} ms, K5<4> "
-           f"{ms_k5:.3f} ms, K3<8> {ms_k3_8:.3f} ms, plain {plain_ms_k3:.1f} ms; 2K spp8 mb20 "
+           f"{ms_k5:.3f} ms, K3-profile<4> {ms_prof:.3f} ms, K3<8> {ms_k3_8:.3f} ms, plain "
+           f"{plain_ms_k3:.1f} ms; 2K spp8 mb20 "
            f"blocked grid in turns, median of 10 (host s / CUDA events s): K3<4> "
            f"{med['K3<4>']:.4f} / {med_dev['K3<4>']:.4f}, K3<8> {med['K3<8>']:.4f} / "
-           f"{med_dev['K3<8>']:.4f} (ratio {med['K3<4>'] / med['K3<8>']:.3f}); K3<4> host s "
+           f"{med_dev['K3<8>']:.4f} (ratio {med['K3<4>'] / med['K3<8>']:.3f}), K3-profile<4> "
+           f"{med['K3-profile<4>']:.4f} / {med_dev['K3-profile<4>']:.4f}; K3<4> host s "
            f"{_fmt(t2k['K3<4>'][0])}; K3<8> host s {_fmt(t2k['K3<8>'][0])}; 2K frames K3<4> vs "
            f"K3<8>: {bad2k:.4%} elements beyond tolerance, mean diff {mean_diff2k:.2e}; 2K lane "
            f"counts (K1 steps, path iterations, K1 mean, warp divergence): "
@@ -1758,6 +1895,180 @@ def phase14(scene8, dev, smi):
                        for k, v in clis.items())
            + f" on {smi}")
     return dict(rows=rows, msg=msg)
+
+
+class _ParentLib:
+    """The parent commit's kernel library behind this tree's wrappers: its
+    BvhView has no cull table and K3 takes no lane list, so the calls are
+    translated; everything else is passed as it is."""
+
+    def __init__(self, path):
+        import ctypes
+
+        from raytracer_tpu_torch.utils import cudalib
+
+        class View(ctypes.Structure):
+            _fields_ = [f for f in cudalib.BvhView._fields_ if f[0] != "bbox"]
+
+        self.View, L = View, ctypes.CDLL(path)
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        pv, ip = ctypes.POINTER(View), ctypes.POINTER(ctypes.c_int)
+        fused = [ctypes.POINTER(cudalib.FusedParams), pv] + [vp] * 7 + [ci]
+        L.rt_render_fused.argtypes = fused + [vp, ci, vp]
+        L.rt_render_fused_g2.argtypes = fused + [vp, ci, vp]
+        L.rt_render_fused_profile.argtypes = fused + [vp] * 5 + [ci, vp]
+        L.rt_trace_closest.argtypes = [pv, vp, vp, vp, cf, ci, vp, vp, vp, vp, ci, vp]
+        L.rt_render_fused_attrs.argtypes = [ci, ci, ip, ip]
+        L.rt_render_fused_g2_attrs.argtypes = [ci, ip, ip]
+        L.rt_trace_closest_attrs.argtypes = [ci, ip, ip]
+        L.rt_error_string.argtypes = [ci]
+        L.rt_error_string.restype = ctypes.c_char_p
+        self.L = L
+        self.rt_render_fused_attrs = L.rt_render_fused_attrs
+        self.rt_render_fused_g2_attrs = L.rt_render_fused_g2_attrs
+        self.rt_trace_closest_attrs = L.rt_trace_closest_attrs
+        self.rt_error_string = L.rt_error_string
+
+    def _view(self, v):
+        return self.View(**{f: getattr(v, f) for f, _ in self.View._fields_})
+
+    def rt_render_fused(self, prm, view, *rest):
+        *a, block, _chunk, _next, stream = rest
+        return self.L.rt_render_fused(prm, self._view(view), *a, block, stream)
+
+    def rt_render_fused_profile(self, prm, view, *rest):
+        *a, block, _chunk, _next, stream = rest
+        return self.L.rt_render_fused_profile(prm, self._view(view), *a, block, stream)
+
+    def rt_render_fused_g2(self, prm, view, *rest):
+        return self.L.rt_render_fused_g2(prm, self._view(view), *rest)
+
+    def rt_trace_closest(self, view, *rest):
+        return self.L.rt_trace_closest(self._view(view), *rest)
+
+
+P15_CHUNKS = (16, 512)   # K3's lanes per take, beside the default
+P15_K4_CALLS = 20   # K4 launches per turn
+
+
+def phase15(scene, dev, smi, parent_dir):
+    """Old against new on one card: the parent commit's K3, K3-profile, K4
+    and K5 (built from parent_dir's raytracer_tpu_torch/csrc) against this
+    tree's, bitwise and in turns, median of 10, with K3's chunk sizes."""
+    import torch
+
+    from raytracer_tpu_torch.camera import showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.ops import cuda_megakernel as cm
+    from raytracer_tpu_torch.ops import cuda_traverse as ct
+    from raytracer_tpu_torch.ops.bvh4 import BIG
+    from raytracer_tpu_torch.schedule import blocked_pixel_grid
+    from raytracer_tpu_torch.utils import cudalib
+
+    default = cudalib.lib()
+    t0 = time.perf_counter()
+    build_dir = os.path.join(ROOT, "renders", "phase15_build")
+    libs = {"parent": _ParentLib(cudalib.build(
+        csrc=os.path.join(os.path.abspath(parent_dir), "raytracer_tpu_torch", "csrc"),
+        build_dir=build_dir)), "new": default}
+    build_s = time.perf_counter() - t0
+
+    def on(name, fn):
+        def run():
+            cudalib._LIB = libs[name]
+            try:
+                return fn()
+            finally:
+                cudalib._LIB = default
+        return run
+
+    def no_brute(fn):
+        """fn with the kernels given no brute set: a knock-out that times
+        the pre-pass's share (its images differ)."""
+        def run():
+            view = cudalib.bvh_view
+
+            def without(bvh):
+                v = view(bvh)
+                v.n_brute = 0
+                return v
+            cudalib.bvh_view = without
+            try:
+                return fn()
+            finally:
+                cudalib.bvh_view = view
+        return run
+
+    cfg = RenderConfig(**MAIN)
+    cam = showcase_camera(cfg)
+    bx, by, _ = (t.to(dev) for t in blocked_pixel_grid(cfg, 32, 32, 8, 16))
+    rays = {"phase 4": phase4_rays(scene, dev), "phase 8": bounce_rays(scene, dev)}
+    k3 = {k: on(k, lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, interleave=1))
+          for k in libs}
+    out = {k: f() for k, f in k3.items()}
+    prof = {k: on(k, lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, profile=True))()
+            for k in ("parent", "new")}
+    k5 = {k: on(k, lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, interleave=2))()
+          for k in ("parent", "new")}
+    checks = {"K3 new == parent": torch.equal(out["new"], out["parent"])}
+    checks["K3-profile new == parent (rgb, cost, aux)"] = all(
+        torch.equal(a, b) for a, b in zip(prof["new"], prof["parent"]))
+    checks["K5 new == parent"] = torch.equal(k5["new"], k5["parent"])
+    checks.update({f"K3 chunk {c} == parent": torch.equal(cm.render_tiles_fused(
+        scene, cam, cfg, 0, bx, by, chunk=c), out["parent"]) for c in P15_CHUNKS})
+    k4 = {}
+    for rname, (o, d) in rays.items():
+        recs = {k: on(k, lambda: ct.trace_closest(o, d, scene.bvh4, BIG, sort=False))()
+                for k in libs}
+        checks[f"K4 on {rname} rays new == parent"] = all(
+            torch.equal(recs["new"][f], recs["parent"][f]) for f in recs["parent"])
+        k4[rname] = {k: on(k, lambda o=o, d=d: [ct.trace_closest(o, d, scene.bvh4, BIG,
+                                                                 sort=False)
+                                                for _ in range(P15_K4_CALLS)]) for k in libs}
+    if not all(checks.values()):
+        raise AssertionError(f"phase 15: {checks}")
+    res = {}
+    for k in libs:
+        cudalib._LIB = libs[k]
+        try:
+            res[k] = {**cm.kernel_resources(), **ct.kernel_resources()}
+        finally:
+            cudalib._LIB = default
+    res = {k: {n: v[n] for n in ("K3", "K3-profile", "K5", "K4")} for k, v in res.items()}
+    torch.cuda.synchronize()
+    turns = {"K3 2K " + k: f for k, f in k3.items()}
+    turns.update({"K3-profile 2K parent": on("parent", lambda: cm.render_tiles_fused(
+        scene, cam, cfg, 0, bx, by, profile=True)),
+        "K3-profile 2K new": on("new", lambda: cm.render_tiles_fused(
+            scene, cam, cfg, 0, bx, by, profile=True)),
+        "K5 2K parent": on("parent", lambda: cm.render_tiles_fused(
+            scene, cam, cfg, 0, bx, by, interleave=2)),
+        "K5 2K new": on("new", lambda: cm.render_tiles_fused(
+            scene, cam, cfg, 0, bx, by, interleave=2))})
+    turns["K3 2K new, no brute set (knock-out)"] = no_brute(k3["new"])
+    for c in P15_CHUNKS:
+        turns[f"K3 2K new, chunk {c}"] = lambda c=c: cm.render_tiles_fused(
+            scene, cam, cfg, 0, bx, by, chunk=c)
+    for rname, fns in k4.items():
+        turns.update({f"K4 {rname} {k}": f for k, f in fns.items()})
+        turns[f"K4 {rname} new, no brute set (knock-out)"] = no_brute(fns["new"])
+    times = _frames_in_turns(turns, 10)
+    ms = {}
+    for name, (_, dev_s) in times.items():
+        per = P15_K4_CALLS if name.startswith("K4") else 1
+        ms[name] = dict(median_ms=float(np.median(dev_s)) * 1e3 / per,
+                        min_ms=float(np.min(dev_s)) * 1e3 / per,
+                        max_ms=float(np.max(dev_s)) * 1e3 / per)
+    msg = (f"parent's build in {build_s:.1f} s; {checks}; "
+           f"in turns, median of 10 (CUDA events; K4 per call of {P15_K4_CALLS}; min-max): "
+           + "; ".join(f"{k} {v['median_ms']:.4f} ms ({v['min_ms']:.4f}-{v['max_ms']:.4f})"
+                       for k, v in ms.items())
+           + "; numRegs / localSizeBytes: "
+           + "; ".join(f"{k}: " + ", ".join(f"{n} {r} / {b}" for n, (r, b) in v.items())
+                       for k, v in res.items())
+           + f" on {smi}")
+    return dict(json=dict(card=smi, checks=checks, ms=ms, resources=res, build_s=build_s),
+                msg=msg)
 
 
 def _counts():
@@ -1781,17 +2092,14 @@ def _reset_counts():
             d[k] = 0
 
 
-def phase8(scene, dev):
-    """K4 sorted vs unsorted vs plain on the second-bounce wavefront."""
+def bounce_rays(scene, dev):
+    """Phase 8's rays: the second-bounce wavefront of a 512x512 spp1
+    megakernel frame (showcase camera), 262,144 rays."""
     import torch
 
     from raytracer_tpu_torch.camera import generate_rays, showcase_camera
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.models import megakernel
-    from raytracer_tpu_torch.ops import cuda_traverse
-    from raytracer_tpu_torch.ops.bvh4 import BIG
-    from raytracer_tpu_torch.ops.cuda_traverse import trace_closest, trace_closest_plain
-    from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
     from raytracer_tpu_torch.render import pixel_grid
     from raytracer_tpu_torch.utils import ktf
 
@@ -1802,7 +2110,19 @@ def phase8(scene, dev):
     with torch.no_grad():
         o, d = generate_rays(cam, px, py, cfg.width, cfg.height, smp)
         state = megakernel.bounce_step(scene, cfg, 0, smp, megakernel.initial_state(o, d))
-    o1, d1 = state[0].contiguous(), state[1].contiguous()
+    return state[0].contiguous(), state[1].contiguous()
+
+
+def phase8(scene, dev):
+    """K4 sorted vs unsorted vs plain on the second-bounce wavefront."""
+    import torch
+
+    from raytracer_tpu_torch.ops import cuda_traverse
+    from raytracer_tpu_torch.ops.bvh4 import BIG
+    from raytracer_tpu_torch.ops.cuda_traverse import trace_closest, trace_closest_plain
+    from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
+
+    o1, d1 = bounce_rays(scene, dev)
     bvh = scene.bvh4
     rs = trace_closest(o1, d1, bvh, BIG, sort=True)
     ru = trace_closest(o1, d1, bvh, BIG, sort=False)
@@ -1824,11 +2144,11 @@ def phase8(scene, dev):
     perm = torch.argsort(coherence_keys(o1, d1, lo, inv_ext), stable=True)
     o_s, d_s = o1[perm].contiguous(), d1[perm].contiguous()
     keys = coherence_keys(o1, d1, lo, inv_ext)
-    steps = cuda_traverse._traverse_plain(o1, d1, bvh, torch.full_like(o1[:, 0], float(BIG)),
-                                          1e-3, count=True)[4]
+    big = torch.full_like(o1[:, 0], float(BIG))
+    steps = cuda_traverse._traverse_plain(o1, d1, bvh, big, 1e-3, count=True)[4]
     return dict(
         rays=o1.shape[0], hits=int(rs["hit"].sum()), max_abs_err=max_err,
-        k1_steps=int(steps.sum()),
+        k1_steps=int(steps.sum()), brute_mts=brute_mts(bvh, o1, d1, big)[0],
         argsort_ms=cuda_ms(lambda: torch.argsort(keys, stable=True), 20),
         ms_sorted=cuda_ms(lambda: trace_closest(o1, d1, bvh, BIG, sort=True), 20),
         ms_unsorted=cuda_ms(lambda: trace_closest(o1, d1, bvh, BIG, sort=False), 20),

@@ -48,14 +48,17 @@ cudaError_t launch_fused(bool profile, const mk::FusedArgs& a) {
 
 }  // namespace
 
+// `chunk` lanes per take from the lane list; `next` an int on the card, 0
+// before the launch (the wrapper's torch.zeros).
 extern "C" int rt_render_fused(const FusedParams* p, const trav::BvhView* bvh, const int* pix,
                                const int* px, const int* py, const float* sph, const int* sph_mat,
                                const float* mat, const int* mat_type, int n, float* out,
-                               int block, void* stream) {
-  if (!trav::built_width(bvh->width)) return static_cast<int>(cudaErrorInvalidValue);
+                               int block, int chunk, int* next, void* stream) {
+  if (!trav::view_ok(*bvh) || chunk < 1 || p->spp < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const mk::FusedArgs a{*p, *bvh, pix, px, py, path::Tables{sph, sph_mat, mat, mat_type}, n,
-                          out, nullptr, nullptr, nullptr, block,
+                          out, nullptr, nullptr, nullptr, block, chunk, next,
                           static_cast<cudaStream_t>(stream)};
     return static_cast<int>(launch_fused(false, a));
   }
@@ -63,19 +66,20 @@ extern "C" int rt_render_fused(const FusedParams* p, const trav::BvhView* bvh, c
 }
 
 // K3-profile: radiance sums (out, [n, 3]), cost [n], aux [n] (n % 1024 == 0);
-// k1_steps and path_iters are [n] int scratch the wrapper allocates.
+// k1_steps and path_iters are [n] int scratch the wrapper allocates;
+// chunk and next as rt_render_fused's.
 extern "C" int rt_render_fused_profile(const FusedParams* p, const trav::BvhView* bvh,
                                        const int* pix, const int* px, const int* py,
                                        const float* sph, const int* sph_mat, const float* mat,
                                        const int* mat_type, int n, float* out, float* cost,
                                        int* k1_steps, int* path_iters, float* aux, int block,
-                                       void* stream) {
-  if (!trav::built_width(bvh->width) || n % PACKET != 0)
+                                       int chunk, int* next, void* stream) {
+  if (!trav::view_ok(*bvh) || n % PACKET != 0 || chunk < 1 || p->spp < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const mk::FusedArgs a{*p, *bvh, pix, px, py, path::Tables{sph, sph_mat, mat, mat_type}, n,
-                          out, cost, k1_steps, path_iters, block, s};
+                          out, cost, k1_steps, path_iters, block, chunk, next, s};
     const cudaError_t e = launch_fused(true, a);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int g = n / PACKET;

@@ -197,7 +197,7 @@ __device__ __forceinline__ void mt_row8(Lanes& L, Rec& R, const float* __restric
 // entry distance tmin. The scripts take min/max with jnp.minimum/maximum,
 // which propagate NaN: a NaN plane distance makes tmin NaN and the test a
 // miss, and so does a NaN t_best. Here that is the explicit rule of
-// traverse.cuh's slab (:94-99) — any NaN among the six distances is a miss,
+// traverse.cuh's `slab` — any NaN among the six distances is a miss,
 // with tmin NaN — and fminf/fmaxf otherwise, which then give jnp's values.
 __device__ __forceinline__ bool slab(const Lanes& L, int j, const float (&b)[6], float& tmin) {
   const float t0x = (b[0] - L.ox[j]) * L.ix[j], t1x = (b[3] - L.ox[j]) * L.ix[j];

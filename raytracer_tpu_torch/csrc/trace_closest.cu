@@ -11,7 +11,8 @@
 // path loop calls K1 inline instead. Bound like K1: dependent BVH loads
 // and divergence; the ray I/O is 7 floats in and 6 words out per thread.
 // One instantiation per built tree width (traverse.cuh), chosen by
-// BvhView::width.
+// BvhView::width. A block stages the brute set and its cull table
+// (traverse.cuh stage_brute) before its threads trace.
 #include <cuda_runtime.h>
 
 #include "traverse.cuh"
@@ -22,9 +23,12 @@ __global__ void trace_closest_kernel(trav::BvhView bvh, const float* __restrict_
                                      float t_min, int n, float* __restrict__ t_out,
                                      int* __restrict__ id_out, int* __restrict__ mat_out,
                                      float* __restrict__ n_out) {
+  __shared__ trav::BruteStage stage;
+  const trav::BvhView view = trav::stage_brute(bvh, stage);
+  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const trav::Hit h = trav::traverse<K>(bvh, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+  const trav::Hit h = trav::traverse<K>(view, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
                                      d[3 * i + 1], d[3 * i + 2], tlim[i], t_min);
   t_out[i] = h.t;
   id_out[i] = h.prim;
@@ -37,7 +41,7 @@ __global__ void trace_closest_kernel(trav::BvhView bvh, const float* __restrict_
 extern "C" int rt_trace_closest(const trav::BvhView* bvh, const float* o, const float* d,
                                 const float* tlim, float t_min, int n, float* t_out, int* id_out,
                                 int* mat_out, float* n_out, int block, void* stream) {
-  if (!trav::built_width(bvh->width)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!trav::view_ok(*bvh)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const int grid = (n + block - 1) / block;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);

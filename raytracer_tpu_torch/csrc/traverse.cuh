@@ -9,11 +9,26 @@
 // the same steps in the same order, so the two agree bit for bit.
 //
 // Contract: closest hit with t in [t_min, t_lim); t_lim = -1 marks a dead
-// ray. A brute-force Möller–Trumbore sweep over the oversized triangles
+// ray. A Möller–Trumbore (MT) sweep over the oversized triangles
 // (Bvh4.brute_*) primes t_best, then the wide BVH is walked nearest child
 // first from a per-thread stack. Returns t_best (t_lim when nothing is
 // hit), the original face id (-1 when nothing is hit), its material id
 // (0 then) and the unnormalized cross(e1, e2).
+//
+// The brute pre-pass is culled (brute_skip): a triangle is tested with MT
+// unless its padded box misses [t_min, t_best) AND the ray is far enough
+// from parallel to its plane that MT's t is trustworthy. The triangles
+// that are tested are tested in index order with the unchanged mt_record,
+// so the hit record is the exhaustive pass's bit for bit (a cull against
+// t_lim, which is at least the running best, skips no more); the argument and
+// the choice of the pad are at ops/cuda_traverse.py (BOX_PAD), whose
+// brute_may_hit is this rule's plain mirror. The plain traversal
+// (_traverse_plain) keeps the exhaustive pass, and so does traverse2 (K5):
+// K5 ≡ K3 on a whole frame holds the cull against it on every lane. On
+// the reference scene a traced ray tests ~3 of its 32 brute triangles
+// instead of all of them: the pre-pass was ~95% of K3's counted work.
+// Each kernel stages the brute records and the cull table once per block
+// (stage_brute) so that the warp's uniform reads cost no global load.
 //
 // What the TPU kernel needed and this one does not: the 8x128 sub-warp
 // chains, the pair-packed SMEM stacks, the float-encoded ids and the
@@ -27,6 +42,8 @@
 // scene's whole 0.8 MB node table and 4 MB triangle table. The stack lives
 // in local memory (L1-cached).
 #pragma once
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace trav {
@@ -34,6 +51,8 @@ namespace trav {
 constexpr float BIG = 3.0e38f;
 constexpr int NONE = -1;
 constexpr int STACK_CAP = 256;  // utils/cudalib.STACK_CAP; the wrapper checks stack_depth+4
+constexpr int MAX_BRUTE = 64;   // brute triangles a kernel stages (utils/cudalib.MAX_BRUTE)
+constexpr int BOX_STRIDE = 12;  // floats per row of the cull table
 
 // The tree widths K the kernels are built for (utils/cudalib.BVH_WIDTHS):
 // 8, scene/builder's default, and 4, the native builder's own tree
@@ -50,9 +69,17 @@ struct BvhView {
   const float* btri;      // [Tb, 9] brute-force set (may be null when n_brute == 0)
   const int* bprim;       // [Tb]
   const int* bmat;        // [Tb]
-  int n_brute;
+  const float* bbox;      // [Tb + 1, 12] cull table (ops/cuda_traverse.brute_boxes)
+  int n_brute;            // <= MAX_BRUTE
   int width;              // 4 or 8: the K of the instantiation each entry point launches
 };
+
+// A view the culling kernels (K3, K3-profile, K4) take: a built width, and
+// a brute set within the stage's capacity with its cull table.
+inline bool view_ok(const BvhView& v) {
+  return built_width(v.width) && v.n_brute >= 0 && v.n_brute <= MAX_BRUTE &&
+         (v.n_brute == 0 || v.bbox != nullptr);
+}
 
 struct Hit {
   float t;
@@ -114,6 +141,74 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b, float ox, floa
   const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), t_best));
   entry = tmin;
   return tmax > tmin;
+}
+
+// min / max that return NaN when either operand is NaN (PTX min.NaN and
+// max.NaN, sm_80+), as torch.minimum / maximum do in the plain mirror.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The cull of brute triangle j, row b of the cull table (lo xyz, -, hi xyz,
+// -, guard normal xyz, -): true only where MT cannot accept the triangle
+// within [t_min, t_best). The slab's NaN rule is the opposite of the node
+// slab's: a NaN plane distance passes (a false pass costs one MT, a false
+// skip would change the image), and the box passes at tf == tn. `sd` is
+// (|o - c|inf + R) |d|inf of the ray (the table's last row holds c, R).
+// ops/cuda_traverse.brute_may_hit is its plain mirror, operation for
+// operation.
+__device__ __forceinline__ bool brute_skip(const float* __restrict__ b, float ox, float oy,
+                                           float oz, float dx, float dy, float dz, float ix,
+                                           float iy, float iz, float sd, float t_min,
+                                           float t_best) {
+  const float t0x = (b[0] - ox) * ix, t1x = (b[4] - ox) * ix;
+  const float t0y = (b[1] - oy) * iy, t1y = (b[5] - oy) * iy;
+  const float t0z = (b[2] - oz) * iz, t1z = (b[6] - oz) * iz;
+  const float tn =
+      nan_max(nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)), nan_min(t0z, t1z)), t_min);
+  const float tf =
+      nan_min(nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)), nan_max(t0z, t1z)), t_best);
+  const float g = dx * b[8] + dy * b[9] + dz * b[10];
+  return (tf < tn) && (fabsf(g) >= sd);
+}
+
+// The brute set and its cull table, copied into shared memory once per
+// block: every lane of a warp reads the same record at the same time, and
+// a shared-memory broadcast costs no global load (the constant bank and
+// global memory as given were slower: PERF.md §6).
+struct BruteStage {
+  float tri[MAX_BRUTE * 9];
+  float box[(MAX_BRUTE + 1) * BOX_STRIDE];
+  int prim[MAX_BRUTE];
+  int mat[MAX_BRUTE];
+};
+
+// The view the block's threads traverse with: its brute pointers moved to
+// the staged copy. Every thread of the block calls it, then the block
+// synchronizes before any thread traverses.
+__device__ __forceinline__ BvhView stage_brute(const BvhView& bvh, BruteStage& st) {
+  BvhView v = bvh;
+  const int n = bvh.n_brute;
+  const int n_box = n > 0 ? BOX_STRIDE * (n + 1) : 0;  // no table without a brute set
+  for (int i = threadIdx.x; i < 9 * n; i += blockDim.x) st.tri[i] = bvh.btri[i];
+  for (int i = threadIdx.x; i < n_box; i += blockDim.x) st.box[i] = bvh.bbox[i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    st.prim[i] = bvh.bprim[i];
+    st.mat[i] = bvh.bmat[i];
+  }
+  v.btri = st.tri;
+  v.bbox = st.box;
+  v.bprim = st.prim;
+  v.bmat = st.mat;
+  return v;
 }
 
 #define TRAV_CSWAP(i, j)                           \
@@ -215,10 +310,28 @@ __device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz,
   // Nothing lies in [t_min, t_lim) for a dead ray: skip all work (exact).
   if (!(t_lim > t_min)) return h;
 
-  for (int j = 0; j < bvh.n_brute; ++j)
-    mt_record(bvh.btri + 9 * j, bvh.bprim[j], bvh.bmat[j], ox, oy, oz, dx, dy, dz, t_min, h);
-
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  if (bvh.n_brute > 0) {
+    const float* fr = bvh.bbox + BOX_STRIDE * bvh.n_brute;  // c, R
+    const float s =
+        nan_max(nan_max(fabsf(ox - fr[0]), fabsf(oy - fr[1])), fabsf(oz - fr[2])) + fr[3];
+    const float sd = s * nan_max(nan_max(fabsf(dx), fabsf(dy)), fabsf(dz));
+    // Cull every triangle against t_lim first, then test this lane's own
+    // survivors in index order: a warp runs as many MT records as its
+    // busiest lane needs, not one for every triangle any lane needs (a
+    // cull just before each test ran slower: PERF.md §6).
+    unsigned long long pass = 0;
+    for (int j = 0; j < bvh.n_brute; ++j)
+      if (!brute_skip(bvh.bbox + BOX_STRIDE * j, ox, oy, oz, dx, dy, dz, ix, iy, iz, sd, t_min,
+                      t_lim))
+        pass |= 1ull << j;
+    while (pass) {
+      const int j = __ffsll(static_cast<long long>(pass)) - 1;
+      pass &= pass - 1;
+      mt_record(bvh.btri + 9 * j, bvh.bprim[j], bvh.bmat[j], ox, oy, oz, dx, dy, dz, t_min, h);
+    }
+  }
+
   int stack[STACK_CAP];
   int sp = 0;
   int task = 0;  // the root
@@ -275,7 +388,9 @@ struct Ray {
 // chains of dependent loads in flight. A ray whose walk has ended idles
 // while the other goes on. Each ray takes exactly the steps traverse
 // takes for it, in the same order, so h0 and h1 equal traverse's bit for
-// bit.
+// bit. Its brute pre-pass stays exhaustive on purpose: K5 is the port of the
+// JAX package's G = 2 kernel, and its equality with K3 on whole frames
+// checks traverse's culled pre-pass against the exhaustive one.
 template <int K>
 __device__ inline void traverse2(const BvhView& bvh, const Ray& r0, const Ray& r1, float t_min,
                                  Hit& h0, Hit& h1) {

@@ -42,6 +42,10 @@ class Bvh4:
     brute_prim: Optional[torch.Tensor] = None  # i32[Tb]
     brute_mat: Optional[torch.Tensor] = None   # i32[Tb]
     stack_depth: int = STACK_DEPTH  # worst-case traversal stack bound
+    # K1's cull table of the brute set (ops/cuda_traverse.brute_boxes):
+    # f32[Tb+1, 12], made with the brute set by whoever builds the tree
+    # (scene/builder.build_scene_bvh4) and carried by `.to(device)`.
+    brute_box: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
 
     def to(self, device) -> "Bvh4":
         return tensors_to(self, device)

@@ -3,7 +3,8 @@
 
 `render_tiles_fused` returns the mean linear radiance f32[N,3] of any
 pixel list. On CUDA tensors it launches kernel K3 (csrc/megakernel.cu:
-one thread per lane looping samples and bounces, K1 and K2 inline), or
+persistent blocks whose threads take lanes from the list and loop their
+samples and bounces, K1 and K2 inline), or
 with `interleave=2` (RAYTRACER_TPU_INTERLEAVE=2) K5 (csrc/interleave.cu:
 two lanes per thread, their traversals merged), or with `profile=True`
 K3-profile, which also returns the per-lane cost and the per-packet aux
@@ -42,6 +43,7 @@ MAX_MATERIALS = cudalib.MAX_MATERIALS
 PACKET = 1024          # lanes per "packet" in host_chunk_packets units
 WARP = 32
 KERNEL_BLOCK = 128     # threads per block of K3, K3-profile and K5
+KERNEL_CHUNK = 64      # lanes a block of K3 / K3-profile takes from the lane list at a time
 SKY_TOP = (0.5, 0.7, 1.0)
 # Launches counted by the wrapper: K3, K5 (G = 2) and K3-profile.
 LAUNCHES = {"render_fused": 0, "render_fused_g2": 0, "render_fused_profile": 0}
@@ -214,11 +216,17 @@ def _pack_tables(scene):
     return sph, s.mat_id.contiguous(), mat.contiguous(), m.type.contiguous()
 
 
-def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, kind):
+def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, chunk, kind):
     """Launch K3 (kind "k3"), K5 ("g2") or K3-profile ("profile") over the
     lanes: radiance SUM f32[N,3]; K3-profile also cost f32[N], aux f32[N]
-    and the lane K1 steps and path iterations, i32[N] each."""
+    and the lane K1 steps and path iterations, i32[N] each. K3 and
+    K3-profile take the lanes `chunk` at a time through a counter on the
+    card that starts at 0."""
     n = pix.shape[0]
+    # The int32 counter passes n by at most one chunk per block (< 2**13
+    # blocks: 32 per SM).
+    if chunk < 1 or n + chunk * 2**13 >= 2**31:
+        raise ValueError(f"chunk {chunk} for {n} lanes: the lane counter would overflow")
     for name, t in (("pixel", pix), ("px", pxi), ("py", pyi)):
         cudalib.require_cuda(name, t, torch.int32, (n,))
     view = cudalib.bvh_view(scene.bvh4)
@@ -243,6 +251,7 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, kin
         n_spheres=scene.spheres.count, n_materials=scene.materials.count)
     dev = pix.device
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lane_list = torch.zeros((1,), dtype=torch.int32, device=dev)
     args = (prm, view, pix.data_ptr(), pxi.data_ptr(), pyi.data_ptr(), sph.data_ptr(),
             sph_mat.data_ptr(), mat.data_ptr(), mat_type.data_ptr(), n, out.data_ptr())
     L = cudalib.lib()
@@ -251,8 +260,8 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, kin
         aux = torch.empty((n,), dtype=torch.float32, device=dev)
         scratch = torch.empty((2, n), dtype=torch.int32, device=dev)
         code = L.rt_render_fused_profile(*args, cost.data_ptr(), scratch[0].data_ptr(),
-                                         scratch[1].data_ptr(), aux.data_ptr(), block,
-                                         cudalib.stream_handle())
+                                         scratch[1].data_ptr(), aux.data_ptr(), block, chunk,
+                                         lane_list.data_ptr(), cudalib.stream_handle())
         cudalib.check(code, "fused path-loop kernel (profile)")
         LAUNCHES["render_fused_profile"] += 1
         return out, cost, aux, scratch[0], scratch[1]
@@ -261,7 +270,7 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, kin
         cudalib.check(code, "fused path-loop kernel (G=2)")
         LAUNCHES["render_fused_g2"] += 1
         return out
-    code = L.rt_render_fused(*args, block, cudalib.stream_handle())
+    code = L.rt_render_fused(*args, block, chunk, lane_list.data_ptr(), cudalib.stream_handle())
     cudalib.check(code, "fused path-loop kernel")
     LAUNCHES["render_fused"] += 1
     return out
@@ -286,7 +295,8 @@ def kernel_resources() -> dict:
 
 
 def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets, block,
-            use_kernel: bool, profile: bool, interleave, lane_counts: bool = False):
+            use_kernel: bool, profile: bool, interleave, lane_counts: bool = False,
+            chunk: int = KERNEL_CHUNK):
     if not fused_megakernel_available(scene):
         raise ValueError(f"the fused path loop needs a bvh4 scene of width {cudalib.BVH_WIDTHS} "
                          f"within the kernel's budgets ({MAX_SPHERES} spheres, "
@@ -298,6 +308,8 @@ def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packet
     if profile and n % PACKET:
         raise ValueError(f"profile=True needs a multiple of {PACKET} lanes, got {n}")
     spp = cfg.spp if spp is None else int(spp)
+    if spp < 1:
+        raise ValueError(f"spp must be at least 1, got {spp}")
     basis = {k: torch.as_tensor(v, dtype=torch.float32).reshape(-1)
              for k, v in camera_basis(cam).items()}
     basis["position"] = cam.position.reshape(-1)
@@ -310,7 +322,7 @@ def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packet
 
         def run(lo, hi):
             return _render_cuda(scene, basis, cfg, k0, k1, pix[lo:hi], pxi[lo:hi],
-                                pyi[lo:hi], spp, sample_offset, block, kind)
+                                pyi[lo:hi], spp, sample_offset, block, chunk, kind)
     else:
         basis_d = {k: v.to(px.device) for k, v in basis.items()}
         basis_d["lens_radius"] = basis_d["lens_radius"].reshape(())
@@ -335,7 +347,8 @@ def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packet
 
 def render_tiles_fused(scene, cam, cfg, seed: int, px, py, spp=None, sample_offset: int = 0,
                        host_chunk_packets=None, block: int = KERNEL_BLOCK,
-                       profile: bool = False, interleave=None, lane_counts: bool = False):
+                       profile: bool = False, interleave=None, lane_counts: bool = False,
+                       chunk: int = KERNEL_CHUNK):
     """Mean linear radiance f32[N,3] over `spp` samples for the pixels
     (px, py) (i32[N], py = 0 the bottom row) on the scene's device: CUDA
     tensors launch K3 (K5 with `interleave=2`, K3-profile with
@@ -356,12 +369,13 @@ def render_tiles_fused(scene, cam, cfg, seed: int, px, py, spp=None, sample_offs
     a split spp give the samples a single pass would. `host_chunk_packets`
     splits the lanes into launches of that many 1024-lane packets; lanes
     are independent, so the result is identical. `block` is the threads
-    per block (a launch shape that does not change the image)."""
+    per block and `chunk` the lanes a block of K3 takes from the lane list
+    at a time: launch shapes that do not change the image."""
     if px.device.type not in ("cuda", "cpu"):
         raise ValueError(f"render_tiles_fused: unsupported device {px.device}")
     return _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets,
                    block, use_kernel=px.is_cuda, profile=profile, interleave=interleave,
-                   lane_counts=lane_counts)
+                   lane_counts=lane_counts, chunk=chunk)
 
 
 def render_tiles_fused_plain(scene, cam, cfg, seed: int, px, py, spp=None,

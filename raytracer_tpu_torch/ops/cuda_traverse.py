@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from raytracer_tpu_torch.ops.bvh4 import BIG, sort_by_key
@@ -44,6 +45,128 @@ KERNEL_BLOCK = 128  # threads per block of K4
 # through the coherence-sort path.
 LAUNCHES = {"trace_closest": 0, "trace_closest_sorted": 0}
 PLAIN_CALLS = {"traverse_plain": 0}  # calls of the plain traversal (K1/K4's plain version)
+
+
+# K1's cull of the brute pre-pass (csrc/traverse.cuh `brute_skip`). Each
+# brute triangle j gets a row of `brute_boxes`: its box padded by
+# delta = BOX_PAD x the brute set's extent (lo at 0-2, hi at 4-6) and its
+# guard normal m_j = cross(e1, e2) / kappa_j (8-10), kappa_j =
+# GUARD_C * 2^-24 * |e1|inf * |e2|inf / delta; the last row holds the set's
+# centre c (0-2) and R >= max |v - c|inf over its vertices (3). The kernel
+# may skip triangle j only where the slab test of the padded box misses
+# [t_min, t_lim) AND |d . m_j| >= (|o - c|inf + R) * |d|inf; it culls every
+# triangle first, then tests the survivors in index order.
+#
+# Why that is exact. Where the float32 Möller–Trumbore test of mt_record
+# accepts t in [t_min, t_best), rounding-error analysis of its terms (no
+# FMA) bounds the distance (inf-norm) of o + t*d from the exact triangle by
+# 24 g8 S D E1 E2 / |a| + ~7u (E1 + E2 + S), where u = 2^-24, g8 = 8u/(1-8u),
+# S bounds |o - v0|, D = |d|inf, E = |e|inf and a = -d . cross(e1, e2) is
+# MT's determinant (its computed value within 12 g5 D E1 E2 of that). The
+# guard keeps |a| >= 1024 u S D E1 E2 / delta - 12 g5 D E1 E2, so the
+# distance stays below delta / 4 + delta / 4: the hit point lies inside the
+# padded box with a margin larger than the slab test's own rounding
+# (3u (S + delta) in space), so the slab test cannot miss it. When the
+# origin is so far that 24u S > delta, the guard can never hold and every
+# triangle is tested. A ray nearly parallel to a triangle's plane, where
+# MT's t is rounding noise, fails the guard and is tested. NaN anywhere
+# makes both tests fail: the triangle is tested.
+#
+# delta: 1e-2 of the extent keeps the guard's excluded cone narrow
+# (|cos| below ~1024 u S / delta ~ 0.6% of directions per triangle) while a
+# box grows by 1% of the scene, and is far above the slab's rounding, so no
+# box is flat where a wall is axis-aligned.
+BOX_PAD = 1e-2
+GUARD_C = 1024.0
+BOX_BUILDS = {"brute_boxes": 0}   # cull tables made (once per tree)
+_U = 2.0 ** -24
+
+
+def _f32_down(x: np.ndarray) -> np.ndarray:
+    y = x.astype(np.float32)
+    return np.where(y.astype(np.float64) > x, np.nextafter(y, np.float32(-np.inf)), y)
+
+
+def _f32_up(x: np.ndarray) -> np.ndarray:
+    y = x.astype(np.float32)
+    return np.where(y.astype(np.float64) < x, np.nextafter(y, np.float32(np.inf)), y)
+
+
+def brute_boxes(brute_tri) -> torch.Tensor:
+    """The cull table f32[Tb+1, 12] of brute triangles f32[Tb, 9] (v0, e1,
+    e2), laid out as above; built in float64 and rounded outward. The
+    tree's builder makes it once, with the brute set (`Bvh4.brute_box`)."""
+    BOX_BUILDS["brute_boxes"] += 1
+    tri = brute_tri.detach().cpu().numpy().astype(np.float64)
+    v0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    verts = np.stack([v0, v0 + e1, v0 + e2], axis=1)           # [Tb, 3, 3]
+    lo_all, hi_all = verts.min(axis=(0, 1)), verts.max(axis=(0, 1))
+    delta = BOX_PAD * max(float((hi_all - lo_all).max()), 1e-30)
+    out = np.zeros((tri.shape[0] + 1, 12), np.float32)
+    out[:-1, 0:3] = _f32_down(verts.min(axis=1) - delta)
+    out[:-1, 4:7] = _f32_up(verts.max(axis=1) + delta)
+    c = ((lo_all + hi_all) / 2).astype(np.float32)
+    r = np.abs(verts - c.astype(np.float64)).max() * (1 + 1e-6)
+    out[-1, 0:3] = c
+    out[-1, 3] = _f32_up(np.asarray(r))
+    kappa = GUARD_C * _U * np.abs(e1).max(axis=1) * np.abs(e2).max(axis=1) / delta
+    ok = kappa > 0   # a zero edge: MT's determinant is exactly 0, it never hits
+    m = np.cross(e1, e2) / np.where(ok, kappa, 1.0)[:, None]
+    out[:-1, 8:11] = np.where(ok[:, None], m, 0.0).astype(np.float32)
+    return torch.from_numpy(out).to(brute_tri.device)
+
+
+def brute_may_hit(o, d, boxes, t_min: float, t_best):
+    """Plain mirror of K1's cull rule (csrc/traverse.cuh `brute_skip`,
+    the same float32 operations): bool [N, Tb], False where triangle j
+    cannot be accepted by MT within [t_min, t_best) for ray (o, d)
+    (f32[N, 3] each; t_min a float or f32[N], t_best f32[N]). Used by the
+    CPU tests and to count the pre-pass's work; no path calls it."""
+    box, frame = boxes[None, :-1], boxes[-1]
+    inv = 1.0 / d
+    t0 = (box[..., 0:3] - o[:, None]) * inv[:, None]
+    t1 = (box[..., 4:7] - o[:, None]) * inv[:, None]
+    near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    lo_t = torch.as_tensor(t_min, dtype=torch.float32, device=o.device).reshape(-1, 1)
+    tn = torch.maximum(torch.maximum(torch.maximum(near[..., 0], near[..., 1]), near[..., 2]),
+                       lo_t.expand_as(near[..., 0]))
+    tf = torch.minimum(torch.minimum(torch.minimum(far[..., 0], far[..., 1]), far[..., 2]),
+                       t_best[:, None].expand_as(far[..., 0]))
+    miss = tf < tn                      # False on NaN: the box test passes
+    m = box[..., 8:11]
+    dx, dy, dz = (x[:, None] for x in d.unbind(-1))
+    g = dx * m[..., 0] + dy * m[..., 1] + dz * m[..., 2]
+    s = torch.abs(o - frame[0:3]).amax(dim=-1) + frame[3]
+    sd = s * torch.abs(d).amax(dim=-1)
+    steady = torch.abs(g) >= sd[:, None]   # False on NaN: the triangle is tested
+    return ~(miss & steady)
+
+
+def brute_prepass_plain(o, d, bvh, t_lim, t_min: float, cull: bool = True):
+    """K1's brute pre-pass as the kernel runs it: with `cull`, every brute
+    triangle culled against t_lim first (`brute_may_hit`), then the
+    survivors tested with MT in index order against the running best;
+    without, every triangle tested. Returns (t_best, prim i32 (-1), mat,
+    normal, MT tests i32[N]) for rays f32[N, 3] with limits t_lim f32[N]
+    (t_lim <= t_min: dead, no work)."""
+    n = o.shape[0]
+    t_best = t_lim.to(torch.float32).clone()
+    best = torch.full((n,), NONE, dtype=torch.int32, device=o.device)
+    mat = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    nrm = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+    tb = 0 if bvh.brute_tri is None else bvh.brute_tri.shape[0]
+    test = (t_best > t_min)[:, None].expand(n, tb)
+    if cull and tb:
+        test = test & brute_may_hit(o, d, bvh.brute_box, t_min, t_best)
+    for j in range(tb):
+        rec = bvh.brute_tri[j]
+        ok, t = moller_trumbore(o, d, rec[0:3], rec[3:6], rec[6:9])
+        win = test[:, j] & ok & (t >= t_min) & (t < t_best)
+        t_best = torch.where(win, t, t_best)
+        best = torch.where(win, bvh.brute_prim[j], best)
+        mat = torch.where(win, bvh.brute_mat[j], mat)
+        nrm = torch.where(win[:, None], face_normal(rec[3:6], rec[6:9])[None], nrm)
+    return t_best, best, mat, nrm, test.sum(dim=1, dtype=torch.int32)
 
 
 def _closest_of(ok, t, t_best):

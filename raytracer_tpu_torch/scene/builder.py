@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.ops.bvh4 import widen_bvh
+from raytracer_tpu_torch.ops.cuda_traverse import brute_boxes
 from raytracer_tpu_torch.scene.native import build_bvh4_native
 from raytracer_tpu_torch.scene.obj_io import load_scene_objs
 from raytracer_tpu_torch.scene.types import (
@@ -258,6 +259,7 @@ def build_scene_bvh4(mesh: TriMesh):
         brute_tri=torch.from_numpy(bt),
         brute_prim=torch.from_numpy(bp),
         brute_mat=torch.from_numpy(bm),
+        brute_box=brute_boxes(torch.from_numpy(bt)),
     )
 
 

@@ -37,6 +37,7 @@ STACK_CAP = 256  # per-thread traversal stack entries (csrc/traverse.cuh)
 BVH_WIDTHS = (4, 8)  # the tree widths the kernels are built for (csrc/traverse.cuh)
 MAX_SPHERES = 16
 MAX_MATERIALS = 28
+MAX_BRUTE = 64   # brute triangles the kernels stage per block (csrc/traverse.cuh)
 
 _LIB = None
 BUILD_INFO: dict = {}
@@ -54,31 +55,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda/bin)")
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources(csrc: str | None = None) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc or CSRC, "*.cu")))
 
 
-def _digest() -> str:
+def _digest(csrc: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for p in sorted(glob.glob(os.path.join(CSRC, "*"))):
+    for p in sorted(glob.glob(os.path.join(csrc, "*"))):
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile csrc/ into the build directory unless an up-to-date library
-    is there. Returns its path; BUILD_INFO records seconds and the
-    ptxas resource report."""
-    lib_path = os.path.join(BUILD_DIR, f"libraytracer_cuda-{_digest()}.so")
+def build(csrc: str | None = None, build_dir: str | None = None) -> str:
+    """Compile csrc/ (or another tree's `csrc`) into the build directory
+    (or `build_dir`) unless an up-to-date library is there. Returns its
+    path; BUILD_INFO records seconds and the ptxas resource report of the
+    last build."""
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
+    lib_path = os.path.join(build_dir, f"libraytracer_cuda-{_digest(csrc)}.so")
     if os.path.exists(lib_path):
         BUILD_INFO.update(path=lib_path, seconds=0.0, cached=True)
         return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    srcs = sources()
+    srcs = sources(csrc)
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
     procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src], text=True,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -118,6 +121,7 @@ class BvhView(ctypes.Structure):
         ("btri", ctypes.c_void_p),
         ("bprim", ctypes.c_void_p),
         ("bmat", ctypes.c_void_p),
+        ("bbox", ctypes.c_void_p),
         ("n_brute", ctypes.c_int),
         ("width", ctypes.c_int),
     ]
@@ -164,9 +168,9 @@ def lib() -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     L.rt_trace_closest_attrs.argtypes = [ci, ip, ip]
     fused = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView), vp, vp, vp, vp, vp, vp, vp, ci]
-    L.rt_render_fused.argtypes = fused + [vp, ci, vp]
+    L.rt_render_fused.argtypes = fused + [vp, ci, ci, vp, vp]
     L.rt_render_fused_g2.argtypes = fused + [vp, ci, vp]
-    L.rt_render_fused_profile.argtypes = fused + [vp, vp, vp, vp, vp, ci, vp]
+    L.rt_render_fused_profile.argtypes = fused + [vp, vp, vp, vp, vp, ci, ci, vp, vp]
     L.rt_render_fused_attrs.argtypes = [ci, ci, ip, ip]
     L.rt_render_fused_g2_attrs.argtypes = [ci, ip, ip]
     L.rt_probe_v8.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
@@ -231,7 +235,10 @@ def stream_handle() -> int:
 
 def bvh_view(bvh) -> BvhView:
     """BvhView over a 4- or 8-wide Bvh4 whose tensors are on the card (the
-    caller keeps `bvh` alive across the launch)."""
+    caller keeps `bvh` alive across the launch), with K1's cull table
+    `bvh.brute_box`, which the tree carries. A brute set of more than
+    MAX_BRUTE triangles, or one without its table, raises: the kernels
+    stage at most that many and cull with the table."""
     k = int(bvh.children.shape[1])
     if k not in BVH_WIDTHS:
         raise ValueError(f"BVH width {k} not supported by the kernels (built for widths "
@@ -249,9 +256,18 @@ def bvh_view(bvh) -> BvhView:
                 fmat=bvh.face_mat.data_ptr(), n_brute=0, width=k)
     if bvh.brute_tri is not None:
         tb = bvh.brute_tri.shape[0]
+        if tb > MAX_BRUTE:
+            raise ValueError(f"{tb} brute triangles exceed the kernels' {MAX_BRUTE} "
+                             f"(scene/builder.partition_brute_faces max_brute)")
         require_cuda("bvh.brute_tri", bvh.brute_tri, torch.float32, (tb, 9))
         require_cuda("bvh.brute_prim", bvh.brute_prim, torch.int32, (tb,))
         require_cuda("bvh.brute_mat", bvh.brute_mat, torch.int32, (tb,))
+        if tb:
+            if bvh.brute_box is None:
+                raise ValueError("bvh.brute_box: a brute set without its cull table (the "
+                                 "tree's builder makes it: ops/cuda_traverse.brute_boxes)")
+            require_cuda("bvh.brute_box", bvh.brute_box, torch.float32, (tb + 1, 12))
+            v.bbox = bvh.brute_box.data_ptr()
         v.btri, v.bprim, v.bmat = (bvh.brute_tri.data_ptr(), bvh.brute_prim.data_ptr(),
                                    bvh.brute_mat.data_ptr())
         v.n_brute = tb

@@ -8,9 +8,12 @@ K2 on 2^20 counters, K4 on 131,072 rays, K3 on the preflight frame and
 on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path frame,
 K4's sort path on a 262,144-ray bounce wavefront, the training step
 at the INVERSE_r05 width, K5 against K3 on the whole 2K frame,
-K3-profile against K3 and its plain version, the traversal-iteration
+K3-profile against K3 and its plain version, the culled K3 against the
+parent commit's kernels (phase 15, opt-in), the traversal-iteration
 probes at the scripts' sizes (phase 13; P-morph also at 1,056 packets),
 and the kernels on the reference scene's 4-wide tree (phase 14)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -66,19 +69,44 @@ def test_k4_trace_closest_matches_plain(dev, bunny):
     assert (k["t"] < BIG).float().mean().item() > 0.3
 
 
+@pytest.mark.parametrize("chunk", [1, 96])
 @pytest.mark.parametrize("block", [32, 128, 256])
-def test_k3_matches_plain_and_launch_shape(dev, block):
+def test_k3_matches_plain_and_launch_shape(dev, block, chunk):
+    """Block size and the lanes a block takes from the lane list at a time
+    are launch shapes: the image is the same bit for bit (chunk 1 refills
+    after every lane)."""
     scene = cornell_materials_scene().to(dev)
     cfg = RenderConfig(width=128, height=32, spp=2, max_bounces=8)
     cam = showcase_camera(cfg)
     px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
-    k = cuda_megakernel.render_tiles_fused(scene, cam, cfg, 3, px, py, block=block)
+    k = cuda_megakernel.render_tiles_fused(scene, cam, cfg, 3, px, py, block=block, chunk=chunk)
     ref = cuda_megakernel.render_tiles_fused(scene, cam, cfg, 3, px, py, block=128)
     assert torch.equal(k, ref)
     p = cuda_megakernel.render_tiles_fused_plain(scene, cam, cfg, 3, px, py)
     bad = (k - p).abs() > 5e-4 + 2e-4 * p.abs()
     assert bad.float().mean().item() < 0.005
     assert abs(k.mean().item() - p.mean().item()) < 1e-3
+
+
+@pytest.mark.parametrize("n", [1, 37, 1000])
+def test_k3_lane_list_corners(dev, n):
+    """The lane list's corners: fewer lanes than a block's threads, a lane
+    count that is no multiple of the block, a chunk of 1 (a fetch after
+    every lane) and chunks larger than the block (blocks whose first chunk
+    lies past the list). Each lane's radiance is the whole list's bit for
+    bit, over repeated launches."""
+    scene = cornell_materials_scene().to(dev)
+    cfg = RenderConfig(width=128, height=32, spp=2, max_bounces=8)
+    cam = showcase_camera(cfg)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    whole = cuda_megakernel.render_tiles_fused(scene, cam, cfg, 3, px, py)
+    pick = np.random.default_rng(n).choice(px.shape[0], n, replace=False)
+    lanes = torch.from_numpy(pick).to(dev)
+    for block, chunk in ((32, 1), (32, 96), (256, 1), (64, 5)):
+        for _ in range(5):
+            got = cuda_megakernel.render_tiles_fused(scene, cam, cfg, 3, px[lanes], py[lanes],
+                                                     block=block, chunk=chunk)
+            assert torch.equal(got, whole[lanes]), (block, chunk)
 
 
 @pytest.mark.parametrize("block", [64, 128, 256])
@@ -119,6 +147,68 @@ def test_k3_profile_equals_k3_and_plain(dev, bunny):
     regs = cuda_megakernel.kernel_resources()
     assert set(regs) == {"K3", "K3-profile", "K5", "K3/w4", "K3-profile/w4", "K5/w4"}
     assert all(r > 0 for r, _ in regs.values())
+
+
+@pytest.mark.parametrize("chunk", [7, 64])
+@pytest.mark.parametrize("block", [64, 256])
+def test_k3_profile_launch_shape(dev, bunny, block, chunk):
+    """K3-profile's rgb, cost and aux at other block and chunk sizes are
+    the same bit for bit: which thread takes which lane changes nothing."""
+    cfg = RenderConfig(width=128, height=40, spp=2, max_bounces=12)
+    cam = showcase_camera(cfg)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    ref = cuda_megakernel.render_tiles_fused(bunny, cam, cfg, 0, px, py, profile=True)
+    got = cuda_megakernel.render_tiles_fused(bunny, cam, cfg, 0, px, py, profile=True,
+                                             block=block, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_k4_culled_prepass_matches_plain(dev, width):
+    """K4 with K1's culled brute pre-pass ≡ the plain traversal's
+    exhaustive one bit for bit, on rays aimed at the brute triangles
+    (walls, boxes, light) from inside the box and at grazing angles, at
+    both tree widths; a brute set beyond the kernels' stage raises."""
+    from raytracer_tpu_torch.ops.bvh4 import Bvh4
+    from raytracer_tpu_torch.utils import cudalib
+
+    with tree_width(width):
+        scene = reference_scene()
+    bvh = scene.bvh4
+    rng = np.random.default_rng(30 + width)
+    n = 32768
+    tri = bvh.brute_tri.numpy().astype(np.float64)
+    j = rng.integers(0, tri.shape[0], n)
+    a, b = rng.uniform(size=n), rng.uniform(size=n)
+    flip = a + b > 1
+    a, b = np.where(flip, 1 - a, a), np.where(flip, 1 - b, b)
+    target = tri[j, 0:3] + a[:, None] * tri[j, 3:6] + b[:, None] * tri[j, 6:9]
+    o = rng.uniform(-0.29, 0.29, (n, 3))
+    d = target - o
+    nrm = np.cross(tri[j, 3:6], tri[j, 6:9])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    graze = rng.uniform(size=n) < 0.25     # directions a hair off the plane
+    d[graze] -= (d[graze] * nrm[graze]).sum(1, keepdims=True) * nrm[graze]
+    d[graze] += (10 ** rng.uniform(-8, -4, int(graze.sum())))[:, None] * nrm[graze]
+    o_t = torch.from_numpy(o.astype(np.float32))
+    d_t = torch.from_numpy(d.astype(np.float32))
+    t_max = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    k = cuda_traverse.trace_closest(o_t.to(dev), d_t.to(dev), bvh.to(dev), t_max.to(dev),
+                                    sort=False)
+    p = cuda_traverse.trace_closest_plain(o_t, d_t, bvh, t_max)
+    for key in ("t", "tri_id", "mat_id", "hit", "normal"):
+        assert torch.equal(k[key].cpu(), p[key]), key
+    assert p["hit"].float().mean().item() > 0.5
+    big = Bvh4(**{f: getattr(bvh, f) for f in ("bounds", "children", "tri", "prim_index",
+                                               "face_mat")},
+               brute_tri=torch.zeros((cudalib.MAX_BRUTE + 8, 9)),
+               brute_prim=torch.zeros((cudalib.MAX_BRUTE + 8,), dtype=torch.int32),
+               brute_mat=torch.zeros((cudalib.MAX_BRUTE + 8,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="brute triangles exceed"):
+        cuda_traverse.trace_closest(o_t.to(dev), d_t.to(dev), big.to(dev), t_max.to(dev))
+    bare = dataclasses.replace(bvh, brute_box=None)   # the kernels never cull without the table
+    with pytest.raises(ValueError, match="without its cull table"):
+        cuda_traverse.trace_closest(o_t.to(dev), d_t.to(dev), bare.to(dev), t_max.to(dev))
 
 
 def test_k3_preflight_known_answer(dev, bunny):
