@@ -7,10 +7,15 @@ plain PyTorch version, and drives the port's two paths:
     with the brute split) through the fused path-loop kernel K3 at
     2560x1440, spp 8, 20 bounces;
   * the differentiable path and inverse-rendering training (phases
-    8-10): K4 through its coherence sort on the bunny scene's
-    second-bounce wavefront, the megakernel renderer against K3, and
-    three Adam steps of the INVERSE_r05 configuration (cornell_materials,
-    128x128, spp 32, 6 bounces, 16 key/target pairs in chunks of 8);
+    8-10): K4 and its coherence-sort route (the key kernel, the argsort,
+    K4 through the permutation) on the bunny scene's second-bounce
+    wavefront and on the two 1,048,576-ray wavefronts the training path
+    traces (bounces 1 and 3 of INVERSE_r05's first trace): sorted ==
+    unsorted == plain bit for bit, the keys and the permutation == plain,
+    the times in turns, the kernels each call launches; the megakernel
+    renderer against K3, and three Adam steps of the INVERSE_r05
+    configuration (cornell_materials, 128x128, spp 32, 6 bounces, 16
+    key/target pairs in chunks of 8);
   * the interleaved path loop K5 (phase 11): two lanes per thread,
     bitwise equal to K3 on the preflight frame, on 1,023 lanes and on the
     2K frame, within the image tolerance of the plain version on the
@@ -47,11 +52,13 @@ plain PyTorch version, and drives the port's two paths:
     the script's own check and its plain version bit for bit; bitcast's
     p1, p3 and p4 say BAD as the script does, the ids being float-encoded;
     feature's s7 is one K4 launch on the box-only scene);
-  * old against new (phase 15, only with --parent DIR, a tree holding the
-    parent commit's raytracer_tpu_torch/csrc): the parent's K3,
-    K3-profile, K5 and K4 built from DIR against this tree's, each equal
-    to the parent's bit for bit, timed in turns at the main path's sizes,
-    with knock-outs and K3's chunk sizes; phases 4, 7, 8 and 12 count the brute MT records
+  * old against new (phase 15, only with --parent DIR, the parent
+    commit's tree): the parent's K3, K3-profile, K5 and K4 built from DIR
+    against this tree's, each equal to the parent's bit for bit, timed in
+    turns at the main path's sizes with K3's chunk sizes; the parent's K4
+    route (_ParentRoute) against this tree's at 262,144 and 1,048,576
+    rays; and DIR's own `chip_smoke.py --phases 10` against this tree's,
+    three each in alternation; phases 4, 7, 8 and 12 count the brute MT records
     the cull leaves per traced ray (brute_may_hit) and give K1, K3 and K4
     a culled bound beside the exhaustive one;
   * the 4-wide tree (phase 14): the reference scene built with
@@ -71,6 +78,7 @@ run's inputs (H100 SXM datasheet peaks).
     python3 chip_smoke.py              # phases 1-14 (what CI runs)
     python3 chip_smoke.py --phases 1,2,3   # a subset, while debugging
     python3 chip_smoke.py --phases 15 --parent renders/parent   # old against new
+                                     # (renders/parent: `git archive` of the parent commit)
 
 Every phase raises on failure, so the script exits non-zero. The last
 lines are a `train` JSON line (phase 10), a `probes` JSON line (phase 13),
@@ -105,6 +113,9 @@ NEAR_TIE_MAX = 1 / 5000    # id flips at equal t allowed per hit ray
 # Phase 8: the second-bounce wavefront of a 512x512 spp1 megakernel frame.
 P8 = dict(width=512, height=512, spp=1, max_bounces=2)
 P8_SUBSET = 16384          # seeded rays re-traced by the plain version
+# Phase 8 also takes the training path's wavefronts (training_wavefronts):
+# bounces 1 and 3 of INVERSE_r05's first trace, 1,048,576 rays each.
+P8_TRAIN_BOUNCES = (1, 3)
 # Phase 9: the differentiable renderer's forward pass against K3.
 P9 = dict(width=256, height=144, spp=4, max_bounces=8)
 # Phase 10: INVERSE_r05 (scripts/inverse_tpu_r05.py:116-162, INVERSE_r05.json).
@@ -291,8 +302,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: 1-14; phase 15 needs --parent)")
     ap.add_argument("--parent", default=None,
-                    help="phase 15: a directory holding the parent commit's "
-                         "raytracer_tpu_torch/csrc (e.g. from git archive)")
+                    help="phase 15: a directory holding the parent commit's tree "
+                         "(e.g. from git archive)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -341,7 +352,8 @@ def main(argv=None) -> int:
 
     res = {**cuda_megakernel.kernel_resources(), **cuda_traverse.kernel_resources()}
     log(2, "numRegs / localSizeBytes: " + ", ".join(f"{k} {r} / {b}" for k, (r, b) in res.items())
-        + " (before the culled pre-pass and the refilling lanes: K3 64 / 1024, K3-profile "
+        + " (K4 51 / 1024, width 4 49, before its record-finishing, permuting design; "
+        "before the culled pre-pass and the refilling lanes: K3 64 / 1024, K3-profile "
         "67 / 1024, K5 128 / 2080, K4 54 / 1024; width 4 K3 62 / 1056, K3-profile 64, K5 122, "
         "K4 50)")
 
@@ -588,33 +600,53 @@ def main(argv=None) -> int:
         launches = 0
 
     if 8 in phases:
-        r8 = phase8(scene, dev)
-        bound = trace_bound(scene.bvh4, r8["rays"], r8["k1_steps"])
-        cull = trace_bound_cull(scene.bvh4, r8["rays"], r8["k1_steps"], r8["brute_mts"])
-        kernels["K4"] = dict(max_abs_err=r8["max_abs_err"], ms=r8["ms_unsorted"],
-                             plain_ms=r8["plain_ms_unsorted"], k1_steps=r8["k1_steps"], **bound,
-                             bound_cull_ms=cull["bound_ms"], bound_cull_by=cull["bound_by"],
-                             bound_cull_ops=cull["bound_ops"],
-                             brute_mts_per_ray=r8["brute_mts"] / r8["rays"])
-        kernels["K4-sort"] = dict(max_abs_err=r8["max_abs_err"], ms=r8["ms_sorted"],
-                                  plain_ms=r8["plain_ms_sorted"], ms_unsorted=r8["ms_unsorted"],
-                                  ms_kernel_presorted=r8["ms_kernel_presorted"],
-                                  library_ms=r8["argsort_ms"],
-                                  library_is="torch.argsort(stable=True) of the coherence keys",
-                                  **bound)
-        log(8, f"K4 on the second-bounce wavefront of a {P8['width']}x{P8['height']} spp1 "
-               f"megakernel frame (cornell_bunny, showcase camera): {r8['rays']} rays, "
-               f"{r8['hits']} hits; sort=True == sort=False bitwise on every field; both == "
-               f"plain (sorted) bitwise on {P8_SUBSET} seeded rays (max |dt| "
-               f"{r8['max_abs_err']:.3g}); sorted {r8['ms_sorted']:.4f} ms vs unsorted "
-               f"{r8['ms_unsorted']:.4f} ms per call, the kernel alone on pre-sorted rays "
-               f"{r8['ms_kernel_presorted']:.4f} ms (CUDA events); plain sorted "
-               f"{r8['plain_ms_sorted']:.1f} ms, unsorted {r8['plain_ms_unsorted']:.1f} ms; "
-               f"the argsort alone {r8['argsort_ms']:.4f} ms; {r8['k1_steps']} K1 steps "
-               f"(plain count), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), culled "
-               f"{cull['bound_ms']:.4f} ms ({cull['bound_by']}: "
-               f"{r8['brute_mts'] / r8['rays']:.4f} brute MT records per ray after the cull) "
-               f"on {smi}")
+        r8, scaling = phase8(scene, dev)
+        p8, t1 = r8["phase 8"], r8[f"training bounce {P8_TRAIN_BOUNCES[0]}"]
+        kernels["K4"] = dict(
+            max_abs_err=max(v["max_abs_err"] for v in r8.values()), ms=p8["ms"]["unsorted"][0],
+            ms_kernel=p8["ms"]["kernel"][0], ms_1m=t1["ms"]["unsorted"][0],
+            ms_kernel_1m=t1["ms"]["kernel"][0], ms_kernel_perm=p8["ms"]["kernel_perm"][0],
+            ms_kernel_perm_1m=t1["ms"]["kernel_perm"][0],
+            plain_ms=p8["plain_ms_subset"]["unsorted"], plain_ms_is=f"{P8_SUBSET} rays",
+            k1_steps=p8["k1_steps"], **p8["bound"], bound_1m_ms=t1["bound"]["bound_ms"],
+            bound_1m_by=t1["bound"]["bound_by"], bound_cull_ms=p8["bound_cull"]["bound_ms"],
+            bound_cull_by=p8["bound_cull"]["bound_by"],
+            bound_cull_ops=p8["bound_cull"]["bound_ops"],
+            brute_mts_per_ray=p8["brute_mts"] / p8["rays"],
+            launches_per_call=p8["launches"]["unsorted"])
+        kernels["K4-sort"] = dict(
+            max_abs_err=kernels["K4"]["max_abs_err"], ms=p8["ms"]["sorted"][0],
+            ms_1m=t1["ms"]["sorted"][0], ms_keys=p8["ms"]["keys"][0],
+            ms_keys_1m=t1["ms"]["keys"][0], argsort_ms=p8["ms"]["argsort"][0],
+            argsort_ms_1m=t1["ms"]["argsort"][0],
+            ms_intersect_bvh4_1m=t1["ms"]["intersect_bvh4"][0],
+            plain_ms=p8["plain_ms_subset"]["sorted"], plain_ms_is=f"{P8_SUBSET} rays",
+            library_ms=p8["ms"]["argsort"][0],
+            library_is="torch.argsort(stable=True) of the int32 keys (the route's sort)",
+            **p8["bound"], bound_1m_ms=t1["bound"]["bound_ms"],
+            bound_1m_by=t1["bound"]["bound_by"], launches_per_call=p8["launches"]["sorted"])
+        for name, v in r8.items():
+            log(8, f"{name}: {v['rays']} rays ({v['hits']} hits, {v['dead']} dead, "
+                   f"{v['limit_big']} at the limit BIG); {'; '.join(v['checks'])}: all hold "
+                   f"(plain on {v['subset']} seeded rays, max |dt| {v['max_abs_err']:.3g}); in "
+                   f"turns, median of 10 [min-max] ms per call: "
+                   + "; ".join(f"{k} {m[0]:.4f} [{m[1]:.4f}-{m[2]:.4f}]"
+                               for k, m in v["ms"].items())
+                   + "; kernels (+ copies, memsets) per call: "
+                   + "; ".join(f"{k} {c[0]} ({c[1]})" for k, c in v["launches"].items())
+                   + f"; plain on the subset: unsorted {v['plain_ms_subset']['unsorted']:.1f} ms, "
+                   f"sorted {v['plain_ms_subset']['sorted']:.1f} ms; {v['k1_steps']} K1 steps, "
+                   f"{v['brute_mts']} brute MT records (plain count"
+                   + (", subset scaled" if v["rays"] > v["subset"] else "") + f"); bound "
+                   f"{v['bound']['bound_ms']:.5f} ms ({v['bound']['bound_by']}), culled "
+                   f"{v['bound_cull']['bound_ms']:.5f} ms ({v['bound_cull']['bound_by']}) on {smi}")
+        kernels["K4"].update(ms_kernel_x4=scaling["1,048,576 (x4)"][0])
+        log(8, "K4 alone on phase 8's rays and on four copies of them, in turns, median of 10 "
+               "[min-max] ms per call: " + "; ".join(
+                   f"{k} {m[0]:.4f} [{m[1]:.4f}-{m[2]:.4f}]" for k, m in scaling.items())
+            + f"; ratio {scaling['1,048,576 (x4)'][0] / scaling['262,144'][0]:.3f} on {smi}")
+        print(json.dumps({"phase8": {k: {x: y for x, y in v.items() if x != "profile"}
+                                     for k, v in r8.items()}, "scaling": scaling}), flush=True)
 
     if 9 in phases:
         r9 = phase9(scene, dev)
@@ -634,11 +666,12 @@ def main(argv=None) -> int:
     if 10 in phases:
         train = phase10(dev)
         exp = train["k4_expected"]
-        if (train["k4"] != exp or train["k4_sorted"] != exp or train["k2"] < 1
-                or train["plain"]):
+        if (train["k4"] != exp or train["k4_sorted"] != exp or train["keys"] != exp
+                or train["k2"] < 1 or train["plain"]):
             raise AssertionError(f"training path: K4 launches {train['k4']} (sorted "
-                                 f"{train['k4_sorted']}, expected {exp}), K2 launches "
-                                 f"{train['k2']}, plain calls {train['plain']}")
+                                 f"{train['k4_sorted']}, expected {exp}), key kernel launches "
+                                 f"{train['keys']}, K2 launches {train['k2']}, plain calls "
+                                 f"{train['plain']}")
         with open(INVERSE_REF) as f:
             ref = json.load(f)["loss_curve"][:P10_STEPS]
         rel = [abs(a - b) / abs(b) for a, b in zip(train["losses"], ref)]
@@ -653,7 +686,8 @@ def main(argv=None) -> int:
                 f"s/step {train['step_s']} (median of steps 2-3 {train['s_per_step']:.3f}), peak "
                 f"memory {train['max_memory_allocated'] / 2**30:.2f} GiB; K4 launches "
                 f"{train['k4']} = {P10_STEPS} steps x {exp // P10_STEPS} ({train['k4_formula']}), "
-                f"all sorted; K2 launches {train['k2']}; plain calls {train['plain']}; "
+                f"all sorted, key kernel launches {train['keys']}; K2 launches {train['k2']}; "
+                f"plain calls {train['plain']}; "
                 f"at {P10_SMALL['width']}x{P10_SMALL['height']} spp{P10_SMALL['spp']} "
                 f"mb{P10_SMALL['max_bounces']} K={P10_SMALL_PAIRS}: kernel vs plain loss "
                 f"{train['small_loss']:.8g} vs {train['small_loss_plain']:.8g}, grad max |diff| "
@@ -719,9 +753,10 @@ def main(argv=None) -> int:
          {"serving_path_launches_via_K3": launches}),
         ("trace_closest (K4)", "trace_closest.cu", "raytracer_tpu/ops/pallas_traverse.py:907",
          "K4", t_k4, {}),
-        ("trace_closest coherence-sorted (K4-sort)", "trace_closest.cu",
-         "raytracer_tpu/ops/pallas_traverse.py:961", "K4-sort",
-         train["k4_sorted"] if train else 0, {}),
+        ("trace_closest coherence-sorted (K4-sort: the key kernel, the argsort, K4 through the "
+         "permutation)", "trace_closest.cu", "raytracer_tpu/ops/pallas_traverse.py:961", "K4-sort",
+         train["k4_sorted"] if train else 0,
+         {"key_kernel_launches": train["keys"] if train else 0}),
         ("fused_path_loop G=2 (K5: two lanes per thread, traversals merged in traverse.cuh "
          "traverse2)", "interleave.cu", "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair) "
          "-> raytracer_tpu/ops/pallas_interleave.py:22", "K5",
@@ -1897,64 +1932,109 @@ def phase14(scene8, dev, smi):
     return dict(rows=rows, msg=msg)
 
 
+def _device_tensor(ptr: int, shape: tuple, dtype):
+    """A torch tensor over `shape` elements of `dtype` at device address
+    ptr (no copy), through the CUDA array interface."""
+    import torch
+
+    typestr = {torch.float32: "<f4", torch.int32: "<i4", torch.int64: "<i8",
+               torch.bool: "|b1"}[dtype]
+
+    class Array:
+        __cuda_array_interface__ = dict(shape=shape, typestr=typestr, data=(ptr, False),
+                                        version=3)
+
+    return torch.as_tensor(Array(), device="cuda")
+
+
 class _ParentLib:
-    """The parent commit's kernel library behind this tree's wrappers: its
-    BvhView has no cull table and K3 takes no lane list, so the calls are
-    translated; everything else is passed as it is."""
+    """The parent commit's kernel library behind this tree's wrappers. K3,
+    K3-profile and K5 have this tree's signatures; the parent's K4 takes a
+    per-ray limit and writes every field of the unfinished record in call
+    order, so rt_trace_closest is translated: the limit made a tensor, the
+    rays gathered through perm, the record finished with torch ops and
+    written (through perm) into the outputs that are not null."""
 
     def __init__(self, path):
         import ctypes
 
         from raytracer_tpu_torch.utils import cudalib
 
-        class View(ctypes.Structure):
-            _fields_ = [f for f in cudalib.BvhView._fields_ if f[0] != "bbox"]
-
-        self.View, L = View, ctypes.CDLL(path)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        pv, ip = ctypes.POINTER(View), ctypes.POINTER(ctypes.c_int)
+        L = ctypes.CDLL(path)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        pv, ip = ctypes.POINTER(cudalib.BvhView), ctypes.POINTER(ctypes.c_int)
         fused = [ctypes.POINTER(cudalib.FusedParams), pv] + [vp] * 7 + [ci]
-        L.rt_render_fused.argtypes = fused + [vp, ci, vp]
+        L.rt_render_fused.argtypes = fused + [vp, ci, ci, vp, vp]
         L.rt_render_fused_g2.argtypes = fused + [vp, ci, vp]
-        L.rt_render_fused_profile.argtypes = fused + [vp] * 5 + [ci, vp]
-        L.rt_trace_closest.argtypes = [pv, vp, vp, vp, cf, ci, vp, vp, vp, vp, ci, vp]
+        L.rt_render_fused_profile.argtypes = fused + [vp] * 5 + [ci, ci, vp, vp]
         L.rt_render_fused_attrs.argtypes = [ci, ci, ip, ip]
         L.rt_render_fused_g2_attrs.argtypes = [ci, ip, ip]
         L.rt_trace_closest_attrs.argtypes = [ci, ip, ip]
         L.rt_error_string.argtypes = [ci]
         L.rt_error_string.restype = ctypes.c_char_p
-        self.L = L
-        self.rt_render_fused_attrs = L.rt_render_fused_attrs
-        self.rt_render_fused_g2_attrs = L.rt_render_fused_g2_attrs
-        self.rt_trace_closest_attrs = L.rt_trace_closest_attrs
-        self.rt_error_string = L.rt_error_string
+        self.L, self.route = L, _ParentRoute(L)
+        for name in ("rt_render_fused", "rt_render_fused_g2", "rt_render_fused_profile",
+                     "rt_render_fused_attrs", "rt_render_fused_g2_attrs",
+                     "rt_trace_closest_attrs", "rt_error_string"):
+            setattr(self, name, getattr(L, name))
 
-    def _view(self, v):
-        return self.View(**{f: getattr(v, f) for f, _ in self.View._fields_})
+    def rt_trace_closest(self, view, o, d, tlim, t_max, t_min, n, perm, t_out, id_out, mat_out,
+                         n_out, hit_out, block, stream):
+        import torch
 
-    def rt_render_fused(self, prm, view, *rest):
-        *a, block, _chunk, _next, stream = rest
-        return self.L.rt_render_fused(prm, self._view(view), *a, block, stream)
+        from raytracer_tpu_torch.ops.cuda_traverse import _DTYPES, RECORD, _finish
 
-    def rt_render_fused_profile(self, prm, view, *rest):
-        *a, block, _chunk, _next, stream = rest
-        return self.L.rt_render_fused_profile(prm, self._view(view), *a, block, stream)
-
-    def rt_render_fused_g2(self, prm, view, *rest):
-        return self.L.rt_render_fused_g2(prm, self._view(view), *rest)
-
-    def rt_trace_closest(self, view, *rest):
-        return self.L.rt_trace_closest(self._view(view), *rest)
+        if n == 0:
+            return 0
+        f32 = torch.float32
+        oo, dd = _device_tensor(o, (n, 3), f32), _device_tensor(d, (n, 3), f32)
+        lim = (_device_tensor(tlim, (n,), f32) if tlim
+               else torch.full((n,), t_max, dtype=f32, device="cuda"))
+        p = None if not perm else _device_tensor(perm, (n,), torch.int64)
+        if p is not None:
+            oo, dd, lim = oo[p].contiguous(), dd[p].contiguous(), lim[p].contiguous()
+        raw = (torch.empty((n,), dtype=f32, device="cuda"),
+               torch.empty((n,), dtype=torch.int32, device="cuda"),
+               torch.empty((n,), dtype=torch.int32, device="cuda"),
+               torch.empty((n, 3), dtype=f32, device="cuda"))
+        code = self.L.rt_trace_closest(view, oo.data_ptr(), dd.data_ptr(), lim.data_ptr(),
+                                       t_min, n, *(r.data_ptr() for r in raw), block, stream)
+        if code:
+            return code
+        rec = _finish(*raw)
+        for k, ptr in zip(RECORD, (t_out, id_out, mat_out, n_out, hit_out)):
+            if ptr:
+                dst = _device_tensor(ptr, (n, 3) if k == "normal" else (n,), _DTYPES[k])
+                if p is None:
+                    dst.copy_(rec[k])
+                else:
+                    dst[p] = rec[k]
+        return 0
 
 
 P15_CHUNKS = (16, 512)   # K3's lanes per take, beside the default
-P15_K4_CALLS = 20   # K4 launches per turn
+P15_TURNS = 3            # each tree's own phase 10, in alternation
+
+
+def _phase10_s_per_step(tree: str) -> dict:
+    """`chip_smoke.py --phases 10` of the tree at `tree` in a process of
+    its own: its train line's s/step (median of steps 2-3) and step times."""
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "10"], cwd=tree,
+                         capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"phase 10 of {tree} failed ({out.returncode}): "
+                             f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+    train = next(json.loads(ln)["train"] for ln in out.stdout.splitlines()
+                 if ln.startswith('{"train"'))
+    return dict(s_per_step=train["s_per_step"], step_s=train["step_s"], losses=train["losses"])
 
 
 def phase15(scene, dev, smi, parent_dir):
-    """Old against new on one card: the parent commit's K3, K3-profile, K4
-    and K5 (built from parent_dir's raytracer_tpu_torch/csrc) against this
-    tree's, bitwise and in turns, median of 10, with K3's chunk sizes."""
+    """Old against new on one card: the parent commit's K3, K3-profile, K5
+    and K4 (built from parent_dir's raytracer_tpu_torch/csrc) against this
+    tree's, bitwise and in turns, median of 10, with K3's chunk sizes; the
+    parent's K4 route (_ParentRoute) against this tree's at 262,144 and
+    1,048,576 rays; and each tree's own phase 10 in alternation."""
     import torch
 
     from raytracer_tpu_torch.camera import showcase_camera
@@ -1967,10 +2047,11 @@ def phase15(scene, dev, smi, parent_dir):
 
     default = cudalib.lib()
     t0 = time.perf_counter()
+    parent_dir = os.path.abspath(parent_dir)
     build_dir = os.path.join(ROOT, "renders", "phase15_build")
-    libs = {"parent": _ParentLib(cudalib.build(
-        csrc=os.path.join(os.path.abspath(parent_dir), "raytracer_tpu_torch", "csrc"),
-        build_dir=build_dir)), "new": default}
+    parent = _ParentLib(cudalib.build(csrc=os.path.join(parent_dir, "raytracer_tpu_torch", "csrc"),
+                                      build_dir=build_dir))
+    libs = {"parent": parent, "new": default}
     build_s = time.perf_counter() - t0
 
     def on(name, fn):
@@ -1982,49 +2063,52 @@ def phase15(scene, dev, smi, parent_dir):
                 cudalib._LIB = default
         return run
 
-    def no_brute(fn):
-        """fn with the kernels given no brute set: a knock-out that times
-        the pre-pass's share (its images differ)."""
-        def run():
-            view = cudalib.bvh_view
-
-            def without(bvh):
-                v = view(bvh)
-                v.n_brute = 0
-                return v
-            cudalib.bvh_view = without
-            try:
-                return fn()
-            finally:
-                cudalib.bvh_view = view
-        return run
-
     cfg = RenderConfig(**MAIN)
     cam = showcase_camera(cfg)
     bx, by, _ = (t.to(dev) for t in blocked_pixel_grid(cfg, 32, 32, 8, 16))
-    rays = {"phase 4": phase4_rays(scene, dev), "phase 8": bounce_rays(scene, dev)}
     k3 = {k: on(k, lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, interleave=1))
           for k in libs}
     out = {k: f() for k, f in k3.items()}
     prof = {k: on(k, lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, profile=True))()
-            for k in ("parent", "new")}
+            for k in libs}
     k5 = {k: on(k, lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, interleave=2))()
-          for k in ("parent", "new")}
+          for k in libs}
     checks = {"K3 new == parent": torch.equal(out["new"], out["parent"])}
     checks["K3-profile new == parent (rgb, cost, aux)"] = all(
         torch.equal(a, b) for a, b in zip(prof["new"], prof["parent"]))
     checks["K5 new == parent"] = torch.equal(k5["new"], k5["parent"])
     checks.update({f"K3 chunk {c} == parent": torch.equal(cm.render_tiles_fused(
         scene, cam, cfg, 0, bx, by, chunk=c), out["parent"]) for c in P15_CHUNKS})
-    k4 = {}
-    for rname, (o, d) in rays.items():
-        recs = {k: on(k, lambda: ct.trace_closest(o, d, scene.bvh4, BIG, sort=False))()
+    tscene, t_min, waves = training_wavefronts(dev)
+    o1, d1, cap1 = waves[P8_TRAIN_BOUNCES[0]]
+    rays = {"phase 4": (*phase4_rays(scene, dev), scene.bvh4, float(BIG), 1e-3),
+            "phase 8": (*bounce_rays(scene, dev), scene.bvh4, float(BIG), 1e-3),
+            "training": (o1, d1, tscene.bvh4, cap1, t_min)}
+    turns = {}
+    for rname, (o, d, bvh, lim, tm) in rays.items():
+        recs = {k: on(k, lambda: ct.trace_closest(o, d, bvh, lim, tm, sort=False))()
                 for k in libs}
-        checks[f"K4 on {rname} rays new == parent"] = all(
-            torch.equal(recs["new"][f], recs["parent"][f]) for f in recs["parent"])
-        k4[rname] = {k: on(k, lambda o=o, d=d: [ct.trace_closest(o, d, scene.bvh4, BIG,
-                                                                 sort=False)
-                                                for _ in range(P15_K4_CALLS)]) for k in libs}
+        checks[f"K4 on {rname} rays new == parent"] = not _equal_records(recs["new"],
+                                                                         recs["parent"])
+        if rname == "phase 4":
+            continue
+        routes = {"parent unsorted": lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
+                  parent.route.unsorted(o, d, b, lim, tm),
+                  "parent sorted": lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
+                  parent.route.sorted(o, d, b, lim, tm),
+                  "new unsorted": lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
+                  ct.trace_closest(o, d, b, lim, tm, sort=False),
+                  "new sorted": lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
+                  ct.trace_closest(o, d, b, lim, tm, sort=True)}
+        got = {k: f() for k, f in routes.items()}
+        lim_t = lim if torch.is_tensor(lim) else torch.full((o.shape[0],), lim, device=dev)
+        routes.update({"parent K4 alone": parent.route.kernel(o, d, bvh, lim_t, tm),
+                       "new K4 alone": k4_alone(o, d, bvh, lim, t_min=tm)})
+        checks[f"K4 route on {rname} rays: new sorted == new unsorted == parent's route"] = not (
+            _equal_records(got["new sorted"], got["parent sorted"])
+            or _equal_records(got["new unsorted"], got["parent unsorted"])
+            or _equal_records(got["new sorted"], got["new unsorted"]))
+        turns.update({f"K4 route {rname} {k}": f for k, f in routes.items()})
     if not all(checks.values()):
         raise AssertionError(f"phase 15: {checks}")
     res = {}
@@ -2036,39 +2120,47 @@ def phase15(scene, dev, smi, parent_dir):
             cudalib._LIB = default
     res = {k: {n: v[n] for n in ("K3", "K3-profile", "K5", "K4")} for k, v in res.items()}
     torch.cuda.synchronize()
-    turns = {"K3 2K " + k: f for k, f in k3.items()}
-    turns.update({"K3-profile 2K parent": on("parent", lambda: cm.render_tiles_fused(
+    ms = {k: dict(zip(("median_ms", "min_ms", "max_ms"), v))
+          for k, v in _ms_in_turns(turns, 20).items()}
+    frames = {"K3 2K " + k: f for k, f in k3.items()}
+    frames.update({"K3-profile 2K parent": on("parent", lambda: cm.render_tiles_fused(
         scene, cam, cfg, 0, bx, by, profile=True)),
-        "K3-profile 2K new": on("new", lambda: cm.render_tiles_fused(
-            scene, cam, cfg, 0, bx, by, profile=True)),
+        "K3-profile 2K new": lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by,
+                                                           profile=True),
         "K5 2K parent": on("parent", lambda: cm.render_tiles_fused(
             scene, cam, cfg, 0, bx, by, interleave=2)),
-        "K5 2K new": on("new", lambda: cm.render_tiles_fused(
-            scene, cam, cfg, 0, bx, by, interleave=2))})
-    turns["K3 2K new, no brute set (knock-out)"] = no_brute(k3["new"])
+        "K5 2K new": lambda: cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, interleave=2)})
     for c in P15_CHUNKS:
-        turns[f"K3 2K new, chunk {c}"] = lambda c=c: cm.render_tiles_fused(
+        frames[f"K3 2K new, chunk {c}"] = lambda c=c: cm.render_tiles_fused(
             scene, cam, cfg, 0, bx, by, chunk=c)
-    for rname, fns in k4.items():
-        turns.update({f"K4 {rname} {k}": f for k, f in fns.items()})
-        turns[f"K4 {rname} new, no brute set (knock-out)"] = no_brute(fns["new"])
-    times = _frames_in_turns(turns, 10)
-    ms = {}
-    for name, (_, dev_s) in times.items():
-        per = P15_K4_CALLS if name.startswith("K4") else 1
-        ms[name] = dict(median_ms=float(np.median(dev_s)) * 1e3 / per,
-                        min_ms=float(np.min(dev_s)) * 1e3 / per,
-                        max_ms=float(np.max(dev_s)) * 1e3 / per)
+    ms.update({k: dict(median_ms=float(np.median(v[1])) * 1e3, min_ms=float(np.min(v[1])) * 1e3,
+                       max_ms=float(np.max(v[1])) * 1e3)
+               for k, v in _frames_in_turns(frames, 10).items()})
+    k3p, k3n = ms["K3 2K parent"], ms["K3 2K new"]
+    checks["K3 2K new within the parent's spread"] = (k3p["min_ms"] <= k3n["median_ms"]
+                                                     <= k3p["max_ms"])
+    # Each tree's own training phase in turns: parent, new, new, parent, ...
+    steps = {"parent": [], "new": []}
+    for t in range(P15_TURNS * 2):
+        name = ("parent", "new")[(t + t // 2) % 2]
+        steps[name].append(_phase10_s_per_step(parent_dir if name == "parent" else ROOT))
+    s_step = {k: dict(median_s_per_step=float(np.median([r["s_per_step"] for r in v])),
+                      runs=v) for k, v in steps.items()}
     msg = (f"parent's build in {build_s:.1f} s; {checks}; "
-           f"in turns, median of 10 (CUDA events; K4 per call of {P15_K4_CALLS}; min-max): "
+           f"in turns, median of 10 (CUDA events; K4 routes per call of 20; min-max): "
            + "; ".join(f"{k} {v['median_ms']:.4f} ms ({v['min_ms']:.4f}-{v['max_ms']:.4f})"
                        for k, v in ms.items())
            + "; numRegs / localSizeBytes: "
            + "; ".join(f"{k}: " + ", ".join(f"{n} {r} / {b}" for n, (r, b) in v.items())
                        for k, v in res.items())
+           + "; each tree's phase 10 in alternation, s/step (median of steps 2-3) per run: "
+           + "; ".join(f"{k} {[r['s_per_step'] for r in v['runs']]} (median "
+                       f"{v['median_s_per_step']:.4f})" for k, v in s_step.items())
            + f" on {smi}")
-    return dict(json=dict(card=smi, checks=checks, ms=ms, resources=res, build_s=build_s),
-                msg=msg)
+    if not checks["K3 2K new within the parent's spread"]:
+        raise AssertionError(f"phase 15: K3 at 2K {k3n} outside the parent's {k3p}")
+    return dict(json=dict(card=smi, checks=checks, ms=ms, resources=res, build_s=build_s,
+                          phase10=s_step), msg=msg)
 
 
 def _counts():
@@ -2078,6 +2170,7 @@ def _counts():
 
     return {"k4": cuda_traverse.LAUNCHES["trace_closest"],
             "k4_sorted": cuda_traverse.LAUNCHES["trace_closest_sorted"],
+            "keys": cuda_traverse.LAUNCHES["coherence_keys"],
             "k2": ktf.LAUNCHES["threefry2x32"],
             "plain": cuda_traverse.PLAIN_CALLS["traverse_plain"]
             + ktf.PLAIN_CALLS["threefry2x32"]}
@@ -2113,48 +2206,315 @@ def bounce_rays(scene, dev):
     return state[0].contiguous(), state[1].contiguous()
 
 
-def phase8(scene, dev):
-    """K4 sorted vs unsorted vs plain on the second-bounce wavefront."""
+class _Captured(Exception):
+    """Ends training_wavefronts' forward pass once its wavefronts are in."""
+
+
+def training_wavefronts(dev):
+    """The wavefronts that ops/intersect.intersect_bvh4 receives on the
+    training path: INVERSE_r05 (inverse_setup at P10 with P10_PAIRS pairs),
+    its first chunk of P10_CHUNK pairs, the first trace (samples_per_trace
+    samples of every pixel: 8 x 128 x 128 x 8 = 1,048,576 rays), one
+    no-grad forward, at the bounces P8_TRAIN_BOUNCES. The call is wrapped
+    here, not in the package. Returns (scene, t_min, {bounce: (o, d,
+    t_cap)})."""
     import torch
 
-    from raytracer_tpu_torch.ops import cuda_traverse
-    from raytracer_tpu_torch.ops.bvh4 import BIG
-    from raytracer_tpu_torch.ops.cuda_traverse import trace_closest, trace_closest_plain
-    from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
+    from raytracer_tpu_torch.diff import inverse
+    from raytracer_tpu_torch.ops import intersect as isect
+    from raytracer_tpu_torch.render import pixel_grid
 
-    o1, d1 = bounce_rays(scene, dev)
-    bvh = scene.bvh4
-    rs = trace_closest(o1, d1, bvh, BIG, sort=True)
-    ru = trace_closest(o1, d1, bvh, BIG, sort=False)
+    scene, cfg, cam, keys, targets, params = inverse_setup(dev, P10, P10_PAIRS)
+    px, py = pixel_grid(cfg, dev)
+    k, real, calls, got = P10_CHUNK, isect.intersect_bvh4, [], {}
+
+    def record(o, d, bvh, t_min, t_max, sort=True):
+        bounce = len(calls)
+        calls.append(bounce)
+        if bounce in P8_TRAIN_BOUNCES:
+            got[bounce] = (o.clone(), d.clone(), t_max.clone())
+            if bounce == max(P8_TRAIN_BOUNCES):
+                raise _Captured
+        return real(o, d, bvh, t_min, t_max, sort=sort)
+
+    isect.intersect_bvh4 = record
+    try:
+        with torch.no_grad():
+            inverse.pairs_loss(scene, cam, cfg, params, (keys[0][:k], keys[1][:k]),
+                               targets[:k].reshape(k, -1, 3), px, py)
+    except _Captured:
+        pass
+    finally:
+        isect.intersect_bvh4 = real
+    return scene, cfg.t_min, got
+
+
+def kernels_launched(fn, tries: int = 3) -> dict:
+    """What one call of fn (after a warm-up call) puts on the card, from a
+    torch.profiler trace: kernels (by name), memsets and copies, the card's
+    busy microseconds, the span from the first start to the last end, and
+    the idle microseconds between them (host dispatch, when the card waits
+    for it). A trace that holds no device activity is taken again, up to
+    `tries` times in all (empty if none holds any)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    differ = [k for k in rs if not torch.equal(rs[k], ru[k])]
-    if differ:
-        raise AssertionError(f"K4 sort=True vs sort=False: fields {differ} differ")
-    pick = torch.from_numpy(np.random.default_rng(8).choice(
-        o1.shape[0], P8_SUBSET, replace=False)).to(dev)
-    rp = trace_closest_plain(o1[pick], d1[pick], bvh, BIG, sort=True)
-    differ = [k for k in rp if not torch.equal(rs[k][pick], rp[k])]
-    if differ:
-        raise AssertionError(f"K4 sorted vs plain on {P8_SUBSET} rays: fields {differ} differ")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        acts = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        if acts:
+            break
+    else:
+        return {}
+    names: dict = {}
+    for e in acts:
+        names[e.name] = names.get(e.name, 0) + 1
+    kernels = [e for e in acts if not e.name.startswith(("Memset", "Memcpy"))]
+    busy = sum(e.time_range.end - e.time_range.start for e in acts)
+    span = max(e.time_range.end for e in acts) - acts[0].time_range.start
+    return dict(kernels=len(kernels), activities=len(acts), names=names, busy_us=busy,
+                span_us=span, idle_us=span - busy)
+
+
+def _ms_in_turns(fns: dict, reps: int, turns: int = 10) -> dict:
+    """Each fn of `fns` (name -> fn) run `reps` times per turn, in
+    alternating turns: {name: (median, min, max) device ms per call}."""
+    times = _frames_in_turns({k: (lambda f=f: [f() for _ in range(reps)])
+                              for k, f in fns.items()}, turns)
+    return {k: tuple(float(g(v[1])) * 1e3 / reps for g in (np.median, np.min, np.max))
+            for k, v in times.items()}
+
+
+class _ParentRoute:
+    """The parent commit's K4 route (ops/cuda_traverse.py there), kept
+    here because the package builds one design: `unsorted` rebuilds the
+    tree's view, copies the limit, allocates four outputs, launches the
+    parent's K4 (rt_trace_closest of library L, the parent's signature)
+    and finishes the record with torch ops; `sorted` adds the root box,
+    the int64 coherence keys, the argsort, three gathers and five
+    scatters. `kernel` launches the parent's K4 alone on outputs made
+    once."""
+
+    def __init__(self, L):
+        import ctypes
+
+        from raytracer_tpu_torch.utils import cudalib
+
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        L.rt_trace_closest.argtypes = [ctypes.POINTER(cudalib.BvhView), vp, vp, vp, cf, ci,
+                                       vp, vp, vp, vp, ci, vp]
+        L.rt_trace_closest.restype = ci
+        self.L = L
+
+    def _launch(self, view, o, d, t_hi, t_min, t, ids, mat, nrm):
+        from raytracer_tpu_torch.utils import cudalib
+
+        code = self.L.rt_trace_closest(view, o.data_ptr(), d.data_ptr(), t_hi.data_ptr(),
+                                       float(t_min), o.shape[0], t.data_ptr(), ids.data_ptr(),
+                                       mat.data_ptr(), nrm.data_ptr(), 128,
+                                       cudalib.stream_handle())
+        if code:
+            raise RuntimeError(f"parent K4: CUDA error {code}")
+
+    def unsorted(self, o, d, bvh, t_max, t_min=1e-3):
+        import torch
+
+        from raytracer_tpu_torch.ops.cuda_traverse import _finish
+        from raytracer_tpu_torch.utils import cudalib
+
+        n = o.shape[0]
+        t_hi = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
+                                  (n,)).contiguous()
+        view = cudalib.bvh_view(bvh)
+        t = torch.empty((n,), dtype=torch.float32, device=o.device)
+        ids = torch.empty((n,), dtype=torch.int32, device=o.device)
+        mat = torch.empty((n,), dtype=torch.int32, device=o.device)
+        nrm = torch.empty((n, 3), dtype=torch.float32, device=o.device)
+        self._launch(view, o, d, t_hi, t_min, t, ids, mat, nrm)
+        return _finish(t, ids, mat, nrm)
+
+    def sorted(self, o, d, bvh, t_max, t_min=1e-3):
+        import torch
+
+        from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
+
+        lo, inv_ext = root_box(bvh)
+        perm = torch.argsort(coherence_keys(o, d, lo, inv_ext), stable=True)
+        t_hi = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
+                                  (o.shape[0],)).contiguous()
+        rec = self.unsorted(o[perm].contiguous(), d[perm].contiguous(), bvh,
+                            t_hi[perm].contiguous(), t_min)
+        out = {}
+        for k, v in rec.items():
+            out[k] = torch.empty_like(v)
+            out[k][perm] = v
+        return out
+
+    def kernel(self, o, d, bvh, t_lim, t_min=1e-3):
+        """fn launching the parent's K4 alone (view and outputs made once)."""
+        import torch
+
+        from raytracer_tpu_torch.utils import cudalib
+
+        n, view = o.shape[0], cudalib.bvh_view(bvh)
+        outs = (torch.empty((n,), dtype=torch.float32, device=o.device),
+                torch.empty((n,), dtype=torch.int32, device=o.device),
+                torch.empty((n,), dtype=torch.int32, device=o.device),
+                torch.empty((n, 3), dtype=torch.float32, device=o.device))
+        return lambda: self._launch(view, o, d, t_lim, t_min, *outs)
+
+
+def k4_alone(o, d, bvh, t_lim, perm=None, t_min: float = 1e-3):
+    """fn launching K4 alone through its ctypes entry point: the tree's
+    view, the limit and the full record's outputs made once. t_lim is a
+    float (the scalar limit) or f32[N] on the card."""
+    import torch
+
+    from raytracer_tpu_torch.ops import cuda_traverse as ct
+    from raytracer_tpu_torch.utils import cudalib
+
+    n, view = o.shape[0], ct._view(bvh)
+    rec = [torch.empty((n, 3) if k == "normal" else (n,), dtype=ct._DTYPES[k], device=o.device)
+           for k in ct.RECORD]
+    per_ray = torch.is_tensor(t_lim)
+    args = (view, o.data_ptr(), d.data_ptr(), t_lim.data_ptr() if per_ray else None,
+            0.0 if per_ray else float(t_lim), t_min, n, None if perm is None else perm.data_ptr(),
+            *(r.data_ptr() for r in rec), ct.KERNEL_BLOCK, cudalib.stream_handle())
+    fn = cudalib.lib().rt_trace_closest
+    cudalib.check(fn(*args), "K4 alone")
+    return lambda: (fn(*args), rec)   # rec stays alive as long as the fn
+
+
+def keys_alone(o, d, bvh):
+    """fn launching the key kernel alone (keys made once)."""
+    import torch
+
+    from raytracer_tpu_torch.utils import cudalib
+
+    keys = torch.empty((o.shape[0],), dtype=torch.int32, device=o.device)
+    args = (o.data_ptr(), d.data_ptr(), bvh.sort_box.data_ptr(), o.shape[0], keys.data_ptr(),
+            cudalib.stream_handle())
+    fn = cudalib.lib().rt_coherence_keys
+    return lambda: (fn(*args), keys)   # keys stays alive as long as the fn
+
+
+def _equal_records(a: dict, b: dict) -> list:
+    """The fields of record a that differ from b's, bit for bit."""
+    import torch
+
+    return [k for k in a if not (_bitwise(a[k], b[k]) if a[k].is_floating_point()
+                                 else torch.equal(a[k], b[k]))]
+
+
+def phase8_set(name, o, d, bvh, t_lim, t_min, subset_seed):
+    """K4 and K4-sort on one wavefront (t_lim a float or f32[N]): sorted ==
+    unsorted == plain bit for bit (plain on a seeded subset of P8_SUBSET
+    rays, also through the sort's permutation and a random one), the key
+    kernel == coherence_keys32 and its argsort == the plain stable
+    argsort's (and the int64 keys') on every ray, 0 plain calls on the
+    card path, the times in turns (median of 10 turns), the kernels each
+    call launches (torch.profiler) and the bound."""
+    import torch
+
+    from raytracer_tpu_torch.ops import cuda_traverse as ct
+    from raytracer_tpu_torch.ops.bvh4 import BIG
+    from raytracer_tpu_torch.ops.packets import coherence_keys, coherence_keys32
+
+    n = o.shape[0]
+    lim = t_lim if torch.is_tensor(t_lim) else torch.full((n,), float(t_lim), device=o.device)
+    plain0 = ct.PLAIN_CALLS["traverse_plain"]
+    rs = ct.trace_closest(o, d, bvh, t_lim, t_min, sort=True)
+    ru = ct.trace_closest(o, d, bvh, t_lim, t_min, sort=False)
+    t2, id2 = ct.intersect_bvh4(o, d, bvh, t_min, t_lim)
+    keys = ct.coherence_keys_cuda(o, d, bvh)
+    plain_on_card = ct.PLAIN_CALLS["traverse_plain"] - plain0
+    torch.cuda.synchronize()
+    box = bvh.sort_box
+    perm = torch.argsort(keys, stable=True)
+    checks = {
+        "sorted == unsorted": not _equal_records(rs, ru),
+        "intersect_bvh4 == sorted (t, tri_id)": (_bitwise(t2, rs["t"])
+                                                 and torch.equal(id2, rs["tri_id"])),
+        "keys == coherence_keys32": torch.equal(keys, coherence_keys32(o, d, box[0:3], box[3:6])),
+        "perm == plain stable argsort": torch.equal(perm, ct.sort_perm(o, d, bvh)),
+        "perm == int64 keys' stable argsort": torch.equal(
+            perm, torch.argsort(coherence_keys(o, d, box[0:3], box[3:6]), stable=True)),
+        "0 plain calls on the card path": plain_on_card == 0,
+    }
+    pick = torch.from_numpy(np.random.default_rng(subset_seed).choice(
+        n, min(P8_SUBSET, n), replace=False)).to(o.device)
+    os_, ds_, ls_ = o[pick].contiguous(), d[pick].contiguous(), lim[pick].contiguous()
+    rp = ct.trace_closest_plain(os_, ds_, bvh, ls_, t_min, sort=True)
+    checks["sorted == plain (subset)"] = not _equal_records({k: v[pick] for k, v in rs.items()},
+                                                           rp)
+    sub_perm = ct.sort_perm(os_, ds_, bvh)
+    rand = torch.from_numpy(np.random.default_rng(subset_seed + 1).permutation(
+        os_.shape[0])).to(o.device)
+    for pname, p in (("sort", sub_perm), ("random", rand)):
+        k = ct._trace_closest_cuda(os_, ds_, bvh, ls_, t_min, perm=p)
+        checks[f"K4 through the {pname} permutation == plain (subset)"] = not _equal_records(
+            k, ct.trace_closest_plain(os_, ds_, bvh, ls_, t_min, perm=p))
+    if not all(checks.values()):
+        raise AssertionError(f"phase 8 {name}: {checks}")
     hit = rp["hit"]
     max_err = float((rs["t"][pick] - rp["t"])[hit].abs().max()) if bool(hit.any()) else 0.0
-    # The kernel alone on rays already in coherence order: what the sort
-    # buys inside K4, apart from what the argsort and permutation cost.
-    lo, inv_ext = root_box(bvh)
-    perm = torch.argsort(coherence_keys(o1, d1, lo, inv_ext), stable=True)
-    o_s, d_s = o1[perm].contiguous(), d1[perm].contiguous()
-    keys = coherence_keys(o1, d1, lo, inv_ext)
-    big = torch.full_like(o1[:, 0], float(BIG))
-    steps = cuda_traverse._traverse_plain(o1, d1, bvh, big, 1e-3, count=True)[4]
-    return dict(
-        rays=o1.shape[0], hits=int(rs["hit"].sum()), max_abs_err=max_err,
-        k1_steps=int(steps.sum()), brute_mts=brute_mts(bvh, o1, d1, big)[0],
-        argsort_ms=cuda_ms(lambda: torch.argsort(keys, stable=True), 20),
-        ms_sorted=cuda_ms(lambda: trace_closest(o1, d1, bvh, BIG, sort=True), 20),
-        ms_unsorted=cuda_ms(lambda: trace_closest(o1, d1, bvh, BIG, sort=False), 20),
-        ms_kernel_presorted=cuda_ms(lambda: trace_closest(o_s, d_s, bvh, BIG, sort=False), 20),
-        plain_ms_sorted=cuda_ms(lambda: trace_closest_plain(o1, d1, bvh, BIG, sort=True), 1),
-        plain_ms_unsorted=cuda_ms(lambda: trace_closest_plain(o1, d1, bvh, BIG), 1))
+    # The bound: K1 steps and culled brute MT records of the plain version,
+    # on every ray up to 262,144, else on the subset, scaled to n.
+    if n <= 1 << 18:
+        steps = int(ct._traverse_plain(o, d, bvh, lim, t_min, count=True)[4].sum())
+        mts = brute_mts(bvh, o, d, lim, t_min)[0]
+    else:
+        scale = n / os_.shape[0]
+        steps = round(int(ct._traverse_plain(os_, ds_, bvh, ls_, t_min, count=True)[4].sum())
+                      * scale)
+        mts = round(brute_mts(bvh, os_, ds_, ls_, t_min)[0] * scale)
+    fns = {"kernel": k4_alone(o, d, bvh, t_lim),
+           "kernel_perm": k4_alone(o, d, bvh, t_lim, perm=perm),
+           "keys": keys_alone(o, d, bvh),
+           "argsort": lambda: torch.argsort(keys, stable=True),
+           "unsorted": lambda: ct.trace_closest(o, d, bvh, t_lim, t_min, sort=False),
+           "sorted": lambda: ct.trace_closest(o, d, bvh, t_lim, t_min, sort=True),
+           "intersect_bvh4": lambda: ct.intersect_bvh4(o, d, bvh, t_min, t_lim)}
+    ms = _ms_in_turns(fns, 20)
+    prof = {k: kernels_launched(fns[k]) for k in ("sorted", "unsorted", "argsort")}
+    plain_ms = {"unsorted": cuda_ms(lambda: ct.trace_closest_plain(os_, ds_, bvh, ls_, t_min), 1),
+                "sorted": cuda_ms(lambda: ct.trace_closest_plain(os_, ds_, bvh, ls_, t_min,
+                                                                 sort=True), 1)}
+    return dict(rays=n, subset=os_.shape[0], hits=int(rs["hit"].sum()),
+                dead=int((lim <= t_min).sum()), limit_big=int((lim >= float(BIG)).sum()),
+                max_abs_err=max_err, checks=list(checks), k1_steps=steps, brute_mts=mts,
+                bound=trace_bound(bvh, n, steps), bound_cull=trace_bound_cull(bvh, n, steps, mts),
+                ms=ms, plain_ms_subset=plain_ms,
+                launches={k: (v.get("kernels"), v.get("activities")) for k, v in prof.items()},
+                profile=prof)
+
+
+def phase8(scene, dev):
+    """K4 and K4-sort on phase 8's 262,144 second-bounce rays (scalar
+    limit) and on the training path's two 1,048,576-ray wavefronts
+    (per-ray limits), each through phase8_set; and K4 alone at 262,144
+    and 1,048,576 of phase 8's rays. Returns ({set: result}, {size:
+    (median, min, max) ms})."""
+    from raytracer_tpu_torch.ops.bvh4 import BIG
+
+    o1, d1 = bounce_rays(scene, dev)
+    out = {"phase 8": phase8_set("phase 8", o1, d1, scene.bvh4, float(BIG), 1e-3, 8)}
+    tscene, t_min, waves = training_wavefronts(dev)
+    for b, (o, d, t_cap) in waves.items():
+        out[f"training bounce {b}"] = phase8_set(f"training bounce {b}", o, d, tscene.bvh4, t_cap,
+                                                 t_min, 80 + b)
+    # Latency or throughput: K4 alone on phase 8's rays and on four copies
+    # of them (1,048,576 rays, ~7 waves of the card), in turns.
+    o4, d4 = o1.repeat(4, 1), d1.repeat(4, 1)
+    scaling = _ms_in_turns({"262,144": k4_alone(o1, d1, scene.bvh4, float(BIG)),
+                            "1,048,576 (x4)": k4_alone(o4, d4, scene.bvh4, float(BIG))}, 20)
+    return out, scaling
 
 
 def phase9(scene, dev):

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.ops.packets import root_box
 from raytracer_tpu_torch.scene.types import tensors_to
 
 BIG = np.float32(3.0e38)
@@ -46,6 +47,15 @@ class Bvh4:
     # f32[Tb+1, 12], made with the brute set by whoever builds the tree
     # (scene/builder.build_scene_bvh4) and carried by `.to(device)`.
     brute_box: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    # The coherence keys' frame (K4-sort): f32[6], lo xyz and 1/extent xyz
+    # of the root's children (ops/packets.root_box). Made once, when the
+    # tree is made, unless given; carried by `.to(device)`. It sets only the
+    # order K4 traces the rays in, never a record.
+    sort_box: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.sort_box is None:
+            object.__setattr__(self, "sort_box", torch.cat(root_box(self)))
 
     def to(self, device) -> "Bvh4":
         return tensors_to(self, device)

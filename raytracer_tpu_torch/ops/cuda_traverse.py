@@ -8,9 +8,13 @@ unnormalized cross(e1, e2)), hit}. `intersect_bvh4` is
 `intersect_bvh4_pallas`: the (t, tri_id) pair of that record.
 
 On a CUDA tensor it launches kernel K4 (csrc/trace_closest.cu), one
-thread per ray calling K1 (csrc/traverse.cuh), instantiated for the
-tree's width (4 or 8; cudalib.bvh_view refuses others); on a CPU tensor it runs
-`_traverse_plain`, the plain PyTorch version. `_traverse_plain` takes
+ray per thread calling K1 (csrc/traverse.cuh), instantiated for the
+tree's width (4 or 8; cudalib.bvh_view refuses others). K4 writes the
+finished record itself, reads a scalar limit by value or a per-ray one
+from the card, and writes only the fields its caller asks for
+(`intersect_bvh4`: t and tri_id); the tree's view is built once per tree
+(`_view`). On a CPU tensor it runs `_traverse_plain`, the plain PyTorch
+version, which takes
 the kernel's steps in the kernel's order — brute-force pre-pass, then
 the wide BVH nearest child first from a per-ray stack (children ordered
 by ops/bvh4.sort_by_key, pushed far to near) — with all live rays
@@ -18,13 +22,16 @@ advanced together, one node or leaf per ray per step.
 
 `sort=True` (the JAX default, and what the differentiable path runs) is
 K4's coherence-sort path (`trace_closest_pallas(sort=True)`,
-pallas_traverse.py:975-1038): the rays are stably argsorted by
-ops/packets.coherence_keys, gathered, traced, and the record is
-scattered back to the callers' order. The argsort and the gathers are
-XLA ops outside the Pallas call in JAX, and torch ops here. The kernel
-gives every ray its own thread, so the record of a ray does not depend
-on its neighbours: sorted and unsorted calls agree bit for bit, and the
-sort can only change how coherent the rays of one warp are.
+pallas_traverse.py:961-1050). On the card it is three launches: the key
+kernel (ops/packets.coherence_keys32 in the tree's sort box,
+`Bvh4.sort_box`), a stable torch.argsort of the keys (XLA's sort outside
+the Pallas call in JAX), and K4 through the permutation (thread i traces
+ray perm[i] and writes its record there). The plain version gathers,
+traces and scatters back (`trace_closest_plain(perm=)`). The kernel
+gives every ray its own walk, so the record of a ray does not depend on
+its neighbours: sorted and unsorted calls agree bit for bit, and the
+sort can only change how coherent the rays of one warp are. There is no
+fallback: a key kernel or K4 that fails raises.
 """
 
 from __future__ import annotations
@@ -35,15 +42,15 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.ops.bvh4 import BIG, sort_by_key
-from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
+from raytracer_tpu_torch.ops.packets import coherence_keys32
 from raytracer_tpu_torch.ops.triangle import face_normal, moller_trumbore
 from raytracer_tpu_torch.utils import cudalib
 
 NONE = -1
 KERNEL_BLOCK = 128  # threads per block of K4
-# K4 launches, counted by the wrapper: all of them, and those made
-# through the coherence-sort path.
-LAUNCHES = {"trace_closest": 0, "trace_closest_sorted": 0}
+# Launches, counted by the wrappers: K4's (all, and those through the
+# coherence sort) and the key kernel's.
+LAUNCHES = {"trace_closest": 0, "trace_closest_sorted": 0, "coherence_keys": 0}
 PLAIN_CALLS = {"traverse_plain": 0}  # calls of the plain traversal (K1/K4's plain version)
 
 
@@ -284,6 +291,7 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float, count: bool = False):
 
 
 def _finish(t_best, best, mat, nrm):
+    """The record of _traverse_plain's result (K4 writes it itself)."""
     found = best >= 0
     return {
         "t": torch.where(found, t_best, torch.full_like(t_best, float(BIG))),
@@ -300,12 +308,26 @@ def _limits(origins, t_max):
                                               device=origins.device), (n,)).contiguous()
 
 
-def _sorted(trace, origins, dirs, bvh4, t_max, t_min):
-    """`trace` on the rays in coherence order, record back in call order."""
-    lo, inv_ext = root_box(bvh4)
-    perm = torch.argsort(coherence_keys(origins, dirs, lo, inv_ext), stable=True)
-    rec = trace(origins[perm].contiguous(), dirs[perm].contiguous(), bvh4,
-                _limits(origins, t_max)[perm].contiguous(), t_min)
+def sort_perm(origins, dirs, bvh4):
+    """The coherence order of the rays: the stable argsort of their int32
+    keys (ops/packets.coherence_keys32 in the tree's sort box), the plain
+    version of the key kernel and the sort."""
+    lo, inv_ext = bvh4.sort_box[0:3], bvh4.sort_box[3:6]
+    return torch.argsort(coherence_keys32(origins, dirs, lo, inv_ext), stable=True)
+
+
+def trace_closest_plain(origins, dirs, bvh4, t_max, t_min: float = 1e-3,
+                        sort: bool = False, perm=None):
+    """The plain PyTorch version of `trace_closest` (any device). With
+    `perm` (int64 [N], a permutation of the rays) it is K4 through that
+    permutation: gather, trace, scatter back; `sort` takes the coherence
+    order (sort_perm)."""
+    t_lim = _limits(origins, t_max)
+    if sort:
+        perm = sort_perm(origins, dirs, bvh4)
+    if perm is None:
+        return _finish(*_traverse_plain(origins, dirs, bvh4, t_lim, t_min))
+    rec = _finish(*_traverse_plain(origins[perm], dirs[perm], bvh4, t_lim[perm], t_min))
     out = {}
     for k, v in rec.items():
         out[k] = torch.empty_like(v)
@@ -313,31 +335,70 @@ def _sorted(trace, origins, dirs, bvh4, t_max, t_min):
     return out
 
 
-def trace_closest_plain(origins, dirs, bvh4, t_max, t_min: float = 1e-3,
-                        sort: bool = False):
-    """The plain PyTorch version of `trace_closest` (any device)."""
-    if sort:
-        return _sorted(trace_closest_plain, origins, dirs, bvh4, t_max, t_min)
-    return _finish(*_traverse_plain(origins, dirs, bvh4, _limits(origins, t_max), t_min))
+RECORD = ("t", "tri_id", "mat_id", "normal", "hit")
+_DTYPES = {"t": torch.float32, "tri_id": torch.int32, "mat_id": torch.int32,
+           "normal": torch.float32, "hit": torch.bool}
 
 
-def _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min: float):
+def _view(bvh4) -> cudalib.BvhView:
+    """cudalib.bvh_view of the tree, built once per tree: kept on the tree
+    object with the data_ptrs of its tensors, so a replaced tensor makes a
+    new view, and `.to()`, which makes a new tree, a new one too."""
+    key = tuple(0 if t is None else t.data_ptr()
+                for t in (bvh4.bounds, bvh4.children, bvh4.tri, bvh4.prim_index, bvh4.face_mat,
+                          bvh4.brute_tri, bvh4.brute_prim, bvh4.brute_mat, bvh4.brute_box))
+    cached = bvh4.__dict__.get("_k4_view")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    view = cudalib.bvh_view(bvh4)
+    object.__setattr__(bvh4, "_k4_view", (key, view))
+    return view
+
+
+def coherence_keys_cuda(origins, dirs, bvh4) -> torch.Tensor:
+    """The int32 sort keys (ops/packets.coherence_keys32 in the tree's sort
+    box) from the key kernel (csrc/trace_closest.cu)."""
     n = origins.shape[0]
-    t_hi = _limits(origins, t_max)
     cudalib.require_cuda("origins", origins, torch.float32, (n, 3))
     cudalib.require_cuda("dirs", dirs, torch.float32, (n, 3))
-    view = cudalib.bvh_view(bvh4)
-    t = torch.empty((n,), dtype=torch.float32, device=origins.device)
-    ids = torch.empty((n,), dtype=torch.int32, device=origins.device)
-    mat = torch.empty((n,), dtype=torch.int32, device=origins.device)
-    nrm = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
+    cudalib.require_cuda("bvh.sort_box", bvh4.sort_box, torch.float32, (6,))
+    keys = torch.empty((n,), dtype=torch.int32, device=origins.device)
+    code = cudalib.lib().rt_coherence_keys(origins.data_ptr(), dirs.data_ptr(),
+                                           bvh4.sort_box.data_ptr(), n, keys.data_ptr(),
+                                           cudalib.stream_handle())
+    cudalib.check(code, "coherence key kernel")
+    LAUNCHES["coherence_keys"] += 1
+    return keys
+
+
+def _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min: float, perm=None,
+                        fields=RECORD):
+    """One K4 launch: the record's `fields` for the rays (through `perm`
+    where given); the other outputs are not written."""
+    n = origins.shape[0]
+    dev = origins.device
+    cudalib.require_cuda("origins", origins, torch.float32, (n, 3))
+    cudalib.require_cuda("dirs", dirs, torch.float32, (n, 3))
+    view = _view(bvh4)
+    if torch.is_tensor(t_max) and t_max.dim() > 0:
+        t_lim, t_hi = torch.as_tensor(t_max, dtype=torch.float32, device=dev).contiguous(), 0.0
+        cudalib.require_cuda("t_max", t_lim, torch.float32, (n,))
+    else:
+        t_lim, t_hi = None, float(t_max)
+    if perm is not None:
+        cudalib.require_cuda("perm", perm, torch.int64, (n,))
+    rec = {k: torch.empty((n, 3) if k == "normal" else (n,), dtype=_DTYPES[k], device=dev)
+           for k in fields}
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     code = cudalib.lib().rt_trace_closest(
-        view, origins.data_ptr(), dirs.data_ptr(), t_hi.data_ptr(), float(t_min), n,
-        t.data_ptr(), ids.data_ptr(), mat.data_ptr(), nrm.data_ptr(), KERNEL_BLOCK,
-        cudalib.stream_handle())
+        view, origins.data_ptr(), dirs.data_ptr(), ptr(t_lim), t_hi, float(t_min), n, ptr(perm),
+        *(ptr(rec.get(k)) for k in RECORD), KERNEL_BLOCK, cudalib.stream_handle())
     cudalib.check(code, "trace_closest kernel")
     LAUNCHES["trace_closest"] += 1
-    return _finish(t, ids, mat, nrm)
+    return rec
 
 
 def kernel_resources() -> dict:
@@ -352,28 +413,30 @@ def kernel_resources() -> dict:
     return out
 
 
-def _trace_closest_cuda_sorted(origins, dirs, bvh4, t_max, t_min: float):
-    rec = _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min)
-    LAUNCHES["trace_closest_sorted"] += 1
-    return rec
-
-
-def trace_closest(origins, dirs, bvh4, t_max, t_min: float = 1e-3, sort: bool = True):
-    """Closest hit for rays origins/dirs f32[N,3] within [t_min, t_max]
-    (scalar or f32[N]; -1 marks a dead ray), through the coherence sort
-    when `sort`. CUDA tensors launch K4 at any ray count, CPU tensors
-    take the plain version."""
+def trace_closest(origins, dirs, bvh4, t_max, t_min: float = 1e-3, sort: bool = True,
+                  fields=RECORD):
+    """Closest hit for rays origins/dirs f32[N,3] within [t_min, t_max)
+    (scalar or f32[N]; t_max <= t_min marks a dead ray), through the
+    coherence sort when `sort`: the record's `fields` (all by default).
+    CUDA tensors launch K4 at any ray count (after the key kernel and the
+    argsort when `sort`), CPU tensors take the plain version."""
+    t_min = float(t_min)
     if origins.is_cuda:
-        if sort:
-            return _sorted(_trace_closest_cuda_sorted, origins, dirs, bvh4, t_max, t_min)
-        return _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min)
+        if not sort:
+            return _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min, fields=fields)
+        perm = torch.argsort(coherence_keys_cuda(origins, dirs, bvh4), stable=True)
+        rec = _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min, perm=perm, fields=fields)
+        LAUNCHES["trace_closest_sorted"] += 1
+        return rec
     if origins.device.type != "cpu":
         raise ValueError(f"trace_closest: unsupported device {origins.device}")
-    return trace_closest_plain(origins, dirs, bvh4, t_max, t_min, sort=sort)
+    rec = trace_closest_plain(origins, dirs, bvh4, t_max, t_min, sort=sort)
+    return {k: rec[k] for k in fields}
 
 
 def intersect_bvh4(origins, dirs, bvh4, t_min, t_max, sort: bool = True):
     """Closest triangle hit: (t f32[N] BIG on miss, tri_id i32[N] 0 on
-    miss), the contract of pallas_traverse.intersect_bvh4_pallas."""
-    rec = trace_closest(origins, dirs, bvh4, t_max, t_min=float(t_min), sort=sort)
+    miss), the contract of pallas_traverse.intersect_bvh4_pallas; K4
+    writes only these two fields."""
+    rec = trace_closest(origins, dirs, bvh4, t_max, t_min, sort, fields=("t", "tri_id"))
     return rec["t"], rec["tri_id"]

@@ -7,6 +7,10 @@ origin's Morton code, so bounce rays from nearby points in similar
 directions sort next to each other. The JAX package computes it in
 uint32; here it is int64, because `octant << 29` overflows int32. The
 values are the same, so a stable argsort gives the same permutation.
+`coherence_keys32` is the same key with its top bit flipped, as int32: a
+signed sort orders it as the unsigned key, and a radix sort of 32 bits
+takes half the passes of one of 64. It is the plain version of K4-sort's
+key kernel (csrc/trace_closest.cu).
 """
 
 from __future__ import annotations
@@ -35,6 +39,13 @@ def coherence_keys(origins, dirs, scene_lo, scene_inv_extent) -> torch.Tensor:
     octant = neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
     o01 = torch.clamp((origins - scene_lo) * scene_inv_extent, 0.0, 1.0)
     return (octant << 29) | (morton3d(o01) >> 1)
+
+
+def coherence_keys32(origins, dirs, scene_lo, scene_inv_extent) -> torch.Tensor:
+    """int32 sort key per ray: coherence_keys ^ 2^31, wrapped to int32.
+    Its stable argsort is coherence_keys' (and the JAX package's)."""
+    return (coherence_keys(origins, dirs, scene_lo, scene_inv_extent) ^ 0x80000000).to(
+        torch.int32)
 
 
 def root_box(bvh4):

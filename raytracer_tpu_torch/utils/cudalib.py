@@ -163,8 +163,9 @@ def lib() -> ctypes.CDLL:
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     L.rt_ktf_threefry.argtypes = [cu, cu, vp, vp, ci, vp, vp, ci, vp]
     L.rt_ktf_threefry_keyed.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, vp]
-    L.rt_trace_closest.argtypes = [ctypes.POINTER(BvhView), vp, vp, vp, cf, ci,
-                                   vp, vp, vp, vp, ci, vp]
+    L.rt_trace_closest.argtypes = [ctypes.POINTER(BvhView), vp, vp, vp, cf, cf, ci, vp,
+                                   vp, vp, vp, vp, vp, ci, vp]
+    L.rt_coherence_keys.argtypes = [vp, vp, vp, ci, vp, vp]
     ip = ctypes.POINTER(ctypes.c_int)
     L.rt_trace_closest_attrs.argtypes = [ci, ip, ip]
     fused = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView), vp, vp, vp, vp, vp, vp, vp, ci]
@@ -194,7 +195,7 @@ def lib() -> ctypes.CDLL:
                  "morph"):
         getattr(L, f"rt_probe_{name}_attrs").argtypes = [ci, ip, ip]
     for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_trace_closest,
-               L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
+               L.rt_coherence_keys, L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
                L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_probe_v8,
                L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs, L.rt_probe_interleave,
                L.rt_probe_interleave_attrs, L.rt_probe_scalar, L.rt_probe_scalar_tables,

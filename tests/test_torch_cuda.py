@@ -6,7 +6,9 @@ CPU mode). On the machine with the card:
 chip_smoke.py runs these checks on the reference scene at larger sizes:
 K2 on 2^20 counters, K4 on 131,072 rays, K3 on the preflight frame and
 on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path frame,
-K4's sort path on a 262,144-ray bounce wavefront, the training step
+K4's sort route (key kernel, argsort, K4 through the permutation) on a
+262,144-ray bounce wavefront and on the training path's two
+1,048,576-ray wavefronts, the training step
 at the INVERSE_r05 width, K5 against K3 on the whole 2K frame,
 K3-profile against K3 and its plain version, the culled K3 against the
 parent commit's kernels (phase 15, opt-in), the traversal-iteration
@@ -24,6 +26,7 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.fused import render_image_fused
 from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
 from raytracer_tpu_torch.ops.bvh4 import BIG
+from raytracer_tpu_torch.ops.packets import coherence_keys, coherence_keys32
 from raytracer_tpu_torch.probes import (ablate_v8, base_probe, bitcast, feature, interleave_probe,
                                         ktf_probe, morph, mosaic, scalar_cost, v5_body, v6, vstack)
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
@@ -420,6 +423,84 @@ def test_k4_width4_matches_plain(dev, bunny4):
         assert torch.equal(k[key].cpu(), p[key]), key
     regs = cuda_traverse.kernel_resources()
     assert set(regs) == {"K4", "K4/w4"} and all(r > 0 for r, _ in regs.values())
+
+
+def _k4_rays(n, seed, dev):
+    """Rays in the reference scene's box; per-ray limits with a quarter
+    dead (t_max <= t_min), the rest capped or open."""
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.uniform(-0.28, 0.28, (n, 3)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    t_max = torch.from_numpy(np.where(rng.uniform(size=n) < 0.25, -1.0,
+                                      rng.uniform(0.05, 3.0, n)).astype(np.float32)).to(dev)
+    return o, d, t_max, rng
+
+
+def _same_record(k, p, fields=cuda_traverse.RECORD):
+    assert set(k) == set(fields)
+    for key in fields:
+        assert k[key].dtype == p[key].dtype, key
+        assert torch.equal(k[key], p[key]), key
+
+
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("n", [1, 37, 1000, 131073])
+def test_k4_through_perm_and_null_outputs(dev, bunny, bunny4, width, n):
+    """K4 ≡ its plain version with and without a permutation (random and
+    the coherence order), with a scalar and a per-ray limit, and with
+    outputs left out (null pointers: those fields are not written)."""
+    bvh = (bunny if width == 8 else bunny4).bvh4
+    o, d, t_max, rng = _k4_rays(n, n + width, dev)
+    perms = {"none": None, "random": torch.from_numpy(rng.permutation(n)).to(dev),
+             "coherence": cuda_traverse.sort_perm(o, d, bvh)}
+    for pname, perm in perms.items():
+        for lim in (float(BIG), t_max):
+            want = cuda_traverse.trace_closest_plain(o, d, bvh, lim, perm=perm)
+            _same_record(cuda_traverse._trace_closest_cuda(o, d, bvh, lim, 1e-3, perm=perm), want)
+            for fields in (("t", "tri_id"), ("hit",), ("mat_id", "normal")):
+                got = cuda_traverse._trace_closest_cuda(o, d, bvh, lim, 1e-3, perm=perm,
+                                                        fields=fields)
+                _same_record(got, want, fields)
+
+
+def test_key_kernel_matches_plain(dev, bunny):
+    """The key kernel ≡ coherence_keys32 (rays with -0.0 components and
+    origins outside the sort box and on its faces), and its stable argsort
+    ≡ the int64 keys'."""
+    bvh = bunny.bvh4
+    rng = np.random.default_rng(5)
+    box = bvh.sort_box.cpu()
+    lo, hi = box[0:3].numpy(), box[0:3].numpy() + 1.0 / box[3:6].numpy()
+    n = 65537
+    o = rng.uniform(lo - 0.3, hi + 0.3, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[np.arange(4096), rng.integers(0, 3, 4096)] = -0.0
+    o[4096:8192, 0] = lo[0]
+    o[8192:12288, 2] = hi[2]
+    od, dd = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    before = cuda_traverse.LAUNCHES["coherence_keys"]
+    keys = cuda_traverse.coherence_keys_cuda(od, dd, bvh)
+    assert cuda_traverse.LAUNCHES["coherence_keys"] == before + 1
+    want = coherence_keys32(torch.from_numpy(o), torch.from_numpy(d), box[0:3], box[3:6])
+    assert keys.dtype == torch.int32 and torch.equal(keys.cpu(), want)
+    k64 = coherence_keys(torch.from_numpy(o), torch.from_numpy(d), box[0:3], box[3:6])
+    assert torch.equal(torch.argsort(keys, stable=True).cpu(), torch.argsort(k64, stable=True))
+
+
+def test_k4_view_cache(dev, bunny):
+    """The tree's view is built once per tree; `.to()` makes a new tree and
+    a new view, and a tensor replaced in place is seen through its
+    data_ptr."""
+    bvh = dataclasses.replace(bunny.bvh4, tri=bunny.bvh4.tri.clone())
+    v1 = cuda_traverse._view(bvh)
+    assert cuda_traverse._view(bvh) is v1
+    assert cuda_traverse._view(bvh.to(dev)) is not v1
+    o, d, t_max, _ = _k4_rays(4096, 11, dev)
+    want = cuda_traverse.trace_closest_plain(o, d, bvh, t_max)
+    bvh.tri.set_(bvh.tri.clone())
+    v2 = cuda_traverse._view(bvh)
+    assert v2 is not v1 and v2.tri == bvh.tri.data_ptr() != v1.tri
+    _same_record(cuda_traverse.trace_closest(o, d, bvh, t_max, sort=False), want)
 
 
 def test_k3_k5_profile_width4(dev, bunny4):
