@@ -3,6 +3,12 @@
 NVIDIA card: builds every kernel from csrc/, checks each against its
 plain PyTorch version, and drives the port's two paths:
 
+  * K2 (phase 3): Threefry blocks bit for bit, the kernel alone and
+    through its wrapper; the draw kernels (a trace's camera draws, a
+    bounce's draws, both RNG families) at the training path's 1,048,576
+    lanes against the plain chain on the card bit for bit, timed against
+    it and against the chain through K2 that they replace, and the
+    training chunk's draw sites as torch.profiler sees them;
   * serving (phases 4-7): the reference scene (Cornell box + bunny, BVH8
     with the brute split) through the fused path-loop kernel K3 at
     2560x1440, spp 8, 20 bounces;
@@ -15,12 +21,16 @@ plain PyTorch version, and drives the port's two paths:
     the times in turns, the kernels each call launches; the megakernel
     renderer against K3, and three Adam steps of the INVERSE_r05
     configuration (cornell_materials, 128x128, spp 32, 6 bounces, 16
-    key/target pairs in chunks of 8);
-  * the interleaved path loop K5 (phase 11): two lanes per thread,
-    bitwise equal to K3 on the preflight frame, on 1,023 lanes and on the
-    2K frame, within the image tolerance of the plain version on the
-    preflight lanes, timed against K3 in turns, the kernels' registers
-    and local memory, and the CLI under RAYTRACER_TPU_INTERLEAVE=2;
+    key/target pairs in chunks of 8), with the K2 route's launches held
+    to their formula and one chunk's kernels counted by torch.profiler;
+  * the interleaved path loop K5 (phase 11): two lanes per thread that
+    refill from the lane list, culled like K3, bitwise equal to K3 on the
+    preflight frame, on 1,023 lanes and on the 2K frame, within the image
+    tolerance of the plain version on the preflight lanes, timed against
+    K3 in turns, the kernels' registers and local memory, and the CLI
+    under RAYTRACER_TPU_INTERLEAVE=2; and the witness of the brute cull on
+    whole frames: K3 against the plain version (exhaustive pre-pass) bit
+    for bit on every lane of the 2K frame;
   * K3-profile and the profile-guided schedule (phase 12): profile rgb
     bitwise equal to K3 and its cost / aux equal to the plain version's
     at the preflight size; build_schedule at the main configuration,
@@ -56,8 +66,10 @@ plain PyTorch version, and drives the port's two paths:
     commit's tree): the parent's K3, K3-profile, K5 and K4 built from DIR
     against this tree's, each equal to the parent's bit for bit, timed in
     turns at the main path's sizes with K3's chunk sizes; the parent's K4
-    route (_ParentRoute) against this tree's at 262,144 and 1,048,576
-    rays; and DIR's own `chip_smoke.py --phases 10` against this tree's,
+    route (this tree's wrappers over the parent's library) against this
+    tree's at 262,144 and 1,048,576 rays; the parent's draws (the chain
+    through its K2) against the draw kernels; and DIR's own
+    `chip_smoke.py --phases 10` against this tree's,
     three each in alternation; phases 4, 7, 8 and 12 count the brute MT records
     the cull leaves per traced ray (brute_may_hit) and give K1, K3 and K4
     a culled bound beside the exhaustive one;
@@ -65,8 +77,9 @@ plain PyTorch version, and drives the port's two paths:
     RAYTRACER_TPU_BVH_WIDTH=4 through K4, K3, K5 and K3-profile built for
     width 4: K4 equal to its plain version bit for bit and to K4 on the
     BVH8 in t, K3 on the preflight frame equal to its plain version bit
-    for bit at the known answer, K5 and K3-profile equal to K3, the 2K
-    kernel at width 4 against width 8 in turns, and the CLI (fused, fused
+    for bit at the known answer, K5 and K3-profile equal to K3 (K5 also
+    on the 2K frame), the 2K kernels at width 4 against width 8 in turns,
+    and the CLI (fused, fused
     with RAYTRACER_TPU_INTERLEAVE=2, megakernel) on the 4-wide tree with
     the launch counts from 0.
 
@@ -153,6 +166,9 @@ THREEFRY_OPS = 72
 # K1's cull of one brute triangle (csrc/traverse.cuh brute_skip): the box
 # slab (25, as a node slab) plus the guard's dot product and compare (6).
 CULL_OPS = 31
+# Normals of the draw kernels against the plain chain: the bound that
+# tests/test_torch_rng.py states for the port's normals against JAX.
+NORMAL_ULP = 3
 
 
 def log(phase, msg):
@@ -352,10 +368,11 @@ def main(argv=None) -> int:
 
     res = {**cuda_megakernel.kernel_resources(), **cuda_traverse.kernel_resources()}
     log(2, "numRegs / localSizeBytes: " + ", ".join(f"{k} {r} / {b}" for k, (r, b) in res.items())
-        + " (K4 51 / 1024, width 4 49, before its record-finishing, permuting design; "
-        "before the culled pre-pass and the refilling lanes: K3 64 / 1024, K3-profile "
-        "67 / 1024, K5 128 / 2080, K4 54 / 1024; width 4 K3 62 / 1056, K3-profile 64, K5 122, "
-        "K4 50)")
+        + " (K5 128 / 2080, width 4 122 / 2080, before its cull, lane list and register cap; "
+        "K4 51 / "
+        "1024, width 4 49, before its record-finishing, permuting design; before the culled "
+        "pre-pass and the refilling lanes: K3 64 / 1024, K3-profile 67 / 1024, K4 54 / 1024; "
+        "width 4 K3 62 / 1056, K3-profile 64, K4 50)")
 
     scene = None
     if 15 in phases and not args.parent:
@@ -395,9 +412,19 @@ def main(argv=None) -> int:
         kernels["K2"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                              **roofline(16 * n, THREEFRY_OPS * n, int32_rate),
                              int32_ops_per_s=int32_rate, max_sm_clock_mhz=mhz)
+        raw = k2_raw_ms(dev)
+        kernels["K2"].update(ms_raw=raw["one_key_ms"], ms_raw_keyed=raw["keyed_ms"],
+                             bound_keyed_ms=roofline_mixed(24 * n, 0, THREEFRY_OPS * n,
+                                                           int32_rate)["bound_ms"])
         log(3, f"K2 threefry2x32: bitwise equal to utils.ktf (card and host) on 2^20 "
-               f"counters x 3 keys; kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per 2^20 "
-               f"blocks on {smi}")
+               f"counters x 3 keys; per 2^20 blocks: the wrapper {ms:.4f} ms, the kernel alone "
+               f"(ctypes, buffers made once) {raw['one_key_ms']:.4f} ms with one key, "
+               f"{raw['keyed_ms']:.4f} ms with a key per block; bound "
+               f"{kernels['K2']['bound_ms']:.4f} / {kernels['K2']['bound_keyed_ms']:.4f} ms; "
+               f"plain {plain_ms:.4f} ms on {smi}")
+        r3 = phase3_draws(dev, smi, int32_rate)
+        kernels.update(r3["rows"])
+        log(3, r3["msg"])
 
     # ---- 4. K1/K4: traversal vs plain and brute force
     if 4 in phases:
@@ -665,13 +692,14 @@ def main(argv=None) -> int:
     train = None
     if 10 in phases:
         train = phase10(dev)
-        exp = train["k4_expected"]
+        exp, exp2 = train["k4_expected"], train["k2_expected"]
         if (train["k4"] != exp or train["k4_sorted"] != exp or train["keys"] != exp
-                or train["k2"] < 1 or train["plain"]):
+                or any(train[k] != v for k, v in exp2.items()) or train["plain"]):
             raise AssertionError(f"training path: K4 launches {train['k4']} (sorted "
                                  f"{train['k4_sorted']}, expected {exp}), key kernel launches "
-                                 f"{train['keys']}, K2 launches {train['k2']}, plain calls "
-                                 f"{train['plain']}")
+                                 f"{train['keys']}, K2 route "
+                                 f"{ {k: train[k] for k in exp2} } (expected {exp2}), plain "
+                                 f"calls {train['plain']}")
         with open(INVERSE_REF) as f:
             ref = json.load(f)["loss_curve"][:P10_STEPS]
         rel = [abs(a - b) / abs(b) for a, b in zip(train["losses"], ref)]
@@ -686,7 +714,14 @@ def main(argv=None) -> int:
                 f"s/step {train['step_s']} (median of steps 2-3 {train['s_per_step']:.3f}), peak "
                 f"memory {train['max_memory_allocated'] / 2**30:.2f} GiB; K4 launches "
                 f"{train['k4']} = {P10_STEPS} steps x {exp // P10_STEPS} ({train['k4_formula']}), "
-                f"all sorted, key kernel launches {train['keys']}; K2 launches {train['k2']}; "
+                f"all sorted, key kernel launches {train['keys']}; K2 route launches "
+                f"{train['k2']} = {P10_STEPS} steps x {exp2['k2'] // P10_STEPS} "
+                f"({train['k2_formula']}: Threefry {train['k2_threefry']}, camera draws "
+                f"{train['k2_camera']}, bounce draws {train['k2_bounce']}); one chunk's "
+                f"forward and backward (torch.profiler): {train['chunk_kernels']['kernels']} "
+                f"kernels, {train['chunk_kernels']['activities']} with memsets and copies, the "
+                f"card busy {train['chunk_kernels']['busy_us'] / 1e3:.1f} ms of a "
+                f"{train['chunk_kernels']['span_us'] / 1e3:.1f} ms span; "
                 f"plain calls {train['plain']}; "
                 f"at {P10_SMALL['width']}x{P10_SMALL['height']} spp{P10_SMALL['spp']} "
                 f"mb{P10_SMALL['max_bounces']} K={P10_SMALL_PAIRS}: kernel vs plain loss "
@@ -708,9 +743,10 @@ def main(argv=None) -> int:
             if key in kernels:
                 kernels[key].update(**b["preflight"], bound_2k_ms=b["2k"]["bound_ms"],
                                     bound_2k_by=b["2k"]["bound_by"])
-        if "K3" in kernels:   # K5 keeps the exhaustive pre-pass
-            kernels["K3"].update(bound_cull_2k_ms=b["2k_cull"]["bound_ms"],
-                                 bound_cull_2k_by=b["2k_cull"]["bound_by"])
+        for key in ("K3", "K5"):   # both cull the brute pre-pass
+            if key in kernels:
+                kernels[key].update(bound_cull_2k_ms=b["2k_cull"]["bound_ms"],
+                                    bound_cull_2k_by=b["2k_cull"]["bound_by"])
         log(12, r12["msg"])
 
     probes = None
@@ -732,7 +768,8 @@ def main(argv=None) -> int:
     # Kernel rows. `launches` counts the launches of the path each kernel
     # serves, with the counters set to 0 just before that path ran: K3 in
     # phase 7 (serving); K4, K4-sort and the standalone K2 in phase 10
-    # (training); K5 in phase 11 (the 2K frame with interleave 2);
+    # (training; the K2 rows split the K2 route's launches into Threefry,
+    # camera and bounce draws); K5 in phase 11 (the 2K frame with interleave 2);
     # K3-profile in phase 12 (build_schedule at 2K); the probes in phase 13
     # (their entry points); the width-4 kernels in phase 14 (the CLI on
     # the 4-wide tree). K1 is __device__ code inside K3 and K4, and K2
@@ -748,17 +785,26 @@ def main(argv=None) -> int:
          "traverse.cuh", "raytracer_tpu/ops/pallas_traverse.py:319", "K1", t_k4,
          {"launches_are": "K4 launches of the training path, which runs this code inline",
           "serving_path_launches_via_K3": launches}),
-        ("threefry2x32 (K2: standalone in the differentiable path, inline in K3)", "ktf.cu",
-         "raytracer_tpu/utils/ktf.py:65", "K2", train["k2"] if train else 0,
+        ("threefry2x32 (K2: standalone in the differentiable path's key folds, inline in K3)",
+         "ktf.cu", "raytracer_tpu/utils/ktf.py:65", "K2", train["k2_threefry"] if train else 0,
          {"serving_path_launches_via_K3": launches}),
+        ("camera draws (K2: a trace's jitter and lens draws, and the jax family's lane keys, "
+         "in one launch)", "ktf.cu", "raytracer_tpu/utils/rng.py:41-120 (the jax.random draws "
+         "XLA fuses; Threefry raytracer_tpu/utils/ktf.py:65)", "K2-camera",
+         train["k2_camera"] if train else 0, {}),
+        ("bounce draws (K2: a bounce's roulette, scatter and dielectric draws in one launch)",
+         "ktf.cu", "raytracer_tpu/utils/rng.py:41-120 (the jax.random draws XLA fuses; "
+         "Threefry raytracer_tpu/utils/ktf.py:65)", "K2-bounce",
+         train["k2_bounce"] if train else 0, {}),
         ("trace_closest (K4)", "trace_closest.cu", "raytracer_tpu/ops/pallas_traverse.py:907",
          "K4", t_k4, {}),
         ("trace_closest coherence-sorted (K4-sort: the key kernel, the argsort, K4 through the "
          "permutation)", "trace_closest.cu", "raytracer_tpu/ops/pallas_traverse.py:961", "K4-sort",
          train["k4_sorted"] if train else 0,
          {"key_kernel_launches": train["keys"] if train else 0}),
-        ("fused_path_loop G=2 (K5: two lanes per thread, traversals merged in traverse.cuh "
-         "traverse2)", "interleave.cu", "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair) "
+        ("fused_path_loop G=2 (K5: two lanes per thread refilling from the lane list, "
+         "traversals merged in traverse.cuh traverse2)", "interleave.cuh",
+         "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair) "
          "-> raytracer_tpu/ops/pallas_interleave.py:22", "K5",
          kernels.get("K5", {}).get("launches", 0), {}),
         ("fused_path_loop profile (K3-profile)", "megakernel.cu",
@@ -817,7 +863,7 @@ def main(argv=None) -> int:
         ("fused_path_loop profile (K3-profile) on a 4-wide tree", "megakernel_w4.cu",
          "raytracer_tpu/ops/pallas_megakernel.py:493 (profile=True, n_children 4)",
          "K3-profile/w4", 0, {"width": 4}),
-        ("fused_path_loop G=2 (K5) on a 4-wide tree", "interleave.cu",
+        ("fused_path_loop G=2 (K5) on a 4-wide tree", "interleave_w4.cu",
          "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair, n_children 4) -> "
          "raytracer_tpu/ops/pallas_interleave.py:22", "K5/w4",
          kernels.get("K5/w4", {}).get("launches", 0), {"width": 4}),
@@ -841,6 +887,161 @@ def main(argv=None) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# Per lane of a draw kernel (csrc/ktf.cu): Threefry blocks (each
+# THREEFRY_OPS int32 operations) and fp32 operations, counted from the
+# source. jax family: a uniform 1 (the subtraction), a normal 31 (its
+# uniform, scale, shift and clamp, ErfInv's 26 with log1p as one, the
+# sqrt(2) product), a unit vector 3 normals + 10 (norm, clamp, divides), a
+# disk 8 (2 uniforms, sqrt, scale, cos, sin, 2 products). ktf family: a
+# uniform 2, a unit vector 15, a disk 10.
+DRAW_WORK = {  # (family, site): (blocks, blocks of the roulette draw, fp32, fp32 of roulette)
+    ("jax", "camera"): (8, 0, 10, 0), ("jax", "bounce"): (7, 2, 104, 1),
+    ("ktf", "camera"): (2, 0, 14, 0), ("ktf", "bounce"): (2, 1, 17, 2)}
+
+
+def draw_bound(family: str, site: str, n_px: int, lanes: int, rr: bool, int32_rate) -> dict:
+    """The bound of one draw kernel launch over `lanes` lanes of `n_px`
+    pixels: its inputs read once (jax: the pixel keys at a camera, the lane
+    keys at a bounce; ktf: a key pair and an id per pixel) and its outputs
+    written once (4 floats at a camera, with the jax family's lane keys;
+    the dielectric, the unit vector and the roulette draw at a bounce),
+    and DRAW_WORK's operations."""
+    blocks, rr_blocks, fp, rr_fp = DRAW_WORK[(family, site)]
+    if rr:
+        blocks, fp = blocks + rr_blocks, fp + rr_fp
+    if site == "camera":
+        nbytes = (8 if family == "jax" else 12) * n_px + (24 if family == "jax" else 16) * lanes
+    else:
+        nbytes = (8 * lanes if family == "jax" else 12 * n_px) + (20 if rr else 16) * lanes
+    return roofline_mixed(nbytes, fp * lanes, THREEFRY_OPS * blocks * lanes, int32_rate)
+
+
+def _max_ulp(a, b) -> int:
+    import torch
+
+    return int((a.contiguous().view(torch.int32).long()
+                - b.contiguous().view(torch.int32).long()).abs().max())
+
+
+def new_draw_sites(dev) -> dict:
+    """chain_draw_sites' sites through the draw kernels (utils/rng
+    TraceDraws: one launch per camera and per bounce)."""
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.utils import rng
+
+    cfg = RenderConfig(**P10)
+    pair, pix, m = training_keys(dev)
+    pkeys = rng.lane_keys(pair, pix)
+    skeys = rng.camera_draws(pkeys, m, 0)["keys"]
+    sites = {"lane keys": lambda: rng.lane_keys(pair, pix),
+             "camera": lambda: rng.TraceDraws(pkeys, m, 0).camera().numbers()}
+    sites.update({f"bounce {b}": (lambda b=b: rng.bounce_draws(skeys, b, b >= cfg.min_bounces))
+                  for b in range(cfg.max_bounces)})
+    return sites
+
+
+def phase3_draws(dev, smi, int32_rate):
+    """The draw kernels at the training path's size (training_keys:
+    1,048,576 lanes of 131,072 pixels): in both families the camera draws
+    and a bounce's draws with and without the roulette draw, against the
+    plain chain on the card (kernel=False) bit for bit (normals: also
+    their ulp count), timed against the plain chain and against the chain
+    through K2 (the route before them), with their bound; and the
+    training chunk's draw sites as torch.profiler sees them, chain against
+    kernels."""
+    import torch
+
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.utils import ktf, rng
+
+    cfg = RenderConfig(**P10)
+    pair, pix, m = training_keys(dev)
+    pkeys = rng.lane_keys(pair, pix)
+    n, total = pix.shape[0], pix.shape[0] * m
+    skeys = rng.camera_draws_plain(pkeys, m, 0)["keys"]
+    tr = ktf.TraceDraws(pair[0], pair[1], pix, m, 0)
+    b_rr = cfg.min_bounces
+    cases = {  # name: (kernel, plain on the card, chain through K2, family, site, rr)
+        "jax camera": (lambda: rng.camera_draws(pkeys, m, 0),
+                       lambda: rng.camera_draws_plain(pkeys, m, 0),
+                       lambda: rng.camera_draws_plain(pkeys, m, 0, kernel=True),
+                       "jax", "camera", False),
+        f"jax bounce {b_rr}": (lambda: rng.bounce_draws(skeys, b_rr, True),
+                               lambda: rng.bounce_draws_plain(skeys, b_rr, True),
+                               lambda: rng.bounce_draws_plain(skeys, b_rr, True, kernel=True),
+                               "jax", "bounce", True),
+        "jax bounce 0": (lambda: rng.bounce_draws(skeys, 0, False),
+                         lambda: rng.bounce_draws_plain(skeys, 0, False),
+                         lambda: rng.bounce_draws_plain(skeys, 0, False, kernel=True),
+                         "jax", "bounce", False),
+        "ktf camera": (lambda: ktf.camera_draws(tr), lambda: ktf.camera_draws_plain(tr),
+                       lambda: ktf.camera_draws_plain(tr, kernel=True), "ktf", "camera", False),
+        f"ktf bounce {b_rr}": (lambda: ktf.bounce_draws(tr, b_rr, True),
+                               lambda: ktf.bounce_draws_plain(tr, b_rr, True),
+                               lambda: ktf.bounce_draws_plain(tr, b_rr, True, kernel=True),
+                               "ktf", "bounce", True),
+    }
+    res = {}
+    for name, (kern, plain, chain, family, site, rr) in cases.items():
+        got, want, old = kern(), plain(), chain()
+        torch.cuda.synchronize()
+        differ, ulps = [], {}
+        for k, v in want.items():
+            if k == "keys":
+                same = all(torch.equal(a, b) for a, b in zip(got[k], v))
+                same_old = all(torch.equal(a, b) for a, b in zip(old[k], v))
+            else:
+                same, same_old = _bitwise(got[k], v), _bitwise(old[k], v)
+                ulps[k] = _max_ulp(got[k], v)
+            if not (same and same_old):
+                differ.append(k)
+        bits_fields = [k for k in want if k not in ("scatter", "lens_x", "lens_y")]
+        if any(k in differ for k in bits_fields) or any(u > NORMAL_ULP for u in ulps.values()):
+            raise AssertionError(f"{name} draws vs the plain chain: fields {differ} differ, "
+                                 f"max ulp {ulps}")
+        res[name] = dict(differ=differ, max_ulp=max(ulps.values()),
+                         max_abs_err=max(_max_abs(got[k], want[k]) for k in ulps),
+                         ms=cuda_ms(kern, 50), plain_ms=cuda_ms(plain, 5),
+                         chain_ms=cuda_ms(chain, 10),
+                         **draw_bound(family, site, n, total, rr, int32_rate),
+                         kernels=kernels_launched(kern).get("kernels"),
+                         chain_kernels=kernels_launched(chain).get("kernels"))
+    chain_sites = site_census(chain_draw_sites(dev))
+    new_sites = site_census(new_draw_sites(dev))
+    per_chunk = {"chain": draws_per_chunk(chain_sites), "kernels": draws_per_chunk(new_sites)}
+
+    def row(name, other):
+        r = res[name]
+        return dict(max_abs_err=max(r["max_abs_err"], res[other]["max_abs_err"]), ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    bound_ops=r["bound_ops"], bound_int32_ops=r["bound_int32_ops"],
+                    bound_bytes=r["bound_bytes"], chain_ms=r["chain_ms"],
+                    lanes=total, cases={k: res[k] for k in (name, other)},
+                    max_abs_err_is="kernel vs the plain chain on the card, both families (0: "
+                                   "bit for bit)")
+
+    rows = {"K2-camera": row("jax camera", "ktf camera"),
+            "K2-bounce": row(f"jax bounce {b_rr}", f"ktf bounce {b_rr}")}
+    rows["K2-bounce"]["cases"]["jax bounce 0"] = res["jax bounce 0"]
+    rows["K2-camera"].update(draw_kernels_per_chunk=per_chunk, sites_chain=chain_sites,
+                             sites_kernels=new_sites)
+    msg = (f"draw kernels at {total} lanes ({n} pixels x {m} samples, the training path's "
+           f"first trace): against the plain chain on the card, "
+           + "; ".join(f"{k}: fields not bitwise {v['differ']} (max ulp {v['max_ulp']}), kernel "
+                       f"{v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']}), plain "
+                       f"chain {v['plain_ms']:.3f} ms, chain through K2 {v['chain_ms']:.3f} ms, "
+                       f"kernels per call {v['kernels']} (chain {v['chain_kernels']})"
+                       for k, v in res.items())
+           + f"; a training chunk's draws launch {per_chunk['kernels']} kernels (chain "
+           f"{per_chunk['chain']}); per site (torch.profiler; kernels, busy share, ms): "
+           + "; ".join(f"{k} {chain_sites[k]['kernels']} / {new_sites[k]['kernels']}, "
+                       f"{chain_sites[k]['busy_share'] or 0:.3f} / "
+                       f"{new_sites[k]['busy_share'] or 0:.3f}, {chain_sites[k]['ms']:.3f} / "
+                       f"{new_sites[k]['ms']:.4f}" for k in chain_sites)
+           + f" (chain / kernels) on {smi}")
+    return dict(rows=rows, msg=msg)
 
 
 def phase4_rays(scene, dev):
@@ -972,6 +1173,20 @@ def phase11(scene, dev, smi):
     med_dev = {k: float(np.median(v[1])) for k, v in times.items()}
     res = cm.kernel_resources()
 
+    k3_blocked = cm.render_tiles_fused(scene, cam, cfg, 0, bx, by, interleave=1)
+
+    # The cull's witness on whole frames: K3 (culled) against the plain
+    # version (exhaustive pre-pass) on every lane of the 2K frame's
+    # blocked grid, bit for bit.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain2k = cm.render_tiles_fused_plain(scene, cam, cfg, 0, bx, by)
+    torch.cuda.synchronize()
+    plain2k_s = time.perf_counter() - t0
+    if not torch.equal(k3_blocked, plain2k):
+        bad_l = int((k3_blocked != plain2k).any(dim=1).sum())
+        raise AssertionError(f"K3 vs plain on the whole 2K frame: {bad_l} lanes differ")
+
     # The CLI under RAYTRACER_TPU_INTERLEAVE=2, in this process so that
     # the counts can be read.
     png = os.path.join("renders", "chip_smoke_k5_cli.png")
@@ -990,8 +1205,10 @@ def phase11(scene, dev, smi):
                kernel_2k_median_s_k3=med["K3"], kernel_2k_median_device_s=med_dev["K5"],
                kernel_2k_median_device_s_k3=med_dev["K3"],
                num_regs=res["K5"][0], local_bytes=res["K5"][1],
+               k3_vs_plain_2k_lanes=int(bx.shape[0]), plain_2k_s=plain2k_s,
                max_abs_err_is="K5 vs plain on the preflight lanes (K5 == K3 bitwise on the "
-                              "preflight frame, 1,023 lanes and the 2K frame)")
+                              "preflight frame, 1,023 lanes and the 2K frame; K3 == plain "
+                              "bitwise on the whole 2K frame)")
     msg = (f"K5 == K3 bitwise on the preflight frame, on 1,023 lanes and on the 2K spp8 mb20 "
            f"frame; K5 vs plain on the {px.shape[0]} preflight lanes: {bad:.4%} elements beyond "
            f"5e-4+2e-4|x| (limit 0.5%), mean diff {mean_diff:.2e}, max abs {max_err:.3g}, bitwise "
@@ -1005,6 +1222,8 @@ def phase11(scene, dev, smi):
            f"K3 kernel host s {_fmt(times['K3'][0])}; K5 kernel host s {_fmt(times['K5'][0])}; "
            f"numRegs / localSizeBytes: "
            + ", ".join(f"{k} {r} / {b}" for k, (r, b) in res.items())
+           + f"; K3 == plain (exhaustive pre-pass) bit for bit on every one of the 2K frame's "
+           f"{bx.shape[0]} lanes (plain {plain2k_s:.1f} s)"
            + f"; CLI RAYTRACER_TPU_INTERLEAVE=2 wrote {png}, counts {cli_counts} on {smi}")
     return dict(row=row, msg=msg)
 
@@ -1817,6 +2036,8 @@ def phase14(scene8, dev, smi):
     bx, by, _ = (t.to(dev) for t in blocked_pixel_grid(cfg, 32, 32, 8, 16))
     f4 = cm.render_tiles_fused(scene4, cam, cfg, 0, bx, by)
     f8 = cm.render_tiles_fused(scene8, cam, cfg, 0, bx, by)
+    if not torch.equal(cm.render_tiles_fused(scene4, cam, cfg, 0, bx, by, interleave=2), f4):
+        raise AssertionError("K5<4> vs K3<4> on the 2K frame: not bitwise equal")
     bad2k, mean_diff2k, max_err2k = image_agreement(f4[None], f8[None])
     if not (bool(torch.isfinite(f4).all()) and bad2k <= IMG_BAD_FRAC
             and mean_diff2k <= MEAN_TOL):
@@ -1825,7 +2046,9 @@ def phase14(scene8, dev, smi):
     t2k = _frames_in_turns({"K3<4>": lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, bx, by),
                             "K3<8>": lambda: cm.render_tiles_fused(scene8, cam, cfg, 0, bx, by),
                             "K3-profile<4>": lambda: cm.render_tiles_fused(
-                                scene4, cam, cfg, 0, bx, by, profile=True)},
+                                scene4, cam, cfg, 0, bx, by, profile=True),
+                            "K5<4>": lambda: cm.render_tiles_fused(scene4, cam, cfg, 0, bx, by,
+                                                                   interleave=2)},
                            10)
     med = {k: float(np.median(v[0])) for k, v in t2k.items()}
     med_dev = {k: float(np.median(v[1])) for k, v in t2k.items()}
@@ -1898,8 +2121,12 @@ def phase14(scene8, dev, smi):
                                              "and aux == plain"),
         "K5/w4": dict(launches=clis["fused G=2"]["render_fused_g2"],
                       max_abs_err=_max_abs(k5, p_rgb), ms=ms_k5, plain_ms=plain_ms_k3,
-                      **bound_pre, num_regs=res["K5/w4"][0], local_bytes=res["K5/w4"][1],
-                      max_abs_err_is="K5<4> lanes vs plain at the preflight size (== K3<4>)"),
+                      **bound_pre, bound_2k_ms=bound_2k["bound_ms"],
+                      bound_2k_by=bound_2k["bound_by"], kernel_2k_median_s=med["K5<4>"],
+                      kernel_2k_median_device_s=med_dev["K5<4>"],
+                      num_regs=res["K5/w4"][0], local_bytes=res["K5/w4"][1],
+                      max_abs_err_is="K5<4> lanes vs plain at the preflight size (== K3<4> there "
+                                     "and on the 2K frame)"),
     }
     msg = (f"reference scene built 4-wide in {build_s:.2f} s: {tree['nodes']} nodes (BVH8 "
            f"{tree['nodes_w8']}), stack_depth {tree['stack_depth']} (BVH8 "
@@ -1916,7 +2143,8 @@ def phase14(scene8, dev, smi):
            f"blocked grid in turns, median of 10 (host s / CUDA events s): K3<4> "
            f"{med['K3<4>']:.4f} / {med_dev['K3<4>']:.4f}, K3<8> {med['K3<8>']:.4f} / "
            f"{med_dev['K3<8>']:.4f} (ratio {med['K3<4>'] / med['K3<8>']:.3f}), K3-profile<4> "
-           f"{med['K3-profile<4>']:.4f} / {med_dev['K3-profile<4>']:.4f}; K3<4> host s "
+           f"{med['K3-profile<4>']:.4f} / {med_dev['K3-profile<4>']:.4f}, K5<4> "
+           f"{med['K5<4>']:.4f} / {med_dev['K5<4>']:.4f} (== K3<4> bitwise); K3<4> host s "
            f"{_fmt(t2k['K3<4>'][0])}; K3<8> host s {_fmt(t2k['K3<8>'][0])}; 2K frames K3<4> vs "
            f"K3<8>: {bad2k:.4%} elements beyond tolerance, mean diff {mean_diff2k:.2e}; 2K lane "
            f"counts (K1 steps, path iterations, K1 mean, warp divergence): "
@@ -1932,28 +2160,11 @@ def phase14(scene8, dev, smi):
     return dict(rows=rows, msg=msg)
 
 
-def _device_tensor(ptr: int, shape: tuple, dtype):
-    """A torch tensor over `shape` elements of `dtype` at device address
-    ptr (no copy), through the CUDA array interface."""
-    import torch
-
-    typestr = {torch.float32: "<f4", torch.int32: "<i4", torch.int64: "<i8",
-               torch.bool: "|b1"}[dtype]
-
-    class Array:
-        __cuda_array_interface__ = dict(shape=shape, typestr=typestr, data=(ptr, False),
-                                        version=3)
-
-    return torch.as_tensor(Array(), device="cuda")
-
-
 class _ParentLib:
-    """The parent commit's kernel library behind this tree's wrappers. K3,
-    K3-profile and K5 have this tree's signatures; the parent's K4 takes a
-    per-ray limit and writes every field of the unfinished record in call
-    order, so rt_trace_closest is translated: the limit made a tensor, the
-    rays gathered through perm, the record finished with torch ops and
-    written (through perm) into the outputs that are not null."""
+    """The parent commit's kernel library behind this tree's wrappers. Its
+    K3, K3-profile, K4, key kernel and K2 take this tree's signatures; its
+    K5 takes no lane list, so rt_render_fused_g2 drops the chunk and the
+    counter (the parent's K5 fixes two lanes to each thread)."""
 
     def __init__(self, path):
         import ctypes
@@ -1961,7 +2172,7 @@ class _ParentLib:
         from raytracer_tpu_torch.utils import cudalib
 
         L = ctypes.CDLL(path)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         pv, ip = ctypes.POINTER(cudalib.BvhView), ctypes.POINTER(ctypes.c_int)
         fused = [ctypes.POINTER(cudalib.FusedParams), pv] + [vp] * 7 + [ci]
         L.rt_render_fused.argtypes = fused + [vp, ci, ci, vp, vp]
@@ -1969,47 +2180,38 @@ class _ParentLib:
         L.rt_render_fused_profile.argtypes = fused + [vp] * 5 + [ci, ci, vp, vp]
         L.rt_render_fused_attrs.argtypes = [ci, ci, ip, ip]
         L.rt_render_fused_g2_attrs.argtypes = [ci, ip, ip]
+        L.rt_trace_closest.argtypes = [pv, vp, vp, vp, cf, cf, ci, vp, vp, vp, vp, vp, vp, ci, vp]
+        L.rt_coherence_keys.argtypes = [vp, vp, vp, ci, vp, vp]
         L.rt_trace_closest_attrs.argtypes = [ci, ip, ip]
+        L.rt_ktf_threefry.argtypes = [cu, cu, vp, vp, ci, vp, vp, ci, vp]
+        L.rt_ktf_threefry_keyed.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, vp]
         L.rt_error_string.argtypes = [ci]
         L.rt_error_string.restype = ctypes.c_char_p
-        self.L, self.route = L, _ParentRoute(L)
-        for name in ("rt_render_fused", "rt_render_fused_g2", "rt_render_fused_profile",
-                     "rt_render_fused_attrs", "rt_render_fused_g2_attrs",
-                     "rt_trace_closest_attrs", "rt_error_string"):
+        self.L = L
+        for name in ("rt_render_fused", "rt_render_fused_profile", "rt_render_fused_attrs",
+                     "rt_render_fused_g2_attrs", "rt_trace_closest", "rt_coherence_keys",
+                     "rt_trace_closest_attrs", "rt_ktf_threefry", "rt_ktf_threefry_keyed"):
+            getattr(L, name).restype = ci
             setattr(self, name, getattr(L, name))
+        self.rt_error_string = L.rt_error_string
 
-    def rt_trace_closest(self, view, o, d, tlim, t_max, t_min, n, perm, t_out, id_out, mat_out,
-                         n_out, hit_out, block, stream):
-        import torch
+    def rt_render_fused_g2(self, *args):
+        """This tree's K5 signature onto the parent's."""
+        *head, block, _chunk, _next, stream = args
+        return self.L.rt_render_fused_g2(*head, block, stream)
 
-        from raytracer_tpu_torch.ops.cuda_traverse import _DTYPES, RECORD, _finish
 
-        if n == 0:
-            return 0
-        f32 = torch.float32
-        oo, dd = _device_tensor(o, (n, 3), f32), _device_tensor(d, (n, 3), f32)
-        lim = (_device_tensor(tlim, (n,), f32) if tlim
-               else torch.full((n,), t_max, dtype=f32, device="cuda"))
-        p = None if not perm else _device_tensor(perm, (n,), torch.int64)
-        if p is not None:
-            oo, dd, lim = oo[p].contiguous(), dd[p].contiguous(), lim[p].contiguous()
-        raw = (torch.empty((n,), dtype=f32, device="cuda"),
-               torch.empty((n,), dtype=torch.int32, device="cuda"),
-               torch.empty((n,), dtype=torch.int32, device="cuda"),
-               torch.empty((n, 3), dtype=f32, device="cuda"))
-        code = self.L.rt_trace_closest(view, oo.data_ptr(), dd.data_ptr(), lim.data_ptr(),
-                                       t_min, n, *(r.data_ptr() for r in raw), block, stream)
-        if code:
-            return code
-        rec = _finish(*raw)
-        for k, ptr in zip(RECORD, (t_out, id_out, mat_out, n_out, hit_out)):
-            if ptr:
-                dst = _device_tensor(ptr, (n, 3) if k == "normal" else (n,), _DTYPES[k])
-                if p is None:
-                    dst.copy_(rec[k])
-                else:
-                    dst[p] = rec[k]
-        return 0
+def _draw_fields(out) -> dict:
+    """A draw site's numbers by name, from the draw kernels' dict or the
+    chain's tuples (chain_draw_sites: camera (lens, jitter), bounce (rr or
+    None, scatter, dielectric)); the jax family's lane keys left out."""
+    if isinstance(out, dict):
+        return {k: v for k, v in out.items() if k != "keys"}
+    if len(out) == 2:
+        (lx, ly), (ju, jv) = out
+        return dict(lens_x=lx, lens_y=ly, jitter_u=ju, jitter_v=jv)
+    rr, scatter, dielectric = out
+    return dict(scatter=scatter, dielectric=dielectric, **({} if rr is None else {"rr": rr}))
 
 
 P15_CHUNKS = (16, 512)   # K3's lanes per take, beside the default
@@ -2033,8 +2235,9 @@ def phase15(scene, dev, smi, parent_dir):
     """Old against new on one card: the parent commit's K3, K3-profile, K5
     and K4 (built from parent_dir's raytracer_tpu_torch/csrc) against this
     tree's, bitwise and in turns, median of 10, with K3's chunk sizes; the
-    parent's K4 route (_ParentRoute) against this tree's at 262,144 and
-    1,048,576 rays; and each tree's own phase 10 in alternation."""
+    parent's K4 route against this tree's at 262,144 and 1,048,576 rays;
+    the parent's draws (the per-method chain through its K2) against the
+    draw kernels; and each tree's own phase 10 in alternation."""
     import torch
 
     from raytracer_tpu_torch.camera import showcase_camera
@@ -2092,23 +2295,28 @@ def phase15(scene, dev, smi, parent_dir):
                                                                          recs["parent"])
         if rname == "phase 4":
             continue
-        routes = {"parent unsorted": lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
-                  parent.route.unsorted(o, d, b, lim, tm),
-                  "parent sorted": lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
-                  parent.route.sorted(o, d, b, lim, tm),
-                  "new unsorted": lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
-                  ct.trace_closest(o, d, b, lim, tm, sort=False),
-                  "new sorted": lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
-                  ct.trace_closest(o, d, b, lim, tm, sort=True)}
+        routes = {f"{k} {s}": on(k, lambda o=o, d=d, b=bvh, lim=lim, tm=tm, s=s:
+                                 ct.trace_closest(o, d, b, lim, tm, sort=s == "sorted"))
+                  for k in libs for s in ("unsorted", "sorted")}
         got = {k: f() for k, f in routes.items()}
-        lim_t = lim if torch.is_tensor(lim) else torch.full((o.shape[0],), lim, device=dev)
-        routes.update({"parent K4 alone": parent.route.kernel(o, d, bvh, lim_t, tm),
-                       "new K4 alone": k4_alone(o, d, bvh, lim, t_min=tm)})
+        routes.update({f"{k} K4 alone": on(k, lambda o=o, d=d, b=bvh, lim=lim, tm=tm:
+                                           k4_alone(o, d, b, lim, t_min=tm))() for k in libs})
         checks[f"K4 route on {rname} rays: new sorted == new unsorted == parent's route"] = not (
             _equal_records(got["new sorted"], got["parent sorted"])
             or _equal_records(got["new unsorted"], got["parent unsorted"])
             or _equal_records(got["new sorted"], got["new unsorted"]))
         turns.update({f"K4 route {rname} {k}": f for k, f in routes.items()})
+    # The draws: the parent's route (the per-method chain through its K2)
+    # against the draw kernels on the training path's sites, bit for bit
+    # and in turns.
+    chain, new = chain_draw_sites(dev), new_draw_sites(dev)
+    draw_sites = ("camera", "bounce 0", f"bounce {RenderConfig(**P10).min_bounces}")
+    for site in draw_sites:
+        old_f, new_f = _draw_fields(on("parent", chain[site])()), _draw_fields(new[site]())
+        checks[f"draws {site}: new == parent"] = (old_f.keys() == new_f.keys() and all(
+            _bitwise(old_f[k], new_f[k]) for k in old_f))
+        turns.update({f"draws {site} parent": on("parent", chain[site]),
+                      f"draws {site} new": new[site]})
     if not all(checks.values()):
         raise AssertionError(f"phase 15: {checks}")
     res = {}
@@ -2164,14 +2372,19 @@ def phase15(scene, dev, smi, parent_dir):
 
 
 def _counts():
-    """Launch and plain-call counters of the differentiable path's kernels."""
+    """Launch and plain-call counters of the differentiable path's kernels:
+    k2 is the K2 route's launches, Threefry blocks (k2_threefry) and the
+    camera and bounce draw kernels (k2_camera, k2_bounce) together."""
     from raytracer_tpu_torch.ops import cuda_traverse
     from raytracer_tpu_torch.utils import ktf
 
     return {"k4": cuda_traverse.LAUNCHES["trace_closest"],
             "k4_sorted": cuda_traverse.LAUNCHES["trace_closest_sorted"],
             "keys": cuda_traverse.LAUNCHES["coherence_keys"],
-            "k2": ktf.LAUNCHES["threefry2x32"],
+            "k2": sum(ktf.LAUNCHES.values()),
+            "k2_threefry": ktf.LAUNCHES["threefry2x32"],
+            "k2_camera": ktf.LAUNCHES["camera_draws"],
+            "k2_bounce": ktf.LAUNCHES["bounce_draws"],
             "plain": cuda_traverse.PLAIN_CALLS["traverse_plain"]
             + ktf.PLAIN_CALLS["threefry2x32"]}
 
@@ -2289,85 +2502,6 @@ def _ms_in_turns(fns: dict, reps: int, turns: int = 10) -> dict:
                               for k, f in fns.items()}, turns)
     return {k: tuple(float(g(v[1])) * 1e3 / reps for g in (np.median, np.min, np.max))
             for k, v in times.items()}
-
-
-class _ParentRoute:
-    """The parent commit's K4 route (ops/cuda_traverse.py there), kept
-    here because the package builds one design: `unsorted` rebuilds the
-    tree's view, copies the limit, allocates four outputs, launches the
-    parent's K4 (rt_trace_closest of library L, the parent's signature)
-    and finishes the record with torch ops; `sorted` adds the root box,
-    the int64 coherence keys, the argsort, three gathers and five
-    scatters. `kernel` launches the parent's K4 alone on outputs made
-    once."""
-
-    def __init__(self, L):
-        import ctypes
-
-        from raytracer_tpu_torch.utils import cudalib
-
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L.rt_trace_closest.argtypes = [ctypes.POINTER(cudalib.BvhView), vp, vp, vp, cf, ci,
-                                       vp, vp, vp, vp, ci, vp]
-        L.rt_trace_closest.restype = ci
-        self.L = L
-
-    def _launch(self, view, o, d, t_hi, t_min, t, ids, mat, nrm):
-        from raytracer_tpu_torch.utils import cudalib
-
-        code = self.L.rt_trace_closest(view, o.data_ptr(), d.data_ptr(), t_hi.data_ptr(),
-                                       float(t_min), o.shape[0], t.data_ptr(), ids.data_ptr(),
-                                       mat.data_ptr(), nrm.data_ptr(), 128,
-                                       cudalib.stream_handle())
-        if code:
-            raise RuntimeError(f"parent K4: CUDA error {code}")
-
-    def unsorted(self, o, d, bvh, t_max, t_min=1e-3):
-        import torch
-
-        from raytracer_tpu_torch.ops.cuda_traverse import _finish
-        from raytracer_tpu_torch.utils import cudalib
-
-        n = o.shape[0]
-        t_hi = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
-                                  (n,)).contiguous()
-        view = cudalib.bvh_view(bvh)
-        t = torch.empty((n,), dtype=torch.float32, device=o.device)
-        ids = torch.empty((n,), dtype=torch.int32, device=o.device)
-        mat = torch.empty((n,), dtype=torch.int32, device=o.device)
-        nrm = torch.empty((n, 3), dtype=torch.float32, device=o.device)
-        self._launch(view, o, d, t_hi, t_min, t, ids, mat, nrm)
-        return _finish(t, ids, mat, nrm)
-
-    def sorted(self, o, d, bvh, t_max, t_min=1e-3):
-        import torch
-
-        from raytracer_tpu_torch.ops.packets import coherence_keys, root_box
-
-        lo, inv_ext = root_box(bvh)
-        perm = torch.argsort(coherence_keys(o, d, lo, inv_ext), stable=True)
-        t_hi = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
-                                  (o.shape[0],)).contiguous()
-        rec = self.unsorted(o[perm].contiguous(), d[perm].contiguous(), bvh,
-                            t_hi[perm].contiguous(), t_min)
-        out = {}
-        for k, v in rec.items():
-            out[k] = torch.empty_like(v)
-            out[k][perm] = v
-        return out
-
-    def kernel(self, o, d, bvh, t_lim, t_min=1e-3):
-        """fn launching the parent's K4 alone (view and outputs made once)."""
-        import torch
-
-        from raytracer_tpu_torch.utils import cudalib
-
-        n, view = o.shape[0], cudalib.bvh_view(bvh)
-        outs = (torch.empty((n,), dtype=torch.float32, device=o.device),
-                torch.empty((n,), dtype=torch.int32, device=o.device),
-                torch.empty((n,), dtype=torch.int32, device=o.device),
-                torch.empty((n, 3), dtype=torch.float32, device=o.device))
-        return lambda: self._launch(view, o, d, t_lim, t_min, *outs)
 
 
 def k4_alone(o, d, bvh, t_lim, perm=None, t_min: float = 1e-3):
@@ -2603,6 +2737,130 @@ def inverse_setup(dev, size: dict, pairs: int):
     return scene, cfg, cam, keys, targets, params
 
 
+def k2_raw_ms(dev, n: int = 1 << 20, reps: int = 200) -> dict:
+    """K2 alone through its two ctypes entry points on buffers of n
+    counter pairs made once (CUDA events, mean of reps launches): one key
+    per element (the jax family's form) and one key for all (the ktf
+    family's)."""
+    import torch
+
+    from raytracer_tpu_torch.utils import cudalib
+
+    gen = np.random.default_rng(3)
+    c0, c1, k0, k1 = (torch.from_numpy(gen.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
+                      for _ in range(4))
+    x0, x1 = torch.empty_like(c0), torch.empty_like(c0)
+    L, s = cudalib.lib(), cudalib.stream_handle()
+    ptrs = (c0.data_ptr(), c1.data_ptr(), n, x0.data_ptr(), x1.data_ptr(), 256, s)
+    keyed = cuda_ms(lambda: L.rt_ktf_threefry_keyed(k0.data_ptr(), k1.data_ptr(), *ptrs), reps)
+    one = cuda_ms(lambda: L.rt_ktf_threefry(0, 12345, *ptrs), reps)
+    return {"keyed_ms": keyed, "one_key_ms": one}
+
+
+def training_keys(dev):
+    """What render_pixels starts from on INVERSE_r05's first chunk
+    (P10_CHUNK pairs x 128 x 128 pixels), as pairs_loss makes it: the pair
+    keys repeated per pixel and the pixel ids. Returns ((k0, k1) [n],
+    pixel ids [n], samples per trace)."""
+    import torch
+
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.render import pixel_grid, samples_per_trace
+    from raytracer_tpu_torch.utils import rng
+
+    cfg = RenderConfig(**P10)
+    px, py = pixel_grid(cfg, dev)
+    keys = rng.split(rng.key(40, dev), P10_PAIRS)
+    p = px.shape[0]
+    pair = (keys[0][:P10_CHUNK].repeat_interleave(p), keys[1][:P10_CHUNK].repeat_interleave(p))
+    pix = (py * cfg.width + px).repeat(P10_CHUNK)
+    torch.cuda.synchronize()
+    return pair, pix, samples_per_trace(cfg, pix.shape[0], cfg.spp)
+
+
+def chain_draw_sites(dev) -> dict:
+    """The jax family's draw sites of one trace of the training path
+    (training_keys; 1,048,576 lanes) through the per-method chain of
+    utils/rng (KeySampler, K2 launched for every fold and every draw: the
+    route before the draw kernels): {site: fn}. 'lane keys' folds the
+    pixel ids into the pair keys (once per chunk); 'camera' tiles those
+    keys over the trace's samples, folds the samples in and draws jitter
+    and lens, as render_pixels and generate_rays do; 'bounce b' folds the
+    bounce and draws what bounce_step draws (roulette from min_bounces on,
+    scatter, dielectric)."""
+    import torch
+
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.utils import rng
+
+    cfg = RenderConfig(**P10)
+    pair, pix, m = training_keys(dev)
+    pkeys = rng.lane_keys(pair, pix)
+    n = pix.shape[0]
+
+    def sample_keys():
+        samples = torch.arange(m, dtype=torch.int32, device=dev).repeat_interleave(n)
+        return rng.fold((pkeys[0].repeat(m), pkeys[1].repeat(m)), samples)
+
+    skeys = sample_keys()
+
+    def camera():
+        smp = rng.KeySampler(sample_keys())
+        return smp.lens_disk(), smp.jitter_uv()
+
+    def bounce(b):
+        smp = rng.KeySampler(rng.fold(skeys, b))
+        rr = smp.rr_uniform() if b >= cfg.min_bounces else None
+        return rr, smp.scatter_unit_vector(), smp.dielectric_uniform()
+
+    sites = {"lane keys": lambda: rng.lane_keys(pair, pix), "camera": camera}
+    sites.update({f"bounce {b}": (lambda b=b: bounce(b)) for b in range(cfg.max_bounces)})
+    return sites
+
+
+def site_census(sites: dict, reps: int = 20) -> dict:
+    """Each draw site's kernels (torch.profiler: kernels, kernels +
+    memsets and copies, busy share of the span) and its ms (CUDA events)."""
+    out = {}
+    for name, fn in sites.items():
+        ms = cuda_ms(fn, reps)
+        k = kernels_launched(fn)
+        out[name] = dict(kernels=k.get("kernels"), activities=k.get("activities"),
+                         busy_us=k.get("busy_us"), span_us=k.get("span_us"),
+                         busy_share=(k["busy_us"] / k["span_us"]) if k.get("span_us") else None,
+                         ms=ms)
+    return out
+
+
+def chunk_census(scene, cfg, cam, keys, targets, params) -> dict:
+    """One chunk of the INVERSE_r05 training step (forward and backward of
+    pairs_loss on the first P10_CHUNK pairs of inverse_setup's problem),
+    as torch.profiler sees it: kernels, memsets and copies, busy and span
+    microseconds."""
+    from raytracer_tpu_torch.diff import inverse
+    from raytracer_tpu_torch.render import pixel_grid
+
+    px, py = pixel_grid(cfg, scene.materials.type.device)
+    k = P10_CHUNK
+    kc, tc = (keys[0][:k], keys[1][:k]), targets[:k].reshape(k, -1, 3)
+    got = kernels_launched(lambda: inverse.value_and_grad(
+        lambda p: inverse.pairs_loss(scene, cam, cfg, p, kc, tc, px, py), params))
+    return {x: got.get(x) for x in ("kernels", "activities", "busy_us", "span_us", "idle_us")}
+
+
+def draws_per_chunk(sites: dict) -> int:
+    """Kernels a training chunk's draws launch, from site_census's counts:
+    the lane keys once, the camera and every bounce once per trace."""
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.render import samples_per_trace
+
+    cfg = RenderConfig(**P10)
+    n_px = P10_CHUNK * cfg.width * cfg.height
+    traces = -(-cfg.spp // samples_per_trace(cfg, n_px, cfg.spp))
+    return sites["lane keys"]["kernels"] + traces * sum(
+        v["kernels"] for k, v in sites.items() if k != "lane keys")
+
+
 def phase10(dev):
     """Three Adam steps of INVERSE_r05 on the card, then kernel vs plain
     and finite differences at a reduced size."""
@@ -2638,6 +2896,13 @@ def phase10(dev):
     traces = -(-cfg.spp // per)
     n_chunks = P10_PAIRS // P10_CHUNK
     k4_expected = P10_STEPS * n_chunks * traces * cfg.max_bounces
+    # The K2 route per chunk: one Threefry launch (render_pixels folds the
+    # pixel ids into the pair keys), then per trace one camera and one
+    # bounce draw kernel per bounce.
+    k2_expected = dict(k2_threefry=P10_STEPS * n_chunks, k2_camera=P10_STEPS * n_chunks * traces,
+                       k2_bounce=P10_STEPS * n_chunks * traces * cfg.max_bounces)
+    k2_expected["k2"] = sum(k2_expected.values())
+    chunk = chunk_census(scene, cfg, cam, keys, targets, params)
 
     # Reduced size: the kernel step against the plain step (CPU), and
     # central finite differences against autograd on the card.
@@ -2685,6 +2950,10 @@ def phase10(dev):
                 k4_expected=k4_expected,
                 k4_formula=f"{n_chunks} chunks x {traces} traces of {per} samples x "
                            f"{cfg.max_bounces} bounces",
+                k2_expected=k2_expected,
+                k2_formula=f"{n_chunks} chunks x ({traces} traces x (1 camera + "
+                           f"{cfg.max_bounces} bounces) + 1 lane-key fold)",
+                chunk_kernels=chunk,
                 small_loss=float(loss_k), small_loss_plain=float(loss_p), grad_frac=grad_frac,
                 fd=fd, **counts)
 

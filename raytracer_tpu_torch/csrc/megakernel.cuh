@@ -55,8 +55,9 @@
 
 namespace mk {
 
-// One launch of K3 or K3-profile: the lanes, the tables and the outputs
-// (cost, k1_steps and path_iters are K3-profile's, null for K3); `next`
+// One launch of K3, K3-profile or K5: the lanes, the tables and the
+// outputs (cost, k1_steps and path_iters are K3-profile's, null for K3 and
+// K5); `next`
 // is the lane-list counter (int, zero before the launch) and `chunk` the
 // lanes a block takes at a time.
 struct FusedArgs {
@@ -205,19 +206,27 @@ __global__ void __launch_bounds__(256, 4) fused_path_kernel(FusedParams p, trav:
   }
 }
 
-template <int K, bool PROFILE>
-cudaError_t launch(const FusedArgs& a) {
+// The grid of persistent blocks: as many as fill the card at the kernel's
+// occupancy, and no more than `fill`, the blocks the lanes fill (a block
+// past that would only stage the brute set and find the list done).
+template <typename F>
+cudaError_t persistent_grid(F kernel, int block, int fill, int& grid) {
   int per_sm = 0, device = 0, sms = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_path_kernel<K, PROFILE>, a.block, 0);
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, 0);
   if (e == cudaSuccess) e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // No more blocks than the lanes fill: a block past that would only stage
-  // the brute set and find the list done.
-  const int fill = (a.n + a.block - 1) / a.block;
-  const int grid = per_sm * sms < fill ? per_sm * sms : fill;
+  grid = per_sm * sms < fill ? per_sm * sms : fill;
+  return cudaSuccess;
+}
+
+template <int K, bool PROFILE>
+cudaError_t launch(const FusedArgs& a) {
+  int grid = 0;
+  const cudaError_t e =
+      persistent_grid(fused_path_kernel<K, PROFILE>, a.block, (a.n + a.block - 1) / a.block, grid);
+  if (e != cudaSuccess) return e;
   fused_path_kernel<K, PROFILE><<<grid, a.block, 0, a.stream>>>(
       a.p, a.bvh, a.pix, a.px, a.py, a.tb, a.n, a.chunk, a.next, a.out, a.cost, a.k1_steps,
       a.path_iters);

@@ -22,11 +22,13 @@
 // so the hit record is the exhaustive pass's bit for bit (a cull against
 // t_lim, which is at least the running best, skips no more); the argument and
 // the choice of the pad are at ops/cuda_traverse.py (BOX_PAD), whose
-// brute_may_hit is this rule's plain mirror. The plain traversal
-// (_traverse_plain) keeps the exhaustive pass, and so does traverse2 (K5):
-// K5 ≡ K3 on a whole frame holds the cull against it on every lane. On
-// the reference scene a traced ray tests ~3 of its 32 brute triangles
-// instead of all of them: the pre-pass was ~95% of K3's counted work.
+// brute_may_hit is this rule's plain mirror. traverse and traverse2 (K5)
+// run the same culled pre-pass (brute_prepass). The plain traversal
+// (_traverse_plain) keeps the exhaustive pass: chip_smoke.py holds K3
+// against it on every lane of the 2K frame, and K5 against the exhaustive
+// K5 of the commit before its cull (phase 15). On the reference scene a
+// traced ray tests ~3 of its 32 brute triangles instead of all of them:
+// the pre-pass was ~95% of K3's counted work.
 // Each kernel stages the brute records and the cull table once per block
 // (stage_brute) so that the warp's uniform reads cost no global load.
 //
@@ -180,6 +182,31 @@ __device__ __forceinline__ bool brute_skip(const float* __restrict__ b, float ox
   return (tf < tn) && (fabsf(g) >= sd);
 }
 
+// The culled brute pre-pass of one ray against t_lim, into h. Culls every
+// triangle first, then tests this lane's own survivors in index order: a
+// warp runs as many MT records as its busiest lane needs, not one for
+// every triangle any lane needs (a cull just before each test ran slower:
+// PERF.md §6).
+__device__ __forceinline__ void brute_prepass(const BvhView& bvh, float ox, float oy, float oz,
+                                              float dx, float dy, float dz, float ix, float iy,
+                                              float iz, float t_lim, float t_min, Hit& h) {
+  if (bvh.n_brute <= 0) return;
+  const float* fr = bvh.bbox + BOX_STRIDE * bvh.n_brute;  // c, R
+  const float s =
+      nan_max(nan_max(fabsf(ox - fr[0]), fabsf(oy - fr[1])), fabsf(oz - fr[2])) + fr[3];
+  const float sd = s * nan_max(nan_max(fabsf(dx), fabsf(dy)), fabsf(dz));
+  unsigned long long pass = 0;
+  for (int j = 0; j < bvh.n_brute; ++j)
+    if (!brute_skip(bvh.bbox + BOX_STRIDE * j, ox, oy, oz, dx, dy, dz, ix, iy, iz, sd, t_min,
+                    t_lim))
+      pass |= 1ull << j;
+  while (pass) {
+    const int j = __ffsll(static_cast<long long>(pass)) - 1;
+    pass &= pass - 1;
+    mt_record(bvh.btri + 9 * j, bvh.bprim[j], bvh.bmat[j], ox, oy, oz, dx, dy, dz, t_min, h);
+  }
+}
+
 // The brute set and its cull table, copied into shared memory once per
 // block: every lane of a warp reads the same record at the same time, and
 // a shared-memory broadcast costs no global load (the constant bank and
@@ -311,26 +338,7 @@ __device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz,
   if (!(t_lim > t_min)) return h;
 
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  if (bvh.n_brute > 0) {
-    const float* fr = bvh.bbox + BOX_STRIDE * bvh.n_brute;  // c, R
-    const float s =
-        nan_max(nan_max(fabsf(ox - fr[0]), fabsf(oy - fr[1])), fabsf(oz - fr[2])) + fr[3];
-    const float sd = s * nan_max(nan_max(fabsf(dx), fabsf(dy)), fabsf(dz));
-    // Cull every triangle against t_lim first, then test this lane's own
-    // survivors in index order: a warp runs as many MT records as its
-    // busiest lane needs, not one for every triangle any lane needs (a
-    // cull just before each test ran slower: PERF.md §6).
-    unsigned long long pass = 0;
-    for (int j = 0; j < bvh.n_brute; ++j)
-      if (!brute_skip(bvh.bbox + BOX_STRIDE * j, ox, oy, oz, dx, dy, dz, ix, iy, iz, sd, t_min,
-                      t_lim))
-        pass |= 1ull << j;
-    while (pass) {
-      const int j = __ffsll(static_cast<long long>(pass)) - 1;
-      pass &= pass - 1;
-      mt_record(bvh.btri + 9 * j, bvh.bprim[j], bvh.bmat[j], ox, oy, oz, dx, dy, dz, t_min, h);
-    }
-  }
+  brute_prepass(bvh, ox, oy, oz, dx, dy, dz, ix, iy, iz, t_lim, t_min, h);
 
   int stack[STACK_CAP];
   int sp = 0;
@@ -387,10 +395,9 @@ struct Ray {
 // stack and its own t_best, so that one thread keeps two independent
 // chains of dependent loads in flight. A ray whose walk has ended idles
 // while the other goes on. Each ray takes exactly the steps traverse
-// takes for it, in the same order, so h0 and h1 equal traverse's bit for
-// bit. Its brute pre-pass stays exhaustive on purpose: K5 is the port of the
-// JAX package's G = 2 kernel, and its equality with K3 on whole frames
-// checks traverse's culled pre-pass against the exhaustive one.
+// takes for it, in the same order, its culled brute pre-pass included
+// (the caller stages the brute set: stage_brute), so h0 and h1 equal
+// traverse's bit for bit.
 template <int K>
 __device__ inline void traverse2(const BvhView& bvh, const Ray& r0, const Ray& r1, float t_min,
                                  Hit& h0, Hit& h1) {
@@ -400,16 +407,14 @@ __device__ inline void traverse2(const BvhView& bvh, const Ray& r0, const Ray& r
   bool go1 = r1.t_lim > t_min;
   if (!(go0 || go1)) return;
 
-  for (int j = 0; j < bvh.n_brute; ++j) {
-    const float* rec = bvh.btri + 9 * j;
-    if (go0) mt_record(rec, bvh.bprim[j], bvh.bmat[j], r0.ox, r0.oy, r0.oz, r0.dx, r0.dy, r0.dz,
-                       t_min, h0);
-    if (go1) mt_record(rec, bvh.bprim[j], bvh.bmat[j], r1.ox, r1.oy, r1.oz, r1.dx, r1.dy, r1.dz,
-                       t_min, h1);
-  }
-
   const float ix0 = 1.0f / r0.dx, iy0 = 1.0f / r0.dy, iz0 = 1.0f / r0.dz;
   const float ix1 = 1.0f / r1.dx, iy1 = 1.0f / r1.dy, iz1 = 1.0f / r1.dz;
+  if (go0)
+    brute_prepass(bvh, r0.ox, r0.oy, r0.oz, r0.dx, r0.dy, r0.dz, ix0, iy0, iz0, r0.t_lim, t_min,
+                  h0);
+  if (go1)
+    brute_prepass(bvh, r1.ox, r1.oy, r1.oz, r1.dx, r1.dy, r1.dz, ix1, iy1, iz1, r1.t_lim, t_min,
+                  h1);
   int stack0[STACK_CAP], stack1[STACK_CAP];
   int sp0 = 0, sp1 = 0;
   int task0 = 0, task1 = 0;  // the root

@@ -23,7 +23,6 @@ from torch.utils.checkpoint import checkpoint
 from raytracer_tpu_torch.ops import intersect as isect
 from raytracer_tpu_torch.ops import materials as mat_ops
 from raytracer_tpu_torch.ops import tonemap
-from raytracer_tpu_torch.utils import rng as rngu
 from raytracer_tpu_torch.utils import vecmath as vm
 
 CHECKPOINT_ABOVE_BOUNCES = 8  # recompute each bounce in backward above this depth
@@ -78,14 +77,6 @@ def initial_state(origins, dirs) -> tuple:
     )
 
 
-def bounce_sampler(keys, sampler, bounce: int):
-    """The draws of one bounce: the ktf sampler moved to `bounce`, or the
-    jax-family lane keys folded with it."""
-    if sampler is not None:
-        return sampler.at(bounce=bounce)
-    return rngu.KeySampler(rngu.fold(keys, bounce))
-
-
 def bounce_step(scene, cfg, bounce: int, smp, state) -> tuple:
     """Advance every lane of `state` (initial_state's layout) by one
     bounce, with the draws of sampler `smp`."""
@@ -125,15 +116,17 @@ def bounce_step(scene, cfg, bounce: int, smp, state) -> tuple:
     return origins, dirs, throughput, radiance, cont[:, 0], edge_acc
 
 
-def trace_paths(scene, origins, dirs, keys, cfg, sampler=None):
-    """Path-traced radiance f32[N,3] for one sample per ray. `keys` are
-    the per-lane (pixel, sample)-folded jax-family keys (k0, k1); in the
-    ktf family pass `sampler` (utils/ktf.KtfSampler with pixel and
-    sample set) instead. Above CHECKPOINT_ABOVE_BOUNCES bounces, each bounce is recomputed in the
-    backward pass instead of kept (JAX's jax.checkpoint)."""
+def trace_paths(scene, origins, dirs, draws, cfg):
+    """Path-traced radiance f32[N,3] for one sample per ray. `draws` are
+    the trace's draws (utils/rng.TraceDraws or utils/ktf.TraceDraws):
+    each bounce takes its site `draws.bounce(b, rr)`, one draw kernel on
+    the card. Above CHECKPOINT_ABOVE_BOUNCES bounces, each bounce is
+    recomputed in the backward pass instead of kept (JAX's
+    jax.checkpoint), its draws included."""
 
     def body(bounce, *state):
-        return bounce_step(scene, cfg, bounce, bounce_sampler(keys, sampler, bounce), state)
+        return bounce_step(scene, cfg, bounce, draws.bounce(bounce, bounce >= cfg.min_bounces),
+                           state)
 
     state = initial_state(origins, dirs)
     remat = cfg.max_bounces > CHECKPOINT_ABOVE_BOUNCES and torch.is_grad_enabled()

@@ -5,8 +5,9 @@
 pixel list. On CUDA tensors it launches kernel K3 (csrc/megakernel.cu:
 persistent blocks whose threads take lanes from the list and loop their
 samples and bounces, K1 and K2 inline), or
-with `interleave=2` (RAYTRACER_TPU_INTERLEAVE=2) K5 (csrc/interleave.cu:
-two lanes per thread, their traversals merged), or with `profile=True`
+with `interleave=2` (RAYTRACER_TPU_INTERLEAVE=2) K5 (csrc/interleave.cuh:
+K3's persistent blocks with two lanes per thread, their traversals
+merged), or with `profile=True`
 K3-profile, which also returns the per-lane cost and the per-packet aux
 plane that `schedule.build_schedule` reads. On CPU tensors it runs
 `_render_plain`, the plain PyTorch version of all three: K5 equals K3
@@ -43,7 +44,7 @@ MAX_MATERIALS = cudalib.MAX_MATERIALS
 PACKET = 1024          # lanes per "packet" in host_chunk_packets units
 WARP = 32
 KERNEL_BLOCK = 128     # threads per block of K3, K3-profile and K5
-KERNEL_CHUNK = 64      # lanes a block of K3 / K3-profile takes from the lane list at a time
+KERNEL_CHUNK = 64      # lanes a block of K3, K3-profile or K5 takes from the lane list at a time
 SKY_TOP = (0.5, 0.7, 1.0)
 # Launches counted by the wrapper: K3, K5 (G = 2) and K3-profile.
 LAUNCHES = {"render_fused": 0, "render_fused_g2": 0, "render_fused_profile": 0}
@@ -221,7 +222,7 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, chu
     lanes: radiance SUM f32[N,3]; K3-profile also cost f32[N], aux f32[N]
     and the lane K1 steps and path iterations, i32[N] each. K3 and
     K3-profile take the lanes `chunk` at a time through a counter on the
-    card that starts at 0."""
+    card that starts at 0; so does K5, two lanes per thread."""
     n = pix.shape[0]
     # The int32 counter passes n by at most one chunk per block (< 2**13
     # blocks: 32 per SM).
@@ -266,7 +267,8 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, chu
         LAUNCHES["render_fused_profile"] += 1
         return out, cost, aux, scratch[0], scratch[1]
     if kind == "g2":
-        code = L.rt_render_fused_g2(*args, block, cudalib.stream_handle())
+        code = L.rt_render_fused_g2(*args, block, chunk, lane_list.data_ptr(),
+                                    cudalib.stream_handle())
         cudalib.check(code, "fused path-loop kernel (G=2)")
         LAUNCHES["render_fused_g2"] += 1
         return out
@@ -369,8 +371,9 @@ def render_tiles_fused(scene, cam, cfg, seed: int, px, py, spp=None, sample_offs
     a split spp give the samples a single pass would. `host_chunk_packets`
     splits the lanes into launches of that many 1024-lane packets; lanes
     are independent, so the result is identical. `block` is the threads
-    per block and `chunk` the lanes a block of K3 takes from the lane list
-    at a time: launch shapes that do not change the image."""
+    per block and `chunk` the lanes a block of K3 (or K3-profile, or K5)
+    takes from the lane list at a time: launch shapes that do not change
+    the image."""
     if px.device.type not in ("cuda", "cpu"):
         raise ValueError(f"render_tiles_fused: unsupported device {px.device}")
     return _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets,

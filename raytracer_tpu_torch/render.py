@@ -47,27 +47,22 @@ def render_pixels(scene, cam, px, py, cfg, key, spp: int | None = None,
     pixel_ids = py * cfg.width + px
     per_pass = samples_per_trace(cfg, n, spp)
 
-    if cfg.rng_impl == "ktf":
-        base = ktf.sampler((k0, k1), pixel_ids)
-    else:
+    if cfg.rng_impl != "ktf":
         pkeys = rngu.lane_keys((k0, k1), pixel_ids)
 
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     for s0 in range(0, spp, per_pass):
         m = min(per_pass, spp - s0)
         # Lanes are sample-major: lane j*n + i is pixel i at sample s0+j.
-        samples = (torch.arange(m, dtype=torch.int32, device=dev) + (s0 + sample_offset))
-        samples = samples.repeat_interleave(n)
-        lpx, lpy = px.repeat(m), py.repeat(m)
+        # Each trace's draws take one kernel per camera and per bounce on
+        # the card (utils/ktf.TraceDraws, utils/rng.TraceDraws).
         if cfg.rng_impl == "ktf":
-            smp = ktf.sampler(
-                (_tile(base.k0, m), _tile(base.k1, m)), base.pixel.repeat(m), samples, 0)
-            origins, dirs = generate_rays(cam, lpx, lpy, cfg.width, cfg.height, smp)
-            rad = megakernel.trace_paths(scene, origins, dirs, None, cfg, sampler=smp)
+            draws = ktf.TraceDraws(k0, k1, pixel_ids.to(torch.int32), m, s0 + sample_offset)
         else:
-            skeys = rngu.fold((_tile(pkeys[0], m), _tile(pkeys[1], m)), samples)
-            origins, dirs = generate_rays(cam, lpx, lpy, cfg.width, cfg.height, skeys)
-            rad = megakernel.trace_paths(scene, origins, dirs, skeys, cfg)
+            draws = rngu.TraceDraws(pkeys, m, s0 + sample_offset)
+        origins, dirs = generate_rays(cam, px.repeat(m), py.repeat(m), cfg.width, cfg.height,
+                                      draws.camera())
+        rad = megakernel.trace_paths(scene, origins, dirs, draws, cfg)
         rad = rad.reshape(m, n, 3)
         for j in range(m):
             acc = acc + rad[j]
@@ -79,11 +74,6 @@ def samples_per_trace(cfg, n_pixels: int, spp: int) -> int:
     many as fit in cfg.max_rays_per_pass lanes (at least one). Each trace
     launches K4 once per bounce."""
     return max(1, min(spp, cfg.max_rays_per_pass // max(n_pixels, 1)))
-
-
-def _tile(words, m):
-    """Key words (0-d or per lane) repeated for m sample-major copies."""
-    return words if words.dim() == 0 else words.repeat(m)
 
 
 def pixel_grid(cfg, device=None):

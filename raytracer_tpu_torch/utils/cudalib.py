@@ -163,6 +163,10 @@ def lib() -> ctypes.CDLL:
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     L.rt_ktf_threefry.argtypes = [cu, cu, vp, vp, ci, vp, vp, ci, vp]
     L.rt_ktf_threefry_keyed.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, vp]
+    L.rt_draws_camera_jax.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
+    L.rt_draws_bounce_jax.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+    L.rt_draws_camera_ktf.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp, vp]
+    L.rt_draws_bounce_ktf.argtypes = [vp, vp, ci, vp, ci, ci, ci, ci, ci, vp, vp]
     L.rt_trace_closest.argtypes = [ctypes.POINTER(BvhView), vp, vp, vp, cf, cf, ci, vp,
                                    vp, vp, vp, vp, vp, ci, vp]
     L.rt_coherence_keys.argtypes = [vp, vp, vp, ci, vp, vp]
@@ -170,7 +174,7 @@ def lib() -> ctypes.CDLL:
     L.rt_trace_closest_attrs.argtypes = [ci, ip, ip]
     fused = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView), vp, vp, vp, vp, vp, vp, vp, ci]
     L.rt_render_fused.argtypes = fused + [vp, ci, ci, vp, vp]
-    L.rt_render_fused_g2.argtypes = fused + [vp, ci, vp]
+    L.rt_render_fused_g2.argtypes = fused + [vp, ci, ci, vp, vp]
     L.rt_render_fused_profile.argtypes = fused + [vp, vp, vp, vp, vp, ci, ci, vp, vp]
     L.rt_render_fused_attrs.argtypes = [ci, ci, ip, ip]
     L.rt_render_fused_g2_attrs.argtypes = [ci, ip, ip]
@@ -194,7 +198,9 @@ def lib() -> ctypes.CDLL:
     for name in ("interleave", "scalar", "vstack", "ktf", "mosaic", "feature", "bitcast",
                  "morph"):
         getattr(L, f"rt_probe_{name}_attrs").argtypes = [ci, ip, ip]
-    for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_trace_closest,
+    for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_draws_camera_jax,
+               L.rt_draws_bounce_jax, L.rt_draws_camera_ktf, L.rt_draws_bounce_ktf,
+               L.rt_trace_closest,
                L.rt_coherence_keys, L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
                L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_probe_v8,
                L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs, L.rt_probe_interleave,

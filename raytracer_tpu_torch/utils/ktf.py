@@ -2,7 +2,9 @@
 raytracer_tpu/utils/ktf.py).
 
 This is the plain PyTorch version of kernel K2; the CUDA version is
-`csrc/ktf.cuh`, compiled into the path-loop kernel. Both follow one
+`csrc/ktf.cuh`, compiled into the path-loop kernel, and `csrc/ktf.cu`,
+whose draw kernels give the differentiable path one launch per draw
+site (`TraceDraws`, `Draws`). Both follow one
 spec — standard Threefry-2x32 (20 rounds) with the counter layout
 
   c0 = pixel_id
@@ -210,7 +212,9 @@ def sampler(key, pixel_ids, sample=0, bounce=0) -> KtfSampler:
                       kernel=True)
 
 
-LAUNCHES = {"threefry2x32": 0}  # K2 launches (both entry points of csrc/ktf.cu)
+# K2 launches: the Threefry blocks of csrc/ktf.cu's two entry points, and
+# its draw kernels (camera and bounce draws, both families).
+LAUNCHES = {"threefry2x32": 0, "camera_draws": 0, "bounce_draws": 0}
 PLAIN_CALLS = {"threefry2x32": 0}  # calls of the plain Threefry (K2's plain version)
 KERNEL_BLOCK = 256
 
@@ -248,3 +252,165 @@ def threefry2x32_kernel(k0, k1, c0, c1):
     cudalib.check(code, "threefry2x32 kernel")
     LAUNCHES["threefry2x32"] += 1
     return x0.reshape(shape), x1.reshape(shape)
+
+
+# --- draw sites: one kernel launch per site on the card -------------------
+
+
+class Draws:
+    """The Sampler protocol over the numbers of one draw site, which
+    `make()` returns as a dict (jitter_u, jitter_v, lens_x, lens_y at a
+    trace's camera; rr, scatter, dielectric at a bounce) on the first
+    call of any method: one draw kernel on CUDA tensors, the per-method
+    chain on CPU tensors. Draws are counter-based, so computing a site's
+    numbers together changes none of them."""
+
+    def __init__(self, make):
+        self._make, self._out = make, None
+
+    def numbers(self) -> dict:
+        if self._out is None:
+            self._out = self._make()
+        return self._out
+
+    def jitter_uv(self):
+        d = self.numbers()
+        return d["jitter_u"], d["jitter_v"]
+
+    def lens_disk(self):
+        d = self.numbers()
+        return d["lens_x"], d["lens_y"]
+
+    def rr_uniform(self):
+        d = self.numbers()
+        if "rr" not in d:
+            raise ValueError("this bounce's draws were made without the roulette draw "
+                             "(bounce below min_bounces)")
+        return d["rr"]
+
+    def scatter_unit_vector(self):
+        return self.numbers()["scatter"]
+
+    def dielectric_uniform(self):
+        return self.numbers()["dielectric"]
+
+
+@dataclass(frozen=True)
+class TraceDraws:
+    """The draws of one trace of render.render_pixels in the ktf family:
+    `samples` samples of the n pixels `pixel`, sample-major (lane l is
+    pixel l % n at sample s0 + l // n), under key words k0, k1 (int32,
+    0-d or one per pixel). `camera()` and `bounce(b, rr)` are the trace's
+    draw sites."""
+
+    k0: torch.Tensor
+    k1: torch.Tensor
+    pixel: torch.Tensor   # i32[n]
+    samples: int
+    s0: int
+
+    def camera(self) -> Draws:
+        return Draws(lambda: camera_draws(self))
+
+    def bounce(self, bounce: int, rr: bool) -> Draws:
+        return Draws(lambda: bounce_draws(self, bounce, rr))
+
+    def sampler(self, bounce: int, kernel: bool = False) -> KtfSampler:
+        """The per-method chain over the trace's lanes (tiled keys and
+        pixel ids, a sample per lane) at `bounce`."""
+        n, m, dev = self.pixel.shape[0], self.samples, self.pixel.device
+        samples = (torch.arange(m, dtype=torch.int32, device=dev) + self.s0).repeat_interleave(n)
+
+        def tile(w):
+            return w if w.dim() == 0 else w.repeat(m)
+
+        return KtfSampler(tile(self.k0), tile(self.k1), self.pixel.repeat(m), samples,
+                          torch.tensor(bounce, dtype=torch.int32, device=dev), kernel=kernel)
+
+
+def camera_draws_plain(trace: TraceDraws, kernel: bool = False) -> dict:
+    """Plain version of the ktf camera draw kernel: KtfSampler's chain
+    (K2 for each draw with kernel=True, the route before the kernel)."""
+    smp = trace.sampler(0, kernel)
+    ju, jv = smp.jitter_uv()
+    lx, ly = smp.lens_disk()
+    return dict(jitter_u=ju, jitter_v=jv, lens_x=lx, lens_y=ly)
+
+
+def bounce_draws_plain(trace: TraceDraws, bounce: int, rr: bool, kernel: bool = False) -> dict:
+    """Plain version of the ktf bounce draw kernel (KtfSampler's chain)."""
+    smp = trace.sampler(bounce, kernel)
+    out = dict(scatter=smp.scatter_unit_vector(), dielectric=smp.dielectric_uniform())
+    if rr:
+        out["rr"] = smp.rr_uniform()
+    return out
+
+
+def _lanes(n: int, samples: int) -> int:
+    total = n * samples
+    if total >= 2 ** 31:
+        raise ValueError(f"{total} lanes: the draw kernels index them with int32")
+    return total
+
+
+def camera_outputs(total: int, dev):
+    """The camera draw kernels' output: rows jitter u, jitter v, lens x,
+    lens y of f32[total] each, and their dict."""
+    out = torch.empty((4, total), dtype=torch.float32, device=dev)
+    return out, dict(jitter_u=out[0], jitter_v=out[1], lens_x=out[2], lens_y=out[3])
+
+
+def bounce_outputs(total: int, rr: bool, dev):
+    """The bounce draw kernels' output: rows roulette and dielectric of
+    f32[total] each, then the unit vectors f32[total, 3], and their dict."""
+    out = torch.empty((5 * total,), dtype=torch.float32, device=dev)
+    d = dict(dielectric=out[total:2 * total], scatter=out[2 * total:].view(total, 3))
+    if rr:
+        d["rr"] = out[:total]
+    return out, d
+
+
+def _trace_args(trace: TraceDraws):
+    from raytracer_tpu_torch.utils import cudalib
+
+    n = trace.pixel.shape[0]
+    cudalib.require_cuda("pixel", trace.pixel, torch.int32, (n,))
+    step = 0 if trace.k0.dim() == 0 else 1
+    for name, k in (("k0", trace.k0), ("k1", trace.k1)):
+        cudalib.require_cuda(name, k, torch.int32, () if step == 0 else (n,))
+    return (trace.k0.data_ptr(), trace.k1.data_ptr(), step, trace.pixel.data_ptr(), n,
+            _lanes(n, trace.samples), int(trace.s0))
+
+
+def camera_draws(trace: TraceDraws) -> dict:
+    """The ktf family's camera draws of a trace: one launch of the camera
+    draw kernel (csrc/ktf.cu) on CUDA tensors, the plain version on CPU
+    tensors."""
+    if trace.pixel.device.type == "cpu":
+        return camera_draws_plain(trace)
+    from raytracer_tpu_torch.utils import cudalib
+
+    args = _trace_args(trace)
+    out, d = camera_outputs(args[5], trace.pixel.device)
+    cudalib.check(cudalib.lib().rt_draws_camera_ktf(*args, out.data_ptr(),
+                                                    cudalib.stream_handle()),
+                  "camera draw kernel (ktf)")
+    LAUNCHES["camera_draws"] += 1
+    return d
+
+
+def bounce_draws(trace: TraceDraws, bounce: int, rr: bool) -> dict:
+    """The ktf family's draws of one bounce of a trace (the roulette draw
+    only when `rr`): one launch of the bounce draw kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if trace.pixel.device.type == "cpu":
+        return bounce_draws_plain(trace, bounce, rr)
+    from raytracer_tpu_torch.utils import cudalib
+
+    args = _trace_args(trace)
+    out, d = bounce_outputs(args[5], rr, trace.pixel.device)
+    cudalib.check(cudalib.lib().rt_draws_bounce_ktf(*args, int(bounce), int(bool(rr)),
+                                                    out.data_ptr(), cudalib.stream_handle()),
+                  "bounce draw kernel (ktf)")
+    LAUNCHES["bounce_draws"] += 1
+    return d

@@ -4,12 +4,14 @@ Marked `cuda`: these skip without an NVIDIA card (a CUDA kernel has no
 CPU mode). On the machine with the card:
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 chip_smoke.py runs these checks on the reference scene at larger sizes:
-K2 on 2^20 counters, K4 on 131,072 rays, K3 on the preflight frame and
+K2 on 2^20 counters, its draw kernels on the training path's 1,048,576
+lanes, K4 on 131,072 rays, K3 on the preflight frame and
 on 16,384 seeded pixels of the 2560x1440 spp 8 mb 20 main-path frame,
 K4's sort route (key kernel, argsort, K4 through the permutation) on a
 262,144-ray bounce wavefront and on the training path's two
 1,048,576-ray wavefronts, the training step
-at the INVERSE_r05 width, K5 against K3 on the whole 2K frame,
+at the INVERSE_r05 width, K5 against K3 and K3 against the plain version
+on the whole 2K frame,
 K3-profile against K3 and its plain version, the culled K3 against the
 parent commit's kernels (phase 15, opt-in), the traversal-iteration
 probes at the scripts' sizes (phase 13; P-morph also at 1,056 packets),
@@ -399,6 +401,78 @@ def test_probe_resources(dev):
     more = [*interleave_probe.kernel_resources().values(),
             *scalar_cost.kernel_resources().values(), *vstack.kernel_resources().values()]
     assert all(r > 0 for r, _ in list(regs8.values()) + list(regs5.values()) + more)
+
+
+def _max_ulp(a, b):
+    return int((a.contiguous().view(torch.int32).long()
+                - b.contiguous().view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.parametrize("family", ["jax", "ktf"])
+def test_draw_kernels_match_the_chain(dev, family):
+    """The draw kernels ≡ the per-method chain on the card (kernel=False)
+    on 2^20 lanes (131,072 pixels x 8 samples, key words per pixel):
+    keys, bits and uniforms bit for bit; the unit vectors and disks,
+    which go through log1pf or cos/sin, within the 3 ulp that
+    tests/test_torch_rng.py states for the port's normals (on the card
+    they have agreed bit for bit)."""
+    rs = np.random.default_rng(10)
+    n, m = 1 << 17, 8
+    words = [torch.from_numpy(rs.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
+             for _ in range(2)]
+    pix = torch.from_numpy(rs.integers(0, 2560 * 1440, n).astype(np.int32)).to(dev)
+    before = dict(ktf.LAUNCHES)
+    if family == "jax":
+        from raytracer_tpu_torch.utils import rng
+
+        pkeys = rng.lane_keys(tuple(words), pix)
+        cam, cam_p = rng.camera_draws(pkeys, m, 3), rng.camera_draws_plain(pkeys, m, 3)
+        assert all(torch.equal(a, b) for a, b in zip(cam.pop("keys"), cam_p.pop("keys")))
+        keys = rng.camera_draws_plain(pkeys, m, 3)["keys"]
+        sites = [(cam, cam_p)] + [(rng.bounce_draws(keys, b, rr),
+                                   rng.bounce_draws_plain(keys, b, rr))
+                                  for b, rr in ((0, False), (5, True))]
+    else:
+        tr = ktf.TraceDraws(words[0], words[1], pix, m, 3)
+        sites = [(ktf.camera_draws(tr), ktf.camera_draws_plain(tr))] + [
+            (ktf.bounce_draws(tr, b, rr), ktf.bounce_draws_plain(tr, b, rr))
+            for b, rr in ((0, False), (5, True))]
+    assert ktf.LAUNCHES["camera_draws"] == before["camera_draws"] + 1
+    assert ktf.LAUNCHES["bounce_draws"] == before["bounce_draws"] + 2
+    for got, want in sites:
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].shape == want[k].shape, k
+            if k in ("scatter", "lens_x", "lens_y"):
+                assert _max_ulp(got[k], want[k]) <= 3, k
+            else:
+                assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("width", [8, 4])
+@pytest.mark.parametrize("n", [1, 37, 1000])
+def test_k5_lane_list_corners(dev, width, n):
+    """K5's lane list at the corners test_k3_lane_list_corners holds K3
+    to: fewer lanes than a block's threads, an odd lane count, a chunk of
+    1 and chunks larger than the block. Each lane's radiance is K3's bit
+    for bit, over repeated launches, at tree widths 8 and 4."""
+    with tree_width(width):
+        scene = cornell_materials_scene().to(dev)
+    assert scene.bvh4.children.shape[1] == width
+    cfg = RenderConfig(width=128, height=32, spp=2, max_bounces=8)
+    cam = showcase_camera(cfg)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    whole = cuda_megakernel.render_tiles_fused(scene, cam, cfg, 3, px, py, interleave=1)
+    pick = np.random.default_rng(n).choice(px.shape[0], n, replace=False)
+    lanes = torch.from_numpy(pick).to(dev)
+    want = whole[lanes]
+    for block, chunk in ((32, 1), (32, 96), (256, 1), (64, 5)):
+        for _ in range(3):
+            got = cuda_megakernel.render_tiles_fused(scene, cam, cfg, 3, px[lanes], py[lanes],
+                                                     block=block, chunk=chunk, interleave=2)
+            bad = torch.nonzero((got != want).any(dim=1)).squeeze(1)
+            assert torch.equal(got, want), (block, chunk, bad.numel(), bad[:4].tolist(),
+                                            got[bad[:2]].tolist(), want[bad[:2]].tolist())
 
 
 @pytest.fixture(scope="module")
