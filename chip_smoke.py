@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (raytracer_tpu_torch) on one
 NVIDIA card: builds every kernel from csrc/, checks each against its
-plain PyTorch version, and drives the port's two paths:
+plain PyTorch version, and drives the port's three paths:
 
   * K2 (phase 3): Threefry blocks bit for bit, the kernel alone and
     through its wrapper; the draw kernels (a trace's camera draws, a
@@ -30,7 +30,11 @@ plain PyTorch version, and drives the port's two paths:
     K3 in turns, the kernels' registers and local memory, and the CLI
     under RAYTRACER_TPU_INTERLEAVE=2; and the witness of the brute cull on
     whole frames: K3 against the plain version (exhaustive pre-pass) bit
-    for bit on every lane of the 2K frame;
+    for bit on every lane of the 2K frame; then the lane list's corners
+    (four block and chunk cases at 1, 37 and 1,000 lanes), 200 times each
+    at tree widths 8 and 4 through K3 and K5 against K3's whole list, with
+    every kernel output NaN-filled before its launch (a lost lane shows
+    as NaN);
   * K3-profile and the profile-guided schedule (phase 12): profile rgb
     bitwise equal to K3 and its cost / aux equal to the plain version's
     at the preflight size; build_schedule at the main configuration,
@@ -83,18 +87,32 @@ plain PyTorch version, and drives the port's two paths:
     with RAYTRACER_TPU_INTERLEAVE=2, megakernel) on the 4-wide tree with
     the launch counts from 0.
 
+  * the wavefront integrator (phase 16, models/wavefront.py: K4 once
+    per iteration, K2's Threefry for the per-lane draws): the preflight
+    frame's known answers in both draw families (within 2%), the 2K frame
+    against K3 under the image tolerance, the drain cascade on and off bit
+    for bit, the jax family against the megakernel renderer, K4 on one of
+    the 2K frame's own first-stage calls (per-ray limits, -1 for dead
+    lanes) against its plain version bit for bit, the frame's seconds
+    (median of 3), iterations per cascade stage, host reads, launches,
+    peak memory, kernels and busy share (torch.profiler over one 2K
+    frame), and the CLI without --integrator plus a --checkpoint resume
+    that equals the uninterrupted render bit for bit.
+
 Every kernel row carries its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the peak rate of their type (fp32: 67 TFLOP/s), counted from this
 run's inputs (H100 SXM datasheet peaks).
 
-    python3 chip_smoke.py              # phases 1-14 (what CI runs)
+    python3 chip_smoke.py              # phases 1-14 and 16 (what CI runs)
+    python3 chip_smoke.py --phases 16  # the wavefront alone
     python3 chip_smoke.py --phases 1,2,3   # a subset, while debugging
     python3 chip_smoke.py --phases 15 --parent renders/parent   # old against new
                                      # (renders/parent: `git archive` of the parent commit)
 
 Every phase raises on failure, so the script exits non-zero. The last
 lines are a `train` JSON line (phase 10), a `probes` JSON line (phase 13),
+a `wavefront` JSON line (phase 16),
 a JSON object with one entry per kernel and {"ok": true, "device": {...}}. It needs a CUDA card and
 imports nothing of JAX.
 """
@@ -103,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import json
 import os
 import subprocess
@@ -156,6 +175,26 @@ P12_PACKETS = 16
 # is held to its plain version at this many iterations over all packets.
 P13_CHECK_ITERS = 16
 P13_FILL_PACKETS = 1056    # 8 blocks of 8 warps per SM on 132 SMs
+# After this many seconds every thread's traceback is printed and the run
+# exits non-zero: a launch that never ends then names its place, inside
+# the 1,200 s a smoke run may take.
+WATCHDOG_S = 1150
+# Phase 11's lane-list repeats: each (block, chunk) corner of the card
+# tests' lane-list cases, at these lane counts, at tree widths 8 and 4,
+# through K3 and K5, against K3's whole list (itself re-rendered each time).
+LANE_CASES = ((32, 1), (32, 96), (256, 1), (64, 5))
+LANE_COUNTS = (1, 37, 1000)
+LANE_REPEATS = 200
+LANE_CHUNK1_REPEATS = 1000  # then the largest count at chunk 1, per block of 32 and 256
+# Phase 16: the wavefront integrator (models/wavefront.py).
+P16_SMALL = dict(width=256, height=144, spp=4, max_bounces=8)
+P16_CLI = dict(width=640, height=360, spp=4, max_bounces=8)
+P16_FRAMES = 3             # timed 2K frames (median)
+P16_CAPTURE_CALL = 8       # the 2K frame's K4 call whose rays are held to the plain version
+# The first K2 Threefry call from this one on with a per-lane sample and
+# bounce (ktf family, one key) or per-lane keys and fold data (jax family,
+# the keyed entry) is held to the plain version bit for bit.
+P16_K2_CAPTURE_FROM = 40
 # Peaks for the bounds: H100 SXM (NVIDIA H100 datasheet) and the
 # Hopper SM's 64 INT32 units (NVIDIA H100 Tensor Core GPU Architecture
 # whitepaper), at the card's own maximum SM clock for int32.
@@ -315,13 +354,15 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
-                    help="comma-separated phases to run (default: 1-14; phase 15 needs --parent)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16",
+                    help="comma-separated phases to run (default: 1-14 and 16; phase 15 needs "
+                         "--parent)")
     ap.add_argument("--parent", default=None,
                     help="phase 15: a directory holding the parent commit's tree "
                          "(e.g. from git archive)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
     import torch
 
@@ -377,7 +418,7 @@ def main(argv=None) -> int:
     scene = None
     if 15 in phases and not args.parent:
         raise SystemExit("chip_smoke: phase 15 needs --parent DIR (the parent commit's tree)")
-    if phases & {4, 5, 6, 7, 8, 9, 11, 12, 14, 15}:
+    if phases & {4, 5, 6, 7, 8, 9, 11, 12, 14, 15, 16}:
         t0 = time.perf_counter()
         scene_cpu = reference_scene()
         scene = scene_cpu.to(dev)
@@ -734,6 +775,12 @@ def main(argv=None) -> int:
         r11 = phase11(scene, dev, smi)
         kernels["K5"] = r11["row"]
         log(11, r11["msg"])
+        lanes = lane_list_repeats(dev)
+        kernels["K5"].update(lane_list_repeat_launches=lanes["launches"]["K5"],
+                             lane_list_repeat_lanes=lanes["lanes"]["K5"])
+        kernels.setdefault("K3", {}).update(lane_list_repeat_launches=lanes["launches"]["K3"],
+                                            lane_list_repeat_lanes=lanes["lanes"]["K3"])
+        log(11, lanes["msg"])
 
     if 12 in phases:
         r12 = phase12(scene, dev, smi)
@@ -760,6 +807,22 @@ def main(argv=None) -> int:
         kernels.update(r14["rows"])
         log(14, r14["msg"])
 
+    wave = None
+    if 16 in phases:
+        r16 = phase16(scene, dev, smi)
+        wave = r16["counts"]
+        k4w = r16["k4"]
+        kernels.setdefault("K4", {}).update(
+            wavefront_ms=k4w["ms"]["unsorted"][0], wavefront_ms_kernel=k4w["ms"]["kernel"][0],
+            wavefront_rays=k4w["rays"], wavefront_bound_ms=k4w["bound"]["bound_ms"],
+            wavefront_bound_by=k4w["bound"]["bound_by"],
+            wavefront_plain_ms=k4w["plain_ms_subset"]["unsorted"],
+            wavefront_max_abs_err=k4w["max_abs_err"])
+        kernels.setdefault("K2", {}).update(
+            {f"wavefront_{k}_{f}": v[f] for k, v in r16["k2"].items()
+             for f in ("lanes", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+        print(json.dumps({"wavefront": r16["summary"]}), flush=True)
+
     if 15 in phases:
         r15 = phase15(scene, dev, smi, args.parent)
         print(json.dumps({"old_vs_new": r15["json"]}), flush=True)
@@ -774,6 +837,9 @@ def main(argv=None) -> int:
     # (their entry points); the width-4 kernels in phase 14 (the CLI on
     # the 4-wide tree). K1 is __device__ code inside K3 and K4, and K2
     # runs inline in K3 too: those rows add the serving path's K3 launches.
+    # The wavefront path (phase 16) adds its own counts, from 0 just before
+    # one 2K frame: K4's and K1's (one per iteration) and K2's Threefry
+    # launches, as wavefront_path_launches fields.
     # ms / plain_ms / max_abs_err / the bound come from the phase that
     # times each kernel alone (3, 4, 5/7, 8, 11, 12, 13, 14).
     src = "raytracer_tpu_torch/csrc/"
@@ -784,10 +850,13 @@ def main(argv=None) -> int:
         ("bvh8_traverse (K1, inline in K3 and K4; timed alone through K4 trace_closest.cu)",
          "traverse.cuh", "raytracer_tpu/ops/pallas_traverse.py:319", "K1", t_k4,
          {"launches_are": "K4 launches of the training path, which runs this code inline",
-          "serving_path_launches_via_K3": launches}),
-        ("threefry2x32 (K2: standalone in the differentiable path's key folds, inline in K3)",
+          "serving_path_launches_via_K3": launches,
+          "wavefront_path_launches_via_K4": wave["k4"] if wave else 0}),
+        ("threefry2x32 (K2: standalone in the differentiable path's key folds and the "
+         "wavefront's draws, inline in K3)",
          "ktf.cu", "raytracer_tpu/utils/ktf.py:65", "K2", train["k2_threefry"] if train else 0,
-         {"serving_path_launches_via_K3": launches}),
+         {"serving_path_launches_via_K3": launches,
+          "wavefront_path_launches": wave["k2_threefry"] if wave else 0}),
         ("camera draws (K2: a trace's jitter and lens draws, and the jax family's lane keys, "
          "in one launch)", "ktf.cu", "raytracer_tpu/utils/rng.py:41-120 (the jax.random draws "
          "XLA fuses; Threefry raytracer_tpu/utils/ktf.py:65)", "K2-camera",
@@ -797,7 +866,7 @@ def main(argv=None) -> int:
          "Threefry raytracer_tpu/utils/ktf.py:65)", "K2-bounce",
          train["k2_bounce"] if train else 0, {}),
         ("trace_closest (K4)", "trace_closest.cu", "raytracer_tpu/ops/pallas_traverse.py:907",
-         "K4", t_k4, {}),
+         "K4", t_k4, {"wavefront_path_launches": wave["k4"] if wave else 0}),
         ("trace_closest coherence-sorted (K4-sort: the key kernel, the argsort, K4 through the "
          "permutation)", "trace_closest.cu", "raytracer_tpu/ops/pallas_traverse.py:961", "K4-sort",
          train["k4_sorted"] if train else 0,
@@ -2161,10 +2230,9 @@ def phase14(scene8, dev, smi):
 
 
 class _ParentLib:
-    """The parent commit's kernel library behind this tree's wrappers. Its
-    K3, K3-profile, K4, key kernel and K2 take this tree's signatures; its
-    K5 takes no lane list, so rt_render_fused_g2 drops the chunk and the
-    counter (the parent's K5 fixes two lanes to each thread)."""
+    """The parent commit's kernel library behind this tree's wrappers: its
+    K3, K3-profile, K5, K4, key kernel and K2 take this tree's signatures.
+    Translate here any signature a later tree changes."""
 
     def __init__(self, path):
         import ctypes
@@ -2176,7 +2244,7 @@ class _ParentLib:
         pv, ip = ctypes.POINTER(cudalib.BvhView), ctypes.POINTER(ctypes.c_int)
         fused = [ctypes.POINTER(cudalib.FusedParams), pv] + [vp] * 7 + [ci]
         L.rt_render_fused.argtypes = fused + [vp, ci, ci, vp, vp]
-        L.rt_render_fused_g2.argtypes = fused + [vp, ci, vp]
+        L.rt_render_fused_g2.argtypes = fused + [vp, ci, ci, vp, vp]
         L.rt_render_fused_profile.argtypes = fused + [vp] * 5 + [ci, ci, vp, vp]
         L.rt_render_fused_attrs.argtypes = [ci, ci, ip, ip]
         L.rt_render_fused_g2_attrs.argtypes = [ci, ip, ip]
@@ -2188,17 +2256,13 @@ class _ParentLib:
         L.rt_error_string.argtypes = [ci]
         L.rt_error_string.restype = ctypes.c_char_p
         self.L = L
-        for name in ("rt_render_fused", "rt_render_fused_profile", "rt_render_fused_attrs",
-                     "rt_render_fused_g2_attrs", "rt_trace_closest", "rt_coherence_keys",
+        for name in ("rt_render_fused", "rt_render_fused_g2", "rt_render_fused_profile",
+                     "rt_render_fused_attrs", "rt_render_fused_g2_attrs", "rt_trace_closest",
+                     "rt_coherence_keys",
                      "rt_trace_closest_attrs", "rt_ktf_threefry", "rt_ktf_threefry_keyed"):
             getattr(L, name).restype = ci
             setattr(self, name, getattr(L, name))
         self.rt_error_string = L.rt_error_string
-
-    def rt_render_fused_g2(self, *args):
-        """This tree's K5 signature onto the parent's."""
-        *head, block, _chunk, _next, stream = args
-        return self.L.rt_render_fused_g2(*head, block, stream)
 
 
 def _draw_fields(out) -> dict:
@@ -2467,8 +2531,9 @@ def kernels_launched(fn, tries: int = 3) -> dict:
     torch.profiler trace: kernels (by name), memsets and copies, the card's
     busy microseconds, the span from the first start to the last end, and
     the idle microseconds between them (host dispatch, when the card waits
-    for it). A trace that holds no device activity is taken again, up to
-    `tries` times in all (empty if none holds any)."""
+    for it), and the busy microseconds of each name. A trace that holds no
+    device activity is taken again, up to `tries` times in all (empty if
+    none holds any)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2486,13 +2551,15 @@ def kernels_launched(fn, tries: int = 3) -> dict:
     else:
         return {}
     names: dict = {}
+    busy_by_name: dict = {}
     for e in acts:
         names[e.name] = names.get(e.name, 0) + 1
+        busy_by_name[e.name] = busy_by_name.get(e.name, 0) + e.time_range.end - e.time_range.start
     kernels = [e for e in acts if not e.name.startswith(("Memset", "Memcpy"))]
     busy = sum(e.time_range.end - e.time_range.start for e in acts)
     span = max(e.time_range.end for e in acts) - acts[0].time_range.start
     return dict(kernels=len(kernels), activities=len(acts), names=names, busy_us=busy,
-                span_us=span, idle_us=span - busy)
+                span_us=span, idle_us=span - busy, busy_by_name=busy_by_name)
 
 
 def _ms_in_turns(fns: dict, reps: int, turns: int = 10) -> dict:
@@ -2956,6 +3023,426 @@ def phase10(dev):
                 chunk_kernels=chunk,
                 small_loss=float(loss_k), small_loss_plain=float(loss_p), grad_frac=grad_frac,
                 fd=fd, **counts)
+
+
+def lane_list_repeats(dev, widths=(8, 4), interleaves=(1, 2)) -> dict:
+    """ROADMAP queue 3's K5 fault, repeated: at each tree width, each
+    (block, chunk) case of LANE_CASES at each lane count of LANE_COUNTS,
+    LANE_REPEATS times, through K3 (interleave 1) and K5 (interleave 2),
+    held bit for bit to K3's render of the whole lane list, which is
+    itself re-rendered and held to its first render each time; then the
+    largest lane count at chunk 1, LANE_CHUNK1_REPEATS times per block of
+    32 and 256. The wrappers fill every output with NaN before a launch,
+    so a lane the lane list loses shows as NaN; a wrong finite radiance
+    points at the walk or the slot state. Launches are the wrappers' own
+    counts.
+    tests/test_torch_cuda.py::test_lane_list_corners_repeated runs this
+    one width and interleave at a time."""
+    import torch
+
+    from raytracer_tpu_torch.camera import showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.ops import cuda_megakernel as cm
+    from raytracer_tpu_torch.scene.builder import cornell_materials_scene, tree_width
+    from raytracer_tpu_torch.schedule import _tiled_pixel_grid
+
+    cfg = RenderConfig(width=128, height=32, spp=2, max_bounces=8)
+    cam = showcase_camera(cfg)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    counter = {"K3": "render_fused", "K5": "render_fused_g2"}
+    before = {k: cm.LAUNCHES[v] for k, v in counter.items()}
+    lanes, failures = {"K3": 0, "K5": 0}, []
+    t0 = time.perf_counter()
+
+    def check(what, got, want):
+        if torch.equal(got, want):
+            return
+        bad = torch.nonzero((got != want).any(dim=1)).squeeze(1)
+        nan = torch.isnan(got[bad]).any(dim=1)
+        failures.append(dict(case=what, lanes=int(bad.numel()), nan_lanes=int(nan.sum()),
+                             first=bad[:4].tolist(), got=got[bad[:2]].tolist(),
+                             want=want[bad[:2]].tolist()))
+
+    for width in widths:
+        with tree_width(width):
+            scene = cornell_materials_scene().to(dev)
+        whole = cm.render_tiles_fused(scene, cam, cfg, 3, px, py, interleave=1)
+        if not bool(torch.isfinite(whole).all()):
+            raise AssertionError(f"lane-list repeats: K3's whole list at width {width} is not "
+                                 "finite")
+        picks = {n: torch.from_numpy(np.random.default_rng(n).choice(
+            px.shape[0], n, replace=False)).to(dev) for n in LANE_COUNTS}
+
+        def run(lane, block, chunk, g, what):
+            got = cm.render_tiles_fused(scene, cam, cfg, 3, px[lane], py[lane], block=block,
+                                        chunk=chunk, interleave=g)
+            check(what, got, whole[lane])
+            lanes["K5" if g == 2 else "K3"] += lane.shape[0]
+
+        for rep in range(LANE_REPEATS):
+            if rep % 50 == 0:
+                log(11, f"lane-list repeats: width {width}, repeat {rep}, "
+                        f"{time.perf_counter() - t0:.1f} s")
+            check(f"w{width} K3 whole rep {rep}",
+                  cm.render_tiles_fused(scene, cam, cfg, 3, px, py, interleave=1), whole)
+            lanes["K3"] += px.shape[0]
+            for n, lane in picks.items():
+                for g in interleaves:
+                    for block, chunk in LANE_CASES:
+                        run(lane, block, chunk, g,
+                            f"w{width} G={g} n={n} block={block} chunk={chunk} rep {rep}")
+        lane = picks[max(LANE_COUNTS)]
+        for rep in range(LANE_CHUNK1_REPEATS):
+            for g in interleaves:
+                for block in (32, 256):
+                    run(lane, block, 1, g, f"w{width} G={g} n={lane.shape[0]} block={block} "
+                                           f"chunk=1 rep {rep} (chunk-1 run)")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: cm.LAUNCHES[v] - before[k] for k, v in counter.items()}
+    msg = (f"lane-list repeats: {len(LANE_CASES)} (block, chunk) cases x lane counts "
+           f"{LANE_COUNTS} x {LANE_REPEATS} repeats, then {max(LANE_COUNTS)} lanes at chunk "
+           f"1 x {LANE_CHUNK1_REPEATS} repeats x blocks 32 and 256, widths {widths}, interleaves "
+           f"{interleaves}, outputs NaN-filled before each launch: K3 {launches['K3']} launches / "
+           f"{lanes['K3']} lanes (the whole list re-rendered {len(widths) * LANE_REPEATS} times "
+           f"among them), K5 {launches['K5']} launches / {lanes['K5']} lanes (the wrappers' counts); "
+           f"{len(failures)} launches differed from K3's whole list; {secs:.1f} s")
+    if failures:
+        print(json.dumps({"lane_list_failures": failures[:20]}), flush=True)
+        raise AssertionError(msg + f"; first: {failures[0]}")
+    return dict(launches=launches, lanes=lanes, seconds=secs, msg=msg)
+
+
+def k2_captured(module, start: int, want):
+    """Wraps `module.threefry2x32_kernel` (utils/ktf.py for the ktf
+    family's samplers, utils/rng.py for the jax family's folds) and keeps
+    a copy of the inputs of the first call, from call `start` on, that
+    `want(k0, k1, c0, c1)` accepts. Restore with `module.threefry2x32_kernel
+    = got["real"]`."""
+    import torch
+
+    real = module.threefry2x32_kernel
+    got = {"real": real, "calls": 0}
+
+    def record(k0, k1, c0, c1):
+        if "args" not in got and got["calls"] >= start and want(k0, k1, c0, c1):
+            got["args"] = tuple(x.clone() if torch.is_tensor(x) else x for x in (k0, k1, c0, c1))
+            got["call"] = got["calls"]
+        got["calls"] += 1
+        return real(k0, k1, c0, c1)
+
+    module.threefry2x32_kernel = record
+    return got
+
+
+def _varies(t) -> bool:
+    return t.numel() > 1 and bool((t != t.reshape(-1)[0]).any())
+
+
+def ktf_per_lane_call(k0, k1, c0, c1) -> bool:
+    """A ktf-family block with one key and a sample and a bounce that
+    differ across lanes (c1 = sample << 9 | bounce << 4 | purpose)."""
+    import torch
+
+    return (not torch.is_tensor(k0) and torch.is_tensor(c1) and _varies(c1 >> 9)
+            and _varies((c1 >> 4) & 31))
+
+
+def jax_keyed_call(k0, k1, c0, c1) -> bool:
+    """A jax-family fold through K2's keyed entry: a key and a fold word
+    (a sample or a bounce) per lane."""
+    import torch
+
+    return (torch.is_tensor(k0) and torch.is_tensor(c1) and k0.shape == c1.shape
+            and _varies(k0) and _varies(c1))
+
+
+def k2_held(args, int32_rate) -> dict:
+    """K2 on captured inputs against the plain Threefry on the same card
+    tensors, bit for bit; times and the bound of the call (each per-lane
+    input read once, both words written once; THREEFRY_OPS per block)."""
+    import torch
+
+    from raytracer_tpu_torch.utils import ktf
+
+    k0, k1, c0, c1 = args
+    x = ktf.threefry2x32_kernel(*args)
+    p = ktf.threefry2x32(*args)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(x, p))
+    if not all(torch.equal(a, b) for a, b in zip(x, p)):
+        raise AssertionError(f"K2 on the wavefront's call differs from the plain Threefry: max "
+                             f"|word difference| {err}")
+    n = x[0].numel()
+    n_in = sum(t.numel() for t in (k0, k1, c0, c1) if torch.is_tensor(t))
+    row = dict(lanes=n, keyed=torch.is_tensor(k0), max_abs_err=float(err),
+               ms=cuda_ms(lambda: ktf.threefry2x32_kernel(*args), 20),
+               plain_ms=cuda_ms(lambda: ktf.threefry2x32(*args), 3),
+               **roofline(4 * n_in + 8 * n, THREEFRY_OPS * n, int32_rate))
+    if torch.is_tensor(k0):
+        row["distinct_keys"] = int(torch.unique(k1).numel())
+    else:
+        row["distinct_samples"] = int(torch.unique(c1 >> 9).numel())
+        row["distinct_bounces"] = int(torch.unique((c1 >> 4) & 31).numel())
+    return row
+
+
+def phase16(scene, dev, smi) -> dict:
+    """The wavefront integrator (models/wavefront.py) on the card: the
+    known answers in both draw families, the 2K frame against K3, the
+    cascade on and off bit for bit, the jax family against the
+    megakernel renderer, K4 on the 2K frame's own rays against its plain
+    version, the frame's times, iterations, host reads, kernels and busy
+    share, and the CLI (the wavefront by default) with a resumed
+    checkpoint."""
+    import torch
+
+    from raytracer_tpu_torch.camera import showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.io.checkpoint import _atomic_save, render_image_resumable
+    from raytracer_tpu_torch.models import wavefront as wf
+    from raytracer_tpu_torch.models.fused import render_image_fused
+    from raytracer_tpu_torch.ops import intersect as isect
+    from raytracer_tpu_torch.render import iter_spp_accumulation, render_image_chunked
+    from raytracer_tpu_torch.utils import ktf
+    from raytracer_tpu_torch.utils import rng as rngu
+
+    t_phase = time.perf_counter()
+    with open(EXPECTED) as f:
+        expected = json.load(f)
+
+    # 1. Known answers: the preflight frame in both families.
+    pre = RenderConfig(**PREFLIGHT)
+    known = {}
+    for family, field in (("jax", "mean_rgb"), ("ktf", "mean_rgb_ktf")):
+        img = wf.render_image_wavefront(scene, showcase_camera(pre),
+                                        pre.replace(rng_impl=family), 0)
+        mean, want = img.mean().item(), expected[field]
+        rel = abs(mean - want) / want
+        if not bool(torch.isfinite(img).all()) or rel > PREFLIGHT_RTOL:
+            raise AssertionError(f"wavefront preflight ({family}): mean {mean} vs {field} {want} "
+                                 f"(rel {rel:.3g}, limit {PREFLIGHT_RTOL}), finite "
+                                 f"{bool(torch.isfinite(img).all())}")
+        known[family] = dict(mean=mean, expected=want, rel=rel)
+    log(16, "known answers (preflight 128x40 spp2 mb12, showcase camera, key 0): " + "; ".join(
+        f"{k} mean {v['mean']:.7f} vs {v['expected']:.7f} (rel {v['rel']:.3g}, limit "
+        f"{PREFLIGHT_RTOL})" for k, v in known.items()) + f" on {smi}")
+
+    # 2. The 2K frame: counts from 0 just before one frame, read just after.
+    cfg = RenderConfig(**MAIN, rng_impl="ktf")
+    cam = showcase_camera(cfg)
+    wf.render_image_wavefront(scene, cam, cfg, 0)   # warm-up (same shapes)
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    stats = wf.new_stats()
+    t0 = time.perf_counter()
+    img = wf.render_image_wavefront(scene, cam, cfg, 0, stats=stats)
+    torch.cuda.synchronize()
+    frame_s = [time.perf_counter() - t0]
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(P16_FRAMES - 1):
+        t0 = time.perf_counter()
+        wf.render_image_wavefront(scene, cam, cfg, 0)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    iters = sum(stats["stage_iterations"])
+    if counts["k4"] != iters or counts["k2_threefry"] < iters or counts["plain"]:
+        raise AssertionError(f"2K wavefront frame: K4 launches {counts['k4']} (iterations "
+                             f"{iters}), K2 launches {counts['k2_threefry']}, plain calls "
+                             f"{counts['plain']}")
+    k3 = render_image_fused(scene, cam, cfg, 0)
+    bad, mean_diff, max_abs = image_agreement(img, k3)
+    n_px = int((img != k3).any(dim=-1).sum())
+    if not (bool(torch.isfinite(img).all()) and bad <= IMG_BAD_FRAC and mean_diff <= MEAN_TOL):
+        raise AssertionError(f"2K wavefront vs K3: {bad:.4%} elements beyond tolerance, mean "
+                             f"diff {mean_diff}, finite {bool(torch.isfinite(img).all())}")
+    med = float(np.median(frame_s))
+    rays = cfg.width * cfg.height * cfg.spp
+    log(16,
+        f"2K frame {cfg.width}x{cfg.height} spp{cfg.spp} mb{cfg.max_bounces} (ktf, showcase "
+        f"camera, reference scene, key 0) vs K3: "
+        f"{bad:.5%} elements beyond 5e-4+2e-4|x| (limit 0.5%), {n_px} of "
+        f"{cfg.width * cfg.height} pixels differ, mean diff {mean_diff:.2e}, max abs "
+        f"{max_abs:.3g}, means {img.mean().item():.6f} / {k3.mean().item():.6f}; s per frame "
+        f"(host clock, synchronized) {_fmt(frame_s)}, median {med:.4f} s "
+        f"({rays / med / 1e6:.2f} M camera rays/s); iterations per cascade stage "
+        f"{stats['stage_iterations']} ({iters} in all), host reads {stats['host_reads']}; K4 "
+        f"launches {counts['k4']}, K2 launches {counts['k2']} (Threefry "
+        f"{counts['k2_threefry']}, {counts['k2_threefry'] / max(iters, 1):.2f} per iteration), "
+        f"plain calls {counts['plain']}; peak memory {peak / 2**30:.3f} GiB "
+        f"({(peak - mem0) / 2**30:.3f} GiB above the scene's {mem0 / 2**30:.3f}) on {smi}")
+
+    # 3. The cascade on and off, bit for bit; 4. the jax family against the
+    # megakernel renderer.
+    small = RenderConfig(**P16_SMALL)
+    scam = showcase_camera(small)
+    for family in ("ktf", "jax"):
+        c = small.replace(rng_impl=family)
+        on = wf.render_image_wavefront(scene, scam, c, 0)
+        off = wf.render_image_wavefront(scene, scam, c.replace(drain_cascade=()), 0)
+        if not torch.equal(on, off):
+            raise AssertionError(f"wavefront cascade on != off ({family}, "
+                                 f"{int((on != off).any(-1).sum())} pixels)")
+    jax_cfg = small.replace(rng_impl="jax")
+    cap_jax = k2_captured(rngu, P16_K2_CAPTURE_FROM, jax_keyed_call)
+    try:
+        wj = wf.render_image_wavefront(scene, scam, jax_cfg, 0)
+    finally:
+        rngu.threefry2x32_kernel = cap_jax["real"]
+    with torch.no_grad():
+        mk = render_image_chunked(scene, scam, jax_cfg, 0)
+    bad_j, mean_diff_j, max_abs_j = image_agreement(wj, mk)
+    if not (bool(torch.isfinite(wj).all()) and bad_j <= IMG_BAD_FRAC and mean_diff_j <= MEAN_TOL):
+        raise AssertionError(f"wavefront (jax) vs megakernel: {bad_j:.4%} elements beyond "
+                             f"tolerance, mean diff {mean_diff_j}")
+    log(16,
+        f"{small.width}x{small.height} spp{small.spp} mb{small.max_bounces}: cascade on == off "
+        f"bitwise in both families; jax family vs render_image_chunked {bad_j:.4%} elements "
+        f"beyond tolerance, mean diff {mean_diff_j:.2e}, max abs {max_abs_j:.3g} on {smi}")
+
+    # 5. K4 on the 2K frame's own rays: one bounce of the first stage.
+    calls, got = [], {}
+    real = isect.trace_closest
+
+    def record(o, d, bvh, t_lim, t_min, **kw):
+        if len(calls) == P16_CAPTURE_CALL:
+            got["rays"] = (o.clone(), d.clone(), t_lim.clone(), t_min)
+        calls.append(o.shape[0])
+        return real(o, d, bvh, t_lim, t_min, **kw)
+
+    isect.trace_closest = record
+    cap_ktf = k2_captured(ktf, P16_K2_CAPTURE_FROM, ktf_per_lane_call)
+    try:
+        wf.render_image_wavefront(scene, cam, cfg, 0)
+    finally:
+        isect.trace_closest = real
+        ktf.threefry2x32_kernel = cap_ktf["real"]
+    o, d, t_lim, t_min = got["rays"]
+    n_lanes = calls[0]
+    if o.shape[0] != n_lanes or not bool((t_lim < 0).any()):
+        raise AssertionError(f"phase 16: K4 call {P16_CAPTURE_CALL} has {o.shape[0]} rays (the "
+                             f"first stage {n_lanes}), {int((t_lim < 0).sum())} at limit -1")
+    k4 = phase8_set("wavefront 2K", o, d, scene.bvh4, t_lim, t_min, 16)
+    log(16,
+        f"K4 on the 2K frame's call {P16_CAPTURE_CALL} ({k4['rays']} rays, {k4['dead']} at the "
+        f"limit -1, {k4['hits']} hits): {'; '.join(k4['checks'])}: all hold (plain on "
+        f"{k4['subset']} seeded rays); in turns, median ms per call: "
+        + "; ".join(f"{k} {m[0]:.4f}" for k, m in k4["ms"].items())
+        + f"; bound {k4['bound']['bound_ms']:.5f} ms ({k4['bound']['bound_by']}), culled "
+        f"{k4['bound_cull']['bound_ms']:.5f} ms; the frame's K4 calls by size: "
+        + ", ".join(f"{size} x{calls.count(size)}" for size in sorted(set(calls), reverse=True))
+        + f" on {smi}")
+
+    # K2 on the frames' own counters: a ktf block of the 2K frame (one key,
+    # per-lane sample and bounce) and a jax-family fold of the 256x144
+    # frame (the keyed entry: per-lane keys and data).
+    int32_rate, _ = _int32_ops_per_s()
+    k2 = {}
+    for name, cap, frame in (("ktf", cap_ktf, "2K"), ("jax_keyed", cap_jax, "256x144")):
+        if "args" not in cap:
+            raise AssertionError(f"phase 16: no K2 call of the {frame} frame ({name}) from call "
+                                 f"{P16_K2_CAPTURE_FROM} on had per-lane counters "
+                                 f"({cap['calls']} calls)")
+        k2[name] = dict(k2_held(cap["args"], int32_rate), frame=frame, call=cap["call"],
+                        calls=cap["calls"])
+    log(16, "K2 on the wavefront's own counters, bit for bit against the plain Threefry on the "
+            "same card tensors: " + "; ".join(
+                f"{k} (the {v['frame']} frame's call {v['call']} of {v['calls']}, {v['lanes']} "
+                f"lanes, " + (f"{v['distinct_keys']} distinct keys, keyed entry"
+                              if v["keyed"] else f"{v['distinct_samples']} samples and "
+                              f"{v['distinct_bounces']} bounces, one key")
+                + f"): equal; kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+                f"{v['bound_ms']:.5f} ms ({v['bound_by']})" for k, v in k2.items())
+        + f" on {smi}")
+
+    # 6. One 2K frame under torch.profiler.
+    prof = kernels_launched(lambda: wf.render_image_wavefront(scene, cam, cfg, 0))
+    if not prof:
+        raise AssertionError("phase 16: torch.profiler recorded no device activity")
+    by_name = prof["busy_by_name"]
+    k4_us = sum(v for k, v in by_name.items() if "trace_closest_kernel" in k)
+    k4_n = sum(v for k, v in prof["names"].items() if "trace_closest_kernel" in k)
+    k2_us = sum(v for k, v in by_name.items() if "ktf_threefry" in k)
+    k2_n = sum(v for k, v in prof["names"].items() if "ktf_threefry" in k)
+    busy_share = prof["busy_us"] / prof["span_us"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(16,
+        f"one 2K frame under torch.profiler: {prof['kernels']} kernels ({prof['activities']} "
+        f"with memsets and copies), the card busy {prof['busy_us'] / 1e3:.1f} ms of a "
+        f"{prof['span_us'] / 1e3:.1f} ms span (busy share {busy_share:.3f}, idle share "
+        f"{1 - busy_share:.3f}); K4 {k4_n} launches, {k4_us / 1e3:.1f} ms "
+        f"({k4_us / prof['busy_us']:.3f} of the busy time); K2 Threefry {k2_n} launches, "
+        f"{k2_us / 1e3:.1f} ms ({k2_us / prof['busy_us']:.3f}); the busiest: "
+        + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top) + f" on {smi}")
+
+    # 7. The CLI (no --integrator: the wavefront) and a resumed checkpoint.
+    os.makedirs(os.path.join(ROOT, "renders"), exist_ok=True)
+    paths = {k: os.path.join("renders", f"chip_smoke_wavefront_{k}")
+             for k in ("cli.png", "cli.npy", "resumed.png", "resumed.npy", "half.npz",
+                       "whole.npz")}
+    for k in ("half.npz", "whole.npz"):
+        if os.path.exists(os.path.join(ROOT, paths[k])):
+            os.remove(os.path.join(ROOT, paths[k]))
+    cmd = [sys.executable, "-m", "raytracer_tpu_torch.cli", "--scene", "cornell_bunny",
+           "--width", str(P16_CLI["width"]), "--height", str(P16_CLI["height"]),
+           "--spp", str(P16_CLI["spp"]), "--max-bounces", str(P16_CLI["max_bounces"])]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd + ["--out", paths["cli.png"], "--npy", paths["cli.npy"]], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(ROOT, paths["cli.png"]), "rb") as f:
+        head = f.read(8)
+    if out.returncode != 0 or head != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"CLI (default integrator) failed ({out.returncode}): "
+                             f"{out.stderr[-2000:]}")
+    ccfg = RenderConfig(**P16_CLI)
+    ccam = showcase_camera(ccfg)
+    done, first = next(iter_spp_accumulation(scene, ccam, ccfg, 0,
+                                             spp_per_batch=ccfg.spp // 2))
+    _atomic_save(os.path.join(ROOT, paths["half.npz"]), acc=first.cpu().numpy(),
+                 spp_done=np.int64(done), spp_total=np.int64(ccfg.spp), seed_hash=np.int64(0),
+                 rng_stream=np.str_("jax"))
+    out = subprocess.run(cmd + ["--checkpoint", paths["half.npz"], "--out", paths["resumed.png"],
+                                "--npy", paths["resumed.npy"]], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"CLI --checkpoint failed ({out.returncode}): {out.stderr[-2000:]}")
+    whole = render_image_resumable(scene, ccam, ccfg, 0, os.path.join(ROOT, paths["whole.npz"]),
+                                   spp_per_batch=ccfg.spp // 2).cpu().numpy()
+    resumed = np.load(os.path.join(ROOT, paths["resumed.npy"]))
+    direct = torch.from_numpy(np.load(os.path.join(ROOT, paths["cli.npy"])))
+    with np.load(os.path.join(ROOT, paths["half.npz"])) as z:
+        finished = int(z["spp_done"])
+    bad_c, mean_diff_c, _ = image_agreement(torch.from_numpy(resumed), direct)
+    if not (np.array_equal(resumed, whole) and finished == ccfg.spp
+            and bad_c <= IMG_BAD_FRAC and mean_diff_c <= MEAN_TOL):
+        raise AssertionError(f"CLI resume: resumed == uninterrupted "
+                             f"{np.array_equal(resumed, whole)}, spp_done {finished}, vs the "
+                             f"direct render {bad_c:.4%} beyond tolerance, mean diff "
+                             f"{mean_diff_c}")
+    log(16,
+        f"CLI without --integrator (the wavefront) cornell_bunny {ccfg.width}x{ccfg.height} "
+        f"spp{ccfg.spp} mb{ccfg.max_bounces} wrote {paths['cli.png']} in {cli_s:.1f} s; "
+        f"--checkpoint from a checkpoint of {done} of {ccfg.spp} samples == the uninterrupted "
+        f"resumable render bitwise (and within the image tolerance of the direct render: "
+        f"{bad_c:.4%} beyond, mean diff {mean_diff_c:.2e}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+
+    summary = dict(
+        known=known, frame_s=frame_s, median_s=med, mrays_per_s=rays / med / 1e6,
+        stage_iterations=stats["stage_iterations"], iterations=iters,
+        host_reads=stats["host_reads"], launches=counts, vs_k3=dict(
+            bad=bad, mean_diff=mean_diff, max_abs=max_abs, pixels_differing=n_px),
+        peak_bytes=peak, scene_bytes=mem0, kernels=prof["kernels"],
+        activities=prof["activities"], busy_us=prof["busy_us"], span_us=prof["span_us"],
+        busy_share=busy_share, k4_share=k4_us / prof["busy_us"], k4_profiled=k4_n,
+        k2_share=k2_us / prof["busy_us"], k2_profiled=k2_n,
+        k4_calls_by_size={str(k): calls.count(k) for k in sorted(set(calls), reverse=True)},
+        k4_on_wavefront_rays={k: v for k, v in k4.items() if k != "profile"},
+        k2_on_wavefront_counters=k2)
+    return dict(summary=summary, k4=k4, k2=k2, counts=counts)
 
 
 if __name__ == "__main__":

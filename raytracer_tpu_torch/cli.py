@@ -1,17 +1,22 @@
 """Command-line entry point (port of raytracer_tpu/cli.py): renders a PNG.
 
 Usage (the default device is the CUDA card):
-    python -m raytracer_tpu_torch.cli --integrator fused --scene cornell_bunny \
-        --width 2560 --height 1440 --spp 8 --max-bounces 20 --out render.png
-    python -m raytracer_tpu_torch.cli --integrator megakernel --scene cornell_spheres \
-        --width 256 --height 256 --spp 16 --max-bounces 4 --out render.png
+    python -m raytracer_tpu_torch.cli --scene cornell_bunny --width 2560 --height 1440 \
+        --spp 8 --max-bounces 20 --out render.png
+    python -m raytracer_tpu_torch.cli --scene cornell_bunny --width 2560 --height 1440 \
+        --spp 2000 --checkpoint ckpt.npz
+    python -m raytracer_tpu_torch.cli --integrator fused --scene cornell_bunny --serve 8000
 
-`fused` is the fused path-loop kernel (ktf draws): K3, one lane per
-thread, or with RAYTRACER_TPU_INTERLEAVE=2 in the environment K5, two
-lanes per thread (the JAX package's switch); `megakernel` is the
-differentiable renderer (render.render_image_chunked, the draw family
-of cfg.rng_impl). The wavefront integrator, checkpoints, sharding,
-profiling and the live preview of the JAX CLI are not yet ported.
+`wavefront` (the default, as in the JAX CLI) is models/wavefront.py:
+K4 for every bounce's closest hit and K2 for the draws, the draw family
+of cfg.rng_impl. `fused` is the fused path-loop kernel (ktf draws): K3,
+one lane per thread, or with RAYTRACER_TPU_INTERLEAVE=2 in the
+environment K5, two lanes per thread (the JAX package's switch);
+`megakernel` is the differentiable renderer (render.render_image_chunked).
+`--checkpoint` makes the render resumable (io/checkpoint.py) and
+`--serve PORT` serves a preview that sharpens batch by batch
+(viewer.py, megakernel integrator). The JAX CLI's `--sharded` and
+`--profile` are not yet ported (ROADMAP M12, M6b).
 """
 
 from __future__ import annotations
@@ -53,14 +58,16 @@ def main(argv=None):
     ap.add_argument("--out", default="render.png")
     ap.add_argument("--npy", default=None, help="also dump the linear f32 image")
     ap.add_argument("--assets", default=None, help="model directory (default: the repo's)")
-    ap.add_argument("--integrator", choices=INTEGRATORS, default="fused")
+    ap.add_argument("--integrator", choices=INTEGRATORS, default="wavefront")
+    ap.add_argument("--checkpoint", default=None,
+                    help="npz accumulation checkpoint for resumable renders")
+    ap.add_argument("--serve", type=int, default=None, metavar="PORT",
+                    help="serve a live auto-refreshing preview at PORT while rendering")
     ap.add_argument("--camera", default="showcase", choices=["showcase", "reference"])
     ap.add_argument("--device", default="cuda",
                     help="cuda launches the kernels; cpu runs their plain versions")
     args = ap.parse_args(argv)
 
-    if args.integrator == "wavefront":
-        raise SystemExit("--integrator wavefront is not yet ported (use fused or megakernel)")
     cfg = PRESETS[args.preset] if args.preset else RenderConfig(
         width=1024, height=576, spp=64, max_bounces=20)
     overrides = {f: getattr(args, f) for f in ("width", "height", "spp")
@@ -82,24 +89,61 @@ def main(argv=None):
     else:
         cam = showcase_camera(cfg)
 
-    t0 = time.perf_counter()
     if args.integrator == "fused":
-        from raytracer_tpu_torch.models.fused import fused_available, render_image_fused
+        from raytracer_tpu_torch.models.fused import fused_available
 
         if not fused_available(scene, cfg):
             raise SystemExit("--integrator fused needs a bvh4 scene of width 4 or 8 within "
                              "the kernel's sphere/material budgets (use cornell_bunny / "
                              "cornell_materials with RAYTRACER_TPU_BVH_WIDTH 4 or 8)")
+    if args.serve is not None:
+        import os
+
+        from raytracer_tpu_torch import viewer
+
+        os.makedirs("preview", exist_ok=True)
+        srv = viewer.serve("preview", port=args.serve)
+        print(f"serving the preview at http://localhost:{srv.server_address[1]}/",
+              file=sys.stderr)
+        try:
+            t0 = time.perf_counter()
+            linear = viewer.progressive_render(scene, cam, cfg, args.seed,
+                                               out_path=os.path.join("preview", "preview.png"))
+            _synchronize(device)
+            dt = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        _write_outputs(args, cfg, linear, dt, device)
+        return
+
+    t0 = time.perf_counter()
+    if args.checkpoint:
+        from raytracer_tpu_torch.io.checkpoint import render_image_resumable
+
+        linear = render_image_resumable(scene, cam, cfg, args.seed, args.checkpoint,
+                                        integrator=args.integrator)
+    elif args.integrator == "fused":
+        from raytracer_tpu_torch.models.fused import render_image_fused
+
         linear = render_image_fused(scene, cam, cfg, args.seed)
+    elif args.integrator == "wavefront":
+        from raytracer_tpu_torch.models.wavefront import render_image_wavefront
+
+        linear = render_image_wavefront(scene, cam, cfg, args.seed)
     else:
         from raytracer_tpu_torch.render import render_image_chunked
 
         with torch.no_grad():
             linear = render_image_chunked(scene, cam, cfg, args.seed)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    _synchronize(device)
     dt = time.perf_counter() - t0
     _write_outputs(args, cfg, linear, dt, device)
+
+
+def _synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def _write_outputs(args, cfg, linear, dt, device):

@@ -49,6 +49,7 @@
 // (<= 16) and materials (<= 28) are read from small global tables whose
 // uniform or few distinct addresses the L1 serves.
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "path.cuh"
@@ -78,12 +79,28 @@ struct FusedArgs {
   cudaStream_t stream;
 };
 
+// One take of the word: add 1 and return the word as it was. The threads
+// that take together are coalesced by hand: one atomic add of the group's
+// size, whose old value the leader shuffles to the others, each adding its
+// rank (the CUDA programming guide's warp-aggregated atomic). ptxas made
+// that aggregation of a plain atomicAdd itself, and in K5 (four take sites,
+// two slots refilled apart) it now and then handed a warp a stale or zero
+// base, or let the count skip `chunk`: lane 0 went out twice and a fetched
+// chunk was overwritten unread (a lost lane, NaN under the wrapper's fill),
+// or no take saw `chunk` and the block waited for ever (PERF.md §7).
+__device__ __forceinline__ unsigned long long take_word(unsigned long long* word) {
+  const cooperative_groups::coalesced_group g = cooperative_groups::coalesced_threads();
+  unsigned long long w = 0;
+  if (g.thread_rank() == 0) w = atomicAdd(word, static_cast<unsigned long long>(g.size()));
+  return g.shfl(w, 0) + g.thread_rank();
+}
+
 // The next lane for this thread, or -1 when the list is done. `word` holds
 // the block's chunk: its first lane (high 32 bits) and how many takes it
 // has seen (low 32 bits). Why no lane is taken twice or lost without a lock:
-//  - each take is one atomicAdd on the word, so within a chunk the counts
-//    0, 1, 2, ... go to one take each; a count below `chunk` is a lane
-//    (-1 past the list's end);
+//  - each take adds 1 to the word atomically (take_word), so within a
+//    chunk the counts 0, 1, 2, ... go to one take each; a count below
+//    `chunk` is a lane (-1 past the list's end);
 //  - exactly one take sees count == chunk. That thread alone fetches the
 //    next chunk (one global atomicAdd, so no two blocks share a lane) and
 //    replaces the word by (new base, 0) with atomicExch. Takes that came
@@ -104,8 +121,10 @@ struct FusedArgs {
 // than the block, with fewer lanes than threads.
 __device__ __forceinline__ int take_lane(unsigned long long* word, int* __restrict__ next, int n,
                                          int chunk) {
+  // The first take stands before the retry loop: with it inside the loop,
+  // K3 and K5 ran markedly slower at 2K on an H100 (PERF.md §7).
+  unsigned long long w = take_word(word);
   for (;;) {
-    const unsigned long long w = atomicAdd(word, 1ull);
     const int base = static_cast<int>(w >> 32);
     const unsigned taken = static_cast<unsigned>(w);
     if (base >= n) return -1;
@@ -120,6 +139,7 @@ __device__ __forceinline__ int take_lane(unsigned long long* word, int* __restri
       while (static_cast<int>(*reinterpret_cast<volatile unsigned long long*>(word) >> 32) == base)
         __nanosleep(32);
     }
+    w = take_word(word);
   }
 }
 

@@ -251,15 +251,18 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, chu
         emission_quirk=int(bool(cfg.reference_emission_quirk)),
         n_spheres=scene.spheres.count, n_materials=scene.materials.count)
     dev = pix.device
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    # Every output starts as NaN (the lane counts as -1), so a lane that
+    # the lane list never hands out shows in every check of the kernels
+    # instead of keeping a value the caching allocator left in the buffer.
+    out = torch.full((n, 3), float("nan"), dtype=torch.float32, device=dev)
     lane_list = torch.zeros((1,), dtype=torch.int32, device=dev)
     args = (prm, view, pix.data_ptr(), pxi.data_ptr(), pyi.data_ptr(), sph.data_ptr(),
             sph_mat.data_ptr(), mat.data_ptr(), mat_type.data_ptr(), n, out.data_ptr())
     L = cudalib.lib()
     if kind == "profile":
-        cost = torch.empty((n,), dtype=torch.float32, device=dev)
-        aux = torch.empty((n,), dtype=torch.float32, device=dev)
-        scratch = torch.empty((2, n), dtype=torch.int32, device=dev)
+        cost = torch.full((n,), float("nan"), dtype=torch.float32, device=dev)
+        aux = torch.full((n,), float("nan"), dtype=torch.float32, device=dev)
+        scratch = torch.full((2, n), -1, dtype=torch.int32, device=dev)
         code = L.rt_render_fused_profile(*args, cost.data_ptr(), scratch[0].data_ptr(),
                                          scratch[1].data_ptr(), aux.data_ptr(), block, chunk,
                                          lane_list.data_ptr(), cudalib.stream_handle())

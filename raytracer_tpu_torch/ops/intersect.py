@@ -12,6 +12,11 @@ scene leave the autograd graph before the search. `shade_hit`
 recomputes the hit attributes differentiably from the winning ids, so
 gradients flow through shading and never through the kernel.
 
+`trace_frame_fused` is the wavefront integrator's forward-only closest
+hit: spheres by a select sweep, triangles through K4 (with the brute
+pre-pass of K1 inline) in one call, and the material parameters by the
+select chain of ops/materials.lookup_params.
+
 On CUDA, K4 runs at every wavefront size: the JAX module's switch to an
 XLA traversal below PACKET_MIN_RAYS rays was a TPU cost choice.
 """
@@ -23,7 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.ops.cuda_traverse import intersect_bvh4
+from raytracer_tpu_torch.ops import materials as mat_ops
+from raytracer_tpu_torch.ops.cuda_traverse import intersect_bvh4, trace_closest
 from raytracer_tpu_torch.ops.sphere import intersect_spheres, sphere_shade
 from raytracer_tpu_torch.ops.triangle import (intersect_packed_brute, intersect_tris_brute,
                                               tri_shade)
@@ -124,3 +130,77 @@ def shade_hit(scene, origins, dirs, ids: HitIds) -> HitAttrs:
         mat_id=torch.where(is_tri, tr_mat, sp_mat),
         uv=torch.where(sel, tr_uv, sp_uv),
     )
+
+
+class FrameHit(NamedTuple):
+    """Closest-hit record of the wavefront's fused route."""
+
+    hit: torch.Tensor         # bool[N]
+    point: torch.Tensor       # f32[N,3]
+    normal: torch.Tensor      # f32[N,3] front-facing unit normal
+    front_face: torch.Tensor  # bool[N]
+    params: mat_ops.MatParams  # per lane
+
+
+def fused_trace_available(scene) -> bool:
+    """True when trace_frame_fused applies: a BVH4 with per-face
+    materials (K4 returns the winner's material id and normal)."""
+    return scene.bvh4 is not None and scene.bvh4.face_mat is not None
+
+
+def _dot3(a, b):
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def trace_frame_fused(scene, origins, dirs, t_min, sort: bool = False, active=None) -> FrameHit:
+    """Closest hit and per-lane material parameters: spheres by an
+    unrolled select sweep, triangles through `trace_closest` (K4 on CUDA
+    tensors, its plain version on CPU tensors) with the sphere hit as
+    each ray's limit, materials by the select chain. Forward-only.
+
+    `active` (bool[N], optional): lanes whose result is unused this
+    bounce get the limit -1, so K4 treats them as dead rays and they
+    come back as triangle misses."""
+    sph = scene.spheres
+    n = origins.shape[0]
+    dev = origins.device
+    a = _dot3(dirs, dirs)
+    t_sph = torch.full((n,), float(BIG), dtype=torch.float32, device=dev)
+    c_sel = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    r_sel = torch.ones((n,), dtype=torch.float32, device=dev)
+    m_sel = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for s in range(sph.count):
+        center, radius = sph.center[s], sph.radius[s]
+        oc = origins - center
+        half_b = _dot3(oc, dirs)
+        c = _dot3(oc, oc) - radius * radius
+        disc = half_b * half_b - a * c
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        root_near = (-half_b - sq) / a
+        root_far = (-half_b + sq) / a
+        near_ok = (root_near >= t_min) & (root_near <= t_sph)
+        far_ok = (root_far >= t_min) & (root_far <= t_sph)
+        root = torch.where(near_ok, root_near, root_far)
+        better = (disc >= 0.0) & (near_ok | far_ok) & (root < t_sph)
+        t_sph = torch.where(better, root, t_sph)
+        c_sel = torch.where(better[:, None], center, c_sel)
+        r_sel = torch.where(better, torch.where(radius != 0.0, radius, 1.0), r_sel)
+        m_sel = torch.where(better, sph.mat_id[s], m_sel)
+
+    t_lim = t_sph if active is None else torch.where(active, t_sph, -1.0)
+    rec = trace_closest(origins, dirs, scene.bvh4, t_lim, t_min, sort=sort,
+                        fields=("t", "mat_id", "normal"))
+    tri_wins = rec["t"] < t_sph
+    t = torch.where(tri_wins, rec["t"], t_sph)
+    hit = t < float(BIG)
+    point = origins + t[:, None] * dirs
+
+    outward = (point - c_sel) / r_sel[:, None]
+    raw_n = torch.where(tri_wins[:, None], rec["normal"], outward)
+    nn = raw_n / torch.sqrt(torch.clamp_min(_dot3(raw_n, raw_n), 1e-24))[:, None]
+    front = _dot3(dirs, nn) < 0.0
+    n_facing = torch.where(front[:, None], nn, -nn)
+
+    mat_id = torch.where(tri_wins, rec["mat_id"], m_sel)
+    params = mat_ops.lookup_params(scene.materials, mat_id)
+    return FrameHit(hit=hit, point=point, normal=n_facing, front_face=front, params=params)

@@ -102,34 +102,61 @@ def render_rows(scene, cam, cfg, row0: int, n_rows: int, spp: int, key,
     return rgb.reshape(n_rows, cfg.width, 3)
 
 
-def iter_spp_accumulation(scene, cam, cfg, key, integrator: str = "megakernel",
+def iter_spp_accumulation(scene, cam, cfg, key, integrator: str = "wavefront",
                           spp_per_batch: int | None = None, start_done: int = 0):
-    """spp-batched accumulation: yields (done_spp, batch_sum f32[H,W,3])
-    where batch_sum is the SUM of that batch's samples (divide the
-    running total by done_spp for the current mean). Only the
-    megakernel integrator is ported; rows are chunked so that a pass
-    holds at most cfg.max_rays_per_pass pixels."""
-    if integrator != "megakernel":
-        raise NotImplementedError(f"iter_spp_accumulation: integrator {integrator!r} is not "
-                                  "yet ported (megakernel only)")
+    """spp-batched accumulation, shared by the chunked, progressive and
+    resumable renders: yields (done_spp, batch_sum f32[H,W,3]) on the
+    scene's device, where batch_sum is the SUM of that batch's samples
+    (divide the running total by done_spp for the current mean). Draws
+    are keyed by the absolute sample index, so the batches add up to the
+    one-pass image. `integrator`: "wavefront" (models/wavefront.py),
+    "fused" (the fused path loop, ktf draws, an integer seed) or
+    "megakernel" (rows chunked so that a pass holds at most
+    cfg.max_rays_per_pass pixels)."""
     spp_step = max(1, min(cfg.spp, spp_per_batch or cfg.spp_per_pass))
     h, w = cfg.height, cfg.width
-    rows_per_chunk = max(1, min(h, cfg.max_rays_per_pass // w))
+    dev = scene.materials.type.device
     done = start_done
+    if integrator == "megakernel":
+        rows_per_chunk = max(1, min(h, cfg.max_rays_per_pass // w))
+
+        def batch(s, offset):
+            return torch.cat([render_rows(scene, cam, cfg, row0, min(rows_per_chunk, h - row0),
+                                          s, key, sample_offset=offset)
+                              for row0 in range(0, h, rows_per_chunk)], dim=0)
+    elif integrator == "fused":
+        from raytracer_tpu_torch.models.fused import _fused_pixel_grid
+        from raytracer_tpu_torch.ops.cuda_megakernel import render_tiles_fused
+
+        px, py, inv = (t.to(dev) for t in _fused_pixel_grid(cfg))
+
+        def batch(s, offset):
+            mean = render_tiles_fused(scene, cam, cfg, key, px, py, spp=s, sample_offset=offset)
+            return mean[inv].reshape(h, w, 3)
+    elif integrator == "wavefront":
+        from raytracer_tpu_torch.models.wavefront import render_pixels_wavefront
+        from raytracer_tpu_torch.schedule import _tiled_pixel_grid
+
+        px, py, inv = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+
+        def batch(s, offset):
+            mean = render_pixels_wavefront(scene, cam, px, py, cfg, key, spp=s,
+                                           sample_offset=offset)
+            return mean[inv].reshape(h, w, 3)
+    else:
+        raise ValueError(f"iter_spp_accumulation: unknown integrator {integrator!r}")
     while done < cfg.spp:
         s = min(spp_step, cfg.spp - done)
-        parts = [render_rows(scene, cam, cfg, row0, min(rows_per_chunk, h - row0), s, key,
-                             sample_offset=done)
-                 for row0 in range(0, h, rows_per_chunk)]
+        mean = batch(s, done)
         done += s
-        yield done, torch.cat(parts, dim=0) * s
+        yield done, mean * s
 
 
 def render_image_chunked(scene, cam, cfg, key) -> torch.Tensor:
-    """Row-chunked, spp-batched render (bounded live wavefront memory):
-    the image of render_image, drawn by sample offset."""
+    """Row-chunked, spp-batched megakernel render (bounded live wavefront
+    memory): the image of render_image, drawn by sample offset."""
     acc = None
-    for _, batch_sum in iter_spp_accumulation(scene, cam, cfg, key):
+    for _, batch_sum in iter_spp_accumulation(scene, cam, cfg, key, integrator="megakernel"):
         acc = batch_sum if acc is None else acc + batch_sum
     return acc / cfg.spp
 

@@ -15,9 +15,12 @@ on the whole 2K frame,
 K3-profile against K3 and its plain version, the culled K3 against the
 parent commit's kernels (phase 15, opt-in), the traversal-iteration
 probes at the scripts' sizes (phase 13; P-morph also at 1,056 packets),
-and the kernels on the reference scene's 4-wide tree (phase 14)."""
+the kernels on the reference scene's 4-wide tree (phase 14), and the
+wavefront integrator at 2560x1440 (phase 16)."""
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ import torch
 from raytracer_tpu_torch.camera import showcase_camera
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.fused import render_image_fused
+from raytracer_tpu_torch.models.wavefront import render_image_wavefront
 from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
 from raytracer_tpu_torch.ops.bvh4 import BIG
 from raytracer_tpu_torch.ops.packets import coherence_keys, coherence_keys32
@@ -37,6 +41,7 @@ from raytracer_tpu_torch.scene.builder import (cornell_materials_scene, referenc
 from raytracer_tpu_torch.utils import ktf
 
 pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -473,6 +478,49 @@ def test_k5_lane_list_corners(dev, width, n):
             bad = torch.nonzero((got != want).any(dim=1)).squeeze(1)
             assert torch.equal(got, want), (block, chunk, bad.numel(), bad[:4].tolist(),
                                             got[bad[:2]].tolist(), want[bad[:2]].tolist())
+
+
+@pytest.mark.parametrize("interleave", [1, 2])
+@pytest.mark.parametrize("width", [8, 4])
+def test_lane_list_corners_repeated(dev, width, interleave):
+    """The lane-list corners of test_k3_lane_list_corners and
+    test_k5_lane_list_corners, 200 times each at 1, 37 and 1,000 lanes,
+    against K3's whole list, which is re-rendered and held to itself each
+    time; then 1,000 lanes at chunk 1, 1,000 times per block size: the
+    harness chip_smoke.py's phase 11 runs at both widths and interleaves.
+    The wrapper fills the output with NaN before every launch, so a lost
+    lane shows as NaN, a wrong walk as a wrong finite radiance. With the
+    take through atomicAdd (the parent commit's csrc/megakernel.cuh) K5 at
+    width 4 lost a lane in about 0.5% of the chunk-1 launches at 1,000
+    lanes, or hung."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.lane_list_repeats(dev, widths=(width,), interleaves=(interleave,))
+    kernel = "K5" if interleave == 2 else "K3"
+    assert got["launches"][kernel] >= 200 * 3 * len(smoke.LANE_CASES) + 2000
+
+
+@pytest.mark.parametrize("rng_impl", ["ktf", "jax"])
+def test_wavefront_on_the_card_equals_its_cpu_route(dev, bunny, rng_impl):
+    """The wavefront through K4 and K2 on the card against the same frame
+    through their plain versions on the CPU: the image tolerance (at most
+    0.5% of elements beyond 5e-4 + 2e-4|x|, means within 1e-3)."""
+    from raytracer_tpu_torch.ops import intersect
+
+    cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=8, rng_impl=rng_impl)
+    cam = showcase_camera(cfg)
+    k4, k2 = cuda_traverse.LAUNCHES["trace_closest"], ktf.LAUNCHES["threefry2x32"]
+    got = render_image_wavefront(bunny, cam, cfg, 0)
+    assert intersect.fused_trace_available(bunny)
+    assert cuda_traverse.LAUNCHES["trace_closest"] > k4 and ktf.LAUNCHES["threefry2x32"] > k2
+    want = render_image_wavefront(bunny.to("cpu"), cam, cfg, 0)
+    got = got.cpu()
+    assert bool(torch.isfinite(got).all())
+    bad = (got - want).abs() > 5e-4 + 2e-4 * want.abs()
+    assert bad.float().mean().item() <= 0.005
+    assert (got.mean(dim=(0, 1)) - want.mean(dim=(0, 1))).abs().max().item() <= 1e-3
+    assert want.mean().item() > 0.05
 
 
 @pytest.fixture(scope="module")

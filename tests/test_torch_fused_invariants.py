@@ -89,10 +89,11 @@ def test_cli_renders_a_png_on_the_cpu(tmp_path):
 
     out = tmp_path / "r.png"
     npy = tmp_path / "r.npy"
-    cli.main(["--device", "cpu", "--scene", "cornell_materials", "--width", "32",
-              "--height", "16", "--spp", "1", "--max-bounces", "3", "--out", str(out),
-              "--npy", str(npy)])
+    cli.main(["--device", "cpu", "--integrator", "fused", "--scene", "cornell_materials",
+              "--width", "32", "--height", "16", "--spp", "1", "--max-bounces", "3",
+              "--out", str(out), "--npy", str(npy)])
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     assert np.load(npy).shape == (16, 32, 3)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["--device", "cpu", "--integrator", "wavefront"])
+    with pytest.raises(SystemExit, match="needs a bvh4 scene"):
+        cli.main(["--device", "cpu", "--integrator", "fused", "--scene", "cornell_spheres",
+                  "--width", "8", "--height", "8", "--spp", "1", "--out", str(out)])

@@ -86,8 +86,9 @@ def test_cli_with_interleave2_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setenv(ENV, "2")
     out = tmp_path / "g2.png"
     calls = cuda_megakernel.PLAIN_CALLS["render_plain"]
-    cli.main(["--device", "cpu", "--scene", "cornell_materials", "--width", "32", "--height",
-              "16", "--spp", "1", "--max-bounces", "3", "--out", str(out)])
+    cli.main(["--device", "cpu", "--integrator", "fused", "--scene", "cornell_materials",
+              "--width", "32", "--height", "16", "--spp", "1", "--max-bounces", "3",
+              "--out", str(out)])
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     assert cuda_megakernel.PLAIN_CALLS["render_plain"] == calls + 1
 

@@ -1,8 +1,9 @@
 """raytracer_tpu_torch never imports JAX: the machine with the card has
 none. A subprocess in which `import jax` fails imports every module of
 the port (the differentiable path's render, models/megakernel,
-ops/intersect, ops/packets, utils/rng and diff/inverse, and the probes,
-among them) and chip_smoke.py."""
+ops/intersect, ops/packets, utils/rng and diff/inverse, the wavefront,
+the checkpoints, the viewer and camera motion, and the probes, among
+them) and chip_smoke.py."""
 
 import os
 import subprocess
@@ -36,7 +37,9 @@ for name in ("raytracer_tpu_torch.render", "raytracer_tpu_torch.models.megakerne
              "raytracer_tpu_torch.probes.ktf_probe", "raytracer_tpu_torch.probes.v6",
              "raytracer_tpu_torch.probes.v6_tables", "raytracer_tpu_torch.probes.morph",
              "raytracer_tpu_torch.probes.mosaic", "raytracer_tpu_torch.probes.bitcast",
-             "raytracer_tpu_torch.probes.feature"):
+             "raytracer_tpu_torch.probes.feature", "raytracer_tpu_torch.models.wavefront",
+             "raytracer_tpu_torch.io.checkpoint", "raytracer_tpu_torch.viewer",
+             "raytracer_tpu_torch.camera_motion", "raytracer_tpu_torch.cli"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "raytracer_tpu") for m in sys.modules)
