@@ -13,10 +13,13 @@ of cfg.rng_impl. `fused` is the fused path-loop kernel (ktf draws): K3,
 one lane per thread, or with RAYTRACER_TPU_INTERLEAVE=2 in the
 environment K5, two lanes per thread (the JAX package's switch);
 `megakernel` is the differentiable renderer (render.render_image_chunked).
-`--checkpoint` makes the render resumable (io/checkpoint.py) and
+`--checkpoint` makes the render resumable (io/checkpoint.py),
 `--serve PORT` serves a preview that sharpens batch by batch
-(viewer.py, megakernel integrator). The JAX CLI's `--sharded` and
-`--profile` are not yet ported (ROADMAP M12, M6b).
+(viewer.py, megakernel integrator), and `--sharded` shards the pixels of
+the differentiable renderer over every visible card, as the JAX CLI's
+`--sharded` does (parallel/sharding.render_image_sharded; with
+`--device cpu` one CPU shard). The JAX CLI's `--profile` is not yet
+ported (ROADMAP M6b).
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ def main(argv=None):
     ap.add_argument("--serve", type=int, default=None, metavar="PORT",
                     help="serve a live auto-refreshing preview at PORT while rendering")
     ap.add_argument("--camera", default="showcase", choices=["showcase", "reference"])
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard pixels over every visible card (the differentiable renderer)")
     ap.add_argument("--device", default="cuda",
                     help="cuda launches the kernels; cpu runs their plain versions")
     args = ap.parse_args(argv)
@@ -123,6 +128,11 @@ def main(argv=None):
 
         linear = render_image_resumable(scene, cam, cfg, args.seed, args.checkpoint,
                                         integrator=args.integrator)
+    elif args.sharded:
+        from raytracer_tpu_torch.parallel.sharding import make_mesh, render_image_sharded
+
+        mesh = make_mesh([device] if device.type == "cpu" else None)
+        linear = render_image_sharded(scene, cam, cfg, args.seed, mesh=mesh)
     elif args.integrator == "fused":
         from raytracer_tpu_torch.models.fused import render_image_fused
 

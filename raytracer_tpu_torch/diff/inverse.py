@@ -15,8 +15,11 @@ Averaging over K matched (key, target) pairs (JAX's vmap over pairs) is
 one render of K·H·W lanes, each lane keyed by its own pair's key words;
 the loss stays the mean of the per-pair means.
 
-The mesh-sharded step of the JAX module waits for the multi-GPU slice
-(ROADMAP M12) and raises.
+`make_train_step(mesh=...)` shards the pixels over a
+parallel/sharding.Mesh: each shard's loss is its pixels' squared error
+weighted 1/n (padding lanes 0), and the shards' losses and gradients
+are summed (all_reduce under a process group, a host sum in one
+process) before one Adam update.
 """
 
 from __future__ import annotations
@@ -243,14 +246,71 @@ def make_train_step_accum(base_scene, cam, cfg, targets, keys, chunk: int = 8,
     return train_step
 
 
+def weighted_loss(base_scene, cam, cfg, params, key, px, py, tgt, weight):
+    """sum(weight · squared error over the channels) / 3 of the pixels
+    (px, py) against tgt f32[P, 3]: with weights 1/n on the real pixels
+    and 0 on padding, the shards' sum is the mean loss."""
+    rgb = render_pixels(_apply_params(base_scene, params), _apply_cam(cam, params), px, py, cfg,
+                        key)
+    d = rgb - tgt
+    sq = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    return torch.sum(sq * weight) / 3.0
+
+
+def _sharded_train_step(base_scene, cam, cfg, target, mesh, lr, lr_scales):
+    from raytracer_tpu_torch.parallel.sharding import Mesh, _padded_pixel_grid, _shard_lanes
+    from raytracer_tpu_torch.utils.cudalib import device_scope
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"make_train_step: mesh must be a parallel.sharding.Mesh, got "
+                        f"{type(mesh).__name__}")
+    px, py, n = _padded_pixel_grid(cfg, mesh.size)
+    pad = px.shape[0] - n
+    tgt = torch.cat([target.detach().reshape(-1, 3).cpu().to(torch.float32),
+                     torch.zeros((pad, 3), dtype=torch.float32)])
+    w = torch.cat([torch.full((n,), 1.0 / n, dtype=torch.float32),
+                   torch.zeros((pad,), dtype=torch.float32)])
+    per = px.shape[0] // mesh.size
+    # The camera on each shard's device, as the unsharded step puts it on
+    # the scene's.
+    shards = {s: (sc, cam.to(x.device), x, y, tgt[s * per:(s + 1) * per].to(x.device),
+                  w[s * per:(s + 1) * per].to(x.device))
+              for s, (sc, x, y) in _shard_lanes(mesh, base_scene, px, py).items()}
+
+    def train_step(params, adam_state, key):
+        names = list(params)
+        local = {}
+        for s, (sc, c, x, y, t, ws) in shards.items():
+            dev = x.device
+            k = as_key(key, dev)
+            with device_scope(dev):   # the kernels launch on the shard's card
+                loss, grads = value_and_grad(
+                    lambda p: weighted_loss(sc, c, cfg, p, k, x, y, t, ws),
+                    {name: params[name].to(dev) for name in names})
+            local[s] = torch.cat([loss.reshape(1)] + [grads[name].reshape(-1) for name in names])
+        # One all-reduce of the loss and every gradient: the weights sum to
+        # 1 over the shards, so the sum completes the mean.
+        total = mesh.all_sum(local)
+        home = params[names[0]].device
+        loss, flat, grads = total[0].to(home), total[1:], {}
+        for name in names:
+            m = params[name].numel()
+            grads[name] = flat[:m].reshape(params[name].shape).to(home)
+            flat = flat[m:]
+        adam_state, params = adam_update(adam_state, grads, params, lr=lr, lr_scales=lr_scales)
+        return params, adam_state, loss
+
+    return train_step
+
+
 def make_train_step(base_scene, cam, cfg, target, mesh=None, lr: float = 2e-2,
                     lr_scales: dict | None = None):
     """train_step(params, adam_state, key) → (params, adam_state, loss)
     against one linear target f32[H,W,3]; initialize the optimizer state
-    with adam_init(params)."""
+    with adam_init(params). With `mesh` (parallel/sharding.Mesh) the
+    pixels are sharded over it and the gradients summed over the shards."""
     if mesh is not None:
-        raise NotImplementedError("the mesh-sharded train step is not yet ported "
-                                  "(ROADMAP M12)")
+        return _sharded_train_step(base_scene, cam, cfg, target, mesh, lr, lr_scales)
     dev = base_scene.materials.type.device
     px, py = pixel_grid(cfg, dev)
     tgt = target.to(dev).reshape(1, -1, 3)

@@ -15,6 +15,7 @@ import torch
 from raytracer_tpu_torch.ops.cuda_megakernel import (fused_megakernel_available,
                                                      render_tiles_fused,
                                                      render_tiles_fused_plain)
+from raytracer_tpu_torch.render import mean_over_passes
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid, blocked_pixel_grid
 
 
@@ -31,6 +32,18 @@ def fused_available(scene, cfg) -> bool:
     return fused_megakernel_available(scene)
 
 
+def fused_lanes(scene, cam, cfg, seed: int, px, py, spp: int | None = None,
+                plain: bool = False, interleave: int | None = None) -> torch.Tensor:
+    """Mean linear radiance f32[N,3] of the lanes (px, py) through the
+    fused path loop, spp split into passes of cfg.spp_per_pass as
+    render_image_fused splits it (render.mean_over_passes)."""
+    spp = cfg.spp if spp is None else spp
+    render = render_tiles_fused_plain if plain else render_tiles_fused
+    kw = {} if plain else {"interleave": interleave}
+    return mean_over_passes(cfg, spp, lambda s, done: render(
+        scene, cam, cfg, seed, px, py, spp=s, sample_offset=done, **kw))
+
+
 def render_image_fused(scene, cam, cfg, seed: int, spp: int | None = None,
                        plain: bool = False, interleave: int | None = None) -> torch.Tensor:
     """Full-image render through the fused path loop → linear
@@ -39,19 +52,6 @@ def render_image_fused(scene, cam, cfg, seed: int, spp: int | None = None,
     is the kernel's lanes per thread (1: K3, 2: K5); None reads
     RAYTRACER_TPU_INTERLEAVE (default 1)."""
     dev = scene.materials.type.device
-    px, py, inv = _fused_pixel_grid(cfg)
-    px, py, inv = px.to(dev), py.to(dev), inv.to(dev)
-    spp = cfg.spp if spp is None else spp
-    render = render_tiles_fused_plain if plain else render_tiles_fused
-    kw = {} if plain else {"interleave": interleave}
-    step = max(1, min(spp, cfg.spp_per_pass))
-    acc = None
-    done = 0
-    while done < spp:
-        s = min(step, spp - done)
-        part = render(scene, cam, cfg, seed, px, py, spp=s, sample_offset=done, **kw)
-        if s != spp:
-            part = part * (s / spp)
-        acc = part if acc is None else acc + part
-        done += s
+    px, py, inv = (t.to(dev) for t in _fused_pixel_grid(cfg))
+    acc = fused_lanes(scene, cam, cfg, seed, px, py, spp, plain=plain, interleave=interleave)
     return acc[inv].reshape(cfg.height, cfg.width, 3)

@@ -27,9 +27,15 @@ on the pending count (nonzero gathers exactly the pending lanes), so it
 is n // div with no rounding and no floor: the JAX module's 1024-lane
 packets and PACKET_MIN_RAYS were the TPU kernel's shape.
 
-Forward-only; runs under torch.no_grad(). The cross-shard rebalanced
-drain (`render_pixels_wavefront_rebalanced`) is not ported (ROADMAP
-M12).
+`render_pixels_wavefront_rebalanced` is the sharded form with the
+cross-shard drain rebalance: each shard drains its own lanes to a fixed
+number pending, the pending lanes of every shard are pooled, each shard
+drains a stripe of the pool to the end, and the finished accumulators go
+back to their owners. Its three stages are functions here; the two
+gathers between them are the caller's (parallel/sharding.py: host
+concatenation in one process, torch.distributed across processes).
+
+Forward-only; runs under torch.no_grad().
 """
 
 from __future__ import annotations
@@ -40,10 +46,11 @@ from raytracer_tpu_torch.camera import generate_rays
 from raytracer_tpu_torch.ops import intersect as isect
 from raytracer_tpu_torch.ops import materials as mat_ops
 from raytracer_tpu_torch.ops import tonemap
-from raytracer_tpu_torch.render import as_key
+from raytracer_tpu_torch.render import as_key, mean_over_passes
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 from raytracer_tpu_torch.utils import ktf
 from raytracer_tpu_torch.utils import rng as rngu
+from raytracer_tpu_torch.utils.cudalib import device_scope
 
 
 def _lane_pkeys(cfg, key, px, py):
@@ -184,6 +191,43 @@ def new_stats() -> dict:
     return {"stage_iterations": [], "host_reads": 0}
 
 
+def _new_state(n: int, dev) -> dict:
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "origins": torch.zeros((n, 3), **f32),
+        "dirs": torch.ones((n, 3), **f32),
+        "throughput": torch.ones((n, 3), **f32),
+        "bounce": torch.zeros((n,), dtype=torch.int32, device=dev),
+        "sample": torch.zeros((n,), dtype=torch.int32, device=dev),
+        "active": torch.zeros((n,), dtype=torch.bool, device=dev),
+        "acc": torch.zeros((n, 3), **f32),
+    }
+
+
+def _pending(state, spp: int) -> torch.Tensor:
+    return state["active"] | (state["sample"] < spp)
+
+
+def _cascade(make_body, state, px, py, pkeys, spp: int, caps: list, last: int,
+             stats: dict | None):
+    """Drain `state` (the lanes px, py) through the cascade stages `caps`
+    (pending-lane thresholds, decreasing), then down to `last` pending."""
+    state = _drain(make_body(px, py, pkeys), state, spp, caps[0] if caps else last, stats)
+    for i in range(len(caps)):
+        nxt = caps[i + 1] if i + 1 < len(caps) else last
+        # At most caps[i] lanes are pending here; nonzero's indices are
+        # unique, so the scatter back writes each lane once.
+        idx = torch.nonzero(_pending(state, spp)).squeeze(1)
+        if stats is not None:
+            stats["host_reads"] += 1   # nonzero reads its count
+        cstate = {k: v[idx] for k, v in state.items()}
+        cbody = make_body(px[idx], py[idx], _take(pkeys, idx))
+        cstate = _drain(cbody, cstate, spp, nxt, stats)
+        for k in state:
+            state[k][idx] = cstate[k]
+    return state
+
+
 @torch.no_grad()
 def render_pixels_wavefront(scene, cam, px, py, cfg, key, spp: int | None = None,
                             sample_offset: int = 0, stats: dict | None = None) -> torch.Tensor:
@@ -193,37 +237,139 @@ def render_pixels_wavefront(scene, cam, px, py, cfg, key, spp: int | None = None
     calls draw the same numbers as one pass. `stats` (new_stats())
     gathers the iterations per stage and the host reads."""
     spp = cfg.spp if spp is None else int(spp)
-    sample_offset = int(sample_offset)
-    n, dev = px.shape[0], px.device
-    pkeys = _lane_pkeys(cfg, key, px, py)
-    use_fused = isect.fused_trace_available(scene)
-    make_body = _wavefront_body_maker(scene, cam, cfg, spp, sample_offset, use_fused)
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    state = {
-        "origins": torch.zeros((n, 3), **f32),
-        "dirs": torch.ones((n, 3), **f32),
-        "throughput": torch.ones((n, 3), **f32),
-        "bounce": torch.zeros((n,), dtype=torch.int32, device=dev),
-        "sample": torch.zeros((n,), dtype=torch.int32, device=dev),
-        "active": torch.zeros((n,), dtype=torch.bool, device=dev),
-        "acc": torch.zeros((n, 3), **f32),
-    }
-    caps = cascade_caps(n, cfg.drain_cascade)
-    state = _drain(make_body(px, py, pkeys), state, spp, caps[0] if caps else 0, stats)
-    for i in range(len(caps)):
-        nxt = caps[i + 1] if i + 1 < len(caps) else 0
-        # At most caps[i] lanes are pending here; nonzero's indices are
-        # unique, so the scatter back writes each lane once.
-        idx = torch.nonzero(state["active"] | (state["sample"] < spp)).squeeze(1)
-        if stats is not None:
-            stats["host_reads"] += 1   # nonzero reads its count
-        cstate = {k: v[idx] for k, v in state.items()}
-        cbody = make_body(px[idx], py[idx], _take(pkeys, idx))
-        cstate = _drain(cbody, cstate, spp, nxt, stats)
-        for k in state:
-            state[k][idx] = cstate[k]
+    n = px.shape[0]
+    make_body = _wavefront_body_maker(scene, cam, cfg, spp, int(sample_offset),
+                                      isect.fused_trace_available(scene))
+    state = _cascade(make_body, _new_state(n, px.device), px, py, _lane_pkeys(cfg, key, px, py),
+                     spp, cascade_caps(n, cfg.drain_cascade), 0, stats)
     return state["acc"] / float(spp)
+
+
+# A lane in a rebalance bundle: int32 columns, the float fields as their
+# bits. Fill rows (a bundle holds fewer pending lanes than its cap) have
+# origin -1 and sample = spp, so the drain leaves them as they are.
+_F32_FIELDS = (("origins", 3), ("dirs", 3), ("throughput", 3), ("acc", 3))
+_I32_FIELDS = ("bounce", "sample", "active", "px", "py", "origin")
+BUNDLE_COLS = 3 * len(_F32_FIELDS) + len(_I32_FIELDS)
+
+
+def rebalance_cap(n: int, rebalance_div: int) -> int:
+    """Pending lanes of n that a shard hands to the pool, and the size
+    of its bundle: n // rebalance_div, at least 1 and at most n. Like a
+    cascade cap it is a threshold on the pending count and is not
+    rounded to packets; the JAX module rounds it up to 1024 (or 8)
+    lanes with a floor of PACKET_MIN_RAYS, which changes when the pool
+    forms and so the per-shard iteration counts, never the image."""
+    return min(max(n // int(rebalance_div), 1), n)
+
+
+def _pack(state, px, py, origin) -> torch.Tensor:
+    cols = [state[k].view(torch.int32) for k, _ in _F32_FIELDS]
+    cols += [state["bounce"][:, None], state["sample"][:, None],
+             state["active"].to(torch.int32)[:, None], px[:, None], py[:, None], origin[:, None]]
+    return torch.cat(cols, dim=1)
+
+
+def _unpack(rows):
+    state, c = {}, 0
+    for k, w in _F32_FIELDS:
+        state[k] = rows[:, c:c + w].contiguous().view(torch.float32)
+        c += w
+    i32 = {k: rows[:, c + j].contiguous() for j, k in enumerate(_I32_FIELDS)}
+    state.update(bounce=i32["bounce"], sample=i32["sample"], active=i32["active"] != 0)
+    return state, i32["px"], i32["py"], i32["origin"]
+
+
+def rebalance_local(scene, cam, px, py, cfg, key, spp: int, sample_offset: int, cap: int,
+                    shard: int, stats: dict | None = None):
+    """Stage 1 of the rebalance on one shard's n lanes (px, py): the
+    wavefront down to `cap` pending lanes, through the cascade stages
+    above `cap`. Returns (state, bundle): bundle is int32[cap,
+    BUNDLE_COLS], the pending lanes first (origin = shard·n + lane),
+    then fill rows."""
+    n, dev = px.shape[0], px.device
+    make_body = _wavefront_body_maker(scene, cam, cfg, spp, sample_offset,
+                                      isect.fused_trace_available(scene))
+    caps = [c for c in cascade_caps(n, cfg.drain_cascade) if c > cap]
+    state = _cascade(make_body, _new_state(n, dev), px, py, _lane_pkeys(cfg, key, px, py), spp,
+                     caps, cap, stats)
+    idx = torch.nonzero(_pending(state, spp)).squeeze(1)
+    if stats is not None:
+        stats["host_reads"] += 1
+    fill = _new_state(cap, dev)
+    fill["sample"].fill_(spp)
+    zeros = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    bundle = _pack(fill, zeros, zeros, torch.full((cap,), -1, dtype=torch.int32, device=dev))
+    k = idx.shape[0]
+    bundle[:k] = _pack({f: v[idx] for f, v in state.items()}, px[idx], py[idx],
+                       (shard * n + idx).to(torch.int32))
+    return state, bundle
+
+
+def rebalance_stripe(scene, cam, pooled, shard: int, n_shards: int, cfg, key, spp: int,
+                     sample_offset: int, stats: dict | None = None):
+    """Stage 2 on one shard: from the pool (every shard's bundle in shard
+    order, int32[S·cap, BUNDLE_COLS]) take the stripe shard + S·i and
+    drain it to the end, the draws rebuilt from each lane's pixel.
+    Returns (int32[cap, 4]: origin and the accumulator's bits, the
+    drain's iterations)."""
+    cap = pooled.shape[0] // n_shards
+    take = shard + n_shards * torch.arange(cap, device=pooled.device)
+    state, spx, spy, origin = _unpack(pooled[take])
+    make_body = _wavefront_body_maker(scene, cam, cfg, spp, sample_offset,
+                                      isect.fused_trace_available(scene))
+    st = stats if stats is not None else new_stats()
+    state = _drain(make_body(spx, spy, _lane_pkeys(cfg, key, spx, spy)), state, spp, 0, st)
+    return torch.cat([origin[:, None], state["acc"].view(torch.int32)], dim=1), \
+        st["stage_iterations"][-1]
+
+
+def rebalance_return(state, results, shard: int, spp: int) -> torch.Tensor:
+    """Stage 3 on one shard: the finished accumulators of every stripe
+    (int32[S·cap, 4] in shard order) written back to this shard's lanes
+    (origin in [shard·n, (shard+1)·n); the others and the fill rows are
+    masked out). Returns the shard's mean radiance f32[n,3]."""
+    n = state["acc"].shape[0]
+    origin = results[:, 0]
+    mine = (origin >= shard * n) & (origin < (shard + 1) * n)
+    acc = results[:, 1:].contiguous().view(torch.float32)
+    state["acc"][(origin[mine] - shard * n).long()] = acc[mine]
+    return state["acc"] / float(spp)
+
+
+@torch.no_grad()
+def render_pixels_wavefront_rebalanced(lanes: dict, cfg, key, all_gather, n_shards: int,
+                                       spp: int | None = None, sample_offset: int = 0,
+                                       rebalance_div: int = 8, stats: dict | None = None):
+    """The wavefront over S = n_shards shards of n lanes each with the
+    cross-shard drain rebalance (JAX models/wavefront.py:260). `lanes`
+    maps each shard this process renders to (scene, cam, px, py) on its
+    device: every shard of an in-process mesh, one rank's own under a
+    process group. `all_gather({shard: int32[m, c]})` returns {shard:
+    int32[S·m, c]}, every shard's rows in shard order on that shard's
+    device (each stage runs with that card current). Once a shard's
+    pending count falls to rebalance_cap(n,
+    rebalance_div), the pending lanes are pooled and each shard drains
+    the stripe shard + S·i, so the shards finish together. Draws depend
+    only on (pixel, sample, bounce) and the accumulator migrates as a
+    running total, so every lane is bit for bit the unsharded one.
+    Returns ({shard: f32[n,3]}, {shard: post-rebalance iterations})."""
+    spp = cfg.spp if spp is None else int(spp)
+    n = next(iter(lanes.values()))[2].shape[0]
+    cap = rebalance_cap(n, rebalance_div)
+    local, bundles = {}, {}
+    for s, (scene, cam, px, py) in lanes.items():
+        with device_scope(px.device):
+            local[s], bundles[s] = rebalance_local(scene, cam, px, py, cfg, key, spp,
+                                                   sample_offset, cap, s, stats)
+    pooled = all_gather(bundles)
+    results, iters = {}, {}
+    for s, (scene, cam, px, _) in lanes.items():
+        with device_scope(px.device):
+            results[s], iters[s] = rebalance_stripe(scene, cam, pooled[s], s, n_shards, cfg, key,
+                                                    spp, sample_offset, stats)
+    back = all_gather(results)
+    return {s: rebalance_return(local[s], back[s], s, spp) for s in lanes}, iters
 
 
 @torch.no_grad()
@@ -235,16 +381,6 @@ def render_image_wavefront(scene, cam, cfg, key, spp: int | None = None,
     dev = scene.materials.type.device
     px, py, inv = (t.to(dev) for t in _tiled_pixel_grid(cfg))
     spp = cfg.spp if spp is None else int(spp)
-    step = max(1, min(spp, cfg.spp_per_pass))
-    if step >= spp:
-        rgb = render_pixels_wavefront(scene, cam, px, py, cfg, key, spp=spp, stats=stats)
-    else:
-        rgb = None
-        done = 0
-        while done < spp:
-            s = min(step, spp - done)
-            part = render_pixels_wavefront(scene, cam, px, py, cfg, key, spp=s,
-                                           sample_offset=done, stats=stats) * (s / spp)
-            rgb = part if rgb is None else rgb + part
-            done += s
+    rgb = mean_over_passes(cfg, spp, lambda s, done: render_pixels_wavefront(
+        scene, cam, px, py, cfg, key, spp=s, sample_offset=done, stats=stats))
     return rgb[inv].reshape(cfg.height, cfg.width, 3)

@@ -76,6 +76,29 @@ def samples_per_trace(cfg, n_pixels: int, spp: int) -> int:
     return max(1, min(spp, cfg.max_rays_per_pass // max(n_pixels, 1)))
 
 
+def spp_passes(cfg, spp: int):
+    """(s, offset, weight) of each pass of `spp` samples: passes of
+    cfg.spp_per_pass samples, each weighted s / spp (None for a single
+    pass, which is taken as it is)."""
+    step = max(1, min(spp, cfg.spp_per_pass))
+    for done in range(0, spp, step):
+        s = min(step, spp - done)
+        yield s, done, (None if s == spp else s / spp)
+
+
+def mean_over_passes(cfg, spp: int, render_pass):
+    """The mean over `spp` samples from render_pass(s, offset), the mean
+    over samples [offset, offset + s), summed over spp_passes. Draws are
+    keyed by the absolute sample, so the passes give the samples one
+    pass would."""
+    acc = None
+    for s, done, w in spp_passes(cfg, spp):
+        part = render_pass(s, done)
+        part = part if w is None else part * w
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def pixel_grid(cfg, device=None):
     """Pixel ids of a full image, row 0 = top (pre-flipped)."""
     xs = torch.arange(cfg.width, dtype=torch.int32, device=device)

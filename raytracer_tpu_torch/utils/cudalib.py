@@ -17,6 +17,7 @@ bit wherever no transcendental function is involved.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -238,6 +239,14 @@ def require_cuda(name: str, t, dtype, shape=None):
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def device_scope(dev):
+    """The context in which the kernels launch on `dev`: its card made
+    current (the C entry points launch on the current card, on
+    stream_handle()); nothing for a CPU device."""
+    dev = torch.device(dev)
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def bvh_view(bvh) -> BvhView:

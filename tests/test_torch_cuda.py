@@ -15,8 +15,9 @@ on the whole 2K frame,
 K3-profile against K3 and its plain version, the culled K3 against the
 parent commit's kernels (phase 15, opt-in), the traversal-iteration
 probes at the scripts' sizes (phase 13; P-morph also at 1,056 packets),
-the kernels on the reference scene's 4-wide tree (phase 14), and the
-wavefront integrator at 2560x1440 (phase 16)."""
+the kernels on the reference scene's 4-wide tree (phase 14), the
+wavefront integrator at 2560x1440 (phase 16), and the sharded renders,
+the mesh-sharded train step and two processes on the card (phase 17)."""
 
 import dataclasses
 import importlib.util
@@ -740,3 +741,36 @@ def test_probe_tile_and_morph_resources(dev):
     res = [*mosaic.kernel_resources().values(), *feature.kernel_resources().values(),
            *bitcast.kernel_resources().values(), *morph.kernel_resources().values()]
     assert len(res) == 7 + 6 + 4 + 13 and all(r > 0 for r, _ in res)
+
+
+@pytest.mark.parametrize("kernel_interleave", [1, 2])
+def test_fused_two_shards_on_one_card(dev, bunny, kernel_interleave):
+    """render_image_fused_sharded over ["cuda:0"] * 2: one K3 (or K5)
+    launch per shard, the frame bit for bit render_image_fused's."""
+    from raytracer_tpu_torch.parallel.sharding import make_mesh, render_image_fused_sharded
+
+    cfg = RenderConfig(width=256, height=128, spp=2, max_bounces=8, rng_impl="ktf")
+    cam = showcase_camera(cfg)
+    want = render_image_fused(bunny, cam, cfg, 3, interleave=kernel_interleave)
+    key = "render_fused" if kernel_interleave == 1 else "render_fused_g2"
+    before = cuda_megakernel.LAUNCHES[key]
+    got = render_image_fused_sharded(bunny, cam, cfg, 3, mesh=make_mesh([dev] * 2),
+                                     kernel_interleave=kernel_interleave)
+    assert cuda_megakernel.LAUNCHES[key] - before == 2
+    assert torch.equal(got, want)
+    assert got.mean().item() > 0.05
+
+
+def test_rebalanced_wavefront_two_shards_on_one_card(dev, bunny):
+    from raytracer_tpu_torch.parallel.sharding import (make_mesh, render_image_wavefront_rebalanced,
+                                                       render_image_wavefront_sharded)
+
+    cfg = RenderConfig(width=256, height=128, spp=2, max_bounces=8, rng_impl="ktf")
+    cam = showcase_camera(cfg)
+    want = render_image_wavefront(bunny, cam, cfg, 0)
+    mesh = make_mesh([dev] * 2)
+    got, iters = render_image_wavefront_rebalanced(bunny, cam, cfg, 0, mesh=mesh,
+                                                   report_iters=True)
+    assert torch.equal(got, want)
+    assert iters.shape == (2,) and bool((iters >= 1).all())
+    assert torch.equal(render_image_wavefront_sharded(bunny, cam, cfg, 0, mesh=mesh), want)

@@ -147,7 +147,7 @@ def test_single_target_step_is_the_one_pair_multi_step(setup):
     assert torch.equal(ls, lm)
     for k in ps:
         assert torch.equal(ps[k], pm[k]), k
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(TypeError, match="Mesh"):
         tinv.make_train_step(ts, cam, cfg, target[0], mesh=object())
 
 

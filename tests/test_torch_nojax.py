@@ -39,7 +39,9 @@ for name in ("raytracer_tpu_torch.render", "raytracer_tpu_torch.models.megakerne
              "raytracer_tpu_torch.probes.mosaic", "raytracer_tpu_torch.probes.bitcast",
              "raytracer_tpu_torch.probes.feature", "raytracer_tpu_torch.models.wavefront",
              "raytracer_tpu_torch.io.checkpoint", "raytracer_tpu_torch.viewer",
-             "raytracer_tpu_torch.camera_motion", "raytracer_tpu_torch.cli"):
+             "raytracer_tpu_torch.camera_motion", "raytracer_tpu_torch.cli",
+             "raytracer_tpu_torch.parallel.sharding", "raytracer_tpu_torch.parallel.multihost",
+             "raytracer_tpu_torch.parallel.multihost_demo"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "raytracer_tpu") for m in sys.modules)
