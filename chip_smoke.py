@@ -121,14 +121,42 @@ plain PyTorch version, and drives the port's three paths:
     render and the train step 4 ways, and four processes on nccl, one
     per card.
 
+  * the LBVH fallback and the LBVH-only route (phase 19, ops/bvh,
+    ops/traverse, scene/assets): the procedural assets written again equal
+    the committed files byte for byte; with the native builder made to
+    raise NativeUnavailable (monkeypatched in the phase), the LBVH of the
+    reference scene's 81,920-triangle tree half built on the card equals
+    the CPU's build bit for bit and its collapsed, widened BVH8 equals the
+    builder's fallback tree; that tree through K3 gives the preflight
+    known answer (2%) and equals K3's plain version there bit for bit,
+    gives a 2K spp8 mb20 frame within the image tolerance of the native
+    tree's (both K3 times in turns), and through K4 on the wavefront a
+    frame within the tolerance of its K3 frame, K4 equal to its plain
+    version bit for bit on 4,096 of phase 8's bounce rays; a scene that
+    holds only the LBVH of all 81,952 triangles goes through
+    ops/traverse.intersect_bvh (plain PyTorch on the card, one host read
+    per step) against the K4 route on 65,536 of phase 8's bounce rays
+    (hits, types and ids equal, t within rtol 1e-4) and through the megakernel renderer's preflight frame against
+    the bvh4 scene's; the CLI's --profile writes a trace with the card's
+    kernels.
+
+  * the BASELINE configs and the flagship (phase 20,
+    raytracer_tpu_torch.milestones and .flagship): configs 1-4 at their
+    presets and config 5 with --quick (2K, spp 8), each with its launches
+    counted from 0 (every pixel finite, config 4's loss falling); the
+    flagship 2560x1440 at 2000 spp through K3 in 16-spp resumable batches,
+    its mean within 2% of FLAGSHIP_r05.json's (the JAX package's render
+    of the same frame).
+
 Every kernel row carries its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the peak rate of their type (fp32: 67 TFLOP/s), counted from this
 run's inputs (H100 SXM datasheet peaks).
 
-    python3 chip_smoke.py              # phases 1-14, 16 and 17 (what CI runs)
+    python3 chip_smoke.py              # phases 1-14, 16, 17, 19 and 20 (what CI runs)
     python3 chip_smoke.py --phases 16  # the wavefront alone
     python3 chip_smoke.py --phases 17  # the sharded paths and two processes
+    python3 chip_smoke.py --phases 1,2,19,20   # the LBVH, the milestones and the flagship
     python3 chip_smoke.py --phases 1,2,18   # the same over four distinct cards (nccl)
     python3 chip_smoke.py --phases 1,2,3   # a subset, while debugging
     python3 chip_smoke.py --phases 15 --parent renders/parent   # old against new
@@ -136,7 +164,9 @@ run's inputs (H100 SXM datasheet peaks).
 
 Every phase raises on failure, so the script exits non-zero. The last
 lines are a `train` JSON line (phase 10), a `probes` JSON line (phase 13),
-a `wavefront` JSON line (phase 16), a `sharding` JSON line (phase 17:
+a `wavefront` JSON line (phase 16), an `lbvh` JSON line (phase 19), a
+`milestones` JSON line (phase 20: each config's record and launches, the
+flagship's wall clock and mean), a `sharding` JSON line (phase 17:
 per check the shards, whether bitwise, the seconds, the rebalance's
 balance, beside the card's name and power limit),
 a JSON object with one entry per kernel and {"ok": true, "device": {...}}. It needs a CUDA card and
@@ -229,6 +259,18 @@ P17_CLI = dict(width=640, height=360, spp=4, max_bounces=8)
 P17_2D_ATOL, P17_2D_RTOL = 2e-6, 1e-5
 P17_LOSS_RTOL, P17_PARAM_ATOL = 1e-5, 1e-6
 P17_RANK_TIMEOUT_S = 300   # per worker process of the two-process run
+# Phase 19: the LBVH fallback and the LBVH-only route (ops/bvh, ops/traverse).
+P19_RAYS = 65536           # seeded bounce rays of phase 8's wavefront
+P19_PLAIN_RAYS = 4096      # of them, re-traced by K4's plain version on the fallback tree
+ASSET_FILES = ("CornellBox-Original.obj", "CornellBox-Original.mtl", "bunny.obj")
+# Phase 20: the BASELINE milestone configs (raytracer_tpu_torch.milestones)
+# and the flagship (raytracer_tpu_torch.flagship) against FLAGSHIP_r05.json,
+# the JAX package's 2000 spp render of the same frame (fused, ktf, key 0).
+P20_FULL = (1, 2, 3, 4)    # at their presets; config 5 runs --quick (2K, spp 8)
+P20_QUICK = (5,)
+FLAGSHIP_REF = os.path.join(ROOT, "FLAGSHIP_r05.json")
+FLAGSHIP_SPP = 2000
+FLAGSHIP_RTOL = 0.02
 # Peaks for the bounds: H100 SXM (NVIDIA H100 datasheet) and the
 # Hopper SM's 64 INT32 units (NVIDIA H100 Tensor Core GPU Architecture
 # whitepaper), at the card's own maximum SM clock for int32.
@@ -246,23 +288,6 @@ NORMAL_ULP = 3
 
 def log(phase, msg):
     print(f"[phase {phase}] {msg}", flush=True)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def gpu_lines() -> list:
-    """gpu_line() of every visible card."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -397,9 +422,9 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17",
-                    help="comma-separated phases to run (default: 1-14, 16 and 17; phase 15 "
-                         "needs --parent, phase 18 four cards)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17,19,20",
+                    help="comma-separated phases to run (default: 1-14, 16, 17, 19 and 20; "
+                         "phase 15 needs --parent, phase 18 four cards)")
     ap.add_argument("--parent", default=None,
                     help="phase 15: a directory holding the parent commit's tree "
                          "(e.g. from git archive)")
@@ -422,6 +447,7 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.schedule import _tiled_pixel_grid, blocked_pixel_grid
     from raytracer_tpu_torch.utils import cudalib, ktf
     from raytracer_tpu_torch.utils.image import write_png
+    from raytracer_tpu_torch.utils.profiling import device_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -430,7 +456,7 @@ def main(argv=None) -> int:
     kernels = {}
 
     # ---- 1. device
-    smi = gpu_line()
+    smi = device_line(dev)
     print(smi, flush=True)
     nvcc_v = subprocess.run([cudalib._nvcc(), "--version"], capture_output=True, text=True,
                             timeout=60).stdout.strip().splitlines()[-1]
@@ -461,12 +487,13 @@ def main(argv=None) -> int:
     scene = None
     if 15 in phases and not args.parent:
         raise SystemExit("chip_smoke: phase 15 needs --parent DIR (the parent commit's tree)")
-    if phases & {4, 5, 6, 7, 8, 9, 11, 12, 14, 15, 16, 17, 18}:
+    if phases & {4, 5, 6, 7, 8, 9, 11, 12, 14, 15, 16, 17, 18, 19}:
         t0 = time.perf_counter()
         scene_cpu = reference_scene()
         scene = scene_cpu.to(dev)
         b = scene_cpu.bvh4
         log(0, f"reference_scene: {scene_cpu.mesh.num_tris} tris, BVH{b.children.shape[1]} "
+               f"built by '{b.builder}', "
                f"{b.children.shape[0]} nodes, {b.tri.shape[0]} padded tris, "
                f"{b.brute_tri.shape[0]} brute rows, stack_depth {b.stack_depth}, "
                f"built in {time.perf_counter() - t0:.2f} s")
@@ -878,8 +905,17 @@ def main(argv=None) -> int:
             raise SystemExit(f"chip_smoke: phase 18 needs 4 cards, {n_cards} visible")
         r18 = phase17(scene, dev, smi, cards=n_cards)
         log(18, r18["msg"])
-        print(json.dumps({"sharding_cards": dict(cards=gpu_lines(), checks=r18["checks"])}),
-              flush=True)
+        cards = [device_line(f"cuda:{i}") for i in range(n_cards)]
+        print(json.dumps({"sharding_cards": dict(cards=cards, checks=r18["checks"])}), flush=True)
+
+    if 19 in phases:
+        r19 = phase19(scene, dev, smi)
+        log(19, r19["msg"])
+        print(json.dumps({"lbvh": r19["summary"]}), flush=True)
+    if 20 in phases:
+        r20 = phase20(dev, smi)
+        log(20, r20["msg"])
+        print(json.dumps({"milestones": r20["summary"]}), flush=True)
 
     if 15 in phases:
         r15 = phase15(scene, dev, smi, args.parent)
@@ -3825,6 +3861,408 @@ def phase17(scene, dev, smi, cards: int = 0) -> dict:
                           if not k.startswith(("fused", "wavefront", "rebalanced"))))
     msgs.append(f"phase {time.perf_counter() - t_phase:.1f} s on {smi}")
     return dict(checks=checks, counts=counts, msg=" | ".join(msgs), cards=cards or 1)
+
+
+def _bitwise_tree(a, b, fields) -> dict:
+    """{field: equal bit for bit} of two trees' tensors (on any devices)."""
+    import torch
+
+    out = {}
+    for f in fields:
+        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        out[f] = bool(x.shape == y.shape and torch.equal(x, y))
+    return out
+
+
+def phase19(scene, dev, smi) -> dict:
+    """The LBVH fallback and the LBVH-only route on the card: the assets
+    written again equal the committed files; with the native builder made
+    to raise NativeUnavailable, the LBVH of the reference scene's tree half
+    built on the card equals the CPU's build bit for bit, the collapsed and
+    widened BVH8 equals the builder's (CPU), and the fallback tree through
+    K3 gives the preflight known answer, equal to K3's plain version bit
+    for bit, and a 2K frame within the image tolerance of the native
+    tree's (then through K4 on the wavefront, with K4 equal to its plain
+    version bit for bit on P19_PLAIN_RAYS bounce rays); a scene that holds
+    only the LBVH of all 81,952 triangles goes through
+    ops/traverse.intersect_bvh against the K4 route on the native scene
+    (65,536 bounce rays: hits, types and ids equal) and through the megakernel renderer (preflight
+    frame) against the bvh4 scene; the CLI's --profile writes a trace."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from raytracer_tpu_torch.camera import showcase_camera
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.models.fused import _fused_pixel_grid, render_image_fused
+    from raytracer_tpu_torch.models.wavefront import render_image_wavefront
+    from raytracer_tpu_torch.ops import cuda_megakernel
+    from raytracer_tpu_torch.ops import cuda_traverse as ct
+    from raytracer_tpu_torch.ops import intersect as isect
+    from raytracer_tpu_torch.ops import traverse
+    from raytracer_tpu_torch.ops.bvh import build_lbvh
+    from raytracer_tpu_torch.ops.bvh4 import BIG, build_bvh4, widen_bvh
+    from raytracer_tpu_torch.render import render_image_chunked
+    from raytracer_tpu_torch.scene import assets, builder, native
+    from raytracer_tpu_torch.scene.types import TriMesh
+
+    t_phase = time.perf_counter()
+    msgs, res = [], {"card": smi}
+
+    # 1. The procedural assets, written again, equal the committed files.
+    with tempfile.TemporaryDirectory() as tmp:
+        assets.ensure_assets(tmp)
+        same = {}
+        for name in ASSET_FILES:
+            with open(os.path.join(tmp, name), "rb") as f, \
+                    open(os.path.join(builder.ASSETS_DIR, name), "rb") as g:
+                same[name] = f.read() == g.read()
+    if not all(same.values()):
+        raise AssertionError(f"ensure_assets into an empty directory differs from the committed "
+                             f"files: {same}")
+    msgs.append("ensure_assets into an empty directory: " + ", ".join(same)
+                + " byte for byte the committed files")
+
+    # 2. The native builder forced to raise NativeUnavailable.
+    native_scene = builder.reference_scene()
+    mesh = native_scene.mesh
+    brute_ids, tree_ids = builder.partition_brute_faces(mesh)
+    keep = torch.from_numpy(tree_ids)
+    sub = TriMesh(vertices=mesh.vertices, faces=mesh.faces[keep], face_mat=mesh.face_mat[keep])
+    t0 = time.perf_counter()
+    lb_cpu = build_lbvh(sub)
+    cpu_s = time.perf_counter() - t0
+    sub_d = sub.to(dev)
+    build_lbvh(sub_d)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lb_dev = build_lbvh(sub_d)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    eq_lbvh = _bitwise_tree(lb_dev, lb_cpu, ("left", "right", "node_min", "node_max",
+                                              "prim_index"))
+    if not all(eq_lbvh.values()):
+        raise AssertionError(f"build_lbvh on the card vs the CPU: {eq_lbvh}")
+
+    real = native.build_bvh4_native
+
+    def unavailable(*a, **k):
+        raise native.NativeUnavailable("forced by chip_smoke phase 19")
+
+    native.build_bvh4_native = unavailable
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            fb_cpu = builder.reference_scene()
+            fb_s = time.perf_counter() - t0
+    finally:
+        native.build_bvh4_native = real
+    said = [str(w.message) for w in caught if "native builder is unavailable" in str(w.message)]
+    b8 = fb_cpu.bvh4
+    t0 = time.perf_counter()
+    b4_dev = build_bvh4(sub, lb_dev)
+    collapse_s = time.perf_counter() - t0
+    b8_dev = widen_bvh(b4_dev, 8)
+    eq_b8 = _bitwise_tree(b8_dev, b8, ("bounds", "children", "tri", "face_mat"))
+    pi = b8_dev.prim_index.numpy()
+    eq_b8["prim_index (remapped)"] = bool(np.array_equal(
+        np.where(pi >= 0, tree_ids[np.maximum(pi, 0)], -1), b8.prim_index.numpy()))
+    eq_b8["stack_depth"] = b8_dev.stack_depth == b8.stack_depth
+    if not (said and b8.builder == "lbvh" and native_scene.bvh4.builder == "native"
+            and all(eq_b8.values())):
+        raise AssertionError(f"fallback: warned {said}, builders {native_scene.bvh4.builder} / "
+                             f"{b8.builder}, the card's collapse vs the builder's: {eq_b8}")
+    res.update(lbvh_tris=int(sub.num_tris), lbvh_internal_nodes=int(lb_dev.left.shape[0]),
+               lbvh_build_card_s=dev_s, lbvh_build_cpu_s=cpu_s, collapse_s=collapse_s,
+               bvh4_nodes=int(b4_dev.children.shape[0]), bvh8_nodes=int(b8.children.shape[0]),
+               stack_depth=b8.stack_depth,
+               native_bvh8_nodes=int(native_scene.bvh4.children.shape[0]),
+               native_stack_depth=native_scene.bvh4.stack_depth, fallback_scene_build_s=fb_s)
+    msgs.append(f"native builder forced to raise NativeUnavailable (monkeypatched in this phase; "
+                f"the builder warned: {said[0]!r}); trees: the native scene's by "
+                f"'{native_scene.bvh4.builder}' (BVH8 {res['native_bvh8_nodes']} nodes, stack "
+                f"{res['native_stack_depth']}), the fallback scene's by '{b8.builder}' (LBVH of "
+                f"{res['lbvh_tris']} tris, {res['lbvh_internal_nodes']} internal nodes -> BVH4 "
+                f"{res['bvh4_nodes']} nodes -> BVH8 {res['bvh8_nodes']} nodes, stack "
+                f"{res['stack_depth']}); build_lbvh on the card {dev_s:.4f} s, on the CPU "
+                f"{cpu_s:.4f} s, bitwise equal ({', '.join(eq_lbvh)}); collapse "
+                f"{collapse_s:.3f} s; "
+                f"the card's collapsed and widened BVH8 == the builder's ({', '.join(eq_b8)}); "
+                f"the whole fallback scene build {fb_s:.2f} s")
+    fb = fb_cpu.to(dev)
+
+    # 3. The fallback tree through K3: the preflight known answer.
+    with open(EXPECTED) as f:
+        expected = json.load(f)["mean_rgb_ktf"]
+    pre = RenderConfig(**PREFLIGHT)
+    _reset_fused_counts()
+    img = render_image_fused(fb, showcase_camera(pre), pre, 0)
+    torch.cuda.synchronize()
+    mean = img.mean().item()
+    rel = abs(mean - expected) / expected
+    k3 = cuda_megakernel.LAUNCHES["render_fused"]
+    if not bool(torch.isfinite(img).all()) or rel > PREFLIGHT_RTOL or k3 < 1 or \
+            cuda_megakernel.PLAIN_CALLS["render_plain"]:
+        raise AssertionError(f"fallback tree preflight: mean {mean} vs {expected} (rel {rel:.3g}), "
+                             f"K3 launches {k3}, plain {cuda_megakernel.PLAIN_CALLS}")
+    # K3 against its plain version on the same lanes of the fallback tree.
+    cam_pre = showcase_camera(pre)
+    ppx, ppy, _ = (t.to(dev) for t in _fused_pixel_grid(pre))
+    k3_lanes = cuda_megakernel.render_tiles_fused(fb, cam_pre, pre, 0, ppx, ppy)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_lanes = cuda_megakernel.render_tiles_fused_plain(fb, cam_pre, pre, 0, ppx, ppy)
+    torch.cuda.synchronize()
+    k3_plain_s = time.perf_counter() - t0
+    if not torch.equal(k3_lanes, plain_lanes):
+        lanes_differ = int((k3_lanes != plain_lanes).any(dim=-1).sum())
+        raise AssertionError(f"fallback tree, K3 vs plain at the preflight size: {lanes_differ} "
+                             f"of {k3_lanes.shape[0]} lanes differ")
+    res.update(preflight_mean=mean, preflight_rel=rel, k3_vs_plain_lanes=int(k3_lanes.shape[0]),
+               k3_plain_s=k3_plain_s)
+    msgs.append(f"fallback tree, preflight 128x40 spp2 mb12 through K3 ({k3} launch): mean "
+                f"{mean:.6f} vs {expected:.6f} (rel {rel:.2e}, gate {PREFLIGHT_RTOL}); K3 == its "
+                f"plain version bit for bit on all {k3_lanes.shape[0]} lanes (plain "
+                f"{k3_plain_s:.2f} s)")
+
+    # 4. Its 2K frame against the native tree's, and both K3 times.
+    cfg = RenderConfig(**MAIN)
+    cam = showcase_camera(cfg)
+    _reset_fused_counts()
+    img_fb = render_image_fused(fb, cam, cfg, 0)
+    img_nat = render_image_fused(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    k3 = cuda_megakernel.LAUNCHES["render_fused"]
+    bad, mean_diff, max_err = image_agreement(img_fb, img_nat)
+    differ = int((img_fb != img_nat).any(dim=-1).sum())
+    if not (bad <= IMG_BAD_FRAC and mean_diff <= MEAN_TOL and k3 == 2
+            and bool(torch.isfinite(img_fb).all())):
+        raise AssertionError(f"fallback tree 2K frame vs the native tree's: {bad:.4%} elements "
+                             f"beyond tolerance, mean diff {mean_diff}, K3 launches {k3}")
+    px, py, _ = (t.to(dev) for t in _fused_pixel_grid(cfg))
+    ms = _ms_in_turns({
+        "native": lambda: cuda_megakernel.render_tiles_fused(scene, cam, cfg, 0, px, py),
+        "lbvh": lambda: cuda_megakernel.render_tiles_fused(fb, cam, cfg, 0, px, py)}, 1, turns=6)
+    res.update(frame_2k_bad_frac=bad, frame_2k_mean_diff=mean_diff, frame_2k_max_abs=max_err,
+               frame_2k_pixels_differ=differ, k3_2k_ms_native=ms["native"][0],
+               k3_2k_ms_lbvh=ms["lbvh"][0])
+    msgs.append(f"fallback tree 2K spp8 mb20 K3 frame vs the native tree's: {differ} of "
+                f"{cfg.width * cfg.height} pixels differ, {bad:.4%} elements beyond "
+                f"5e-4+2e-4|x| (limit 0.5%), mean diff {mean_diff:.2e}, max abs {max_err:.3g}; K3 "
+                f"alone in turns, median of 6 [min-max] ms: native tree {ms['native'][0]:.2f} "
+                f"[{ms['native'][1]:.2f}-{ms['native'][2]:.2f}], fallback tree "
+                f"{ms['lbvh'][0]:.2f} [{ms['lbvh'][1]:.2f}-{ms['lbvh'][2]:.2f}]")
+
+    # 5. The fallback tree through K4 on the wavefront (ktf): against its K3 frame.
+    _reset_counts()
+    t0 = time.perf_counter()
+    img_wf = render_image_wavefront(fb, cam, cfg.replace(rng_impl="ktf"), 0)
+    torch.cuda.synchronize()
+    wf_s = time.perf_counter() - t0
+    c = _counts()
+    bad_w, mean_diff_w, _ = image_agreement(img_wf, img_fb)
+    if not (bad_w <= IMG_BAD_FRAC and mean_diff_w <= MEAN_TOL and c["k4"] >= 1
+            and c["plain"] == 0):
+        raise AssertionError(f"fallback tree wavefront vs its K3 frame: {bad_w:.4%} beyond "
+                             f"tolerance, mean diff {mean_diff_w}, counts {c}")
+    # K4 (through the coherence sort, as the wavefront calls it) against
+    # its plain version on the fallback tree, on seeded bounce rays.
+    o_all, d_all = bounce_rays(scene, dev)
+    pick = torch.from_numpy(np.sort(np.random.default_rng(190).choice(
+        o_all.shape[0], P19_PLAIN_RAYS, replace=False))).to(dev)
+    op, dp = o_all[pick].contiguous(), d_all[pick].contiguous()
+    k4_checks = {}
+    for sort in (True, False):
+        got_k4 = ct.trace_closest(op, dp, fb.bvh4, float(BIG), 1e-3, sort=sort)
+        want_k4 = ct.trace_closest_plain(op, dp, fb.bvh4, float(BIG), 1e-3, sort=sort)
+        k4_checks["sorted" if sort else "unsorted"] = _equal_records(got_k4, want_k4)
+    k4_hits = int(want_k4["hit"].sum())
+    if any(k4_checks.values()):
+        raise AssertionError(f"fallback tree, K4 vs plain on {P19_PLAIN_RAYS} bounce rays: "
+                             f"differing fields {k4_checks}")
+    res.update(wavefront_2k_s=wf_s, wavefront_k4_launches=c["k4"], wavefront_bad_frac=bad_w,
+               k4_vs_plain_rays=P19_PLAIN_RAYS, k4_vs_plain_hits=k4_hits)
+    msgs.append(f"fallback tree 2K wavefront (ktf) in {wf_s:.3f} s, K4 launches {c['k4']}, K2 "
+                f"Threefry {c['k2_threefry']}, plain calls {c['plain']}: vs its K3 frame "
+                f"{bad_w:.4%} elements beyond tolerance, mean diff {mean_diff_w:.2e}; K4 sorted "
+                f"and unsorted == its plain version bit for bit (every record field) on "
+                f"{P19_PLAIN_RAYS} of phase 8's bounce rays ({k4_hits} hits)")
+
+    # 6. The LBVH-only scene of all 81,952 triangles against the K4 route.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lb_all = build_lbvh(scene.mesh)
+    torch.cuda.synchronize()
+    lb_all_s = time.perf_counter() - t0
+    only = dataclasses.replace(scene, bvh4=None, bvh=lb_all)
+    if isect.fused_trace_available(only) or cuda_megakernel.fused_megakernel_available(only):
+        raise AssertionError("an LBVH-only scene must not take K3 or trace_frame_fused")
+    pick = torch.from_numpy(np.sort(np.random.default_rng(19).choice(
+        o_all.shape[0], P19_RAYS, replace=False))).to(dev)
+    o, d = o_all[pick].contiguous(), d_all[pick].contiguous()
+    ref = isect.intersect_scene(scene, o, d, 1e-3)
+    torch.cuda.synchronize()
+    _reset_counts()
+    traverse.STATS.update(calls=0, steps=0, host_reads=0)
+    t0 = time.perf_counter()
+    got = isect.intersect_scene(only, o, d, 1e-3)
+    torch.cuda.synchronize()
+    only_s = time.perf_counter() - t0
+    stats = dict(traverse.STATS)
+    c = _counts()
+    hit = ref.hit
+    both = hit & got.hit
+    t_ok = bool(((got.t[both] - ref.t[both]).abs() <= T_RTOL * ref.t[both].abs()).all())
+    flips = int((got.prim_id[both] != ref.prim_id[both]).sum())
+    n_hit = int(both.sum())
+    if not (torch.equal(got.hit, hit) and torch.equal(got.prim_type, ref.prim_type) and t_ok
+            and flips == 0 and c["k4"] == 0 and c["plain"] == 0):
+        raise AssertionError(f"LBVH-only intersect_scene vs the K4 route: hit equal "
+                             f"{torch.equal(got.hit, hit)}, t within rtol {T_RTOL} {t_ok}, "
+                             f"{flips} id flips in {n_hit} hits, counts {c}")
+    prof = kernels_launched(lambda: isect.intersect_scene(only, o, d, 1e-3))
+    res.update(lbvh_all_build_s=lb_all_s, lbvh_only_rays=P19_RAYS, lbvh_only_hits=n_hit,
+               lbvh_only_id_flips=flips, lbvh_only_s=only_s, lbvh_only_steps=stats["steps"],
+               lbvh_only_host_reads=stats["host_reads"],
+               lbvh_only_kernels=prof.get("kernels"), lbvh_only_busy_us=prof.get("busy_us"),
+               lbvh_only_span_us=prof.get("span_us"))
+    msgs.append(f"LBVH-only scene (Scene.bvh of all {scene.mesh.num_tris} tris, built on the "
+                f"card in {lb_all_s:.4f} s): intersect_scene on {P19_RAYS} of phase 8's bounce "
+                f"rays in {only_s:.3f} s, {stats['steps']} lockstep steps, {stats['host_reads']} "
+                f"host reads, {prof.get('kernels')} kernels (torch.profiler; the card busy "
+                f"{(prof.get('busy_us') or 0) / 1e3:.1f} ms of a "
+                f"{(prof.get('span_us') or 0) / 1e3:.1f} ms span), K4 launches {c['k4']}; vs the "
+                f"K4 route on the native scene: hit masks and primitive types equal, t within rtol "
+                f"{T_RTOL}, {flips} id flips in {n_hit} hits (limit 0)")
+
+    # 7. The megakernel renderer's preflight frame on the LBVH-only scene.
+    with torch.no_grad():
+        want = render_image_chunked(scene, showcase_camera(pre), pre, 0)
+        _reset_counts()
+        traverse.STATS.update(calls=0, steps=0, host_reads=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_o = render_image_chunked(only, showcase_camera(pre), pre, 0)
+        torch.cuda.synchronize()
+        mk_s = time.perf_counter() - t0
+    stats, c = dict(traverse.STATS), _counts()
+    bad_o, mean_diff_o, max_o = image_agreement(img_o, want)
+    if not (bad_o <= IMG_BAD_FRAC and mean_diff_o <= MEAN_TOL and c["k4"] == 0
+            and bool(torch.isfinite(img_o).all())):
+        raise AssertionError(f"LBVH-only megakernel frame vs the bvh4 scene's: {bad_o:.4%} beyond "
+                             f"tolerance, mean diff {mean_diff_o}, counts {c}")
+    res.update(megakernel_preflight_s=mk_s, megakernel_steps=stats["steps"],
+               megakernel_host_reads=stats["host_reads"], megakernel_traversals=stats["calls"],
+               megakernel_bad_frac=bad_o)
+    msgs.append(f"megakernel renderer (jax family) preflight frame on the LBVH-only scene in "
+                f"{mk_s:.2f} s ({stats['calls']} traversals, {stats['steps']} steps, "
+                f"{stats['host_reads']} host reads, K4 launches {c['k4']}, K2 launches {c['k2']}): "
+                f"vs the bvh4 scene's frame {bad_o:.4%} elements beyond tolerance, mean diff "
+                f"{mean_diff_o:.2e}, max abs {max_o:.3g}")
+
+    # 8. The CLI's --profile DIR.
+    prof_dir = os.path.join(ROOT, "renders", "chip_smoke_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    png = os.path.join("renders", "chip_smoke_profile.png")
+    cmd = [sys.executable, "-m", "raytracer_tpu_torch.cli", "--scene", "cornell_bunny",
+           "--width", "128", "--height", "64", "--spp", "2", "--max-bounces", "4",
+           "--profile", prof_dir, "--out", png]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    recs = [json.loads(ln) for ln in out.stderr.splitlines() if ln.startswith('{"tag"')]
+    kernel_events = 0
+    if traces:
+        with open(os.path.join(prof_dir, traces[0])) as f:
+            kernel_events = sum(1 for e in json.load(f).get("traceEvents", [])
+                                if e.get("cat") == "kernel")
+    if out.returncode != 0 or len(traces) != 1 or not recs or kernel_events < 1:
+        raise AssertionError(f"CLI --profile: rc {out.returncode}, traces {traces}, records "
+                             f"{recs}, kernel events {kernel_events}: {out.stderr[-2000:]}")
+    res.update(profile_trace=traces[0], profile_kernel_events=kernel_events,
+               profile_record=recs[-1])
+    msgs.append(f"CLI --profile wrote {traces[0]} ({kernel_events} kernel events on the card) "
+                f"and logged {recs[-1]}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    msgs.append(f"phase {res['phase_s']:.1f} s on {smi}")
+    return dict(summary=res, msg=" | ".join(msgs))
+
+
+def phase20(dev, smi) -> dict:
+    """The five BASELINE configs through raytracer_tpu_torch.milestones
+    (1-4 at their presets, 5 with --quick: 2K, spp 8) and the flagship at
+    its full spp through raytracer_tpu_torch.flagship, each with its
+    launches counted from 0 just before it: every pixel finite, config
+    4's loss falling, the flagship's mean within 2% of FLAGSHIP_r05.json's
+    (the JAX package's render of the same frame)."""
+    import shutil
+
+    from raytracer_tpu_torch import flagship, milestones
+    from raytracer_tpu_torch.ops import cuda_megakernel
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "renders", "chip_smoke_milestones")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    records, msgs = [], []
+    for number in P20_FULL + P20_QUICK:
+        _reset_counts()
+        _reset_fused_counts()
+        argv = ["--out", out_dir, "--only", str(number)] + (["--quick"] if number in P20_QUICK
+                                                              else [])
+        [rec] = milestones.main(argv)
+        c = {**_counts(), "k3": cuda_megakernel.LAUNCHES["render_fused"]}
+        rec = milestones.json_record(rec)
+        rec.update(launches={k: c[k] for k in ("k4", "k4_sorted", "keys", "k2_threefry",
+                                               "k2_camera", "k2_bounce", "plain")},
+                   reduced="spp 8 (--quick) of 2000" if number in P20_QUICK else None)
+        ok = c["plain"] == 0 and c["k2"] >= 1
+        if number == 4:
+            ok = ok and rec["loss_last"] < rec["loss_first"]
+            what = (f"{rec['steps']} steps in {rec['seconds']:.3f} s, loss {rec['loss_first']:.6f} "
+                    f"-> {rec['loss_last']:.6f}")
+        else:
+            ok = ok and rec["finite"] and (number == 1 or c["k4"] >= 1)
+            what = (f"{rec['size'][0]}x{rec['size'][1]} spp {rec['spp']} in {rec['seconds']:.3f} "
+                    f"s ({rec['mrays_per_sec']:.2f} M camera rays/s), mean_rgb "
+                    + ", ".join(f"{x:.5f}" for x in rec["mean_rgb"]) + f", finite {rec['finite']}")
+        if not ok:
+            raise AssertionError(f"milestone {number}: {rec}, counts {c}")
+        records.append(rec)
+        cut = f" (reduced: {rec['reduced']})" if rec["reduced"] else ""
+        msgs.append(f"{rec['config']}{cut}: {what}; launches {rec['launches']}")
+
+    with open(FLAGSHIP_REF) as f:
+        ref = json.load(f)
+    fdir = os.path.join(ROOT, "renders", "chip_smoke_flagship")
+    shutil.rmtree(fdir, ignore_errors=True)
+    _reset_counts()
+    _reset_fused_counts()
+    stats = flagship.main([str(FLAGSHIP_SPP), os.path.join(fdir, "flagship_2k.png"),
+                           os.path.join(fdir, "flagship_ckpt.npz"), "--stats",
+                           os.path.join(fdir, "flagship.json")])
+    k3 = cuda_megakernel.LAUNCHES["render_fused"]
+    rel = abs(stats["mean_rgb"] - ref["mean_rgb"]) / ref["mean_rgb"]
+    want_k3 = -(-FLAGSHIP_SPP // 16)
+    if not (stats["finite"] and k3 == want_k3 and cuda_megakernel.PLAIN_CALLS["render_plain"] == 0
+            and stats["spp"] == ref["spp"] and rel <= FLAGSHIP_RTOL):
+        raise AssertionError(f"flagship: {stats}, K3 launches {k3} (expected {want_k3}), mean vs "
+                             f"FLAGSHIP_r05.json {ref['mean_rgb']}: rel {rel:.3g}")
+    flag = dict(spp=FLAGSHIP_SPP, wall_s=stats["wall_s_this_run"], mean_rgb=stats["mean_rgb"],
+                reference_mean_rgb=ref["mean_rgb"], reference_spp=ref["spp"], rel=rel,
+                k3_launches=k3, card=stats["card"])
+    msgs.append(f"flagship {stats['width']}x{stats['height']} spp {FLAGSHIP_SPP} mb20 (fused, ktf, "
+                f"key 0, 16-spp resumable batches) in {stats['wall_s_this_run']:.2f} s, K3 "
+                f"launches {k3}: mean "
+                f"{stats['mean_rgb']:.6f} vs FLAGSHIP_r05.json {ref['mean_rgb']} at spp "
+                f"{ref['spp']} (rel {rel:.2e}, gate {FLAGSHIP_RTOL})")
+    phase_s = time.perf_counter() - t_phase
+    msgs.append(f"phase {phase_s:.1f} s on {smi}")
+    return dict(summary=dict(card=smi, milestones=records, flagship=flag, phase_s=phase_s),
+                msg=" | ".join(msgs))
 
 
 if __name__ == "__main__":

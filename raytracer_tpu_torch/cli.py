@@ -18,15 +18,19 @@ environment K5, two lanes per thread (the JAX package's switch);
 (viewer.py, megakernel integrator), and `--sharded` shards the pixels of
 the differentiable renderer over every visible card, as the JAX CLI's
 `--sharded` does (parallel/sharding.render_image_sharded; with
-`--device cpu` one CPU shard). The JAX CLI's `--profile` is not yet
-ported (ROADMAP M6b).
+`--device cpu` one CPU shard). `--profile DIR` writes a torch.profiler
+trace of the render into DIR (TensorBoard; utils/profiling.trace, the
+card's kernels included on a card) and logs a `render` metrics record
+(camera rays/s, seconds) to stderr. The JAX CLI enters its trace on the
+`--serve` branch only; here it covers the render on every branch, as its
+help text says.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
-import time
 
 import torch
 
@@ -69,6 +73,8 @@ def main(argv=None):
     ap.add_argument("--camera", default="showcase", choices=["showcase", "reference"])
     ap.add_argument("--sharded", action="store_true",
                     help="shard pixels over every visible card (the differentiable renderer)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the render to DIR (TensorBoard)")
     ap.add_argument("--device", default="cuda",
                     help="cuda launches the kernels; cpu runs their plain versions")
     args = ap.parse_args(argv)
@@ -101,6 +107,9 @@ def main(argv=None):
             raise SystemExit("--integrator fused needs a bvh4 scene of width 4 or 8 within "
                              "the kernel's sphere/material budgets (use cornell_bunny / "
                              "cornell_materials with RAYTRACER_TPU_BVH_WIDTH 4 or 8)")
+    from raytracer_tpu_torch.utils.profiling import Meter, log_metrics, trace
+
+    prof = trace(args.profile, device) if args.profile else contextlib.nullcontext()
     if args.serve is not None:
         import os
 
@@ -111,44 +120,45 @@ def main(argv=None):
         print(f"serving the preview at http://localhost:{srv.server_address[1]}/",
               file=sys.stderr)
         try:
-            t0 = time.perf_counter()
-            linear = viewer.progressive_render(scene, cam, cfg, args.seed,
-                                               out_path=os.path.join("preview", "preview.png"))
-            _synchronize(device)
-            dt = time.perf_counter() - t0
+            with prof, Meter(cfg.width, cfg.height, cfg.spp) as meter:
+                linear = viewer.progressive_render(
+                    scene, cam, cfg, args.seed, out_path=os.path.join("preview", "preview.png"))
+                _synchronize(device)
         finally:
             srv.shutdown()
             srv.server_close()
-        _write_outputs(args, cfg, linear, dt, device)
-        return
+    else:
+        with prof, Meter(cfg.width, cfg.height, cfg.spp) as meter:
+            linear = _render(args, scene, cam, cfg, device)
+            _synchronize(device)
+    log_metrics("render", rays_per_sec=meter.rays_per_sec, seconds=meter.elapsed)
+    _write_outputs(args, cfg, linear, meter.elapsed, device)
 
-    t0 = time.perf_counter()
+
+def _render(args, scene, cam, cfg, device):
+    """The render of the chosen branch → linear f32[H,W,3]."""
     if args.checkpoint:
         from raytracer_tpu_torch.io.checkpoint import render_image_resumable
 
-        linear = render_image_resumable(scene, cam, cfg, args.seed, args.checkpoint,
-                                        integrator=args.integrator)
-    elif args.sharded:
+        return render_image_resumable(scene, cam, cfg, args.seed, args.checkpoint,
+                                      integrator=args.integrator)
+    if args.sharded:
         from raytracer_tpu_torch.parallel.sharding import make_mesh, render_image_sharded
 
         mesh = make_mesh([device] if device.type == "cpu" else None)
-        linear = render_image_sharded(scene, cam, cfg, args.seed, mesh=mesh)
-    elif args.integrator == "fused":
+        return render_image_sharded(scene, cam, cfg, args.seed, mesh=mesh)
+    if args.integrator == "fused":
         from raytracer_tpu_torch.models.fused import render_image_fused
 
-        linear = render_image_fused(scene, cam, cfg, args.seed)
-    elif args.integrator == "wavefront":
+        return render_image_fused(scene, cam, cfg, args.seed)
+    if args.integrator == "wavefront":
         from raytracer_tpu_torch.models.wavefront import render_image_wavefront
 
-        linear = render_image_wavefront(scene, cam, cfg, args.seed)
-    else:
-        from raytracer_tpu_torch.render import render_image_chunked
+        return render_image_wavefront(scene, cam, cfg, args.seed)
+    from raytracer_tpu_torch.render import render_image_chunked
 
-        with torch.no_grad():
-            linear = render_image_chunked(scene, cam, cfg, args.seed)
-    _synchronize(device)
-    dt = time.perf_counter() - t0
-    _write_outputs(args, cfg, linear, dt, device)
+    with torch.no_grad():
+        return render_image_chunked(scene, cam, cfg, args.seed)
 
 
 def _synchronize(device):

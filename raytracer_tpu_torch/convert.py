@@ -4,8 +4,8 @@
 Bvh4 or Camera included) into nested dicts of numpy arrays with
 `np.asarray`, without importing JAX. `scene_from_numpy` and
 `camera_from_numpy` rebuild the port's dataclasses from such dicts, so
-one scene can reach both packages in the tests. A scene that only the
-LBVH accelerates is refused: that traversal is not ported (ROADMAP M11).
+one scene can reach both packages in the tests, whichever of the BVH8
+(`bvh4`) and the binary LBVH (`bvh`) it holds.
 
 `key_words`, `params_from_numpy` and `adam_state_from_numpy` hand over
 the differentiable path's state: jax.random keys as their int32 words,
@@ -21,7 +21,7 @@ import torch
 
 from raytracer_tpu_torch.camera import Camera
 from raytracer_tpu_torch.ops.bvh4 import Bvh4
-from raytracer_tpu_torch.scene.types import Materials, Scene, Spheres, TriMesh
+from raytracer_tpu_torch.scene.types import Bvh, Materials, Scene, Spheres, TriMesh
 
 
 def to_numpy_tree(obj):
@@ -48,15 +48,19 @@ def bvh4_from_numpy(d: dict) -> Bvh4:
                   stack_depth=int(d["stack_depth"]))
 
 
+def bvh_from_numpy(d: dict) -> Bvh:
+    """The JAX Bvh's fields as numpy (to_numpy_tree) → the port's Bvh."""
+    return _build(Bvh, d)
+
+
 def scene_from_numpy(d: dict) -> Scene:
     """The JAX Scene's fields as numpy (to_numpy_tree) → the port's Scene."""
-    if d.get("bvh") is not None and d.get("bvh4") is None:
-        raise NotImplementedError("LBVH traversal (scene.bvh) is not yet ported (ROADMAP M11)")
     return Scene(
         materials=_build(Materials, d["materials"]),
         spheres=_build(Spheres, d["spheres"]),
         mesh=_build(TriMesh, d["mesh"]),
         bvh4=None if d.get("bvh4") is None else bvh4_from_numpy(d["bvh4"]),
+        bvh=None if d.get("bvh") is None else bvh_from_numpy(d["bvh"]),
         light_rect=_t(d.get("light_rect")),
         name=d.get("name", "scene"),
     )

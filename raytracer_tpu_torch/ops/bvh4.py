@@ -6,11 +6,14 @@ Child encoding (i32):
     == -1  → empty slot (its box is (+inf, -inf))
     <= -2  → leaf range: code = -(2 + lo*8 + (count-1)), count ∈ 1..8
 
-`compute_stack_depth`, `align_leaves_to_rows` and `widen_bvh` are the
-JAX package's NumPy code unchanged, so both packages build identical
-tables. `SORT_PAIRS` are the compare-exchange networks that order a
-node's children by entry distance, in the plain traversal and in the
-CUDA kernel alike (csrc/traverse.cuh), so both break ties the same way.
+`compute_stack_depth`, `align_leaves_to_rows`, `widen_bvh` and
+`build_bvh4` (the collapse of the binary LBVH, ops/bvh.build_lbvh, into
+a 4-wide tree: the builder's fallback when the native builder is
+unavailable) are the JAX package's NumPy code unchanged, so both
+packages build identical tables. `SORT_PAIRS` are the compare-exchange
+networks that order a node's children by entry distance, in the plain
+traversal and in the CUDA kernel alike (csrc/traverse.cuh), so both
+break ties the same way.
 """
 
 from __future__ import annotations
@@ -52,6 +55,9 @@ class Bvh4:
     # tree is made, unless given; carried by `.to(device)`. It sets only the
     # order K4 traces the rays in, never a record.
     sort_box: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
+    # Which builder made the tree: "native" (scene/native.build_bvh4_native)
+    # or "lbvh" (build_bvh4 of ops/bvh.build_lbvh); "" when made by hand.
+    builder: str = dataclasses.field(default="", compare=False)
 
     def __post_init__(self):
         if self.sort_box is None:
@@ -206,4 +212,105 @@ def widen_bvh(b4: Bvh4, width: int = 8) -> Bvh4:
         bounds=torch.from_numpy(bounds),
         children=torch.from_numpy(children),
         stack_depth=compute_stack_depth(children),
+    )
+
+
+def build_bvh4(mesh, bvh) -> Bvh4:
+    """Host-side collapse of the binary LBVH (scene/types.Bvh) of `mesh`
+    into a BVH4 with 8-aligned leaf rows (CPU tensors)."""
+    face_mat_np = mesh.face_mat.cpu().numpy()
+    left = bvh.left.cpu().numpy()
+    right = bvh.right.cpu().numpy()
+    node_min = bvh.node_min.cpu().numpy()
+    node_max = bvh.node_max.cpu().numpy()
+    prim_index = bvh.prim_index.cpu().numpy()
+    n_int = left.shape[0]
+    t = n_int + 1
+
+    # Leaf-slot ranges per binary node (leaves are contiguous in Karras).
+    lo = np.zeros(2 * t - 1, np.int64)
+    hi = np.zeros(2 * t - 1, np.int64)
+    lo[n_int:] = np.arange(t)
+    hi[n_int:] = np.arange(t)
+    # Internal ranges via fix-point sweeps (depth-bounded).
+    for _ in range(64):
+        new_lo = np.minimum(lo[left], lo[right])
+        new_hi = np.maximum(hi[left], hi[right])
+        if (new_lo == lo[:n_int]).all() and (new_hi == hi[:n_int]).all():
+            break
+        lo[:n_int] = new_lo
+        hi[:n_int] = new_hi
+    count = hi - lo + 1
+
+    def expand(node: int) -> list:
+        """Binary children, splitting internal children once more → ≤4."""
+        out = []
+        for c in (left[node], right[node]):
+            if c >= n_int or count[c] <= MAX_LEAF:
+                out.append(int(c))
+            else:
+                out.extend((int(left[c]), int(right[c])))
+        return out
+
+    # DFS from the binary root (0), one BVH4 node per visited binary
+    # internal node with count > MAX_LEAF.
+    bvh4_id: dict = {}
+    order: list = []
+
+    if count[0] <= MAX_LEAF:
+        # Tiny mesh: a single root with one leaf-range child.
+        bounds = np.full((1, 4, 6), 0, np.float32)
+        bounds[:, :, 0:3] = np.inf
+        bounds[:, :, 3:6] = -np.inf
+        bounds[0, 0, 0:3] = node_min[0]
+        bounds[0, 0, 3:6] = node_max[0]
+        children = np.full((1, 4), -1, np.int32)
+        children[0, 0] = _leaf_code(int(lo[0]), int(count[0]))
+    else:
+        queue = [0]
+        bvh4_id[0] = 0
+        order.append(0)
+        while queue:
+            node = queue.pop()
+            for c in expand(node):
+                if c < n_int and count[c] > MAX_LEAF and c not in bvh4_id:
+                    bvh4_id[c] = len(order)
+                    order.append(c)
+                    queue.append(c)
+
+        n4 = len(order)
+        bounds = np.empty((n4, 4, 6), np.float32)
+        bounds[:, :, 0:3] = np.inf
+        bounds[:, :, 3:6] = -np.inf
+        children = np.full((n4, 4), -1, np.int32)
+        for idx, node in enumerate(order):
+            for slot, c in enumerate(expand(node)):
+                bounds[idx, slot, 0:3] = node_min[c]
+                bounds[idx, slot, 3:6] = node_max[c]
+                if c >= n_int:
+                    children[idx, slot] = _leaf_code(int(lo[c]), 1)
+                elif count[c] <= MAX_LEAF:
+                    children[idx, slot] = _leaf_code(int(lo[c]), int(count[c]))
+                else:
+                    children[idx, slot] = bvh4_id[c]
+
+    # Triangle data in sorted leaf order, leaf rows 8-aligned.
+    verts = mesh.vertices.cpu().numpy()
+    faces = mesh.faces.cpu().numpy()[prim_index]
+    v0 = verts[faces[:, 0]]
+    e1 = verts[faces[:, 1]] - v0
+    e2 = verts[faces[:, 2]] - v0
+
+    tri = np.concatenate([v0, e1, e2], axis=1).astype(np.float32)
+    children, tri, prim_al, fmat_al = align_leaves_to_rows(
+        children, tri, prim_index.astype(np.int32),
+        face_mat_np[prim_index].astype(np.int32))
+    return Bvh4(
+        bounds=torch.from_numpy(bounds),
+        children=torch.from_numpy(children),
+        tri=torch.from_numpy(tri),
+        prim_index=torch.from_numpy(prim_al),
+        face_mat=torch.from_numpy(fmat_al),
+        stack_depth=compute_stack_depth(children),
+        builder="lbvh",
     )

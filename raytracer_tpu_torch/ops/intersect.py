@@ -3,9 +3,11 @@ raytracer_tpu/ops/intersect.py).
 
 Spheres are brute-forced; triangles go through the two-level BVH (the
 brute pre-pass over the large faces, then the tree through kernel K4
-with the coherence sort) or, for a scene without one, an all-pairs
-sweep. Closest-hit semantics match the reference: candidates valid on
-[t_min, closest so far].
+with the coherence sort), or for a scene that holds only the binary
+LBVH through its lockstep traversal (ops/traverse.intersect_bvh, plain
+PyTorch, as in the JAX package), or for a scene without either an
+all-pairs sweep. Closest-hit semantics match the reference: candidates
+valid on [t_min, closest so far].
 
 The hit DECISION (which primitive, at what t) is detached: rays and
 scene leave the autograd graph before the search. `shade_hit`
@@ -31,6 +33,7 @@ import torch
 from raytracer_tpu_torch.ops import materials as mat_ops
 from raytracer_tpu_torch.ops.cuda_traverse import intersect_bvh4, trace_closest
 from raytracer_tpu_torch.ops.sphere import intersect_spheres, sphere_shade
+from raytracer_tpu_torch.ops.traverse import intersect_bvh
 from raytracer_tpu_torch.ops.triangle import (intersect_packed_brute, intersect_tris_brute,
                                               tri_shade)
 
@@ -76,6 +79,9 @@ def intersect_scene(scene, origins, dirs, t_min) -> HitIds:
             brute_wins = tb < tt
             tt = torch.where(brute_wins, tb, tt)
             tid = torch.where(brute_wins, bprim, tid)
+    elif scene.bvh is not None:
+        tt, tid = intersect_bvh(origins, dirs, mesh, scene.bvh, t_min,
+                                torch.clamp_max(ts, float(BIG)))
     else:
         tt, tid = intersect_tris_brute(origins, dirs, mesh.vertices.detach(), mesh.faces,
                                        t_min, BIG)
@@ -144,7 +150,8 @@ class FrameHit(NamedTuple):
 
 def fused_trace_available(scene) -> bool:
     """True when trace_frame_fused applies: a BVH4 with per-face
-    materials (K4 returns the winner's material id and normal)."""
+    materials (K4 returns the winner's material id and normal). A scene
+    that holds only the LBVH takes intersect_scene instead."""
     return scene.bvh4 is not None and scene.bvh4.face_mat is not None
 
 

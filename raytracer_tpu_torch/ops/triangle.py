@@ -92,6 +92,28 @@ def intersect_tris_brute(origins, dirs, vertices, faces, t_min, t_max, chunk: in
     return intersect_packed_brute(origins, dirs, tri9, t_min, t_max, chunk)
 
 
+def intersect_tri_single(origins, dirs, v0, e1, e2, t_min, t_max):
+    """Per-ray single-triangle test where each ray has its own triangle
+    (v0/e1/e2 are [N,3]): the inner op of the LBVH's leaf step
+    (ops/traverse.intersect_bvh), in the JAX function's operation order.
+    t is accepted on the closed interval [t_min, t_max].
+
+    Returns (valid bool[N], t f32[N] (BIG where not valid))."""
+    h = vm.cross(dirs, e2)
+    a = vm.dot(e1, h, keepdims=False)
+    ok = torch.abs(a) >= EPSILON
+    f = 1.0 / torch.where(ok, a, torch.ones_like(a))
+    s = origins - v0
+    u = f * vm.dot(s, h, keepdims=False)
+    ok = ok & (u >= 0.0) & (u <= 1.0)
+    q = vm.cross(s, e1)
+    v = f * vm.dot(dirs, q, keepdims=False)
+    ok = ok & (v >= 0.0) & (u + v <= 1.0)
+    t = f * vm.dot(e2, q, keepdims=False)
+    ok = ok & (t >= t_min) & (t <= t_max)
+    return ok, torch.where(ok, t, torch.full_like(t, float(BIG)))
+
+
 def tri_shade(origins, dirs, tri_id, vertices, faces, face_mat, face_uvs=None):
     """Differentiable hit attributes of the chosen triangles: t from the
     (detached) triangle id by the same Möller–Trumbore algebra, so that

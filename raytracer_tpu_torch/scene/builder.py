@@ -8,10 +8,13 @@ kernel (CUDAKernels.h:56-84): loaded meshes + a ground sphere
 scenes are host-side constructors returning tensor dataclasses on the
 CPU; `Scene.to(device)` moves them.
 
-Differences from the JAX module: assets are read from the committed
-files and a missing file raises (the procedural generators of
-scene/assets.py are not ported yet); the native BVH builder must build
-(no LBVH fallback).
+As in the JAX module, missing asset files are generated
+(scene/assets.ensure_assets; the default directory is the repository's
+assets/models, where they are committed), and when the native BVH
+builder is unavailable the tree comes from the LBVH (ops/bvh.build_lbvh,
+collapsed by ops/bvh4.build_bvh4). Unlike the JAX module, that fallback
+is taken on `NativeUnavailable` alone, and with a warning that names the
+failure; the tree's `builder` field says which builder made it.
 """
 
 from __future__ import annotations
@@ -24,9 +27,11 @@ import warnings
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.ops.bvh4 import widen_bvh
+from raytracer_tpu_torch.ops.bvh import build_lbvh
+from raytracer_tpu_torch.ops.bvh4 import build_bvh4, widen_bvh
 from raytracer_tpu_torch.ops.cuda_traverse import brute_boxes
-from raytracer_tpu_torch.scene.native import build_bvh4_native
+from raytracer_tpu_torch.scene import native
+from raytracer_tpu_torch.scene.assets import ensure_assets
 from raytracer_tpu_torch.scene.obj_io import load_scene_objs
 from raytracer_tpu_torch.scene.types import (
     DIELECTRIC,
@@ -60,16 +65,6 @@ def tree_width(width: int):
             del os.environ["RAYTRACER_TPU_BVH_WIDTH"]
         else:
             os.environ["RAYTRACER_TPU_BVH_WIDTH"] = old
-
-
-def _asset_paths(assets_dir: str | None) -> dict:
-    d = ASSETS_DIR if assets_dir is None else assets_dir
-    paths = {"cornell": os.path.join(d, "CornellBox-Original.obj"),
-             "bunny": os.path.join(d, "bunny.obj")}
-    for p in paths.values():
-        if not os.path.exists(p):
-            raise FileNotFoundError(f"scene asset missing: {p}")
-    return paths
 
 
 def cornell_spheres_scene() -> Scene:
@@ -176,8 +171,9 @@ def reference_scene(assets_dir: str | None = None, with_bunny: bool = True,
                     build_bvh: bool = True) -> Scene:
     """The full reference world (SceneManager.h:101-103 +
     CUDAKernels.h:56-84): CornellBox-Original.obj (+ bunny), jointly
-    normalized, plus the hardcoded ground and mirror spheres."""
-    paths = _asset_paths(assets_dir)
+    normalized, plus the hardcoded ground and mirror spheres. Missing
+    asset files are generated."""
+    paths = ensure_assets(ASSETS_DIR if assets_dir is None else assets_dir)
     files = [paths["cornell"]] + ([paths["bunny"]] if with_bunny else [])
     mesh, materials = load_scene_objs(files)
     scene = add_reference_extras(mesh, materials,
@@ -220,7 +216,11 @@ def build_scene_bvh4(mesh: TriMesh):
     builder reads it, with oversized triangles split off for the
     brute-force pre-pass. prim ids in both halves are ORIGINAL face
     indices. The kernels of csrc/ take widths 4 and 8 (utils/cudalib.bvh_view);
-    a 4-wide tree also serves the v5- and v6-layout probes (probes/)."""
+    a 4-wide tree also serves the v5- and v6-layout probes (probes/).
+
+    When the native builder raises `NativeUnavailable`, the 4-wide tree
+    is build_bvh4(sub, build_lbvh(sub)) instead (with a warning); the
+    widening and the brute remap are the same."""
     brute_ids, tree_ids = partition_brute_faces(mesh)
     if brute_ids.size:
         sub = TriMesh(vertices=mesh.vertices,
@@ -228,7 +228,12 @@ def build_scene_bvh4(mesh: TriMesh):
                       face_mat=mesh.face_mat[torch.from_numpy(tree_ids)])
     else:
         sub = mesh
-    b4 = build_bvh4_native(sub)
+    try:
+        b4 = native.build_bvh4_native(sub)
+    except native.NativeUnavailable as e:
+        warnings.warn(f"build_scene_bvh4: the native builder is unavailable ({e}); "
+                      "building the LBVH and collapsing it instead")
+        b4 = build_bvh4(sub, build_lbvh(sub))
     width = int(os.environ.get("RAYTRACER_TPU_BVH_WIDTH", str(BVH_WIDTH)))
     if width > 4:
         b4 = widen_bvh(b4, width)
@@ -267,8 +272,8 @@ def cornell_materials_scene(assets_dir: str | None = None, build_bvh: bool = Tru
     """BASELINE config[1]: the Cornell box with a glass sphere and a
     rough-metal sphere inside — all four material types. With
     `build_bvh` the BVH is what the JAX CLI attaches to this scene
-    (build_scene_bvh4 of its mesh)."""
-    paths = _asset_paths(assets_dir)
+    (build_scene_bvh4 of its mesh). Missing asset files are generated."""
+    paths = ensure_assets(ASSETS_DIR if assets_dir is None else assets_dir)
     mesh, materials = load_scene_objs([paths["cornell"]])
     base = add_reference_extras(mesh, materials, name="cornell_materials")
     m = base.materials

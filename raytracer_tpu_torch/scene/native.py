@@ -5,8 +5,9 @@ The source is the repository's `native/scenekit.cpp`, unchanged. It is
 compiled with g++ at first use into this package's git-ignored build
 directory (`raytracer_tpu_torch/_build/`), keyed by the source's content
 hash, and never into `native/`: the tracked `native/libscenekit.so`
-belongs to the JAX package. A failed build raises; there is no fallback
-builder.
+belongs to the JAX package. A missing source, a failed build or load, or
+a failed tree build raises `NativeUnavailable`, on which
+scene/builder.build_scene_bvh4 falls back to the LBVH (with a warning).
 """
 
 from __future__ import annotations
@@ -23,6 +24,13 @@ from raytracer_tpu_torch.ops.bvh4 import (MAX_LEAF, Bvh4, align_leaves_to_rows,
                                           compute_stack_depth)
 
 _LIB = None
+
+
+class NativeUnavailable(RuntimeError):
+    """The native builder cannot build here (source missing, g++ failed or
+    absent, the library does not load, or it refused the mesh)."""
+
+
 _REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 SOURCE = os.path.join(_REPO, "native", "scenekit.cpp")
 BUILD_DIR = os.path.join(_REPO, "raytracer_tpu_torch", "_build")
@@ -34,19 +42,25 @@ def _load():
     if _LIB is not None:
         return _LIB
     if not os.path.exists(SOURCE):
-        raise FileNotFoundError(f"native BVH builder source missing: {SOURCE}")
+        raise NativeUnavailable(f"native BVH builder source missing: {SOURCE}")
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
     lib_path = os.path.join(BUILD_DIR, f"libscenekit-{digest}.so")
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        res = subprocess.run(["g++", *_FLAGS, "-o", tmp, SOURCE],
-                             capture_output=True, text=True)
+        try:
+            res = subprocess.run(["g++", *_FLAGS, "-o", tmp, SOURCE],
+                                 capture_output=True, text=True)
+        except OSError as e:
+            raise NativeUnavailable(f"scenekit build failed: {e}") from e
         if res.returncode != 0:
-            raise RuntimeError(f"scenekit build failed:\n{res.stderr}")
+            raise NativeUnavailable(f"scenekit build failed:\n{res.stderr}")
         os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
+    try:
+        lib = ctypes.CDLL(lib_path)
+    except OSError as e:
+        raise NativeUnavailable(f"scenekit load failed: {e}") from e
     lib.scenekit_build_bvh4.restype = ctypes.c_int
     lib.scenekit_build_bvh4.argtypes = [
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
@@ -70,7 +84,7 @@ def build_bvh4_native(mesh, max_leaf: int = MAX_LEAF) -> Bvh4:
                                  max_leaf, bounds.ctypes.data, children.ctypes.data,
                                  prim.ctypes.data)
     if n4 <= 0:
-        raise RuntimeError(f"scenekit_build_bvh4 returned {n4}")
+        raise NativeUnavailable(f"scenekit_build_bvh4 returned {n4}")
 
     fperm = faces[prim]
     v0 = verts[fperm[:, 0]]
@@ -86,4 +100,5 @@ def build_bvh4_native(mesh, max_leaf: int = MAX_LEAF) -> Bvh4:
         prim_index=torch.from_numpy(prim),
         face_mat=torch.from_numpy(face_mat),
         stack_depth=compute_stack_depth(children_al),
+        builder="native",
     )

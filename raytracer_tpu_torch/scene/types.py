@@ -1,9 +1,10 @@
 """SoA scene representation (port of raytracer_tpu/scene/types.py).
 
 Frozen dataclasses of tensors: a material table, a sphere list and one
-merged triangle soup, plus the BVH8 (ops/bvh4.Bvh4) and the fitted
-light rectangle of the differentiable path. `.to(device)`
-moves every tensor field, recursively.
+merged triangle soup, plus the BVH8 (ops/bvh4.Bvh4), or the binary LBVH
+(Bvh, ops/bvh.build_lbvh) of a scene that holds only that, and the
+fitted light rectangle of the differentiable path. `.to(device)` moves
+every tensor field, recursively.
 
 Material type tags follow the reference enum order
 (Core/Material.cuh:8-14): Lambertian=0, Metal=1, Dielectric=2,
@@ -141,6 +142,22 @@ class TriMesh(_ToDevice):
 
 
 @dataclasses.dataclass(frozen=True)
+class Bvh(_ToDevice):
+    """LBVH over the triangle soup (built by ops/bvh.build_lbvh).
+
+    Node indexing convention: internal nodes are 0..T-2; child index
+    c >= T-1 refers to leaf/triangle (c - (T-1)) in *sorted* order;
+    `prim_index` maps sorted leaf position → original triangle id.
+    """
+
+    left: torch.Tensor        # i32[T-1]
+    right: torch.Tensor       # i32[T-1]
+    node_min: torch.Tensor    # f32[2T-1,3] (internal then leaves)
+    node_max: torch.Tensor    # f32[2T-1,3]
+    prim_index: torch.Tensor  # i32[T]
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene(_ToDevice):
     materials: Materials
     spheres: Spheres
@@ -152,6 +169,10 @@ class Scene(_ToDevice):
     # None when the scene has no (planar) mesh light.
     light_rect: Optional[torch.Tensor] = None
     name: str = "scene"
+    # The binary LBVH, traversed by ops/traverse.intersect_bvh when the
+    # scene has no bvh4 (ops/intersect.intersect_scene). Last, so that no
+    # positional construction shifts.
+    bvh: Optional[Bvh] = None
 
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)

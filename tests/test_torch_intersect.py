@@ -5,17 +5,21 @@ The sort keys are integers: bitwise. K4 gives every ray its own walk, so
 the sorted and unsorted records of the port are bitwise equal (the
 comparison with JAX's Pallas sort path is tests/test_torch_intersect_pallas.py).
 intersect_scene's hit decisions are exact; shade_hit's recomputed
-attributes agree to 1e-5."""
+attributes agree to 1e-5. A scene that holds only the LBVH goes through
+the lockstep traversal (ops/traverse.intersect_bvh) in both packages:
+ids equal, t within rtol 1e-4 (XLA contracts its products)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from raytracer_tpu.ops import intersect as jis
+from raytracer_tpu.ops.bvh import build_lbvh as jbuild_lbvh
 from raytracer_tpu.ops.packets import _coherence_keys
 from raytracer_tpu.scene.builder import build_scene_bvh4 as jbuild_bvh4
-from raytracer_tpu.scene.builder import cornell_spheres_scene
+from raytracer_tpu.scene.builder import cornell_materials_scene, cornell_spheres_scene
 from raytracer_tpu.scene.types import TriMesh as JTriMesh
 from raytracer_tpu_torch.convert import bvh4_from_numpy, scene_from_numpy, to_numpy_tree
 from raytracer_tpu_torch.ops import intersect as tis
@@ -139,12 +143,77 @@ def test_intersect_scene_detaches_the_search():
     assert torch.isfinite(g).all() and (g != 0).any()
 
 
-def test_lbvh_only_scene_is_refused():
-    js = cornell_spheres_scene()
-    d = to_numpy_tree(js)
-    d["bvh"] = {"left": np.zeros(1, np.int32)}
-    with pytest.raises(NotImplementedError, match="M11"):
-        scene_from_numpy(d)
+@pytest.fixture(scope="module")
+def lbvh_scene():
+    """The JAX package's cornell_materials scene with only the LBVH
+    (scene.bvh, no bvh4), and the port's conversion of it."""
+    js = cornell_materials_scene()
+    js = js.replace(bvh=jbuild_lbvh(js.mesh), bvh4=None)
+    ts = scene_from_numpy(to_numpy_tree(js))
+    assert ts.bvh4 is None and ts.bvh is not None
+    moved = ts.to("cpu")   # Scene.to carries the LBVH (as the sharded paths' replicas do)
+    assert torch.equal(moved.bvh.node_min, ts.bvh.node_min)
+    return js, ts
+
+
+def test_lbvh_only_scene_is_refused(lbvh_scene, monkeypatch, tmp_path):
+    """Only the fused path refuses an LBVH-only scene (it needs a bvh4):
+    the CLI's --integrator fused says so, and the wavefront takes
+    intersect_scene instead of trace_frame_fused."""
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.models.fused import fused_available
+
+    _, ts = lbvh_scene
+    assert not tis.fused_trace_available(ts) and not fused_available(ts, None)
+    monkeypatch.setattr(cli, "build_scene", lambda name, assets: ts)
+    with pytest.raises(SystemExit, match="needs a bvh4 scene"):
+        cli.main(["--integrator", "fused", "--device", "cpu", "--width", "8", "--height", "8",
+                  "--out", str(tmp_path / "x.png")])
+
+
+def test_lbvh_only_scene_matches_jax(lbvh_scene):
+    """intersect_scene and shade_hit on a scene that holds only the LBVH
+    (ops/traverse.intersect_bvh): ids equal, t within rtol 1e-4."""
+    js, ts = lbvh_scene
+    o, d = _rays(7, 1024, span=0.25)
+    o[:512] = np.float32([0.0, 0.05, 0.29])   # the showcase camera's position
+    jo, jd = jnp.asarray(o), jnp.asarray(d)
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    jids = jis.intersect_scene(js, jo, jd, 1e-3)
+    tids = tis.intersect_scene(ts, to, td, 1e-3)
+    for k in ("hit", "prim_type", "prim_id"):
+        np.testing.assert_array_equal(getattr(tids, k).numpy(), np.asarray(getattr(jids, k)),
+                                      err_msg=k)
+    np.testing.assert_allclose(tids.t.numpy(), np.asarray(jids.t), rtol=1e-4)
+    hit = tids.hit.numpy()
+    assert (tids.prim_type.numpy()[hit] == tis.PRIM_TRI).mean() > 0.5
+    ja, ta = jis.shade_hit(js, jo, jd, jids), tis.shade_hit(ts, to, td, tids)
+    np.testing.assert_array_equal(ta.mat_id.numpy()[hit], np.asarray(ja.mat_id)[hit])
+    np.testing.assert_allclose(ta.point.numpy()[hit], np.asarray(ja.point)[hit],
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_lbvh_only_scene_renders_as_jax(lbvh_scene):
+    """The differentiable renderer (render_image, the megakernel path) on
+    the LBVH-only scene against JAX's, under the image tolerance (at most
+    0.5% of elements beyond 5e-4 + 2e-4|x|, means within 1e-3)."""
+    from raytracer_tpu.camera import showcase_camera as jshowcase_camera
+    from raytracer_tpu.config import RenderConfig as JRenderConfig
+    from raytracer_tpu.render import render_image as jrender_image
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.convert import camera_from_numpy
+    from raytracer_tpu_torch.render import render_image
+
+    js, ts = lbvh_scene
+    kw = dict(width=16, height=8, spp=2, max_bounces=3)
+    jcam = jshowcase_camera(JRenderConfig(**kw))
+    want = np.asarray(jrender_image(js, jcam, JRenderConfig(**kw), jax.random.key(3)))
+    with torch.no_grad():
+        got = render_image(ts, camera_from_numpy(to_numpy_tree(jcam)), RenderConfig(**kw),
+                           3).numpy()
+    assert np.isfinite(got).all() and want.mean() > 0.01
+    assert (np.abs(got - want) > 5e-4 + 2e-4 * np.abs(want)).mean() <= 0.005
+    assert abs(got.mean() - want.mean()) <= 1e-3
 
 
 def test_bvh_path_below_jax_packet_min(monkeypatch):

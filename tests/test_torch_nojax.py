@@ -2,8 +2,9 @@
 none. A subprocess in which `import jax` fails imports every module of
 the port (the differentiable path's render, models/megakernel,
 ops/intersect, ops/packets, utils/rng and diff/inverse, the wavefront,
-the checkpoints, the viewer and camera motion, and the probes, among
-them) and chip_smoke.py."""
+the checkpoints, the viewer and camera motion, the probes, the LBVH and
+its traversal, the procedural assets, the profiler, the milestone runner
+and the flagship, among them) and chip_smoke.py."""
 
 import os
 import subprocess
@@ -41,7 +42,10 @@ for name in ("raytracer_tpu_torch.render", "raytracer_tpu_torch.models.megakerne
              "raytracer_tpu_torch.io.checkpoint", "raytracer_tpu_torch.viewer",
              "raytracer_tpu_torch.camera_motion", "raytracer_tpu_torch.cli",
              "raytracer_tpu_torch.parallel.sharding", "raytracer_tpu_torch.parallel.multihost",
-             "raytracer_tpu_torch.parallel.multihost_demo"):
+             "raytracer_tpu_torch.parallel.multihost_demo", "raytracer_tpu_torch.ops.bvh",
+             "raytracer_tpu_torch.ops.traverse", "raytracer_tpu_torch.scene.assets",
+             "raytracer_tpu_torch.utils.profiling", "raytracer_tpu_torch.milestones",
+             "raytracer_tpu_torch.flagship"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "raytracer_tpu") for m in sys.modules)

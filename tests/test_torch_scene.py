@@ -97,5 +97,13 @@ def test_convert_hands_the_jax_scene_over(jax_reference, torch_reference):
 
 
 def test_missing_asset_raises(tmp_path):
-    with pytest.raises(FileNotFoundError):
-        tbuilder.reference_scene(str(tmp_path))
+    """Missing assets are generated (scene/assets.ensure_assets, as in the
+    JAX builder); a directory that cannot hold them raises."""
+    blocker = tmp_path / "a_file"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        tbuilder.reference_scene(str(blocker), build_bvh=False)
+    d = tmp_path / "models"
+    scene = tbuilder.reference_scene(str(d), with_bunny=False, build_bvh=False)
+    assert (d / "CornellBox-Original.obj").is_file() and (d / "bunny.obj").is_file()
+    assert scene.name == "cornell" and scene.mesh.num_tris == 32
