@@ -65,14 +65,26 @@ plain PyTorch version, and drives the port's three paths:
     mosaic.py, bitcast.py and feature.py (single-tile cases, each against
     the script's own check and its plain version bit for bit; bitcast's
     p1, p3 and p4 say BAD as the script does, the ids being float-encoded;
-    feature's s7 is one K4 launch on the box-only scene);
+    feature's s7 is one K4 launch on the box-only scene); then the
+    single-tile probes redesigned for the card (P-mosaic, P-feature s1-s6):
+    each case with a library call (mosaic colbcast, concat, bitcast,
+    feature s2) equal to it bit for bit and timed per call against it in
+    alternating rounds (also against the library call on views made
+    once), every case's device time per launch from a CUDA graph of 100
+    launches, P-floor's empty kernel as the launch floor both ways, and
+    the host microseconds of each part of a call;
   * old against new (phase 15, only with --parent DIR, the parent
     commit's tree): the parent's K3, K3-profile, K5 and K4 built from DIR
     against this tree's, each equal to the parent's bit for bit, timed in
     turns at the main path's sizes with K3's chunk sizes; the parent's K4
     route (this tree's wrappers over the parent's library) against this
     tree's at 262,144 and 1,048,576 rays; the parent's draws (the chain
-    through its K2) against the draw kernels; and DIR's own
+    through its K2) against the draw kernels; the parent's P-mosaic and
+    P-feature through its own wrappers and cudalib (parent_launch_path)
+    against this tree's, bit for bit (lanesum, which sums in another order
+    since the redesign, by the script's check) and in alternating rounds,
+    per call and per launch in a CUDA graph, and K2's Threefry through the
+    parent's wrapper against this tree's; and DIR's own
     `chip_smoke.py --phases 10` against this tree's,
     three each in alternation; phases 4, 7, 8 and 12 count the brute MT records
     the cull leaves per traced ray (brute_may_hit) and give K1, K3 and K4
@@ -176,6 +188,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -231,6 +244,14 @@ P12_PACKETS = 16
 # is held to its plain version at this many iterations over all packets.
 P13_CHECK_ITERS = 16
 P13_FILL_PACKETS = 1056    # 8 blocks of 8 warps per SM on 132 SMs
+# Phase 13's single-tile probes redesigned for the card (P-mosaic,
+# P-feature): each timed per call against its library call in this many
+# alternating pairs (kernel, library, library, kernel, ...), each turn
+# time_launches' median of 10; and its device time per launch from a CUDA
+# graph of this many launches, captured once and replayed between one
+# event pair.
+P13_TURN_PAIRS = 6
+P13_GRAPH_LAUNCHES = 100
 # After this many seconds every thread's traceback is printed and the run
 # exits non-zero: a launch that never ends then names its place, inside
 # the 1,200 s a smoke run may take.
@@ -1597,6 +1618,194 @@ def roofline_mixed(nbytes: int, fp32_ops: int, int32_ops: int, int32_rate: float
     return dict(r, bound_ops=int(fp32_ops), bound_int32_ops=int(int32_ops))
 
 
+def graph_ms(fn, launches: int = P13_GRAPH_LAUNCHES, replays: int = 5) -> float:
+    """Device milliseconds per launch of fn: `launches` calls captured once
+    in a CUDA graph (after a warm-up on a side stream), the graph replayed
+    between one event pair; the median of `replays` replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(replays):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b) / launches)
+    return float(np.median(ms))
+
+
+def alternate(measures: dict, pairs: int = P13_TURN_PAIRS) -> dict:
+    """Measurements (name -> a function returning ms) taken in `pairs`
+    alternating pairs of rounds, each name once a round, forward then
+    backward (a b b a a b ...; a b c c b a ...): {name: [ms per round]}."""
+    names, out = list(measures), {k: [] for k in measures}
+    for r in range(2 * pairs):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            out[name].append(measures[name]())
+    return out
+
+
+def tile_calls(dev) -> dict:
+    """{"<probe> <case>": (the kernel's call, its library call, the library
+    call on views made beforehand)} of every P-mosaic case and P-feature
+    stage on its script's inputs on the card, each call returning a tuple;
+    None where one PyTorch call does not compute the case. A library call
+    is one PyTorch call computing the case from its input x, the views it
+    needs taken inside the call (as the probe rows have timed it): mosaic colbcast
+    torch.mul(x, x[:, 3:4]), concat torch.mul(x[0:1] expanded, x[0, 5]),
+    bitcast .contiguous() of the int32 view of lane 25 expanded; feature
+    s2 x * 2.0 (no view: no second form)."""
+    import torch
+
+    from raytracer_tpu_torch.probes import feature, mosaic
+
+    tile, i32 = mosaic.TILE, torch.int32
+    calls = {}
+    for case in mosaic.CASES:
+        ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in mosaic.inputs(case))
+        x = ins[0]
+        lib = once = None
+        if case == "colbcast":
+            col = x[:, 3:4]
+            lib = lambda x=x: (torch.mul(x, x[:, 3:4]),)   # noqa: E731
+            once = lambda x=x, col=col: (torch.mul(x, col),)   # noqa: E731
+        elif case == "concat":
+            row, c5 = x[0:1].expand(tile), x[0, 5]
+            lib = lambda x=x: (torch.mul(x[0:1].expand(tile), x[0, 5]),)   # noqa: E731
+            once = lambda row=row, c5=c5: (torch.mul(row, c5),)   # noqa: E731
+        elif case == "bitcast":
+            ids = x.view(i32)[:, 25:26].expand(tile)
+            lib = lambda x=x: (x.view(i32)[:, 25:26].expand(tile).contiguous(),)   # noqa: E731
+            once = lambda ids=ids: (ids.contiguous(),)   # noqa: E731
+        calls[f"mosaic {case}"] = (lambda c=case, i=ins: (mosaic.probe_mosaic(c, *i),), lib, once)
+    for case in feature.CASES:
+        ins = tuple(torch.from_numpy(a).to(dev) for a in feature.inputs(case))
+        calls[f"feature {case}"] = (lambda c=case, i=ins: feature.probe_feature(c, *i),
+                                    (lambda x=ins[0]: (x * 2.0,)) if case == "s2" else None, None)
+    return calls
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds per call of fn: the host clock over `calls` calls
+    after a warm-up, synchronized at the end (a launch's host work, as long
+    as the card keeps up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def tile_host_parts(dev) -> dict:
+    """Where the host time of a call of the redesigned wrappers goes (host_us
+    of each part alone, mosaic colbcast and feature s2 on their script's
+    inputs): the wrapper, its library call, the bare ctypes launch on
+    buffers made once, each step of the wrapper's own work, and the stream
+    handle as torch.cuda.current_stream() gives it."""
+    import torch
+
+    from raytracer_tpu_torch.probes import feature, mosaic
+    from raytracer_tpu_torch.utils import cudalib
+
+    x = torch.from_numpy(mosaic.inputs("colbcast")[0]).to(dev)
+    x2 = torch.from_numpy(feature.inputs("s2")[0]).to(dev)
+    col, out, out2 = x[:, 3:4], torch.empty_like(x), torch.empty_like(x2)
+    L, stream = cudalib.lib(), cudalib.stream_handle()
+    xp, op, x2p, o2p = x.data_ptr(), out.data_ptr(), x2.data_ptr(), out2.data_ptr()
+    parts = {
+        "mosaic colbcast wrapper": lambda: mosaic.probe_mosaic("colbcast", x),
+        "torch.mul(x, x[:, 3:4])": lambda: torch.mul(x, x[:, 3:4]),
+        "torch.mul(x, x[:, 3:4]) on the view made once": lambda: torch.mul(x, col),
+        "mosaic colbcast ctypes launch alone": lambda: L.rt_probe_mosaic(0, xp, None, 1, op,
+                                                                         stream),
+        "feature s2 wrapper": lambda: feature.probe_feature("s2", x2),
+        "x * 2.0": lambda: x2 * 2.0,
+        "feature s2 ctypes launch alone": lambda: L.rt_probe_feature(1, x2p, None, 4, o2p,
+                                                                     stream),
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "cudalib.stream_handle()": cudalib.stream_handle,
+        "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "cudalib.signature(x) == the fast path's": lambda: cudalib.signature(x) == mosaic._X,
+    }
+    return {k: host_us(f) for k, f in parts.items()}
+
+
+def tile_times(dev, floor_fn) -> dict:
+    """The redesigned single-tile probes against their library calls: each
+    case's kernel and library call equal bit for bit, timed per call in
+    alternating pairs (time_launches' event pairs) and per launch in a CUDA
+    graph (graph_ms); every other case's graph time; the launch floor
+    (floor_fn, P-floor's empty kernel) timed both ways. Returns {"cases":
+    {name: fields}, "floor": fields, "lines": [...]}."""
+    from raytracer_tpu_torch.probes import common
+
+    per_call = lambda f: lambda: common.median(common.time_launches(f))   # noqa: E731
+    floor_turns = [per_call(floor_fn)() for _ in range(2 * P13_TURN_PAIRS)]
+    floor = dict(ms=float(np.median(floor_turns)), turns_ms=floor_turns,
+                 graph_ms=graph_ms(floor_fn))
+    cases, lines = {}, []
+    for name, (kernel, library, once) in tile_calls(dev).items():
+        r = dict(graph_ms=graph_ms(kernel))
+        if library is not None:
+            got = kernel()
+            for lib in (library, once) if once else (library,):
+                if not all(_bitwise(a, b) if a.is_floating_point() else bool((a == b).all())
+                           for a, b in zip(got, lib())):
+                    raise AssertionError(f"{name}: the kernel != its library call")
+            fns = {"kernel": kernel, "library": library, **({"views once": once} if once else {})}
+            t = alternate({k: per_call(f) for k, f in fns.items()})
+            r.update(ms_turns=float(np.median(t["kernel"])), turns_ms=t["kernel"],
+                     library_ms=float(np.median(t["library"])), library_turns_ms=t["library"],
+                     library_graph_ms=graph_ms(library))
+            if once:
+                r.update(library_views_once_ms=float(np.median(t["views once"])),
+                         library_views_once_turns_ms=t["views once"])
+            lines.append(
+                f"{name}: per call, in {P13_TURN_PAIRS} alternating pairs of rounds (median of 10 "
+                f"each): kernel {r['ms_turns']:.5f} ms [{_fmt(t['kernel'])}], library call "
+                f"{r['library_ms']:.5f} ms [{_fmt(t['library'])}] (kernel / library "
+                f"{r['ms_turns'] / r['library_ms']:.3f})"
+                + (f", the library call on views made once {r['library_views_once_ms']:.5f} ms "
+                   f"[{_fmt(t['views once'])}] (kernel / it "
+                   f"{r['ms_turns'] / r['library_views_once_ms']:.3f})" if once else "")
+                + f"; device time per launch, CUDA graph of {P13_GRAPH_LAUNCHES}: kernel "
+                f"{r['graph_ms']:.5f} ms, library {r['library_graph_ms']:.5f} ms; host share of "
+                f"the kernel's call {1 - r['graph_ms'] / r['ms_turns']:.3f}")
+        cases[name] = r
+    lines.append(
+        f"launch floor (P-floor's empty kernel through v5_body.v5): per call "
+        f"{floor['ms']:.5f} ms [{_fmt(floor_turns)}], device {floor['graph_ms']:.5f} ms per "
+        f"launch; the redesigned "
+        f"cases' device times (CUDA graph of {P13_GRAPH_LAUNCHES}): " + ", ".join(
+            f"{k} {v['graph_ms']:.5f} ({v['graph_ms'] / floor['graph_ms']:.2f}x the floor)"
+            for k, v in cases.items()))
+    for key, what in (("library_ms", "the library call"),
+                      ("library_views_once_ms", "the library call on views made once")):
+        slower = [k for k, v in cases.items() if key in v and v["ms_turns"] > v[key]]
+        lines.append(f"per call no slower than {what}: "
+                     + ("every case" if not slower else f"all but {', '.join(slower)}"))
+    host = tile_host_parts(dev)
+    lines.append("host us per call (host clock over 2,000 calls): "
+                 + "; ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    return dict(cases=cases, floor=floor, host_us=host, lines=lines)
+
+
 def phase13(dev, smi):
     """The traversal-iteration probes: each probe's entry point with the
     launch counts from 0 (the timings), then every variant against its
@@ -1907,13 +2116,12 @@ def phase13(dev, smi):
         ins = tuple(torch.from_numpy(a).to(dev) for a in feature.inputs(case))
         held("P-feature", f"feature {case}", lambda: feature.probe_feature(case, *ins),
              lambda: feature.feature_plain(case, *ins), f"feature {case}")
-    # library_ms: the one PyTorch call that computes a representative case
-    # (mosaic colbcast: torch.mul with the column broadcast; feature s2:
-    # torch.mul by 2 of the 4 packets); none for bitcast and morph.
-    x_m = torch.from_numpy(mosaic.inputs("colbcast")[0]).to(dev)
-    x_s2 = torch.from_numpy(feature.inputs("s2")[0]).to(dev)
-    library = {key: common.median(common.time_launches(fn)) for key, fn in (
-        ("P-mosaic", lambda: torch.mul(x_m, x_m[:, 3:4])), ("P-feature", lambda: x_s2 * 2.0))}
+    # ---- the redesigned single-tile probes: per call in turns against the
+    # library call, device time from a CUDA graph, and the launch floor
+    floor = lambda: v5_body.v5(*v5_in, zero_row, "empty", v5_body.ITERS)   # noqa: E731
+    tiles = tile_times(dev, floor)
+    for line in tiles["lines"]:
+        log(13, line)
 
     # ---- what each knockout left of the kernel: static SASS counts
     if os.path.exists(sass.cuobjdump()):
@@ -2046,12 +2254,22 @@ def phase13(dev, smi):
     for key, first, mod in (("P-mosaic", "colbcast", "mosaic"), ("P-bitcast", "p1", "bitcast"),
                             ("P-feature", "s2", "feature")):
         cases = runs[key]
+        for case, r in cases.items():
+            r.update(tiles["cases"].get(f"{mod} {case}", {}))
         rows[key] = dict(launches=launches[key], max_abs_err=max_err[key],
                          plain_ms=plain_ms[f"{mod} {first}"], ms_is=first, **cases[first],
-                         library_ms=library.get(key), cases=cases,
+                         cases=cases,
                          plain_ms_cases={k: v for k, v in plain_ms.items()
                                          if k.startswith(mod)},
                          int32_ops_per_s=int32_rate)
+        if key != "P-bitcast":
+            rows[key].update(floor_ms=tiles["floor"]["ms"],
+                             floor_graph_ms=tiles["floor"]["graph_ms"],
+                             host_us={k: v for k, v in tiles["host_us"].items()
+                                      if not k.startswith({"P-mosaic": "feature",
+                                                           "P-feature": "mosaic"}[key])})
+    rows["P-floor"].update(empty_ms_turns=tiles["floor"]["ms"],
+                           empty_graph_ms=tiles["floor"]["graph_ms"])
     rows["P-feature"]["s7_k4_launches"] = launches["P-feature s7 (K4)"]
     secs = time.perf_counter() - t_phase
     log(13, f"every variant == its plain version bit for bit ({len(checked)} checks: "
@@ -2362,6 +2580,107 @@ class _ParentLib:
         self.rt_error_string = L.rt_error_string
 
 
+def _load_module(path: str, name: str):
+    """The module at `path` under its own name `name` (so a parent tree's
+    file loads beside this tree's module of the same package path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def cudalib_as(mod):
+    """raytracer_tpu_torch.utils.cudalib is `mod` inside: a wrapper that
+    imports it then, at module level or inside a function, gets `mod`."""
+    import raytracer_tpu_torch.utils as utils
+
+    mine = utils.cudalib
+    utils.cudalib = mod
+    try:
+        yield
+    finally:
+        utils.cudalib = mine
+
+
+def parent_launch_path(parent_dir: str, build_dir: str):
+    """The parent tree's own launch path: its utils/cudalib.py (its library
+    the one phase 15 built from its csrc into build_dir), and its
+    probes/mosaic.py, probes/feature.py and utils/ktf.py bound to that
+    cudalib. (parent cudalib, {"mosaic": .., "feature": .., "ktf": ..})."""
+    pkg = os.path.join(parent_dir, "raytracer_tpu_torch")
+    pc = _load_module(os.path.join(pkg, "utils", "cudalib.py"), "parent_cudalib")
+    pc.BUILD_DIR = build_dir
+    with cudalib_as(pc):
+        mods = {name: _load_module(os.path.join(pkg, *rel), f"parent_{name}") for name, rel in (
+            ("mosaic", ("probes", "mosaic.py")), ("feature", ("probes", "feature.py")),
+            ("ktf", ("utils", "ktf.py")))}
+    return pc, mods
+
+
+def tiles_old_new(dev, pc, pmods) -> dict:
+    """The parent's P-mosaic and P-feature (its wrappers, its cudalib, its
+    kernels) against this tree's on the same inputs: outputs equal bit for
+    bit (mosaic lanesum, which sums in another order since the redesign:
+    both pass the script's check, the largest difference kept), each case
+    per call in alternating pairs (time_launches' event
+    pairs) and per launch in a CUDA graph; and K2's Threefry through the
+    parent's wrapper (its stream_handle) against this tree's at phase 3's
+    2^20 counters, cuda_ms of 50 calls per turn, in alternating pairs."""
+    import torch
+
+    from raytracer_tpu_torch.probes import common, feature, mosaic
+    from raytracer_tpu_torch.utils import ktf
+
+    checks, out = {}, {}
+    per_call = lambda f: lambda: common.median(common.time_launches(f))   # noqa: E731
+    for probe, mod, call in (("mosaic", mosaic, "probe_mosaic"),
+                             ("feature", feature, "probe_feature")):
+        for case in mod.CASES:
+            ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in mod.inputs(case))
+            fns = {who: (lambda f=getattr(m, call), c=case, i=ins: f(c, *i))
+                   for who, m in (("parent", pmods[probe]), ("new", mod))}
+            old, new = (fns[k]() for k in ("parent", "new"))
+            old, new = ((old,), (new,)) if probe == "mosaic" else (old, new)
+            row = {}
+            if (probe, case) == ("mosaic", "lanesum"):
+                # The new kernel sums a row in another order (each thread's
+                # adjacent lanes): both trees pass the script's check.
+                row["max_abs_diff"] = _max_abs(old[0], new[0])
+                checks["mosaic lanesum: parent and new pass the script's check"] = all(
+                    mosaic.check(case, o.cpu().numpy())[0] for o in (old[0], new[0]))
+            else:
+                checks[f"{probe} {case} new == parent"] = len(old) == len(new) and all(
+                    a.dtype == b.dtype and _bitwise(a, b) for a, b in zip(old, new))
+            t = alternate({k: per_call(f) for k, f in fns.items()})
+            out[f"{probe} {case}"] = {**row, **{k: dict(ms=float(np.median(v)), turns_ms=v,
+                                                        graph_ms=graph_ms(fns[k]))
+                                                 for k, v in t.items()}}
+    gen = np.random.default_rng(3)
+    c0, c1 = (torch.from_numpy(gen.integers(-2**31, 2**31, 1 << 20).astype(np.int32)).to(dev)
+              for _ in range(2))
+    k0, k1 = ktf.key_words(0)
+    new_k2 = lambda: ktf.threefry2x32_kernel(k0, k1, c0, c1)   # noqa: E731
+    old_k2 = lambda: pmods["ktf"].threefry2x32_kernel(k0, k1, c0, c1)   # noqa: E731
+    with cudalib_as(pc):
+        old = old_k2()
+    checks["K2 threefry through the wrapper new == parent"] = all(
+        torch.equal(a, b) for a, b in zip(old, new_k2()))
+
+    def old_ms():
+        with cudalib_as(pc):
+            return cuda_ms(old_k2, 50)
+
+    t = alternate({"parent": old_ms, "new": lambda: cuda_ms(new_k2, 50)})
+    out["K2 threefry wrapper 2^20"] = {k: dict(ms=float(np.median(v)), turns_ms=v)
+                                       for k, v in t.items()}
+    return dict(checks=checks, ms=out)
+
+
 def _draw_fields(out) -> dict:
     """A draw site's numbers by name, from the draw kernels' dict or the
     chain's tuples (chain_draw_sites: camera (lens, jitter), bounce (rr or
@@ -2478,6 +2797,9 @@ def phase15(scene, dev, smi, parent_dir):
             _bitwise(old_f[k], new_f[k]) for k in old_f))
         turns.update({f"draws {site} parent": on("parent", chain[site]),
                       f"draws {site} new": new[site]})
+    pc, pmods = parent_launch_path(parent_dir, build_dir)
+    tiles = tiles_old_new(dev, pc, pmods)
+    checks.update(tiles["checks"])
     if not all(checks.values()):
         raise AssertionError(f"phase 15: {checks}")
     res = {}
@@ -2515,8 +2837,16 @@ def phase15(scene, dev, smi, parent_dir):
         steps[name].append(_phase10_s_per_step(parent_dir if name == "parent" else ROOT))
     s_step = {k: dict(median_s_per_step=float(np.median([r["s_per_step"] for r in v])),
                       runs=v) for k, v in steps.items()}
-    msg = (f"parent's build in {build_s:.1f} s; {checks}; "
-           f"in turns, median of 10 (CUDA events; K4 routes per call of 20; min-max): "
+    msg = (f"parent's build in {build_s:.1f} s; {checks}; the parent's launch path and "
+           f"kernels against this tree's, per call in {P13_TURN_PAIRS} alternating pairs of rounds "
+           f"(median; K2: cuda_ms of 50 per turn) and per launch in a CUDA graph of "
+           f"{P13_GRAPH_LAUNCHES}: " + "; ".join(
+               f"{k} " + ", ".join(f"{w} {v['ms']:.5f} ms [{_fmt(v['turns_ms'])}]"
+                                   + (f" graph {v['graph_ms']:.5f}" if "graph_ms" in v else "")
+                                   for w, v in r.items() if w in ("parent", "new"))
+               + (f" (max |diff| {r['max_abs_diff']:.3g})" if "max_abs_diff" in r else "")
+               for k, r in tiles["ms"].items())
+           + "; in turns, median of 10 (CUDA events; K4 routes per call of 20; min-max): "
            + "; ".join(f"{k} {v['median_ms']:.4f} ms ({v['min_ms']:.4f}-{v['max_ms']:.4f})"
                        for k, v in ms.items())
            + "; numRegs / localSizeBytes: "
@@ -2529,7 +2859,7 @@ def phase15(scene, dev, smi, parent_dir):
     if not checks["K3 2K new within the parent's spread"]:
         raise AssertionError(f"phase 15: K3 at 2K {k3n} outside the parent's {k3p}")
     return dict(json=dict(card=smi, checks=checks, ms=ms, resources=res, build_s=build_s,
-                          phase10=s_step), msg=msg)
+                          phase10=s_step, tiles=tiles["ms"]), msg=msg)
 
 
 def _counts():

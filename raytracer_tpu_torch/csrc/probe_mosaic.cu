@@ -8,89 +8,90 @@
 // for bit, and both are held to the script's NumPy expectation at rtol /
 // atol 1e-5.
 //
-//   colbcast      x * x[:, 3:4]
+//   colbcast      x * x[:, 3:4]; x[s, 3] is lane 0's fourth word
 //   lanesum       x + sum(x, axis=1): the thread's 4 lanes in order, then a
-//                 __shfl_xor_sync butterfly
-//   packsum       the packed int sum (x > 0) + ((x < -0.5) << 16) of a row,
-//                 split into its halves lo * 1000 + hi
-//   concat        row 0 replicated to 8 rows, times its lane 5
+//                 5-step __shfl_xor_sync butterfly
+//   packsum       the packed int sum (x > 0) + ((x < -0.5) << 16) of a row
+//                 (__reduce_add_sync), split into its halves lo * 1000 + hi
+//   concat        row 0 replicated to 8 rows, times its lane 5 (lane 1's
+//                 second word)
 //   bitcast       the int32 bits of lanes 25 and 26 (record 1, fields 9:11)
 //                 of each row, which are denormal floats: moved as bits with
 //                 __float_as_int, no float arithmetic touches them
-//   extract_smem  x[s, 7] > 0 written to shared memory by lane 0 of warp s,
-//                 read back by every lane of the row
-//   dynload       row s of tab[idx[s, 0]], the index staged in shared memory
-//                 (clamped into the table as jax.lax.dynamic_slice clamps)
+//   extract_smem  x[s, 7] > 0 for the whole row. The script's SMEM is the
+//                 TPU scalar unit's memory; the card's counterpart of a
+//                 scalar handed to every vector lane is a warp-uniform value,
+//                 tested by lane 0 and broadcast with __shfl_sync
+//   dynload       row s of tab[idx[s, 0]], the index read by lane 0 and
+//                 broadcast (clamped into the table as jax.lax.dynamic_slice
+//                 clamps)
 //
-// Mapping: one block of 8 warps, warp s is row s, thread l owns lanes l,
-// l+32, l+64, l+96 (probe.cuh). What bounds it: the launch; each case does
-// at most a few operations per element on 4 KiB (dynload: 8 rows of the
-// table).
+// Mapping (probe_tile.cuh): one block of 8 warps, warp s is row s, thread l
+// owns the adjacent lanes 4l..4l+3: one 128-bit load and one 128-bit store
+// per row, a scalar read once per warp and broadcast. What bounds it: the
+// launch (its bound is 0.0000024 ms of bytes); the design keeps the body to
+// one access each way, so the card's time is the launch's.
 #include <cuda_runtime.h>
 
 #include "probe.cuh"
+#include "probe_tile.cuh"
 
 namespace probe_mosaic {
 
-using namespace probe;
+using probe::FULL;
+using probe::P_SUB;
+using probe::ROW;
+using probe::TRI_STRIDE;
 
 enum Case { COLBCAST, LANESUM, PACKSUM, CONCAT, BITCAST, EXTRACT_SMEM, DYNLOAD, N_CASES };
 
-// x: f32[8, 128] (dynload: tab f32[rows, 128]); idx: i32[8, 128] (dynload
-// only); out: f32 or i32 [8, 128].
+__device__ __forceinline__ int pack(float v) {
+  return (v > 0.0f ? 1 : 0) + probe::shl16(v < -0.5f ? 1 : 0);
+}
+
+// x: f32[8, 128] (dynload: tab f32[rows, 128]), 16-byte aligned; idx:
+// i32[8, 128] (dynload only); out: f32 or i32 [8, 128].
 template <int C>
 __global__ void __launch_bounds__(P_SUB * 32)
     probe_mosaic_kernel(const float* __restrict__ x, const int* __restrict__ idx, int rows,
                         void* out) {
-  __shared__ int sm[P_SUB];
+  using namespace tile;
   const int s = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* row = x + s * ROW;
   float* fo = static_cast<float*>(out) + s * ROW;
   int* io = static_cast<int*>(out) + s * ROW;
   if constexpr (C == COLBCAST) {
-    const float col = row[3];
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) fo[lane + 32 * j] = row[lane + 32 * j] * col;
+    const float4 v = load4(row, lane);
+    store4(fo, lane, mul(v, __shfl_sync(FULL, v.w, 0)));
   } else if constexpr (C == LANESUM) {
-    float v = row[lane];
+    const float4 v = load4(row, lane);
+    float t = ((v.x + v.y) + v.z) + v.w;
 #pragma unroll
-    for (int j = 1; j < LPT; ++j) v = v + row[lane + 32 * j];
-#pragma unroll
-    for (int m = 16; m >= 1; m >>= 1) v = v + __shfl_xor_sync(FULL, v, m);
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) fo[lane + 32 * j] = row[lane + 32 * j] + v;
+    for (int m = 16; m >= 1; m >>= 1) t = t + __shfl_xor_sync(FULL, t, m);
+    store4(fo, lane, add(v, t));
   } else if constexpr (C == PACKSUM) {
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) {
-      const float v = row[lane + 32 * j];
-      cnt += (v > 0.0f ? 1 : 0) + shl16(v < -0.5f ? 1 : 0);
-    }
-    const int a01 = warp_sum(cnt);
-    const int lo = a01 & 0xFFFF, hi = a01 >> 16;
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) io[lane + 32 * j] = lo * 1000 + hi;
+    const float4 v = load4(row, lane);
+    const int a01 = __reduce_add_sync(FULL, ((pack(v.x) + pack(v.y)) + pack(v.z)) + pack(v.w));
+    store4(io, lane, (a01 & 0xFFFF) * 1000 + (a01 >> 16));
   } else if constexpr (C == CONCAT) {
-    const float c5 = x[5];
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) fo[lane + 32 * j] = x[lane + 32 * j] * c5;
+    const float4 v = load4(x, lane);
+    store4(fo, lane, mul(v, __shfl_sync(FULL, v.y, 1)));
   } else if constexpr (C == BITCAST) {
-    const int id0 = __float_as_int(row[TRI_STRIDE + 9]);
-    const int id1 = __float_as_int(row[TRI_STRIDE + 10]);
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) io[lane + 32 * j] = id0 + 0 * id1;
+    int id0 = 0, id1 = 0;
+    if (lane == 0) {
+      id0 = __float_as_int(row[TRI_STRIDE + 9]);
+      id1 = __float_as_int(row[TRI_STRIDE + 10]);
+    }
+    id0 = __shfl_sync(FULL, id0, 0);
+    id1 = __shfl_sync(FULL, id1, 0);
+    store4(io, lane, id0 + 0 * id1);
   } else if constexpr (C == EXTRACT_SMEM) {
-    if (lane == 0) sm[s] = row[7] > 0.0f ? 1 : 0;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) io[lane + 32 * j] = sm[s];
+    const int b = lane == 0 ? (row[7] > 0.0f ? 1 : 0) : 0;
+    store4(io, lane, __shfl_sync(FULL, b, 0));
   } else {
-    if (lane == 0) sm[s] = idx[s * ROW];
-    __syncthreads();
-    const int r = min(max(sm[s], 0), rows - 1);
-#pragma unroll
-    for (int j = 0; j < LPT; ++j)
-      fo[lane + 32 * j] = x[static_cast<size_t>(r) * ROW + lane + 32 * j];
+    const int r0 = lane == 0 ? idx[s * ROW] : 0;
+    const int r = min(max(__shfl_sync(FULL, r0, 0), 0), rows - 1);
+    store4(fo, lane, load4(x + static_cast<size_t>(r) * ROW, lane));
   }
 }
 

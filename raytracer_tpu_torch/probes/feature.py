@@ -43,15 +43,16 @@ STAGES = CASES + ("s7",)
 TILE = (8, 128)
 S2_PACKETS, S3_TRIPS, S4_N0, S6_TRIPS = 4, 7, 8, 6
 S7_RAYS, S7_SEED, S7_TMAX = 1024, 3, 3e38
-N_OUT = {"s1": 6}
 LAUNCHES = {"probe_feature": 0}
 PLAIN_CALLS = {"probe_feature": 0}
+_IDS = {case: i for i, case in enumerate(CASES)}
+S1, S2, S3, S6 = (_IDS[case] for case in ("s1", "s2", "s3", "s6"))
 
 
 def _case_id(case: str) -> int:
-    if case not in CASES:
+    if case not in _IDS:
         raise ValueError(f"feature probe: unknown kernel stage {case!r} ({', '.join(CASES)})")
-    return CASES.index(case)
+    return _IDS[case]
 
 
 def inputs(case: str) -> tuple:
@@ -114,39 +115,73 @@ def feature_plain(case: str, *ins: torch.Tensor) -> tuple:
     return (acc,)
 
 
-def probe_feature(case: str, *ins: torch.Tensor) -> tuple:
-    """The stage's kernel (csrc/probe_feature.cu) on CUDA tensors, its plain
-    version on CPU tensors; a tuple of f32 outputs (six for s1, else one)."""
-    c = _case_id(case)
-    if not ins[0].is_cuda:
-        if ins[0].device.type != "cpu":
-            raise ValueError(f"feature probe: unsupported device {ins[0].device}")
-        return feature_plain(case, *ins)
+# The inputs the fast path takes, as cudalib.signature gives them: the
+# script's x, s2's packets, s6's table and s3's trip count.
+_X = (True, torch.float32, TILE, True)
+_FAST = {S2: (True, torch.float32, (S2_PACKETS, *TILE), True),
+         S6: (True, torch.float32, (64, 128), True)}
+_N = (True, torch.int32, (1,), True)
+_kernel = None   # rt_probe_feature, bound at the first launch
+
+
+def _takes(case: str, ins: tuple) -> bool:
+    """The wrapper's rules, with their errors, for inputs off its fast
+    path: True where the kernel takes them (on the card), False where the
+    plain version does (on the CPU); anything else raises."""
+    _case_id(case)
+    if len(ins) != (2 if case == "s3" else 1):
+        raise ValueError(f"feature probe: {case} takes {'x, n' if case == 's3' else 'x'}")
     x = ins[0]
+    dev = x.device.type if torch.is_tensor(x) else "cuda"
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"feature probe: unsupported device {x.device}")
     if case == "s2":
-        cudalib.require_cuda("x", x, torch.float32)
+        cudalib.require_cuda("x", x, torch.float32, device_type=dev)
         if x.dim() != 3 or tuple(x.shape[1:]) != TILE:
             raise ValueError("feature probe: s2 takes x f32[packets, 8, 128]")
     elif case == "s6":
-        cudalib.require_cuda("tab", x, torch.float32)
+        cudalib.require_cuda("tab", x, torch.float32, device_type=dev)
         if x.dim() != 2 or x.shape[1] != 128 or x.shape[0] < 16:
             raise ValueError("feature probe: s6 takes a table f32[rows >= 16, 128]")
     else:
-        cudalib.require_cuda("x", x, torch.float32, TILE)
-    n = None
+        cudalib.require_cuda("x", x, torch.float32, TILE, device_type=dev)
     if case == "s3":
-        cudalib.require_cuda("n", ins[1], torch.int32, (1,))
-        n = ins[1].data_ptr()
-    shape = x.shape if case == "s2" else TILE
-    outs = [torch.empty(shape, dtype=torch.float32, device=x.device)
-            for _ in range(N_OUT.get(case, 1))]
-    ptrs = [o.data_ptr() for o in outs] + [None] * (6 - len(outs))
-    packets = x.shape[0] if case == "s2" else 0
-    cudalib.check(cudalib.lib().rt_probe_feature(c, x.data_ptr(), n, packets, *ptrs,
-                                                 cudalib.stream_handle()),
-                  f"probe_feature kernel ({case})")
+        cudalib.require_cuda("n", ins[1], torch.int32, (1,), device_type=dev)
+    return dev == "cuda"
+
+
+def probe_feature(case: str, *ins: torch.Tensor) -> tuple:
+    """The stage's kernel (csrc/probe_feature.cu) on CUDA tensors, its plain
+    version on CPU tensors; a tuple of f32 outputs (six for s1, on the card
+    views of one buffer, else one). The script's inputs on the card take
+    the fast path: one signature comparison per input, the output from
+    empty_like, the entry point bound once, the stream's raw handle."""
+    global _kernel
+    c = _IDS.get(case, -1)
+    if c == S3:
+        fast = len(ins) == 2 and cudalib.signature(ins[0]) == _X and \
+            cudalib.signature(ins[1]) == _N
+    else:
+        fast = c >= 0 and len(ins) == 1 and cudalib.signature(ins[0]) == _FAST.get(c, _X)
+    if not fast and not _takes(case, ins):
+        return feature_plain(case, *ins)
+    x = ins[0]
+    xp = x.data_ptr()
+    if xp & 15:
+        cudalib.require_aligned("tab" if c == S6 else "x", xp)
+    if _kernel is None:
+        _kernel = cudalib.lib().rt_probe_feature
+    if c == S1:   # its six outputs, consecutive tiles of one buffer
+        out = x.new_empty((6, *TILE))
+        code = _kernel(c, xp, None, 0, out.data_ptr(), cudalib.stream_handle())
+    else:
+        out = x.new_empty(TILE) if c == S6 else torch.empty_like(x)
+        code = _kernel(c, xp, ins[1].data_ptr() if c == S3 else None,
+                       x.shape[0] if c == S2 else 0, out.data_ptr(), cudalib.stream_handle())
+    if code:
+        cudalib.check(code, f"probe_feature kernel ({case})")
     LAUNCHES["probe_feature"] += 1
-    return tuple(outs)
+    return out.unbind(0) if c == S1 else (out,)
 
 
 def check(case: str, outs, ins) -> tuple[bool, str]:

@@ -44,12 +44,15 @@ TILE = (8, 128)
 RTOL = ATOL = 1e-5
 LAUNCHES = {"probe_mosaic": 0}
 PLAIN_CALLS = {"probe_mosaic": 0}
+_IDS = {case: i for i, case in enumerate(CASES)}
+DYNLOAD = _IDS["dynload"]
+_INT_IDS = frozenset(_IDS[case] for case in INT_OUT)
 
 
 def _case_id(case: str) -> int:
-    if case not in CASES:
+    if case not in _IDS:
         raise ValueError(f"mosaic probe: unknown case {case!r} ({', '.join(CASES)})")
-    return CASES.index(case)
+    return _IDS[case]
 
 
 def script_inputs() -> dict:
@@ -104,14 +107,14 @@ def mosaic_plain(case: str, *ins: torch.Tensor) -> torch.Tensor:
     if case == "colbcast":
         return x * x[:, 3:4]
     if case == "lanesum":
-        # The kernel's order: thread l sums lanes l, l+32, l+64, l+96, then
+        # The kernel's order: thread l adds its lanes 4l..4l+3 in order, then
         # the butterfly adds partner l ^ m for m = 16, 8, 4, 2, 1.
-        v = x.view(8, 4, 32)
-        t = ((v[:, 0] + v[:, 1]) + v[:, 2]) + v[:, 3]
+        v = x.view(8, 32, 4)
+        t = ((v[..., 0] + v[..., 1]) + v[..., 2]) + v[..., 3]
         lanes = torch.arange(32, device=x.device)
         for m in (16, 8, 4, 2, 1):
             t = t + t[:, lanes ^ m]
-        return x + t.repeat(1, 4)
+        return (v + t[..., None]).view(TILE)
     if case == "packsum":
         pa = ((x > 0).to(torch.int32) + ((x < -0.5).to(torch.int32) << 16)).sum(
             1, keepdim=True, dtype=torch.int32)
@@ -127,30 +130,64 @@ def mosaic_plain(case: str, *ins: torch.Tensor) -> torch.Tensor:
     return tab[idx[:, 0].clamp(0, tab.shape[0] - 1).long()]
 
 
-def probe_mosaic(case: str, *ins: torch.Tensor) -> torch.Tensor:
-    """The case's kernel (csrc/probe_mosaic.cu) on CUDA tensors, its plain
-    version on CPU tensors."""
-    c = _case_id(case)
-    if not ins[0].is_cuda:
-        if ins[0].device.type != "cpu":
-            raise ValueError(f"mosaic probe: unsupported device {ins[0].device}")
-        return mosaic_plain(case, *ins)
+# The inputs the fast path takes, as cudalib.signature gives them: x (or
+# the integer tile as float32), the script's table and index tile.
+_X = (True, torch.float32, TILE, True)
+_TAB = (True, torch.float32, (64, 128), True)
+_IDX = (True, torch.int32, TILE, True)
+_kernel = None   # rt_probe_mosaic, bound at the first launch
+
+
+def _takes(case: str, ins: tuple) -> bool:
+    """The wrapper's rules, with their errors, for inputs off its fast
+    path: True where the kernel takes them (on the card), False where the
+    plain version does (on the CPU); anything else raises."""
+    _case_id(case)
+    if len(ins) != (2 if case == "dynload" else 1):
+        raise ValueError(f"mosaic probe: {case} takes {'tab, idx' if case == 'dynload' else 'x'}")
+    dev = ins[0].device.type if torch.is_tensor(ins[0]) else "cuda"
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"mosaic probe: unsupported device {ins[0].device}")
     if case == "dynload":
         tab, idx = ins
-        cudalib.require_cuda("tab", tab, torch.float32)
+        cudalib.require_cuda("tab", tab, torch.float32, device_type=dev)
         if tab.dim() != 2 or tab.shape[1] != 128 or tab.shape[0] < 1:
             raise ValueError("mosaic probe: tab must be f32[rows >= 1, 128]")
-        cudalib.require_cuda("idx", idx, torch.int32, TILE)
-        x, ip, rows = tab, idx.data_ptr(), tab.shape[0]
+        cudalib.require_cuda("idx", idx, torch.int32, TILE, device_type=dev)
     else:
-        (x,) = ins
-        cudalib.require_cuda("x", x, torch.float32, TILE)
-        ip, rows = None, 1
-    out = torch.empty(TILE, dtype=torch.int32 if case in INT_OUT else torch.float32,
-                      device=x.device)
-    cudalib.check(cudalib.lib().rt_probe_mosaic(c, x.data_ptr(), ip, rows, out.data_ptr(),
-                                                cudalib.stream_handle()),
-                  f"probe_mosaic kernel ({case})")
+        cudalib.require_cuda("x", ins[0], torch.float32, TILE, device_type=dev)
+    return dev == "cuda"
+
+
+def probe_mosaic(case: str, *ins: torch.Tensor) -> torch.Tensor:
+    """The case's kernel (csrc/probe_mosaic.cu) on CUDA tensors, its plain
+    version on CPU tensors. The script's inputs on the card take the fast
+    path: one signature comparison per input, the output from empty_like,
+    the entry point bound once, the stream's raw handle."""
+    global _kernel
+    c = _IDS.get(case, -1)
+    if c == DYNLOAD:
+        fast = (len(ins) == 2 and cudalib.signature(ins[0]) == _TAB
+                and cudalib.signature(ins[1]) == _IDX)
+    else:
+        fast = c >= 0 and len(ins) == 1 and cudalib.signature(ins[0]) == _X
+    if not fast and not _takes(case, ins):
+        return mosaic_plain(case, *ins)
+    x = ins[0]
+    xp = x.data_ptr()
+    if xp & 15:
+        cudalib.require_aligned("tab" if c == DYNLOAD else "x", xp)
+    if _kernel is None:
+        _kernel = cudalib.lib().rt_probe_mosaic
+    if c == DYNLOAD:
+        out = x.new_empty(TILE)
+        code = _kernel(c, xp, ins[1].data_ptr(), x.shape[0], out.data_ptr(),
+                       cudalib.stream_handle())
+    else:
+        out = torch.empty_like(x, dtype=torch.int32) if c in _INT_IDS else torch.empty_like(x)
+        code = _kernel(c, xp, None, 1, out.data_ptr(), cudalib.stream_handle())
+    if code:
+        cudalib.check(code, f"probe_mosaic kernel ({case})")
     LAUNCHES["probe_mosaic"] += 1
     return out
 

@@ -192,7 +192,7 @@ def lib() -> ctypes.CDLL:
                               vp]
     L.rt_probe_v6_attrs.argtypes = [ip, ip]
     L.rt_probe_mosaic.argtypes = [ci, vp, vp, ci, vp, vp]
-    L.rt_probe_feature.argtypes = [ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp]
+    L.rt_probe_feature.argtypes = [ci, vp, vp, ci, vp, vp]
     L.rt_probe_bitcast.argtypes = [ci, vp, ci, vp, vp, vp]
     L.rt_probe_morph.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp,
                                  vp, vp, vp, vp]
@@ -224,11 +224,12 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def require_cuda(name: str, t, dtype, shape=None):
+def require_cuda(name: str, t, dtype, shape=None, device_type: str = "cuda"):
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and
-    `shape`, where given)."""
-    if not torch.is_tensor(t) or not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor")
+    `shape`, where given); with device_type "cpu", the same rules for a
+    tensor on the CPU (a wrapper that takes both)."""
+    if not torch.is_tensor(t) or t.device.type != device_type:
+        raise ValueError(f"{name}: expected a {device_type.upper()} tensor")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
@@ -237,8 +238,37 @@ def require_cuda(name: str, t, dtype, shape=None):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+def signature(t):
+    """(on a card, dtype, shape, contiguous) of a tensor, None for anything
+    else: a wrapper's fast path compares each input's signature with the
+    one it takes, in one comparison, and leaves every other input to
+    `require_cuda`, which raises its errors."""
+    return (t.is_cuda, t.dtype, t.shape, t.is_contiguous()) if isinstance(t, torch.Tensor) \
+        else None
+
+
+def require_aligned(name: str, ptr: int, nbytes: int = 16) -> None:
+    """Raise unless the device pointer `ptr` is `nbytes`-aligned (a kernel
+    that reads 128-bit words or bulk-copies needs 16)."""
+    if ptr % nbytes:
+        raise ValueError(f"{name}: expected a {nbytes}-byte aligned tensor, got address {ptr:#x}")
+
+
+# The current stream's raw cudaStream_t on a card, read without building a
+# torch.cuda.Stream; absent where this PyTorch has no CUDA.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_CURRENT_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+
+
 def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The raw handle of the current card's current stream, read anew on
+    every call: `torch.cuda.stream(...)`, CUDA-graph capture and
+    `device_scope` change it, so it is never cached. Raises where this
+    PyTorch was built without CUDA; there is no fallback."""
+    if _RAW_STREAM is None:
+        raise RuntimeError(f"stream_handle: this PyTorch ({torch.__version__}) was built "
+                           f"without CUDA; the kernels need a card")
+    return _RAW_STREAM(_CURRENT_DEVICE())
 
 
 def device_scope(dev):

@@ -39,7 +39,7 @@ from raytracer_tpu_torch.probes import (ablate_v8, base_probe, bitcast, feature,
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 from raytracer_tpu_torch.scene.builder import (cornell_materials_scene, reference_scene,
                                                tree_width)
-from raytracer_tpu_torch.utils import ktf
+from raytracer_tpu_torch.utils import cudalib, ktf
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
@@ -696,6 +696,83 @@ def test_probe_feature_stage(dev, case):
     ins = tuple(torch.from_numpy(a).to(dev) for a in feature.inputs(case))
     k, p = feature.probe_feature(case, *ins), feature.feature_plain(case, *ins)
     assert len(k) == len(p) and all(_bitwise(a, b) for a, b in zip(k, p))
+
+
+def _tile_calls(dev, probe):
+    """(name, the kernel's call, the plain version's call) of every P-mosaic
+    case or P-feature stage on its script's inputs on the card; each call
+    returns a tuple of tensors."""
+    mod = {"mosaic": mosaic, "feature": feature}[probe]
+    calls = []
+    for case in mod.CASES:
+        ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in mod.inputs(case))
+        if probe == "mosaic":
+            calls.append((case, lambda c=case, i=ins: (mosaic.probe_mosaic(c, *i),),
+                          lambda c=case, i=ins: (mosaic.mosaic_plain(c, *i),)))
+        else:
+            calls.append((case, lambda c=case, i=ins: feature.probe_feature(c, *i),
+                          lambda c=case, i=ins: feature.feature_plain(c, *i)))
+    return calls, mod.LAUNCHES
+
+
+def test_stream_handle_follows_the_current_stream(dev):
+    """cudalib.stream_handle is the current stream's handle on every call:
+    the default stream, a side stream inside torch.cuda.stream, the default
+    again after it, and the current card's inside device_scope."""
+    assert cudalib.stream_handle() == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert cudalib.stream_handle() == side.cuda_stream
+        assert side.cuda_stream != torch.cuda.default_stream().cuda_stream
+    assert cudalib.stream_handle() == torch.cuda.current_stream().cuda_stream
+    with cudalib.device_scope(dev):
+        assert cudalib.stream_handle() == torch.cuda.current_stream(dev).cuda_stream
+
+
+@pytest.mark.parametrize("probe", ["mosaic", "feature"])
+def test_probe_tiles_on_a_side_stream(dev, probe):
+    """Every case launched on a side torch.cuda.Stream, one launch counted
+    each, equals its plain version bit for bit."""
+    calls, launches = _tile_calls(dev, probe)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for name, kernel, plain in calls:
+        before = launches[f"probe_{probe}"]
+        with torch.cuda.stream(side):
+            got = kernel()
+        assert launches[f"probe_{probe}"] == before + 1, name
+        torch.cuda.current_stream().wait_stream(side)
+        want = plain()
+        assert len(got) == len(want) and all(_bitwise(a, b) for a, b in zip(got, want)), name
+
+
+@pytest.mark.parametrize("probe", ["mosaic", "feature"])
+def test_probe_tiles_in_a_cuda_graph(dev, probe):
+    """Every case captured once in a CUDA graph (one launch counted each,
+    at capture; none at replay), its outputs overwritten, then replayed:
+    the outputs equal the plain versions bit for bit, so each launch went
+    to the capturing stream."""
+    calls, launches = _tile_calls(dev, probe)
+    warm = torch.cuda.Stream()
+    warm.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(warm):
+        for _, kernel, _ in calls:
+            kernel()
+    torch.cuda.current_stream().wait_stream(warm)
+    graph = torch.cuda.CUDAGraph()
+    before = launches[f"probe_{probe}"]
+    with torch.cuda.graph(graph):
+        outs = [kernel() for _, kernel, _ in calls]
+    assert launches[f"probe_{probe}"] == before + len(calls)
+    for out in outs:
+        for t in out:
+            t.fill_(-7)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert launches[f"probe_{probe}"] == before + len(calls)
+    for (name, _, plain), got in zip(calls, outs):
+        want = plain()
+        assert len(got) == len(want) and all(_bitwise(a, b) for a, b in zip(got, want)), name
 
 
 def test_probe_feature_s7_launches_k4(dev):

@@ -70,3 +70,32 @@ def test_feature_entry_point_and_guards(capsys):
     (out,) = feature.feature_plain("s3", *(torch.from_numpy(a) for a in ins))
     assert feature.check("s3", [out.numpy() + 1.0], ins)[0] is False
     assert feature.check("s5", [np.full((8, 128), np.nan, np.float32)], ins)[0] is False
+
+
+DEFECTS = {  # defect: (the first input made wrong, the error it raises)
+    "device": (lambda t: t.to("meta"), "unsupported device meta"),
+    "dtype": (lambda t: t.double(), "expected torch.float32, got torch.float64"),
+    "shape": (lambda t: t[..., :64].contiguous(), "expected shape|takes x f32|takes a table"),
+    "contiguity": (lambda t: t.transpose(-1, -2).contiguous().transpose(-1, -2),
+                   "expected a contiguous tensor"),
+}
+
+
+@pytest.mark.parametrize("defect", DEFECTS)
+@pytest.mark.parametrize("case", ["s2", "s3", "s6"])
+def test_feature_wrapper_guards(case, defect):
+    """The wrapper's guards (the same on the CPU and the card) raise on an
+    input on the wrong device or of the wrong dtype, shape or contiguity;
+    the script's inputs pass them and take the plain version here."""
+    ins = [torch.from_numpy(a) for a in feature.inputs(case)]
+    assert feature._takes(case, tuple(ins)) is False
+    spoil, match = DEFECTS[defect]
+    with pytest.raises(ValueError, match=match):
+        feature.probe_feature(case, spoil(ins[0]), *ins[1:])
+    if case == "s3" and defect != "contiguity":   # an int32[1] is always contiguous
+        n_bad = {"device": ins[1].to("meta"), "dtype": ins[1].long(),
+                 "shape": ins[1].repeat(2)}[defect]
+        with pytest.raises(ValueError, match="n: expected"):
+            feature.probe_feature(case, ins[0], n_bad)
+    with pytest.raises(ValueError, match="takes"):
+        feature.probe_feature(case, *ins, ins[0])

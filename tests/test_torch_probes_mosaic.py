@@ -19,6 +19,7 @@ import torch
 from probe_scripts import agree, load_script, record_pallas
 
 from raytracer_tpu_torch.probes import mosaic
+from raytracer_tpu_torch.utils import cudalib
 
 torch.set_num_threads(2)
 
@@ -70,3 +71,49 @@ def test_mosaic_teeth_and_entry_point(capsys):
     assert capsys.readouterr().out.count(": OK") == len(mosaic.CASES)
     with pytest.raises(ValueError, match="unknown case"):
         mosaic.inputs("transpose")
+
+
+DEFECTS = {  # defect: (the first input made wrong, the error it raises)
+    "device": (lambda t: t.to("meta"), "unsupported device meta"),
+    "dtype": (lambda t: t.double(), "expected torch.float32, got torch.float64"),
+    "shape": (lambda t: t[:, :64].contiguous(), "expected shape|must be f32"),
+    "contiguity": (lambda t: t.t().contiguous().t(), "expected a contiguous tensor"),
+}
+
+
+@pytest.mark.parametrize("defect", DEFECTS)
+@pytest.mark.parametrize("case", ["colbcast", "dynload"])
+def test_mosaic_wrapper_guards(case, defect):
+    """The wrapper's guards (the same on the CPU and the card) raise on an
+    input on the wrong device or of the wrong dtype, shape or contiguity;
+    the script's inputs pass them and take the plain version here."""
+    ins = [torch.from_numpy(np.ascontiguousarray(a)) for a in mosaic.inputs(case)]
+    assert mosaic._takes(case, tuple(ins)) is False
+    spoil, match = DEFECTS[defect]
+    bad = [spoil(ins[0]), *ins[1:]]
+    assert tuple(bad[0].shape) == tuple(ins[0].shape) or defect == "shape"
+    with pytest.raises(ValueError, match=match):
+        mosaic.probe_mosaic(case, *bad)
+    if case == "dynload":
+        with pytest.raises(ValueError, match="idx: expected"):
+            mosaic.probe_mosaic(case, ins[0], spoil(ins[1]) if defect != "dtype"
+                                else ins[1].long())
+    with pytest.raises(ValueError, match="takes"):
+        mosaic.probe_mosaic(case, *ins, ins[0])
+
+
+def test_stream_handle_and_signature_on_the_cpu():
+    """stream_handle raises a clear error where PyTorch has no CUDA, and
+    no fallback hands out a handle; the fast path's signature of a CPU
+    tensor never equals one it takes on the card; a misaligned pointer
+    raises."""
+    if torch.version.cuda is None:
+        with pytest.raises(RuntimeError, match="built without CUDA"):
+            cudalib.stream_handle()
+    x = torch.from_numpy(mosaic.inputs("colbcast")[0])
+    assert cudalib.signature(x) == (False, torch.float32, (8, 128), True)
+    assert cudalib.signature(x) != mosaic._X and cudalib.signature(x.numpy()) is None
+    assert cudalib.signature(x.t()) == (False, torch.float32, (128, 8), False)
+    cudalib.require_aligned("x", 0x7F0000000100)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cudalib.require_aligned("x", 0x7F0000000104)
