@@ -72,7 +72,12 @@ plain PyTorch version, and drives the port's three paths:
     alternating rounds (also against the library call on views made
     once), every case's device time per launch from a CUDA graph of 100
     launches, P-floor's empty kernel as the launch floor both ways, and
-    the host microseconds of each part of a call;
+    the host microseconds of each part of a call; then P-v8 and the v5
+    body at every chain width W (1, 2, 4) at the scripts' packets and at
+    1,056: ms, registers, local bytes, the roofline and the issue bound
+    (static SASS x warps x iterations over the schedulers at the SM clock
+    read under load), each case also held to its plain version at every
+    W, P-v8 also on NaN inputs;
   * old against new (phase 15, only with --parent DIR, the parent
     commit's tree): the parent's K3, K3-profile, K5 and K4 built from DIR
     against this tree's, each equal to the parent's bit for bit, timed in
@@ -84,7 +89,9 @@ plain PyTorch version, and drives the port's three paths:
     against this tree's, bit for bit (lanesum, which sums in another order
     since the redesign, by the script's check) and in alternating rounds,
     per call and per launch in a CUDA graph, and K2's Threefry through the
-    parent's wrapper against this tree's; and DIR's own
+    parent's wrapper against this tree's; the parent's P-v8 and v5 body
+    through its own wrappers (every variant and mode at the scripts'
+    packets and at 1,056) bit for bit and in alternating rounds; and DIR's own
     `chip_smoke.py --phases 10` against this tree's,
     three each in alternation; phases 4, 7, 8 and 12 count the brute MT records
     the cull leaves per traced ray (brute_may_hit) and give K1, K3 and K4
@@ -1806,6 +1813,85 @@ def tile_times(dev, floor_fn) -> dict:
     return dict(cases=cases, floor=floor, host_us=host, lines=lines)
 
 
+SCHEDULERS_PER_SM = 4      # warp schedulers of a Hopper SM: 4 instructions issued per clock
+
+
+def sm_clock_under_load(fn, seconds: float = 1.5) -> dict:
+    """The card's SM clock (nvidia-smi clocks.sm, MHz) read every ~0.1 s
+    while launches of fn keep it busy for `seconds`: the median and the
+    readings."""
+    import threading
+
+    import torch
+
+    readings, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            got = subprocess.run(["nvidia-smi", f"--id={torch.cuda.current_device()}",
+                                  "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=60).stdout.split()
+            if got and got[0].replace(".", "", 1).isdigit():
+                readings.append(float(got[0]))
+            time.sleep(0.1)
+
+    fn()
+    torch.cuda.synchronize()
+    poller = threading.Thread(target=poll, daemon=True)
+    t0 = time.perf_counter()
+    poller.start()
+    while time.perf_counter() - t0 < seconds or not readings:
+        for _ in range(8):
+            fn()
+        torch.cuda.synchronize()
+    stop.set()
+    poller.join()
+    return dict(mhz=float(np.median(readings)), readings=readings)
+
+
+def issue_bound_ms(sass_total: int, warps: int, iters: int, n_sm: int, mhz: float) -> float:
+    """The least time for the instructions a probe issues: its kernel's
+    static SASS count (the loop body is unrolled, so about one iteration's
+    instructions of a warp) x warps x iterations over the SMs' schedulers,
+    one instruction each per clock."""
+    return sass_total * warps * iters / (SCHEDULERS_PER_SM * n_sm * mhz * 1e6) * 1e3
+
+
+def chain_widths(dev, v8_in: dict, v5_in: dict, out) -> dict:
+    """P-v8 and the v5 body at every chain width their kernels admit: ms
+    (median of time_launches), registers and local bytes, at the scripts'
+    packets and at P13_FILL_PACKETS, beside the W the entry point picks.
+    {"v8 <variant> P<packets>" / "v5 <mode> P<packets>": {"picked": W,
+    W: {...}}}."""
+    from raytracer_tpu_torch.probes import ablate_v8, common, v5_body
+
+    res8 = {w: ablate_v8.kernel_resources(w) for w in ablate_v8.ADMITTED_W}
+    res5 = {m: {w: v5_body.kernel_resources((m,), w)[m] for w in v5_body.ADMITTED_W[m]}
+            for m in v5_body.MODES}
+    table = {}
+    for packets, ins in v8_in.items():
+        for v in ablate_v8.VARIANTS:
+            row = {"picked": ablate_v8.chosen_w(packets, v)}
+            for w in ablate_v8.ADMITTED_W:
+                ms = common.median(common.time_launches(
+                    lambda: ablate_v8.ablate_v8(*ins, v, ablate_v8.ITERS, w=w)))
+                row[w] = dict(ms=ms, num_regs=res8[w][v][0], local_bytes=res8[w][v][1])
+            table[f"v8 {v} P{packets}"] = row
+    for packets, (args, zero_row) in v5_in.items():
+        for m in v5_body.MODES:
+            row = {"picked": v5_body.chosen_w(packets, m)}
+            for w in v5_body.ADMITTED_W[m]:
+                ms = common.median(common.time_launches(
+                    lambda: v5_body.v5(*args, zero_row, m, v5_body.ITERS, w=w)))
+                row[w] = dict(ms=ms, num_regs=res5[m][w][0], local_bytes=res5[m][w][1])
+            table[f"v5 {m} P{packets}"] = row
+    for name, row in table.items():
+        out(f"{name}: " + ", ".join(
+            f"W{w} {r['ms']:.4f} ms ({r['num_regs']} regs / {r['local_bytes']} B)"
+            for w, r in row.items() if w != "picked") + f"; the entry point picks W{row['picked']}")
+    return table
+
+
 def phase13(dev, smi):
     """The traversal-iteration probes: each probe's entry point with the
     launch counts from 0 (the timings), then every variant against its
@@ -1920,6 +2006,24 @@ def phase13(dev, smi):
         raise AssertionError(f"probe paths: launches {launches} (expected {want}), plain calls "
                              f"{plain_calls}")
 
+    # ---- P-v8 and the v5 body at every chain width (not the path: its
+    # counts are read above)
+    v8_in = {p: tuple(torch.from_numpy(a).to(dev) for a in ablate_v8.make_inputs(p))
+             for p in (ablate_v8.N_PACKETS, P13_FILL_PACKETS)}
+    v5_in = tuple(t.to(dev) for t in (node5, tri5, o5, d5, tl5))
+    v5_fill = v5_in[:2] + tuple(torch.from_numpy(a).to(dev)
+                                for a in v5_body.make_rays(P13_FILL_PACKETS))
+    v5_sizes = {v5_body.N_PACKETS: (v5_in, zero_row), P13_FILL_PACKETS: (v5_fill, zero_row)}
+    log(13, f"P-v8 ({ablate_v8.ITERS} iterations) and the v5 body ({v5_body.ITERS}) at every "
+            f"chain width W, at the scripts' packets and at {P13_FILL_PACKETS} (median of "
+            f"{common.TIMED_LAUNCHES} launches):")
+    widths = chain_widths(dev, v8_in, v5_sizes, out)
+    clock = sm_clock_under_load(lambda: ablate_v8.ablate_v8(*v8_in[P13_FILL_PACKETS], "full",
+                                                            ablate_v8.ITERS))
+    log(13, f"SM clock under P-v8 full at {P13_FILL_PACKETS} packets (nvidia-smi clocks.sm): "
+            f"median {clock['mhz']:.0f} MHz of {len(clock['readings'])} readings "
+            f"{clock['readings']}")
+
     # ---- every variant against its plain version, bit for bit
     checked, max_err, plain_ms, last_plain = [], {}, {}, {}
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1949,18 +2053,35 @@ def phase13(dev, smi):
             plain_ms[timed] = ev0.elapsed_time(ev1)
         return k
 
-    v8_in = {}
-    for packets in (ablate_v8.N_PACKETS, P13_FILL_PACKETS):
-        v8_in[packets] = tuple(torch.from_numpy(a).to(dev) for a in ablate_v8.make_inputs(packets))
+    def also(key, name, kernel_fn):
+        """kernel_fn() ≡ the plain result `held` kept last under key."""
+        k, p = kernel_fn(), last_plain[key]
+        if k.dtype != p.dtype or k.shape != p.shape or not _bitwise(k, p):
+            raise AssertionError(f"{name}: kernel != plain")
+        max_err[key] = max(max_err.get(key, 0.0), _max_abs(k, p))
+        checked.append(name)
+
+    # P-v8 at the picked W and at every W: P13_CHECK_ITERS iterations of
+    # every variant at both sizes, full also at the script's iterations,
+    # and the NaN inputs of the card tests at the script's packets.
+    nan_in = [t.clone() for t in v8_in[ablate_v8.N_PACKETS]]
+    nan_in[0][::7, 0:48:5] = float("nan")
+    nan_in[0][::11, 3] = float("inf")
+    nan_in[3][:, 0, :, ::9] = 0.0
+    v8_sets = {f"P{p}": ins for p, ins in v8_in.items()}
+    v8_sets[f"P{ablate_v8.N_PACKETS} NaN"] = tuple(nan_in)
+    for tag, ins in v8_sets.items():
         for v in ablate_v8.VARIANTS:
             sizes = [P13_CHECK_ITERS] + ([ablate_v8.ITERS] if (
-                v == "full" and packets == ablate_v8.N_PACKETS) else [])
+                v == "full" and tag == f"P{ablate_v8.N_PACKETS}") else [])
             for iters in sizes:
-                held("P-v8", f"v8 {v} P{packets} i{iters}",
-                     lambda: ablate_v8.ablate_v8(*v8_in[packets], v, iters),
-                     lambda: ablate_v8.ablate_v8_plain(*v8_in[packets], v, iters),
+                held("P-v8", f"v8 {v} {tag} i{iters}",
+                     lambda: ablate_v8.ablate_v8(*ins, v, iters),
+                     lambda: ablate_v8.ablate_v8_plain(*ins, v, iters),
                      "P-v8" if iters == ablate_v8.ITERS else None)
-    v5_in = tuple(t.to(dev) for t in (node5, tri5, o5, d5, tl5))
+                for w in ablate_v8.ADMITTED_W:
+                    also("P-v8", f"v8 {v} {tag} i{iters} W{w}",
+                         lambda: ablate_v8.ablate_v8(*ins, v, iters, w=w))
     # The base modes make their rows from t_best: with tlim = 3e38 every row
     # is 3e38, so they are also held at limits seeded in ±50, where chains
     # take different tasks and noconcat's cross-warp read matters.
@@ -1972,12 +2093,17 @@ def phase13(dev, smi):
         key = next(kk for kk, (_, m) in v5_probes.items() if mode in m)
         limits = [("", v5_in)] + ([(" tlim±50", v5_in[:4] + (tl_var,))]
                                   if mode in base_probe.MODES else [])
+        limits.append((f" P{P13_FILL_PACKETS}", v5_fill))
         for tag, args in limits:
-            for iters in [P13_CHECK_ITERS] + ([v5_body.ITERS] if body_mode else []):
+            for iters in [P13_CHECK_ITERS] + ([v5_body.ITERS] if body_mode and "P" not in tag
+                                              else []):
                 k = held(key, f"v5 {mode}{tag} i{iters}",
                          lambda: v5_body.v5(*args, zero_row, mode, iters),
                          lambda: v5_body.v5_plain(*args, zero_row, mode, iters),
                          mode if (iters == v5_body.ITERS and not tag) else None)
+                for w in v5_body.ADMITTED_W[mode]:
+                    also(key, f"v5 {mode}{tag} i{iters} W{w}",
+                         lambda: v5_body.v5(*args, zero_row, mode, iters, w=w))
                 if iters == v5_body.ITERS and not tag:
                     body[mode] = k
     if not all(torch.equal(body["full"], body[m]) for m in ("full16", "prod_smem", "prod_carry")):
@@ -2128,10 +2254,14 @@ def phase13(dev, smi):
         sc = sass.by_name()
         for run_ in (runs["P-v8"], runs["P-v8 fill"]):
             for v, r in run_["variants"].items():
-                r["sass"] = sc[f"v8 {v}"]
+                r["sass"] = sc[f"v8 {v} W{r['w']}"]
         for key in v5_probes:
             for mode, r in runs[key]["modes"].items():
-                r["sass"] = sc[f"v5 {mode}"]
+                r["sass"] = sc[f"v5 {mode} W{r['w']}"]
+        for name, row in widths.items():
+            for w, r in row.items():
+                if w != "picked":
+                    r["sass"] = sc[f"{name.rsplit(' ', 1)[0]} W{w}"]
         for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
             for G, r in runs[f"P-interleave {packets}"]["gs"].items():
                 r["sass"] = sc[f"interleave G{G}"]
@@ -2171,6 +2301,38 @@ def phase13(dev, smi):
         for mode, r in runs[key]["modes"].items():
             w = v5_body.work(v5_in[0], v5_in[1], v5_in[2], mode, v5_body.ITERS)
             r.update(roofline(w["bytes"], w["ops"]))
+    # Both bounds of every (variant or mode, packets, W), and the share of
+    # each that the kernel reaches (bound / ms); the issue bound at the SM
+    # clock read under load.
+    for name, row in widths.items():
+        body_, case, pk = name.split()
+        packets = int(pk[1:])
+        if body_ == "v8":
+            node, tri, o, _ = v8_in[packets]
+            wk, iters = ablate_v8.work(node, tri, o, case, ablate_v8.ITERS), ablate_v8.ITERS
+        else:
+            args = v5_sizes[packets][0]
+            wk, iters = v5_body.work(args[0], args[1], args[2], case, v5_body.ITERS), v5_body.ITERS
+        for w, r in row.items():
+            if w == "picked":
+                continue
+            r.update(roofline(wk["bytes"], wk["ops"]))
+            r["roofline_share"] = r["bound_ms"] / r["ms"]
+            if "sass" in r:
+                r["issue_bound_ms"] = issue_bound_ms(r["sass"]["total"], packets * 8 * w, iters,
+                                                     n_sm, clock["mhz"])
+                r["issue_share"] = r["issue_bound_ms"] / r["ms"]
+    log(13, "P-v8 and the v5 body, bounds per chain width (roofline: bytes / 3.35 TB/s "
+            "against fp32 operations / 67 TFLOP/s; issue: static SASS x warps x iterations / "
+            f"({SCHEDULERS_PER_SM} x {n_sm} SMs x {clock['mhz']:.0f} MHz)), each with the share "
+            "of it reached: " + "; ".join(
+                f"{name} " + ", ".join(
+                    f"W{w} {r['ms']:.4f} ms, roofline {r['bound_ms']:.4f} "
+                    f"({100 * r['roofline_share']:.1f}%)"
+                    + (f", issue {r['issue_bound_ms']:.4f} ({100 * r['issue_share']:.1f}%; "
+                       f"SASS {r['sass']['total']})" if "sass" in r else ", issue not measured")
+                    for w, r in row.items() if w != "picked")
+                for name, row in widths.items()))
     for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
         w = interleave_probe.work(v5_in[0], v5_in[1], il_fill[packets][2], interleave_probe.ITERS)
         for r in runs[f"P-interleave {packets}"]["gs"].values():
@@ -2198,15 +2360,30 @@ def phase13(dev, smi):
                 w = mod.work(case)
                 r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate))
     fill = runs["P-v8 fill"]["variants"]
+    def picked(name):
+        row = widths[name]
+        r = row[row["picked"]]
+        return {k: r[k] for k in ("issue_bound_ms", "issue_share", "roofline_share") if k in r}
+
     rows["P-v8"] = dict(launches=launches["P-v8"], max_abs_err=max_err["P-v8"],
                         plain_ms=plain_ms["P-v8"], **runs["P-v8"]["variants"]["full"],
+                        **picked(f"v8 full P{ablate_v8.N_PACKETS}"),
                         ms_1056=fill["full"]["ms"], bound_1056_ms=fill["full"]["bound_ms"],
-                        variants=runs["P-v8"]["variants"], variants_1056=fill)
+                        w_1056=fill["full"]["w"],
+                        issue_bound_1056_ms=picked(f"v8 full P{P13_FILL_PACKETS}").get(
+                            "issue_bound_ms"),
+                        variants=runs["P-v8"]["variants"], variants_1056=fill,
+                        widths={k: v for k, v in widths.items() if k.startswith("v8")},
+                        sm_clock_mhz=clock["mhz"])
     for key, first in (("P-ablate", "full"), ("P-load", "full16"), ("P-floor", "prod_smem"),
                        ("P-base", "base")):
         m = runs[key]["modes"]
         rows[key] = dict(launches=launches[key], max_abs_err=max_err[key],
-                         plain_ms=plain_ms[first], ms_is=first, **m[first], modes=m)
+                         plain_ms=plain_ms[first], ms_is=first, **m[first],
+                         **picked(f"v5 {first} P{v5_body.N_PACKETS}"), modes=m,
+                         widths={k: v for k, v in widths.items()
+                                 if k.split()[0] == "v5" and k.split()[1] in m},
+                         sm_clock_mhz=clock["mhz"])
     il, il_f = runs[f"P-interleave {interleave_probe.N_PACKETS}"], \
         runs[f"P-interleave {P13_FILL_PACKETS}"]
     rows["P-interleave"] = dict(launches=launches["P-interleave"],
@@ -2274,7 +2451,9 @@ def phase13(dev, smi):
     secs = time.perf_counter() - t_phase
     log(13, f"every variant == its plain version bit for bit ({len(checked)} checks: "
             f"{P13_CHECK_ITERS} iterations over all packets, the full bodies also at the "
-            f"scripts' iterations, the base modes also at limits in ±50; interleave every G "
+            f"scripts' iterations, the base modes also at limits in ±50, P-v8 also on NaN "
+            f"inputs and the v5 body also at {P13_FILL_PACKETS} packets, each case at the "
+            f"picked chain width and at every other; interleave every G "
             f"== v5 full at 128 and {P13_FILL_PACKETS} packets; scalar acc, sc and codes at "
             f"the script's sizes; vstack at 64/150 and 300/2,000 iterations, p2_vreg also at "
             f"20,000; ktf every case by the script's rules; v6 at {P13_CHECK_ITERS} iterations "
@@ -2609,16 +2788,59 @@ def cudalib_as(mod):
 def parent_launch_path(parent_dir: str, build_dir: str):
     """The parent tree's own launch path: its utils/cudalib.py (its library
     the one phase 15 built from its csrc into build_dir), and its
-    probes/mosaic.py, probes/feature.py and utils/ktf.py bound to that
-    cudalib. (parent cudalib, {"mosaic": .., "feature": .., "ktf": ..})."""
+    probes/mosaic.py, probes/feature.py, probes/ablate_v8.py,
+    probes/v5_body.py and utils/ktf.py bound to that cudalib. (parent
+    cudalib, {"mosaic": .., "feature": .., "ablate_v8": .., "v5_body": ..,
+    "ktf": ..})."""
     pkg = os.path.join(parent_dir, "raytracer_tpu_torch")
     pc = _load_module(os.path.join(pkg, "utils", "cudalib.py"), "parent_cudalib")
     pc.BUILD_DIR = build_dir
     with cudalib_as(pc):
         mods = {name: _load_module(os.path.join(pkg, *rel), f"parent_{name}") for name, rel in (
             ("mosaic", ("probes", "mosaic.py")), ("feature", ("probes", "feature.py")),
+            ("ablate_v8", ("probes", "ablate_v8.py")), ("v5_body", ("probes", "v5_body.py")),
             ("ktf", ("utils", "ktf.py")))}
     return pc, mods
+
+
+def probes_old_new(dev, pmods) -> dict:
+    """The parent's P-v8 and v5 body (its wrappers, its cudalib, its
+    kernels) against this tree's on the same inputs, at the scripts'
+    iterations and packets and at P13_FILL_PACKETS: outputs equal bit for
+    bit, every variant and mode per call (time_launches' median) in
+    P13_TURN_PAIRS alternating pairs of rounds, with the W this tree's
+    entry point picks."""
+    import torch
+
+    from raytracer_tpu_torch.probes import ablate_v8, common, v5_body
+
+    checks, out = {}, {}
+    per_call = lambda f: lambda: common.median(common.time_launches(f))   # noqa: E731
+
+    def in_turns(name, fns, w):
+        old, new = fns["parent"](), fns["new"]()
+        checks[f"{name} new == parent"] = old.dtype == new.dtype and _bitwise(old, new)
+        t = alternate({k: per_call(f) for k, f in fns.items()})
+        out[name] = {"w": w, **{k: dict(ms=float(np.median(v)), turns_ms=v)
+                                for k, v in t.items()}}
+
+    for packets in (ablate_v8.N_PACKETS, P13_FILL_PACKETS):
+        ins = tuple(torch.from_numpy(a).to(dev) for a in ablate_v8.make_inputs(packets))
+        for v in ablate_v8.VARIANTS:
+            in_turns(f"v8 {v} P{packets}",
+                     {who: (lambda m=m, v=v: m.ablate_v8(*ins, v, ablate_v8.ITERS))
+                      for who, m in (("parent", pmods["ablate_v8"]), ("new", ablate_v8))},
+                     ablate_v8.chosen_w(packets, v))
+    node, tri, zero_row = v5_body.reference_tables()
+    for packets in (v5_body.N_PACKETS, P13_FILL_PACKETS):
+        args = tuple(t.to(dev) for t in (node, tri, *(torch.from_numpy(a)
+                                                      for a in v5_body.make_rays(packets))))
+        for mode in v5_body.MODES:
+            in_turns(f"v5 {mode} P{packets}",
+                     {who: (lambda m=m, mode=mode: m.v5(*args, zero_row, mode, v5_body.ITERS))
+                      for who, m in (("parent", pmods["v5_body"]), ("new", v5_body))},
+                     v5_body.chosen_w(packets, mode))
+    return dict(checks=checks, ms=out)
 
 
 def tiles_old_new(dev, pc, pmods) -> dict:
@@ -2800,6 +3022,8 @@ def phase15(scene, dev, smi, parent_dir):
     pc, pmods = parent_launch_path(parent_dir, build_dir)
     tiles = tiles_old_new(dev, pc, pmods)
     checks.update(tiles["checks"])
+    probes = probes_old_new(dev, pmods)
+    checks.update(probes["checks"])
     if not all(checks.values()):
         raise AssertionError(f"phase 15: {checks}")
     res = {}
@@ -2846,6 +3070,11 @@ def phase15(scene, dev, smi, parent_dir):
                                    for w, v in r.items() if w in ("parent", "new"))
                + (f" (max |diff| {r['max_abs_diff']:.3g})" if "max_abs_diff" in r else "")
                for k, r in tiles["ms"].items())
+           + "; P-v8 and the v5 body, the parent's against this tree's (picked W) per call in "
+           + f"{P13_TURN_PAIRS} alternating pairs of rounds (median; new / parent): " + "; ".join(
+               f"{k} W{r['w']} {r['parent']['ms']:.4f} -> {r['new']['ms']:.4f} ms "
+               f"({r['new']['ms'] / r['parent']['ms']:.3f}x; new [{_fmt(r['new']['turns_ms'])}], "
+               f"parent [{_fmt(r['parent']['turns_ms'])}])" for k, r in probes["ms"].items())
            + "; in turns, median of 10 (CUDA events; K4 routes per call of 20; min-max): "
            + "; ".join(f"{k} {v['median_ms']:.4f} ms ({v['min_ms']:.4f}-{v['max_ms']:.4f})"
                        for k, v in ms.items())
@@ -2859,7 +3088,7 @@ def phase15(scene, dev, smi, parent_dir):
     if not checks["K3 2K new within the parent's spread"]:
         raise AssertionError(f"phase 15: K3 at 2K {k3n} outside the parent's {k3p}")
     return dict(json=dict(card=smi, checks=checks, ms=ms, resources=res, build_s=build_s,
-                          phase10=s_step, tiles=tiles["ms"]), msg=msg)
+                          phase10=s_step, tiles=tiles["ms"], probes=probes["ms"]), msg=msg)
 
 
 def _counts():

@@ -14,3 +14,14 @@ from integer seeds with the same Threefry key words as
 """
 
 __version__ = "0.1.0"
+
+import torch as _torch
+
+# On the CPU, torch's float kernels for sqrt, cos, exp and the like hand a
+# tensor to MKL's VML in chunks of 2,048 elements from several OpenMP
+# threads at once. When that is the process's first VML call, the threads
+# race in MKL's one-time set-up and a worker's chunk can come back at about
+# 12 bits (sqrt off by up to 3e-4 relative), so a plain version's result
+# depended on whether an earlier call had set VML up. One call on a single
+# element, made here on one thread, sets it up before any of that.
+_torch.sqrt(_torch.ones(1))

@@ -16,6 +16,12 @@
 // versions bit for bit. A reduction over a chain's lanes is a pass over the
 // thread's 4 lanes and a __shfl_xor_sync butterfly: a min is order-free and
 // an int32 sum exact.
+//
+// P-v8 and the v5 body (probe_v8.cuh, probe_v5.cuh) may spread a chain over
+// W warps instead: each thread then owns N = 4 / W of its lanes (LanesN<N>,
+// the lanes lane0 + 32 j of load_rays), and the chain's warps combine their
+// partial reductions through shared memory under a named barrier
+// (chain_sync).
 #pragma once
 #include <cstdint>
 
@@ -85,19 +91,23 @@ __device__ __forceinline__ int warp_sum(int v) {
 // Keeps a value that reaches no output computed (carry8's task).
 __device__ __forceinline__ void keep(int x) { asm volatile("" : : "r"(x)); }
 
-struct Lanes {
-  float ox[LPT], oy[LPT], oz[LPT], dx[LPT], dy[LPT], dz[LPT], ix[LPT], iy[LPT], iz[LPT];
-  float t_best[LPT];
-  int best[LPT];
+// A thread's N lanes of a chain (N = LPT where a warp is the chain).
+template <int N>
+struct LanesN {
+  float ox[N], oy[N], oz[N], dx[N], dy[N], dz[N], ix[N], iy[N], iz[N];
+  float t_best[N];
+  int best[N];
 };
+using Lanes = LanesN<LPT>;
 
-// Rays of chain s of packet p from o, d f32[P, 3, 8, 128]; 1/d as the
-// scripts take it.
-__device__ __forceinline__ void load_rays(Lanes& L, const float* __restrict__ o,
-                                          const float* __restrict__ d, int p, int s, int lane) {
+// Rays of chain s of packet p from o, d f32[P, 3, 8, 128], lanes lane0 +
+// 32 j of the thread; 1/d as the scripts take it.
+template <int N>
+__device__ __forceinline__ void load_rays(LanesN<N>& L, const float* __restrict__ o,
+                                          const float* __restrict__ d, int p, int s, int lane0) {
 #pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    const int l = lane + 32 * j;
+  for (int j = 0; j < N; ++j) {
+    const int l = lane0 + 32 * j;
     const size_t base = (static_cast<size_t>(p) * 3 * P_SUB + s) * P_LANE + l;
     const size_t c = P_SUB * P_LANE;
     L.ox[j] = o[base];
@@ -114,12 +124,13 @@ __device__ __forceinline__ void load_rays(Lanes& L, const float* __restrict__ o,
 
 // The scripts' mt_record for all of the thread's lanes: fields v0, e1, e2 of
 // one record (per chain), prim its float-encoded id.
-__device__ __forceinline__ void mt_record(Lanes& L, const float (&r)[9], int prim) {
+template <int N>
+__device__ __forceinline__ void mt_record(LanesN<N>& L, const float (&r)[9], int prim) {
   const float v0x = r[0], v0y = r[1], v0z = r[2];
   const float e1x = r[3], e1y = r[4], e1z = r[5];
   const float e2x = r[6], e2y = r[7], e2z = r[8];
 #pragma unroll
-  for (int j = 0; j < LPT; ++j) {
+  for (int j = 0; j < N; ++j) {
     const float dx = L.dx[j], dy = L.dy[j], dz = L.dz[j];
     const float hx = dy * e2z - dz * e2y;
     const float hy = dz * e2x - dx * e2z;
@@ -199,7 +210,9 @@ __device__ __forceinline__ void mt_row8(Lanes& L, Rec& R, const float* __restric
 // miss, and so does a NaN t_best. Here that is the explicit rule of
 // traverse.cuh's `slab` — any NaN among the six distances is a miss,
 // with tmin NaN — and fminf/fmaxf otherwise, which then give jnp's values.
-__device__ __forceinline__ bool slab(const Lanes& L, int j, const float (&b)[6], float& tmin) {
+template <int N>
+__device__ __forceinline__ bool slab(const LanesN<N>& L, int j, const float (&b)[6],
+                                     float& tmin) {
   const float t0x = (b[0] - L.ox[j]) * L.ix[j], t1x = (b[3] - L.ox[j]) * L.ix[j];
   const float t0y = (b[1] - L.oy[j]) * L.iy[j], t1y = (b[4] - L.oy[j]) * L.iy[j];
   const float t0z = (b[2] - L.oz[j]) * L.iz[j], t1z = (b[5] - L.oz[j]) * L.iz[j];
@@ -210,6 +223,32 @@ __device__ __forceinline__ bool slab(const Lanes& L, int j, const float (&b)[6],
   const float tmax =
       fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), L.t_best[j]));
   return !nan6 && !isnan(L.t_best[j]) && tmax > tmin;
+}
+
+// Element c (0..3, a constant once unrolled) of a float4.
+__device__ __forceinline__ float elem(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// 16-byte word i of a 16-byte aligned row: a warp's lanes read a row of up
+// to 32 words in one coalesced load, lane i word i, into the warp's slice of
+// shared memory, where every lane reads back what it uses (a broadcast).
+// Held in registers, a P-v8 iteration's 38 words would take 152 of them.
+__device__ __forceinline__ float4 row_word(const float* __restrict__ row, int i) {
+  return __ldg(reinterpret_cast<const float4*>(row) + i);
+}
+
+// p, as a value the compiler cannot see through: the loads of a static row
+// (the no_fetch modes) stay in the loop, as a dynamic row's do.
+__device__ __forceinline__ const float* opaque(const float* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over the `threads` threads of
+// one chain, which are whole warps.
+__device__ __forceinline__ void chain_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" : : "r"(id), "r"(threads) : "memory");
 }
 
 // One compare-exchange of a sorting network over (key, code) arrays: keys

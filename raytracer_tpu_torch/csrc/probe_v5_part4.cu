@@ -1,0 +1,9 @@
+// The v5-body kernels of chain width W = 4 (see probe_v5.cuh), in a source
+// of their own so that they compile in parallel with probe_v5.cu's.
+#include "probe_v5.cuh"
+
+namespace probe_v5 {
+
+KernelFn kernel_w4(int mode) { return kernels_in<4, 0, N_MODES>(mode); }
+
+}  // namespace probe_v5

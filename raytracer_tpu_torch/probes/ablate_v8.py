@@ -16,9 +16,11 @@ a time:
   no_sort   the two kind-split sort-8 networks skipped
   no_scalar the per-chain push/pop phase skipped
 
-A phase's cost is full − variant. Kernel: csrc/probe_v8.cu (one warp per
-chain, one block of 8 warps per packet, state and stacks in shared
-memory); `ablate_v8_plain` is its plain PyTorch version.
+A phase's cost is full − variant. Kernel: csrc/probe_v8.cu (a chain of W
+warps, W = 1, 2 or 4 picked from the packets and the card's SMs, 8 / W
+chains per block of 256 threads; each warp's copy of the stacks in shared
+memory, the chain's state in registers); `ablate_v8_plain` is its plain
+PyTorch version.
 
     python -m raytracer_tpu_torch.probes.ablate_v8 [iters] [packets]
 """
@@ -44,6 +46,12 @@ SPARE_NONE = -1             # both halves empty
 SPARE_HIGH = -65536         # 0xFFFF0000: empty high half
 N_NODES, N_TRIROWS = 3648, 13981
 VARIANTS = ("full", "no_fetch", "no_leaf", "no_slab", "no_reduce", "no_sort", "no_scalar")
+ADMITTED_W = common.CHAIN_WIDTHS   # every variant's kernel is built at each
+# The entry point widens a chain while the card holds at most this many
+# warps per SM (csrc/probe_v8.cu rt_probe_v8_pick_w): at the script's 64
+# packets W = 2 beat W = 4 and W = 1 (1.94 against 2.08 and 3.09 ms on an
+# H100): every warp repeats two sorts and both stacks' push/pop.
+WARPS_PER_SM = 8
 LAUNCHES = {"probe_v8": 0}
 PLAIN_CALLS = {"probe_v8": 0}   # calls of the plain version
 
@@ -226,15 +234,20 @@ def _check(node, tri, o, d):
         raise ValueError("ablate_v8: node and tri must be f32[rows, 128]")
     if node.shape[0] < P_SUB or tri.shape[0] < P_SUB:
         raise ValueError("ablate_v8: the chains start at rows 0..7 of both tables")
+    cudalib.require_aligned("node", node.data_ptr())   # rows read 16 bytes at a time
+    cudalib.require_aligned("tri", tri.data_ptr())
     cudalib.require_cuda("o", o, torch.float32, (P, 3, P_SUB, P_LANE))
     cudalib.require_cuda("d", d, torch.float32, (P, 3, P_SUB, P_LANE))
 
 
-def ablate_v8(node, tri, o, d, variant: str, iters: int = ITERS):
+def ablate_v8(node, tri, o, d, variant: str, iters: int = ITERS, w: int | None = None):
     """t f32[P,8,128] of the v8 probe body, variant `variant`: launches
-    csrc/probe_v8.cu for CUDA tensors, runs the plain version for CPU
-    tensors."""
+    csrc/probe_v8.cu for CUDA tensors, at chain width w (1, 2 or 4; None:
+    the one the entry point picks, `chosen_w`), and runs the plain version
+    for CPU tensors, whose result no W changes."""
     v = VARIANTS.index(variant)
+    if w is not None:
+        common.require_w(w, ADMITTED_W, "ablate_v8")
     if not o.is_cuda:
         if o.device.type != "cpu":
             raise ValueError(f"ablate_v8: unsupported device {o.device}")
@@ -242,17 +255,31 @@ def ablate_v8(node, tri, o, d, variant: str, iters: int = ITERS):
     _check(node, tri, o, d)
     P = o.shape[0]
     out = torch.empty((P, P_SUB, P_LANE), dtype=torch.float32, device=o.device)
-    code = cudalib.lib().rt_probe_v8(node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
-                                     node.shape[0], tri.shape[0], iters, P, v, out.data_ptr(),
-                                     cudalib.stream_handle())
-    cudalib.check(code, f"probe_v8 kernel ({variant})")
+    args = (node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(), node.shape[0],
+            tri.shape[0], iters, P, v)
+    L = cudalib.lib()
+    code = (L.rt_probe_v8(*args, out.data_ptr(), cudalib.stream_handle()) if w is None else
+            L.rt_probe_v8_w(*args, w, out.data_ptr(), cudalib.stream_handle()))
+    cudalib.check(code, f"probe_v8 kernel ({variant}, W {w or 'picked'})")
     LAUNCHES["probe_v8"] += 1
     return out
 
 
-def kernel_resources() -> dict:
-    """{variant: (registers per thread, local memory bytes per thread)}."""
-    return common.kernel_attrs(cudalib.lib().rt_probe_v8_attrs,
+def chosen_w(packets: int, variant: str = "full") -> int:
+    """The chain width the entry point takes for `packets` packets on the
+    current card (common.pick_w on its SM count, WARPS_PER_SM)."""
+    w = cudalib.lib().rt_probe_v8_pick_w(packets, VARIANTS.index(variant))
+    if w <= 0:
+        cudalib.check(-w, "probe_v8 pick_w")
+    return w
+
+
+def kernel_resources(w: int = 1) -> dict:
+    """{variant: (registers per thread, local memory bytes per thread)} of
+    the kernels of chain width w."""
+    common.require_w(w, ADMITTED_W, "ablate_v8")
+    fn = cudalib.lib().rt_probe_v8_attrs_w
+    return common.kernel_attrs(lambda v, r, lb: fn(v, w, r, lb),
                                {name: v for v, name in enumerate(VARIANTS)}, "probe_v8")
 
 
@@ -276,21 +303,24 @@ def work(node, tri, o, variant: str, iters: int) -> dict:
 def run(iters: int = ITERS, packets: int = N_PACKETS, out=print) -> dict:
     """What the script's main() does, on the card: each variant warmed up,
     then 10 launches timed with CUDA events; prints kernel ms (median),
-    ns per chain-iteration and the phase cost full − variant."""
+    ns per chain-iteration and the phase cost full − variant (registers
+    and local memory those of the chain width the entry point took)."""
     common.require_card("ablate_v8")
     dev = torch.device("cuda")
     node, tri, o, d = (torch.from_numpy(a).to(dev) for a in make_inputs(packets))
-    res = kernel_resources()
+    ws = {v: chosen_w(packets, v) for v in VARIANTS}
+    res = {w: kernel_resources(w) for w in set(ws.values())}
     results = {}
     for v in VARIANTS:
         ms = common.median(common.time_launches(lambda: ablate_v8(node, tri, o, d, v, iters)))
         ns = ms * 1e6 / (packets * P_SUB * iters)
-        r = dict(ms=ms, ns_per_chain_iter=ns, num_regs=res[v][0], local_bytes=res[v][1])
+        rv = res[ws[v]][v]
+        r = dict(ms=ms, ns_per_chain_iter=ns, num_regs=rv[0], local_bytes=rv[1], w=ws[v])
         line = f"{v:10s}: {ms:8.4f} ms  {ns:8.3f} ns/chain-iter"
         if v != "full":
             r["phase_cost_ns"] = results["full"]["ns_per_chain_iter"] - ns
             line += f"   phase cost {r['phase_cost_ns']:+8.3f} ns"
-        out(line + f"   regs {res[v][0]} local {res[v][1]} B")
+        out(line + f"   regs {rv[0]} local {rv[1]} B")
         results[v] = r
     return dict(iters=iters, packets=packets, variants=results)
 

@@ -12,7 +12,7 @@ import sys
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.probes.v5_tables import BIG, TRI_STRIDE
+from raytracer_tpu_torch.probes.v5_tables import BIG, P_SUB, TRI_STRIDE
 
 INT_MAX = 2**31 - 1
 # fp32 operations (arithmetic and compares, not selects) of one lane,
@@ -159,6 +159,30 @@ def require_card(what: str) -> None:
     """Entry points measure the card: without one they stop."""
     if not torch.cuda.is_available():
         raise SystemExit(f"{what}: torch.cuda.is_available() is false; this needs a CUDA card")
+
+
+# P-v8 and the v5 body spread a chain over W warps (csrc/probe.cuh): the
+# widths their kernels are built for.
+CHAIN_WIDTHS = (1, 2, 4)
+
+
+def pick_w(packets: int, sms: int, admitted, warps_per_sm: int) -> int:
+    """The chain width rt_probe_v8 and rt_probe_v5 take for `packets`
+    packets on a card of `sms` SMs: the widest admitted W whose packets * 8
+    * W warps stay within `warps_per_sm` per SM (each kernel's own,
+    ablate_v8.WARPS_PER_SM and v5_body.WARPS_PER_SM), else 1: every warp of
+    a chain repeats the chain-uniform work, so a full card takes W = 1."""
+    for w in (4, 2):
+        if w in admitted and packets * P_SUB * w <= warps_per_sm * sms:
+            return w
+    return 1
+
+
+def require_w(w: int, admitted, what: str) -> None:
+    """Raise unless chain width w is admitted: an entry point never takes
+    another W than the one asked for."""
+    if w not in admitted:
+        raise ValueError(f"{what}: chain width {w} is not admitted (admitted: {admitted})")
 
 
 TIMED_LAUNCHES = 10

@@ -30,11 +30,12 @@ KINDS = {
 _FUNC = re.compile(r"Function : (\S+)")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 # A probe kernel's mangled name: its body and template argument (a variant,
-# mode or case id; G itself for the interleave probe), the scalar probe's
-# tables pre-pass, the v6 body (one kernel), or a morph variant (its five
-# template arguments: the loop, then four flags).
+# mode or case id; G itself for the interleave probe) and, for P-v8 and the
+# v5 body, the chain width W, the scalar probe's tables pre-pass, the v6
+# body (one kernel), or a morph variant (its five template arguments: the
+# loop, then four flags).
 _KERNEL = re.compile(r"probe_(v8|v5|interleave|scalar|vstack|ktf|mosaic|feature|bitcast)"
-                     r"_kernelILi(\d+)E"
+                     r"_kernelILi(\d+)E(?:Li(\d+)E)?"
                      r"|probe_(scalar)_(tables)_kernel|probe_(v6)_kernelE"
                      r"|probe_(morph)_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E")
 
@@ -48,8 +49,9 @@ def parse(sass: str) -> dict:
     """{(body, instantiation id): {"total": n, kind: n, ...}} of the probe
     kernels in cuobjdump -sass output; body is "v8", "v5", "interleave",
     "scalar", "vstack", "ktf", "mosaic", "feature", "bitcast", "v6" or
-    "morph", the id an int ("tables" for the scalar probe's pre-pass, 0 for
-    v6, the five template arguments for morph)."""
+    "morph", the id an int ((id, W) for a v8 or v5 kernel of chain width W,
+    "tables" for the scalar probe's pre-pass, 0 for v6, the five template
+    arguments for morph)."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = _FUNC.search(line)
@@ -58,13 +60,14 @@ def parse(sass: str) -> dict:
             if k is None:
                 cur = None
             elif k.group(1):
-                cur = (k.group(1), int(k.group(2)))
-            elif k.group(3):
-                cur = (k.group(3), k.group(4))
-            elif k.group(5):
-                cur = (k.group(5), 0)
+                cur = (k.group(1), int(k.group(2)) if k.group(3) is None
+                       else (int(k.group(2)), int(k.group(3))))
+            elif k.group(4):
+                cur = (k.group(4), k.group(5))
+            elif k.group(6):
+                cur = (k.group(6), 0)
             else:
-                cur = ("morph", tuple(int(g) for g in k.groups()[6:11]))
+                cur = ("morph", tuple(int(g) for g in k.groups()[7:12]))
             if cur is not None:
                 out[cur] = dict.fromkeys(["total", *KINDS], 0)
             continue
@@ -91,10 +94,10 @@ def counts(lib_path: str | None = None) -> dict:
 
 
 def name(body: str, i) -> str:
-    """A kernel's name in its probe's own terms: "v8 <variant>", "v5
-    <mode>", "interleave G<G>", "scalar <mode>" (or "scalar tables"),
-    "vstack <case>", "ktf <case>", "mosaic <case>", "feature <stage>",
-    "bitcast <probe>", "v6", "morph <variant>"."""
+    """A kernel's name in its probe's own terms: "v8 <variant>", "v5 <mode>"
+    (with " W<w>" for a kernel of chain width w), "interleave G<G>", "scalar
+    <mode>" (or "scalar tables"), "vstack <case>", "ktf <case>", "mosaic
+    <case>", "feature <stage>", "bitcast <probe>", "v6", "morph <variant>"."""
     from raytracer_tpu_torch.probes import (ablate_v8, bitcast, feature, ktf_probe, morph, mosaic,
                                             scalar_cost, v5_body, vstack)
 
@@ -109,6 +112,8 @@ def name(body: str, i) -> str:
     names = {"v8": ablate_v8.VARIANTS, "v5": v5_body.MODES, "scalar": scalar_cost.MODES,
              "vstack": vstack.CASES, "ktf": ktf_probe.CASES, "mosaic": mosaic.CASES,
              "feature": feature.CASES, "bitcast": bitcast.CASES}
+    if isinstance(i, tuple):
+        return f"{body} {names[body][i[0]]} W{i[1]}"
     return f"{body} {names[body][i]}"
 
 

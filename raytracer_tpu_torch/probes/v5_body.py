@@ -29,8 +29,9 @@ the root, so every mode runs exactly `iters` iterations.
                  (smem8's body)
 
 On the TPU a chain's task, stack pointer and stack live in SMEM, the
-scalar core's memory; here a chain is a warp and they live in the warp's
-slice of shared memory (written by lane 0, read by all lanes, with
+scalar core's memory; here a chain is W warps (W = 1, 2 or 4, picked from
+the packets and the card's SMs) and they live in each warp's slice of
+shared memory (written by its lane 0, read by all its lanes, with
 __syncwarp between), except in carry8 and prod_carry, which keep task and
 stack pointer in registers: the difference of the two is what the floor
 probe measures on this card.
@@ -55,6 +56,13 @@ RESTART = 1000  # no_scalar / carry8 / smem8: the task steps 0, 1, ..., 1000, 0,
 MODES = ("full", "no_leaf", "no_internal", "no_scalar", "no_fetch", "full16", "loads8",
          "loads0", "empty", "carry8", "smem8", "prod_smem", "prod_carry", "base", "noconcat",
          "noc_nosc", "minimal")
+# The chain widths each mode's kernel is built at (csrc/probe_v5.cuh admits).
+ADMITTED_W = {mode: common.CHAIN_WIDTHS for mode in MODES}
+# The entry point widens a chain while the card holds at most this many
+# warps per SM (csrc/probe_v5.cu rt_probe_v5_pick_w): at the scripts' 128
+# packets W = 2 beat W = 1 and W = 4 (full 0.668 against 0.957 and 0.713
+# ms on an H100).
+WARPS_PER_SM = 16
 LAUNCHES = {"probe_v5": 0}
 PLAIN_CALLS = {"probe_v5": 0}   # calls of the plain version
 
@@ -198,16 +206,23 @@ def _check(node, tri, o, d, tlim, zero_row: int, mode: str):
     cudalib.require_cuda("tlim", tlim, torch.float32, (P, P_SUB, P_LANE))
     if not 0 <= zero_row < tri.shape[0]:
         raise ValueError(f"v5 body: zero_row {zero_row} outside the triangle table")
+    cudalib.require_aligned("node", node.data_ptr())   # rows read 16 bytes at a time
+    cudalib.require_aligned("tri", tri.data_ptr())
     if mode == "no_scalar" and node.shape[0] <= RESTART // 4:
         raise ValueError(f"v5 body: no_scalar walks node rows 0..{RESTART // 4}; the table "
                          f"has {node.shape[0]}")
 
 
-def v5(node, tri, o, d, tlim, zero_row: int, mode: str, iters: int = ITERS):
+def v5(node, tri, o, d, tlim, zero_row: int, mode: str, iters: int = ITERS,
+       w: int | None = None):
     """t f32[P,8,128] of the v5 probe body in `mode`: launches
-    csrc/probe_v5.cu for CUDA tensors, runs the plain version for CPU
-    tensors."""
+    csrc/probe_v5.cu for CUDA tensors, at chain width w (one of
+    ADMITTED_W[mode]; None: the one the entry point picks, `chosen_w`),
+    and runs the plain version for CPU tensors, whose result no W
+    changes."""
     m = MODES.index(mode)
+    if w is not None:
+        common.require_w(w, ADMITTED_W[mode], f"v5 body ({mode})")
     if not o.is_cuda:
         if o.device.type != "cpu":
             raise ValueError(f"v5 body: unsupported device {o.device}")
@@ -215,17 +230,33 @@ def v5(node, tri, o, d, tlim, zero_row: int, mode: str, iters: int = ITERS):
     _check(node, tri, o, d, tlim, zero_row, mode)
     P = o.shape[0]
     out = torch.empty((P, P_SUB, P_LANE), dtype=torch.float32, device=o.device)
-    code = cudalib.lib().rt_probe_v5(node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
-                                     tlim.data_ptr(), zero_row, iters, P, m, out.data_ptr(),
-                                     cudalib.stream_handle())
-    cudalib.check(code, f"probe_v5 kernel ({mode})")
+    args = (node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(), tlim.data_ptr(),
+            zero_row, iters, P, m)
+    L = cudalib.lib()
+    code = (L.rt_probe_v5(*args, out.data_ptr(), cudalib.stream_handle()) if w is None else
+            L.rt_probe_v5_w(*args, w, out.data_ptr(), cudalib.stream_handle()))
+    cudalib.check(code, f"probe_v5 kernel ({mode}, W {w or 'picked'})")
     LAUNCHES["probe_v5"] += 1
     return out
 
 
-def kernel_resources(modes=MODES) -> dict:
-    """{mode: (registers per thread, local memory bytes per thread)}."""
-    return common.kernel_attrs(cudalib.lib().rt_probe_v5_attrs,
+def chosen_w(packets: int, mode: str) -> int:
+    """The chain width the entry point takes for `packets` packets of
+    `mode` on the current card (common.pick_w on its SM count,
+    WARPS_PER_SM)."""
+    w = cudalib.lib().rt_probe_v5_pick_w(packets, MODES.index(mode))
+    if w <= 0:
+        cudalib.check(-w, "probe_v5 pick_w")
+    return w
+
+
+def kernel_resources(modes=MODES, w: int = 1) -> dict:
+    """{mode: (registers per thread, local memory bytes per thread)} of
+    the kernels of chain width w."""
+    for mode in modes:
+        common.require_w(w, ADMITTED_W[mode], f"v5 body ({mode})")
+    fn = cudalib.lib().rt_probe_v5_attrs_w
+    return common.kernel_attrs(lambda m, r, lb: fn(m, w, r, lb),
                                {mode: MODES.index(mode) for mode in modes}, "probe_v5")
 
 
@@ -265,13 +296,15 @@ def run(script: str, modes, iters: int = ITERS, inputs=None, out=print) -> dict:
     node, tri, o, d, tlim, zero_row = inputs
     node, tri, o, d, tlim = (t.to(dev).contiguous() for t in (node, tri, o, d, tlim))
     packets = o.shape[0]
-    res = kernel_resources(modes)
+    ws = {mode: chosen_w(packets, mode) for mode in modes}
+    res = {mode: kernel_resources((mode,), ws[mode])[mode] for mode in modes}
     results = {}
     for mode in modes:
         ms = common.median(common.time_launches(
             lambda: v5(node, tri, o, d, tlim, zero_row, mode, iters)))
         ns = ms * 1e6 / (packets * P_SUB * iters)
-        r = dict(ms=ms, ns_per_chain_iter=ns, num_regs=res[mode][0], local_bytes=res[mode][1])
+        r = dict(ms=ms, ns_per_chain_iter=ns, num_regs=res[mode][0], local_bytes=res[mode][1],
+                 w=ws[mode])
         line = f"{mode:12s}: {ms:8.4f} ms  {ns:8.3f} ns/chain-iter"
         if mode != modes[0]:
             r["phase_cost_ns"] = results[modes[0]]["ns_per_chain_iter"] - ns

@@ -183,6 +183,11 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_v5.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
     L.rt_probe_v8_attrs.argtypes = [ci, ip, ip]
     L.rt_probe_v5_attrs.argtypes = [ci, ip, ip]
+    L.rt_probe_v8_w.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
+    L.rt_probe_v5_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    for name in ("v8", "v5"):
+        getattr(L, f"rt_probe_{name}_attrs_w").argtypes = [ci, ci, ip, ip]
+        getattr(L, f"rt_probe_{name}_pick_w").argtypes = [ci, ci]
     L.rt_probe_interleave.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
     L.rt_probe_scalar.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
     L.rt_probe_scalar_tables.argtypes = [ci, ci, vp, vp]
@@ -210,7 +215,9 @@ def lib() -> ctypes.CDLL:
                L.rt_probe_ktf, L.rt_probe_ktf_attrs, L.rt_probe_v6, L.rt_probe_v6_attrs,
                L.rt_probe_mosaic, L.rt_probe_mosaic_attrs, L.rt_probe_feature,
                L.rt_probe_feature_attrs, L.rt_probe_bitcast, L.rt_probe_bitcast_attrs,
-               L.rt_probe_morph, L.rt_probe_morph_attrs):
+               L.rt_probe_morph, L.rt_probe_morph_attrs, L.rt_probe_v8_w, L.rt_probe_v5_w,
+               L.rt_probe_v8_attrs_w, L.rt_probe_v5_attrs_w, L.rt_probe_v8_pick_w,
+               L.rt_probe_v5_pick_w):
         fn.restype = ctypes.c_int
     L.rt_error_string.argtypes = [ci]
     L.rt_error_string.restype = ctypes.c_char_p

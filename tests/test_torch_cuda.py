@@ -34,8 +34,9 @@ from raytracer_tpu_torch.models.wavefront import render_image_wavefront
 from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
 from raytracer_tpu_torch.ops.bvh4 import BIG
 from raytracer_tpu_torch.ops.packets import coherence_keys, coherence_keys32
-from raytracer_tpu_torch.probes import (ablate_v8, base_probe, bitcast, feature, interleave_probe,
-                                        ktf_probe, morph, mosaic, scalar_cost, v5_body, v6, vstack)
+from raytracer_tpu_torch.probes import (ablate_v8, base_probe, bitcast, common, feature,
+                                        interleave_probe, ktf_probe, morph, mosaic, scalar_cost,
+                                        v5_body, v6, vstack)
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 from raytracer_tpu_torch.scene.builder import (cornell_materials_scene, reference_scene,
                                                tree_width)
@@ -295,27 +296,35 @@ def _bitwise(a, b):
     return bool(((a.view(torch.int32) == b.view(torch.int32)) | both_nan).all())
 
 
+# Each chain width, and None: the one the entry point picks.
+WIDTHS = (None, *common.CHAIN_WIDTHS)
+V5_CASES = [(m, w) for m in v5_body.MODES for w in (None, *v5_body.ADMITTED_W[m])]
+
+
+@pytest.mark.parametrize("w", WIDTHS)
 @pytest.mark.parametrize("variant", ablate_v8.VARIANTS)
-def test_probe_v8_equals_plain(dev, variant):
-    """csrc/probe_v8.cu ≡ ablate_v8_plain bit for bit (the script's inputs
-    at 3 packets, 12 iterations), and the wrapper counts its launch."""
+def test_probe_v8_equals_plain(dev, variant, w):
+    """csrc/probe_v8.cu ≡ ablate_v8_plain bit for bit at every chain width
+    (the script's inputs at 3 packets, 3 W blocks, 12 iterations), and the
+    wrapper counts its launch."""
     node, tri, o, d = (torch.from_numpy(a) for a in ablate_v8.make_inputs(3))
     before = ablate_v8.LAUNCHES["probe_v8"]
-    k = ablate_v8.ablate_v8(node.to(dev), tri.to(dev), o.to(dev), d.to(dev), variant, 12)
+    k = ablate_v8.ablate_v8(node.to(dev), tri.to(dev), o.to(dev), d.to(dev), variant, 12, w=w)
     assert ablate_v8.LAUNCHES["probe_v8"] == before + 1
     assert _bitwise(k, ablate_v8.ablate_v8_plain(node, tri, o, d, variant, 12))
 
 
-def test_probe_v8_nan_inputs_equal_plain(dev):
+@pytest.mark.parametrize("w", WIDTHS)
+def test_probe_v8_nan_inputs_equal_plain(dev, w):
     """NaN bounds and zero direction components: the kernel's NaN-is-miss
     slab gives the plain version's (torch.minimum/maximum) results, NaN
-    where those propagate it, in every variant."""
+    where those propagate it, in every variant at every chain width."""
     node, tri, o, d = (torch.from_numpy(a) for a in ablate_v8.make_inputs(2))
     node[::7, 0:48:5] = float("nan")
     node[::11, 3] = float("inf")
     d[:, 0, :, ::9] = 0.0
     for v in ablate_v8.VARIANTS:
-        k = ablate_v8.ablate_v8(node.to(dev), tri.to(dev), o.to(dev), d.to(dev), v, 12)
+        k = ablate_v8.ablate_v8(node.to(dev), tri.to(dev), o.to(dev), d.to(dev), v, 12, w=w)
         assert _bitwise(k, ablate_v8.ablate_v8_plain(node, tri, o, d, v, 12)), v
 
 
@@ -326,28 +335,74 @@ def v5_inputs():
     return node, tri, o, d, tlim, zero_row
 
 
-@pytest.mark.parametrize("mode", v5_body.MODES)
-def test_probe_v5_equals_plain(dev, v5_inputs, mode):
-    """csrc/probe_v5.cu ≡ v5_plain bit for bit in every mode of the three
-    v5 probes (the reference scene's 4-wide tree, 2 packets, 12
-    iterations), and the wrapper counts its launch."""
+@pytest.mark.parametrize("mode, w", V5_CASES)
+def test_probe_v5_equals_plain(dev, v5_inputs, mode, w):
+    """csrc/probe_v5.cu ≡ v5_plain bit for bit in every mode of the four
+    v5 probes at every chain width it admits (the reference scene's
+    4-wide tree, 2 packets, 12 iterations; 3 packets at 20 iterations,
+    seed 7), and the wrapper counts its launches."""
     node, tri, o, d, tlim, zero_row = v5_inputs
+    o3, d3, tl3 = (torch.from_numpy(a) for a in v5_body.make_rays(3, seed=7))
     before = v5_body.LAUNCHES["probe_v5"]
-    k = v5_body.v5(*(t.to(dev) for t in (node, tri, o, d, tlim)), zero_row, mode, 12)
-    assert v5_body.LAUNCHES["probe_v5"] == before + 1
-    assert _bitwise(k, v5_body.v5_plain(node, tri, o, d, tlim, zero_row, mode, 12))
+    for rays, iters in (((o, d, tlim), 12), ((o3, d3, tl3), 20)):
+        k = v5_body.v5(*(t.to(dev) for t in (node, tri, *rays)), zero_row, mode, iters, w=w)
+        assert _bitwise(k, v5_body.v5_plain(node, tri, *rays, zero_row, mode, iters))
+    assert v5_body.LAUNCHES["probe_v5"] == before + 2
 
 
+@pytest.mark.parametrize("w", WIDTHS)
 @pytest.mark.parametrize("mode", base_probe.MODES)
-def test_probe_v5_base_modes_varied_limits(dev, v5_inputs, mode):
+def test_probe_v5_base_modes_varied_limits(dev, v5_inputs, mode, w):
     """The base modes' rows are t_best + a task: at limits seeded in ±50
     the chains take different tasks, so noconcat's read of chain 0's task
-    (after a block barrier) is exercised; kernel ≡ plain bit for bit."""
+    (after a block barrier) is exercised; kernel ≡ plain bit for bit at
+    every chain width."""
+    if w is not None and w not in v5_body.ADMITTED_W[mode]:
+        with pytest.raises(ValueError):
+            v5_body.v5(*(t.to(dev) for t in v5_inputs[:5]), v5_inputs[5], mode, 24, w=w)
+        return
     node, tri, o, d, tlim, zero_row = v5_inputs
     tl = torch.from_numpy(np.random.default_rng(5).uniform(-50, 50, tuple(tlim.shape))
                           .astype(np.float32))
-    k = v5_body.v5(*(t.to(dev) for t in (node, tri, o, d, tl)), zero_row, mode, 24)
+    k = v5_body.v5(*(t.to(dev) for t in (node, tri, o, d, tl)), zero_row, mode, 24, w=w)
     assert _bitwise(k, v5_body.v5_plain(node, tri, o, d, tl, zero_row, mode, 24))
+
+
+def test_probe_chain_widths_spill_nothing_and_refuse_others(dev, v5_inputs):
+    """Every instantiation of P-v8 and the v5 body has 0 bytes of local
+    memory; a chain width not admitted raises in the wrapper and is refused
+    by the C entry point (no other W taken); the entry points pick the W
+    that common.pick_w gives for this card's SM count and each kernel's
+    WARPS_PER_SM."""
+    for w in ablate_v8.ADMITTED_W:
+        assert all(local == 0 for _, local in ablate_v8.kernel_resources(w).values()), w
+    for mode in v5_body.MODES:
+        for w in v5_body.ADMITTED_W[mode]:
+            assert v5_body.kernel_resources((mode,), w)[mode][1] == 0, (mode, w)
+    node, tri, o, d = (t.to(dev) for t in (torch.from_numpy(a)
+                                           for a in ablate_v8.make_inputs(1)))
+    n5, t5, o5, d5, tl5 = (t.to(dev) for t in v5_inputs[:5])
+    out = torch.zeros((1, 8, 128), device=dev)
+    lib = cudalib.lib()
+    for w in (0, 3, 8):
+        with pytest.raises(ValueError):
+            ablate_v8.ablate_v8(node, tri, o, d, "full", 4, w=w)
+        with pytest.raises(ValueError):
+            v5_body.v5(n5, t5, o5[:1], d5[:1], tl5[:1], v5_inputs[5], "full", 4, w=w)
+        assert lib.rt_probe_v8_w(node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
+                                 node.shape[0], tri.shape[0], 4, 1, 0, w, out.data_ptr(),
+                                 cudalib.stream_handle()) != 0
+        assert lib.rt_probe_v5_w(n5.data_ptr(), t5.data_ptr(), o5.data_ptr(), d5.data_ptr(),
+                                 tl5.data_ptr(), v5_inputs[5], 4, 1, 0, w, out.data_ptr(),
+                                 cudalib.stream_handle()) != 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for packets in (1, 64, 66, 67, 128, 132, 264, 265, 1056):
+        for v in ablate_v8.VARIANTS:
+            assert ablate_v8.chosen_w(packets, v) == common.pick_w(
+                packets, sms, ablate_v8.ADMITTED_W, ablate_v8.WARPS_PER_SM)
+        for mode in v5_body.MODES:
+            assert v5_body.chosen_w(packets, mode) == common.pick_w(
+                packets, sms, v5_body.ADMITTED_W[mode], v5_body.WARPS_PER_SM)
 
 
 @pytest.mark.parametrize("G", interleave_probe.GS)

@@ -53,6 +53,16 @@ def test_threefry_and_u01_bitwise(seed):
     np.testing.assert_array_equal(kx0.numpy(), np.asarray(jx0))
 
 
+def _from_exact(port, ref, exact) -> str:
+    """How far the port's and JAX's values are from `exact` (float64)."""
+    parts = []
+    for who, v in (("the port (torch)", port), ("JAX", ref)):
+        off = np.abs(v.astype(np.float64) - exact)
+        parts.append(f"{who}: max |value - exact| {off.max():.3g}, {int((off > 1e-6).sum())} "
+                     f"of {off.size} beyond 1e-6")
+    return "; ".join(parts)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_sampler_methods_match(seed):
     rng = np.random.default_rng(seed % 1000)
@@ -68,9 +78,16 @@ def test_sampler_methods_match(seed):
                                       np.asarray(js.uniform(purpose)))
         for a, b in zip(ts.uniform_pair(purpose), js.uniform_pair(purpose)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    for a, b in ((ts.jitter_uv(), js.jitter_uv()), (ts.lens_disk(), js.lens_disk())):
-        for x, y in zip(a, b):
-            np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-6, rtol=0)
+    # lens_disk from the (bitwise equal) uniforms in float64: the failure
+    # message says how far each side is from it.
+    u1, u2 = (u.numpy().astype(np.float64) for u in ts.uniform_pair(ktf.LENS))
+    disk = (np.sqrt(u1) * np.cos(2 * np.pi * u2), np.sqrt(u1) * np.sin(2 * np.pi * u2))
+    exact = ((None, None), disk)
+    for a, b, e in zip((ts.jitter_uv(), ts.lens_disk()), (js.jitter_uv(), js.lens_disk()), exact):
+        for x, y, ex in zip(a, b, e):
+            x, y = x.numpy(), np.asarray(y)
+            np.testing.assert_allclose(x, y, atol=1e-6, rtol=0,
+                                       err_msg="" if ex is None else _from_exact(x, y, ex))
     np.testing.assert_array_equal(ts.rr_uniform().numpy(), np.asarray(js.rr_uniform()))
     np.testing.assert_array_equal(ts.dielectric_uniform().numpy(),
                                   np.asarray(js.dielectric_uniform()))
