@@ -60,8 +60,10 @@ plain PyTorch version, and drives the port's three paths:
     128 packets: equal to its plain version bit for bit at a check size
     and at full length, against K4 on the same tree by the script's rule,
     timed against it in turns); morph.py (the 13 variants of the v5 body
-    morphed toward K4, at the script's 8 packets and at 1,056, each equal
-    to its plain version bit for bit, the packets' loop counts included);
+    morphed toward K4, at the script's 8 packets and at 1,056, each at
+    every chain width W equal to its plain version bit for bit, the
+    packets' loop counts included, with the chains' live share of the
+    packet loop and both bounds at the picked W);
     mosaic.py, bitcast.py and feature.py (single-tile cases, each against
     the script's own check and its plain version bit for bit; bitcast's
     p1, p3 and p4 say BAD as the script does, the ids being float-encoded;
@@ -77,7 +79,9 @@ plain PyTorch version, and drives the port's three paths:
     1,056: ms, registers, local bytes, the roofline and the issue bound
     (static SASS x warps x iterations over the schedulers at the SM clock
     read under load), each case also held to its plain version at every
-    W, P-v8 also on NaN inputs;
+    W, P-v8 also on NaN inputs; every interleave G at every W it admits
+    equal to the v5 full body, G = 1 beside the v5 full body at the same
+    W, both bounds at the picked W; the P-scalar tables pre-pass's bound;
   * old against new (phase 15, only with --parent DIR, the parent
     commit's tree): the parent's K3, K3-profile, K5 and K4 built from DIR
     against this tree's, each equal to the parent's bit for bit, timed in
@@ -91,7 +95,9 @@ plain PyTorch version, and drives the port's three paths:
     per call and per launch in a CUDA graph, and K2's Threefry through the
     parent's wrapper against this tree's; the parent's P-v8 and v5 body
     through its own wrappers (every variant and mode at the scripts'
-    packets and at 1,056) bit for bit and in alternating rounds; and DIR's own
+    packets and at 1,056) bit for bit and in alternating rounds; the
+    parent's P-morph (8 and 1,056 packets, the loop counts included) and
+    P-interleave (128 and 1,056 packets) the same way; and DIR's own
     `chip_smoke.py --phases 10` against this tree's,
     three each in alternation; phases 4, 7, 8 and 12 count the brute MT records
     the cull leaves per traced ray (brute_may_hit) and give K1, K3 and K4
@@ -169,8 +175,12 @@ plain PyTorch version, and drives the port's three paths:
 
 Every kernel row carries its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
-over the peak rate of their type (fp32: 67 TFLOP/s), counted from this
-run's inputs (H100 SXM datasheet peaks).
+over the peak rate of their type, counted from this run's inputs. fp32:
+the SM's 128 fp32 lanes, one add, multiply or compare each per clock, on
+every SM at the card's maximum SM clock (33.4 TFLOP/s at 1,980 MHz on 132
+SMs; the probes' rows at the SM clock read under load). The datasheet's
+67 TFLOP/s counts a fused multiply-add as two operations, and every kernel
+here is built -fmad=false. int32: the SM's 64 INT32 units at that clock.
 
     python3 chip_smoke.py              # phases 1-14, 16, 17, 19 and 20 (what CI runs)
     python3 chip_smoke.py --phases 16  # the wavefront alone
@@ -299,10 +309,15 @@ P20_QUICK = (5,)
 FLAGSHIP_REF = os.path.join(ROOT, "FLAGSHIP_r05.json")
 FLAGSHIP_SPP = 2000
 FLAGSHIP_RTOL = 0.02
-# Peaks for the bounds: H100 SXM (NVIDIA H100 datasheet) and the
-# Hopper SM's 64 INT32 units (NVIDIA H100 Tensor Core GPU Architecture
-# whitepaper), at the card's own maximum SM clock for int32.
-HBM_BYTES_PER_S, FP32_OPS_PER_S, INT32_UNITS_PER_SM = 3.35e12, 67e12, 64
+# Peaks for the bounds: H100 SXM memory (NVIDIA H100 datasheet), the Hopper
+# SM's 128 fp32 lanes and 64 INT32 units (NVIDIA H100 Tensor Core GPU
+# Architecture whitepaper), each one operation per clock. The kernels are
+# built -fmad=false, so no multiply-add fuses: the fp32 peak is 128 x SMs x
+# the SM clock, half the datasheet's 67 TFLOP/s (which counts an FMA as
+# two). FP32_OPS_PER_S is an H100 SXM's at its 1,980 MHz maximum until
+# main() reads the card's SMs and maximum SM clock.
+HBM_BYTES_PER_S, FP32_LANES_PER_SM, INT32_UNITS_PER_SM = 3.35e12, 128, 64
+FP32_OPS_PER_S = 132 * FP32_LANES_PER_SM * 1980e6
 # Threefry-2x32 per block: 2 adds, 20 rounds of add / rotate / xor, 5 key
 # injections of 2 adds (the key sums folded): 72 int32 operations.
 THREEFRY_OPS = 72
@@ -334,9 +349,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def roofline(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> dict:
+def fp32_ops_per_s(n_sm: int, mhz: float) -> float:
+    """The fp32 peak of -fmad=false code: 128 lanes x SMs x the SM clock."""
+    return n_sm * FP32_LANES_PER_SM * mhz * 1e6
+
+
+def roofline(nbytes: int, ops: int, ops_per_s: float | None = None) -> dict:
     """The least time the card could take: bytes over the memory rate
-    against operations over their peak rate, whichever is larger."""
+    against operations over their peak rate (fp32 by default:
+    FP32_OPS_PER_S), whichever is larger."""
+    ops_per_s = ops_per_s or FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -482,6 +504,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
     kernels = {}
+    global FP32_OPS_PER_S
+    FP32_OPS_PER_S = fp32_ops_per_s(torch.cuda.get_device_properties(0).multi_processor_count,
+                                    _int32_ops_per_s()[1])
 
     # ---- 1. device
     smi = device_line(dev)
@@ -1615,10 +1640,11 @@ def _int32_ops_per_s():
         INT32_UNITS_PER_SM * mhz * 1e6, mhz
 
 
-def roofline_mixed(nbytes: int, fp32_ops: int, int32_ops: int, int32_rate: float) -> dict:
+def roofline_mixed(nbytes: int, fp32_ops: int, int32_ops: int, int32_rate: float,
+                   fp32_rate: float | None = None) -> dict:
     """roofline() for work of both types: the larger of the bytes' time,
     the fp32 operations' and the int32 operations' (separate pipes)."""
-    r = roofline(nbytes, fp32_ops)
+    r = roofline(nbytes, fp32_ops, fp32_rate)
     t_int = int32_ops / int32_rate * 1e3
     if t_int > r["bound_ms"]:
         r.update(bound_ms=t_int, bound_by="operations")
@@ -2112,27 +2138,41 @@ def phase13(dev, smi):
     if not torch.equal(minimal, v5_body.v5(*v5_in, zero_row, "smem8", v5_body.ITERS)):
         raise AssertionError("v5 body: minimal != smem8")
 
-    # P-interleave: every G ≡ the v5 full body (its plain version) over all
-    # packets at P13_CHECK_ITERS, and ≡ the v5 full kernel at the script's
-    # iterations, at 128 and at 1,056 packets.
+    # P-interleave: every G at every chain width it admits ≡ the v5 full
+    # body (its plain version) over all packets at P13_CHECK_ITERS, and ≡
+    # the v5 full kernel at the script's iterations, at 128 and at 1,056
+    # packets.
     il_fill = {}
+    il_res = {G: {w: interleave_probe.kernel_resources((G,), {G: w})[G]
+                  for w in interleave_probe.ADMITTED_W[G]} for G in interleave_probe.GS}
     for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
         o, d, tl = (torch.from_numpy(a).to(dev) for a in v5_body.make_rays(packets))
         args = (v5_in[0], v5_in[1], o, d, tl, zero_row)
         plain16 = v5_body.v5_plain(*args, "full", P13_CHECK_ITERS)
         full = v5_body.v5(*args, "full", interleave_probe.ITERS)
         for G in interleave_probe.GS:
-            for iters, want_t in ((P13_CHECK_ITERS, plain16), (interleave_probe.ITERS, full)):
-                if not _bitwise(interleave_probe.interleave(*args, G, iters), want_t):
-                    raise AssertionError(f"interleave G={G}, {packets} packets, {iters} "
-                                         f"iterations != the v5 full body")
-                checked.append(f"interleave G{G} P{packets} i{iters}")
+            for w in (None, *interleave_probe.ADMITTED_W[G]):
+                for iters, want_t in ((P13_CHECK_ITERS, plain16), (interleave_probe.ITERS, full)):
+                    if not _bitwise(interleave_probe.interleave(*args, G, iters, w=w), want_t):
+                        raise AssertionError(f"interleave G={G} W {w or 'picked'}, {packets} "
+                                             f"packets, {iters} iterations != the v5 full body")
+                    checked.append(f"interleave G{G} W{w or 'picked'} P{packets} i{iters}")
         il_fill[packets] = args
     held("P-interleave", "interleave plain (timed)",
          lambda: interleave_probe.interleave(*il_fill[interleave_probe.N_PACKETS], 1,
                                              interleave_probe.ITERS),
          lambda: interleave_probe.interleave_plain(*il_fill[interleave_probe.N_PACKETS], 1,
                                                    interleave_probe.ITERS), "P-interleave")
+    for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
+        g1 = runs[f"P-interleave {packets}"]["gs"][1]
+        g1["v5_full_same_w_ms"] = widths[f"v5 full P{packets}"][g1["w"]]["ms"]
+    log(13, "P-interleave: numRegs / localSizeBytes per G and chain width: " + "; ".join(
+        f"G={G} " + ", ".join(f"W{w} {r} / {b}" for w, (r, b) in il_res[G].items())
+        for G in interleave_probe.GS) + "; G=1 beside the v5 full body at the same W: " + "; ".join(
+        f"{p} packets W{r['w']} {r['ms']:.4f} against {r['v5_full_same_w_ms']:.4f} ms "
+        f"({r['ms'] / r['v5_full_same_w_ms']:.3f}x)"
+        for p, r in ((p, runs[f"P-interleave {p}"]["gs"][1])
+                     for p in (interleave_probe.N_PACKETS, P13_FILL_PACKETS))))
 
     # P-scalar: every variant at the script's sizes, acc and the witness.
     x = torch.from_numpy(scalar_cost.make_input()).to(dev)
@@ -2207,21 +2247,66 @@ def phase13(dev, smi):
     if chain_iters != int(k6[6].sum()) or chain_iters != runs["P-v6"]["chain_iters"]:
         raise AssertionError("v6: the chains' iteration counts differ between runs")
 
-    # P-morph: every variant ≡ its plain version bit for bit, the packets'
-    # loop counts included, at the script's 8 packets and at 1,056, and the
-    # same loop counts as the entry point's run.
+    # P-morph: every variant at every chain width ≡ its plain version bit
+    # for bit, the packets' loop counts included, at the script's 8 packets
+    # and at 1,056, and the same loop counts as the entry point's run; the
+    # plain version's live chain-iterations (begun at a task) for the
+    # bounds.
     morph_dev = {p: [t.to(dev) for t in (node, tri, o, d, tl)]
                  for p, (node, tri, _, _, o, d, tl) in morph_in.items()}
+    morph_res = {v: {w: morph.kernel_resources((v,), w)[v] for w in morph.ADMITTED_W[v]}
+                 for v in morph.VARIANTS}
     for packets, (node, tri, nb, cap, *_) in morph_in.items():
         for v in morph.VARIANTS:
             args = (*morph_dev[packets], nb, cap, v)
-            k = held("P-morph", f"morph {v} P{packets}", lambda: morph.morph(*args),
-                     lambda: morph.morph_plain(*args), f"morph {v} P{packets}")
+            live = {}
+
+            def plain(args=args, live=live):
+                *outs, live["chains"] = morph.morph_plain(*args, live=True)
+                return tuple(outs)
+
+            k = held("P-morph", f"morph {v} P{packets}", lambda: morph.morph(*args), plain,
+                     f"morph {v} P{packets}")
+            for w in morph.ADMITTED_W[v]:
+                kw, p = morph.morph(*args, w=w), last_plain["P-morph"]
+                if not all(a.dtype == b.dtype and a.shape == b.shape and _bitwise(a, b)
+                           for a, b in zip(kw, p)):
+                    raise AssertionError(f"morph {v} P{packets} W{w}: kernel != plain")
+                checked.append(f"morph {v} P{packets} W{w}")
             r = runs[f"P-morph {packets}"][v]
             if k[-1].cpu().tolist() != r["iters"]:
                 raise AssertionError(f"morph {v}: the loop counts differ between runs")
             it = r.pop("iters")   # kept short for the JSON lines
             r["loop_iters"] = dict(min=min(it), max=max(it), total=sum(it))
+            r["live_chain_iters"] = int(live["chains"].sum())
+            r["live_share"] = r["live_chain_iters"] / max(r["chain_iters"], 1)
+    log(13, "P-morph: numRegs / localSizeBytes per variant and chain width: " + "; ".join(
+        f"{v} " + ", ".join(f"W{w} {r} / {b}" for w, (r, b) in morph_res[v].items())
+        for v in morph.VARIANTS))
+    # P-morph and P-interleave timed at every chain width they admit (not the
+    # path: its counts are read above), beside the W the wrapper picks.
+    mi_widths = {}
+    for packets, (node, tri, nb, cap, *_) in morph_in.items():
+        for v in morph.VARIANTS:
+            args = (*morph_dev[packets], nb, cap, v)
+            mi_widths[f"morph {v} P{packets}"] = {"picked": runs[f"P-morph {packets}"][v]["w"], **{
+                w: dict(ms=common.median(common.time_launches(
+                    lambda: morph.morph(*args, w=w))), num_regs=morph_res[v][w][0],
+                    local_bytes=morph_res[v][w][1]) for w in morph.ADMITTED_W[v]}}
+    for packets, args in il_fill.items():
+        for G in interleave_probe.GS:
+            mi_widths[f"interleave G={G} P{packets}"] = {
+                "picked": runs[f"P-interleave {packets}"]["gs"][G]["w"], **{
+                    w: dict(ms=common.median(common.time_launches(
+                        lambda: interleave_probe.interleave(*args, G, interleave_probe.ITERS,
+                                                            w=w))),
+                            num_regs=il_res[G][w][0], local_bytes=il_res[G][w][1])
+                    for w in interleave_probe.ADMITTED_W[G]}}
+    log(13, "P-morph and P-interleave at every chain width (median of "
+            f"{common.TIMED_LAUNCHES} launches): " + "; ".join(
+                f"{name}: " + ", ".join(f"W{w} {r['ms']:.4f} ms" for w, r in row.items()
+                                        if w != "picked") + f" (picks W{row['picked']})"
+                for name, row in mi_widths.items()))
 
     # P-mosaic, P-bitcast, P-feature: every case's kernel ≡ its plain version
     # on the card bit for bit; a bitcast verdict as the plain version's.
@@ -2264,7 +2349,7 @@ def phase13(dev, smi):
                     r["sass"] = sc[f"{name.rsplit(' ', 1)[0]} W{w}"]
         for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
             for G, r in runs[f"P-interleave {packets}"]["gs"].items():
-                r["sass"] = sc[f"interleave G{G}"]
+                r["sass"] = sc[f"interleave G{G} W{r['w']}"]
         for name, r in runs["P-scalar"]["variants"].items():
             r["sass"] = sc[f"scalar {scalar_cost.variant(name)[0]}"]
         runs["P-scalar"]["tables_sass"] = sc["scalar tables"]
@@ -2275,7 +2360,7 @@ def phase13(dev, smi):
         runs["P-v6"]["sass"] = sc["v6"]
         for packets in morph_in:
             for v, r in runs[f"P-morph {packets}"].items():
-                r["sass"] = sc[f"morph {v}"]
+                r["sass"] = sc[f"morph {v} W{r['w']}"]
         for key, mod in (("P-mosaic", "mosaic"), ("P-bitcast", "bitcast"),
                          ("P-feature", "feature")):
             for case, r in runs[key].items():
@@ -2291,16 +2376,18 @@ def phase13(dev, smi):
     # ---- rows, with the bound of each variant at its size
     int32_rate, mhz = _int32_ops_per_s()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # fp32 at the SM clock read under load (fp32_ops_per_s: -fmad=false)
+    f32 = fp32_ops_per_s(n_sm, clock["mhz"])
     rows = {}
     for run_ in (runs["P-v8"], runs["P-v8 fill"]):
         node, tri, o, _ = v8_in[run_["packets"]]
         for v, r in run_["variants"].items():
             w = ablate_v8.work(node, tri, o, v, run_["iters"])
-            r.update(roofline(w["bytes"], w["ops"]))
+            r.update(roofline(w["bytes"], w["ops"], f32))
     for key in v5_probes:
         for mode, r in runs[key]["modes"].items():
             w = v5_body.work(v5_in[0], v5_in[1], v5_in[2], mode, v5_body.ITERS)
-            r.update(roofline(w["bytes"], w["ops"]))
+            r.update(roofline(w["bytes"], w["ops"], f32))
     # Both bounds of every (variant or mode, packets, W), and the share of
     # each that the kernel reaches (bound / ms); the issue bound at the SM
     # clock read under load.
@@ -2316,15 +2403,17 @@ def phase13(dev, smi):
         for w, r in row.items():
             if w == "picked":
                 continue
-            r.update(roofline(wk["bytes"], wk["ops"]))
+            r.update(roofline(wk["bytes"], wk["ops"], f32))
             r["roofline_share"] = r["bound_ms"] / r["ms"]
             if "sass" in r:
                 r["issue_bound_ms"] = issue_bound_ms(r["sass"]["total"], packets * 8 * w, iters,
                                                      n_sm, clock["mhz"])
                 r["issue_share"] = r["issue_bound_ms"] / r["ms"]
-    log(13, "P-v8 and the v5 body, bounds per chain width (roofline: bytes / 3.35 TB/s "
-            "against fp32 operations / 67 TFLOP/s; issue: static SASS x warps x iterations / "
-            f"({SCHEDULERS_PER_SM} x {n_sm} SMs x {clock['mhz']:.0f} MHz)), each with the share "
+    bounds_are = (f"roofline: bytes / 3.35 TB/s against fp32 operations / {f32 / 1e12:.1f} "
+                  f"TFLOP/s ({FP32_LANES_PER_SM} lanes x {n_sm} SMs x {clock['mhz']:.0f} MHz); "
+                  f"issue: static SASS x warp-iterations / ({SCHEDULERS_PER_SM} x {n_sm} SMs x "
+                  f"{clock['mhz']:.0f} MHz)")
+    log(13, f"P-v8 and the v5 body, bounds per chain width ({bounds_are}), each with the share "
             "of it reached: " + "; ".join(
                 f"{name} " + ", ".join(
                     f"W{w} {r['ms']:.4f} ms, roofline {r['bound_ms']:.4f} "
@@ -2333,32 +2422,86 @@ def phase13(dev, smi):
                        f"SASS {r['sass']['total']})" if "sass" in r else ", issue not measured")
                     for w, r in row.items() if w != "picked")
                 for name, row in widths.items()))
+    # P-interleave and P-morph: both bounds at the picked W, with the share
+    # reached. A morph `while` chain runs its live iterations alone (each
+    # on W warps); the other loops run every chain of the packet loop.
     for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
         w = interleave_probe.work(v5_in[0], v5_in[1], il_fill[packets][2], interleave_probe.ITERS)
-        for r in runs[f"P-interleave {packets}"]["gs"].values():
-            r.update(roofline(w["bytes"], w["ops"]))
+        for G, r in runs[f"P-interleave {packets}"]["gs"].items():
+            r.update(roofline(w["bytes"], w["ops"], f32))
+            r["roofline_share"] = r["bound_ms"] / r["ms"]
+            if "sass" in r:
+                r["issue_bound_ms"] = issue_bound_ms(r["sass"]["total"], r["warps"],
+                                                     interleave_probe.ITERS, n_sm, clock["mhz"])
+                r["issue_share"] = r["issue_bound_ms"] / r["ms"]
+    # P-morph's issue bound counts its SASS by loop (sass.loops): the walk's
+    # body per warp-iteration, the brute pre-pass's loop per brute row and
+    # the code outside both once, each per warp of every chain.
+    for packets, (node, tri, nb, *_) in morph_in.items():
+        for v, r in runs[f"P-morph {packets}"].items():
+            w = morph.work(node, tri, morph_in[packets][4], v, r["live_chain_iters"], nb)
+            r.update(roofline(w["bytes"], w["ops"], f32))
+            r["roofline_share"] = r["bound_ms"] / r["ms"]
+            r["warp_iters"] = r["w"] * (r["live_chain_iters"] if morph.VARIANTS[v][0] == "while"
+                                        else r["chain_iters"])
+            if "sass" not in r:
+                continue
+            *pre, body = r["sass"]["loops"]
+            if len(pre) != int(morph.VARIANTS[v][3]):
+                raise AssertionError(f"morph {v} W{r['w']}: {len(pre) + 1} loops in its SASS, "
+                                     f"expected {int(morph.VARIANTS[v][3]) + 1}")
+            warps = packets * morph.P_SUB * r["w"]
+            r["issue_insns"] = (body * r["warp_iters"]
+                                + warps * (r["sass"]["straight"] + sum(pre) * nb))
+            r["issue_bound_ms"] = issue_bound_ms(r["issue_insns"], 1, 1, n_sm, clock["mhz"])
+            r["issue_share"] = r["issue_bound_ms"] / r["ms"]
+
+    def shares(r):
+        return (f"roofline {r['bound_ms']:.4f} ({100 * r['roofline_share']:.1f}%)"
+                + (f", issue {r['issue_bound_ms']:.4f} ({100 * r['issue_share']:.1f}%; SASS "
+                   f"{r['sass']['total']})" if "sass" in r else ", issue not measured"))
+
+    log(13, f"P-interleave, bounds at the picked W ({bounds_are}): " + "; ".join(
+        f"{p} packets G={G} W{r['w']} {r['ms']:.4f} ms, {shares(r)}"
+        for p in (interleave_probe.N_PACKETS, P13_FILL_PACKETS)
+        for G, r in runs[f"P-interleave {p}"]["gs"].items()))
+    log(13, f"P-morph, bounds at the picked W ({bounds_are}, with P-morph's SASS by loop: "
+            f"the walk's body x warp-iterations + (the brute loop x brute rows + the rest) x "
+            f"warps; the roofline counts the chains' live iterations, those begun at a task), "
+            f"with the chains' live share of the packet loop's chain-iterations: " + "; ".join(
+                f"{p} packets {v} W{r['w']} {r['ms']:.4f} ms, live {r['live_chain_iters']} of "
+                f"{r['chain_iters']} ({100 * r['live_share']:.1f}%), {shares(r)}"
+                + (f", loops {r['sass']['loops']} + {r['sass']['straight']}" if "sass" in r
+                   else "")
+                for p in morph_in for v, r in runs[f"P-morph {p}"].items()))
     for name, r in runs["P-scalar"]["variants"].items():
         mode, iters = scalar_cost.variant(name)
         w = scalar_cost.work(mode, scalar_cost.N_PACKETS, iters)
-        r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate))
+        r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate, f32))
+    # The smem16 tables pre-pass: the roofline, and its one thread's
+    # instructions in order at one per clock of the SM clock under load.
+    tw = scalar_cost.tables_work(scalar_cost.N_PACKETS, scalar_cost.ITERS)
+    tb = roofline_mixed(tw["bytes"], 0, tw["int32_ops"], int32_rate, f32)
+    runs["P-scalar"].update(tables_bound_ms=tb["bound_ms"], tables_bound_by=tb["bound_by"],
+                            tables_bound_one_thread_ms=tw["serial_ops"] / (clock["mhz"] * 1e3))
+    log(13, f"P-scalar smem16 tables pre-pass {runs['P-scalar']['tables_ms']:.4f} ms: roofline "
+            f"{tb['bound_ms']:.6f} ms ({tb['bound_by']}; {tw['int32_ops']} int32 operations, "
+            f"{tw['bytes']} bytes), its one thread's {tw['serial_ops']} instructions at one per "
+            f"clock {runs['P-scalar']['tables_bound_one_thread_ms']:.4f} ms")
     for case, r in runs["P-vstack"].items():
         w = vstack.work(case, r["iters"])
-        r.update(roofline_mixed(w["bytes"], 0, w["int32_ops"], int32_rate))
+        r.update(roofline_mixed(w["bytes"], 0, w["int32_ops"], int32_rate, f32))
         r["bound_one_sm_ms"] = r["bound_ms"] * n_sm   # one block: one SM's share of the peaks
     for case, r in runs["P-ktf"].items():
         w = ktf_probe.work(case)
-        r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate))
+        r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate, f32))
     w = v6.work(node6, tri6, o6, chain_iters, nb6)
-    runs["P-v6"].update(roofline(w["bytes"], w["ops"]))
-    for packets, (node, tri, nb, *_) in morph_in.items():
-        for v, r in runs[f"P-morph {packets}"].items():
-            w = morph.work(node, tri, morph_in[packets][4], v, r["chain_iters"], nb)
-            r.update(roofline(w["bytes"], w["ops"]))
+    runs["P-v6"].update(roofline(w["bytes"], w["ops"], f32))
     for key, mod in (("P-mosaic", mosaic), ("P-bitcast", bitcast), ("P-feature", feature)):
         for case, r in runs[key].items():
             if case != "s7":
                 w = mod.work(case)
-                r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate))
+                r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate, f32))
     fill = runs["P-v8 fill"]["variants"]
     def picked(name):
         row = widths[name]
@@ -2388,14 +2531,20 @@ def phase13(dev, smi):
         runs[f"P-interleave {P13_FILL_PACKETS}"]
     rows["P-interleave"] = dict(launches=launches["P-interleave"],
                                 max_abs_err=max_err["P-interleave"],
-                                plain_ms=plain_ms["P-interleave"], ms_is="G=1, 128 packets",
+                                plain_ms=plain_ms["P-interleave"],
+                                ms_is=f"G=1, 128 packets, W {il['gs'][1]['w']}",
                                 **il["gs"][1], ms_1056=il_f["gs"][1]["ms"],
                                 bound_1056_ms=il_f["gs"][1]["bound_ms"], gs=il["gs"],
-                                gs_1056=il_f["gs"])
+                                gs_1056=il_f["gs"], resources=il_res, sm_clock_mhz=clock["mhz"],
+                                widths={k: v for k, v in mi_widths.items()
+                                        if k.startswith("interleave")})
     sv = runs["P-scalar"]["variants"]
     rows["P-scalar"] = dict(launches=launches["P-scalar"], max_abs_err=max_err["P-scalar"],
                             plain_ms=plain_ms["scalar baseline"], ms_is="baseline",
                             **sv["baseline"], tables_ms=runs["P-scalar"]["tables_ms"],
+                            **{k: runs["P-scalar"][k] for k in ("tables_bound_ms",
+                                                                "tables_bound_by",
+                                                                "tables_bound_one_thread_ms")},
                             tables_launches=launches["P-scalar tables"], variants=sv,
                             plain_ms_variants={k: v for k, v in plain_ms.items()
                                                if k.startswith("scalar")},
@@ -2422,12 +2571,14 @@ def phase13(dev, smi):
     m8, mf = runs[f"P-morph {morph.N_PACKETS}"], runs[f"P-morph {P13_FILL_PACKETS}"]
     rows["P-morph"] = dict(launches=launches["P-morph"], max_abs_err=max_err["P-morph"],
                            plain_ms=plain_ms[f"morph v0_ablate P{morph.N_PACKETS}"],
-                           ms_is=f"v0_ablate, {morph.N_PACKETS} packets", **m8["v0_ablate"],
-                           ms_1056=mf["v0_ablate"]["ms"],
+                           ms_is=f"v0_ablate, {morph.N_PACKETS} packets, W {m8['v0_ablate']['w']}",
+                           **m8["v0_ablate"], ms_1056=mf["v0_ablate"]["ms"],
                            bound_1056_ms=mf["v0_ablate"]["bound_ms"], variants=m8,
-                           variants_1056=mf,
+                           variants_1056=mf, resources=morph_res,
+                           widths={k: v for k, v in mi_widths.items() if k.startswith("morph")},
                            plain_ms_variants={k: v for k, v in plain_ms.items()
-                                              if k.startswith("morph")})
+                                              if k.startswith("morph")},
+                           sm_clock_mhz=clock["mhz"])
     for key, first, mod in (("P-mosaic", "colbcast", "mosaic"), ("P-bitcast", "p1", "bitcast"),
                             ("P-feature", "s2", "feature")):
         cases = runs[key]
@@ -2448,6 +2599,28 @@ def phase13(dev, smi):
     rows["P-floor"].update(empty_ms_turns=tiles["floor"]["ms"],
                            empty_graph_ms=tiles["floor"]["graph_ms"])
     rows["P-feature"]["s7_k4_launches"] = launches["P-feature s7 (K4)"]
+    # The order of redesign: each probe's launches x (time - bound), summed
+    # over every case at every size (11 launches a case: a warm-up and 10
+    # timed; P-v6 12 in all), at the picked W; the P-scalar pre-pass against
+    # its one thread's bound, beside its roofline.
+    cases = {"P-v8": [*runs["P-v8"]["variants"].values(), *runs["P-v8 fill"]["variants"].values()],
+             **{k: list(runs[k]["modes"].values()) for k in v5_probes},
+             "P-interleave": [r for p in (interleave_probe.N_PACKETS, P13_FILL_PACKETS)
+                              for r in runs[f"P-interleave {p}"]["gs"].values()],
+             "P-scalar": list(runs["P-scalar"]["variants"].values()),
+             "P-vstack": list(runs["P-vstack"].values()), "P-ktf": list(runs["P-ktf"].values()),
+             "P-morph": [r for p in morph_in for r in runs[f"P-morph {p}"].values()],
+             **{k: [r for c, r in runs[k].items() if c != "s7"]
+                for k in ("P-mosaic", "P-bitcast", "P-feature")}}
+    rank = {k: 11 * sum(r["ms"] - r["bound_ms"] for r in rs) for k, rs in cases.items()}
+    rank["P-v6"] = launches["P-v6"] * (runs["P-v6"]["ms"] - runs["P-v6"]["bound_ms"])
+    sc_pre = runs["P-scalar"]
+    rank["P-scalar pre-pass"] = 11 * (sc_pre["tables_ms"] - sc_pre["tables_bound_one_thread_ms"])
+    rank["P-scalar pre-pass (roofline)"] = 11 * (sc_pre["tables_ms"] - sc_pre["tables_bound_ms"])
+    for k, v in rank.items():
+        rows[k if k in rows else "P-scalar"].setdefault("rank", {})[k] = v
+    log(13, "rank, launches x (time - bound) summed over every case and size (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(rank.items(), key=lambda kv: -kv[1])))
     secs = time.perf_counter() - t_phase
     log(13, f"every variant == its plain version bit for bit ({len(checked)} checks: "
             f"{P13_CHECK_ITERS} iterations over all packets, the full bodies also at the "
@@ -2789,9 +2962,10 @@ def parent_launch_path(parent_dir: str, build_dir: str):
     """The parent tree's own launch path: its utils/cudalib.py (its library
     the one phase 15 built from its csrc into build_dir), and its
     probes/mosaic.py, probes/feature.py, probes/ablate_v8.py,
-    probes/v5_body.py and utils/ktf.py bound to that cudalib. (parent
-    cudalib, {"mosaic": .., "feature": .., "ablate_v8": .., "v5_body": ..,
-    "ktf": ..})."""
+    probes/v5_body.py, probes/morph.py, probes/interleave_probe.py and
+    utils/ktf.py bound to that cudalib. (parent cudalib, {"mosaic": ..,
+    "feature": .., "ablate_v8": .., "v5_body": .., "morph": ..,
+    "interleave_probe": .., "ktf": ..})."""
     pkg = os.path.join(parent_dir, "raytracer_tpu_torch")
     pc = _load_module(os.path.join(pkg, "utils", "cudalib.py"), "parent_cudalib")
     pc.BUILD_DIR = build_dir
@@ -2799,27 +2973,31 @@ def parent_launch_path(parent_dir: str, build_dir: str):
         mods = {name: _load_module(os.path.join(pkg, *rel), f"parent_{name}") for name, rel in (
             ("mosaic", ("probes", "mosaic.py")), ("feature", ("probes", "feature.py")),
             ("ablate_v8", ("probes", "ablate_v8.py")), ("v5_body", ("probes", "v5_body.py")),
+            ("morph", ("probes", "morph.py")),
+            ("interleave_probe", ("probes", "interleave_probe.py")),
             ("ktf", ("utils", "ktf.py")))}
     return pc, mods
 
 
 def probes_old_new(dev, pmods) -> dict:
-    """The parent's P-v8 and v5 body (its wrappers, its cudalib, its
-    kernels) against this tree's on the same inputs, at the scripts'
-    iterations and packets and at P13_FILL_PACKETS: outputs equal bit for
-    bit, every variant and mode per call (time_launches' median) in
-    P13_TURN_PAIRS alternating pairs of rounds, with the W this tree's
-    entry point picks."""
+    """The parent's P-v8, v5 body, P-morph and P-interleave (its wrappers,
+    its cudalib, its kernels) against this tree's on the same inputs, at
+    the scripts' iterations and packets and at P13_FILL_PACKETS: outputs
+    equal bit for bit (P-morph's loop counts too), every variant, mode and
+    G per call (time_launches' median) in P13_TURN_PAIRS alternating pairs
+    of rounds, with the W this tree picks."""
     import torch
 
-    from raytracer_tpu_torch.probes import ablate_v8, common, v5_body
+    from raytracer_tpu_torch.probes import ablate_v8, common, interleave_probe, morph, v5_body
 
     checks, out = {}, {}
     per_call = lambda f: lambda: common.median(common.time_launches(f))   # noqa: E731
 
     def in_turns(name, fns, w):
         old, new = fns["parent"](), fns["new"]()
-        checks[f"{name} new == parent"] = old.dtype == new.dtype and _bitwise(old, new)
+        old, new = (old, new) if isinstance(old, tuple) else ((old,), (new,))
+        checks[f"{name} new == parent"] = len(old) == len(new) and all(
+            a.dtype == b.dtype and a.shape == b.shape and _bitwise(a, b) for a, b in zip(old, new))
         t = alternate({k: per_call(f) for k, f in fns.items()})
         out[name] = {"w": w, **{k: dict(ms=float(np.median(v)), turns_ms=v)
                                 for k, v in t.items()}}
@@ -2840,7 +3018,40 @@ def probes_old_new(dev, pmods) -> dict:
                      {who: (lambda m=m, mode=mode: m.v5(*args, zero_row, mode, v5_body.ITERS))
                       for who, m in (("parent", pmods["v5_body"]), ("new", v5_body))},
                      v5_body.chosen_w(packets, mode))
+    for packets in (interleave_probe.N_PACKETS, P13_FILL_PACKETS):
+        args = tuple(t.to(dev) for t in (node, tri, *(torch.from_numpy(a)
+                                                      for a in v5_body.make_rays(packets))))
+        for G in interleave_probe.GS:
+            in_turns(f"interleave G={G} P{packets}",
+                     {who: (lambda m=m, G=G: m.interleave(*args, zero_row, G,
+                                                          interleave_probe.ITERS))
+                      for who, m in (("parent", pmods["interleave_probe"]),
+                                     ("new", interleave_probe))},
+                     interleave_probe.chosen_w(G))
+    for packets in (morph.N_PACKETS, P13_FILL_PACKETS):
+        mnode, mtri, nb, cap, *rays = morph.reference_inputs(packets)
+        margs = tuple(t.to(dev) for t in (mnode, mtri, *rays))
+        for v in morph.VARIANTS:
+            in_turns(f"morph {v} P{packets}",
+                     {who: (lambda m=m, v=v: m.morph(*margs, nb, cap, v))
+                      for who, m in (("parent", pmods["morph"]), ("new", morph))},
+                     morph.chosen_w(packets, v))
     return dict(checks=checks, ms=out)
+
+
+def sass_old_new(parent_lib: str) -> dict:
+    """Static SASS instructions of the parent's P-interleave and P-morph
+    kernels (one per G or variant) and of this tree's (one per G or
+    variant and W), by name (probes/sass.name); {} without cuobjdump."""
+    from raytracer_tpu_torch.probes import sass
+
+    if not os.path.exists(sass.cuobjdump()):
+        return {}
+    def pick(counts):
+        return {sass.name(*k): v["total"] for k, v in sorted(counts.items(), key=str)
+                if k[0] in ("interleave", "morph")}
+
+    return dict(parent=pick(sass.counts(parent_lib)), new=pick(sass.counts()))
 
 
 def tiles_old_new(dev, pc, pmods) -> dict:
@@ -3024,6 +3235,8 @@ def phase15(scene, dev, smi, parent_dir):
     checks.update(tiles["checks"])
     probes = probes_old_new(dev, pmods)
     checks.update(probes["checks"])
+    sass_pn = sass_old_new(cudalib.build(
+        csrc=os.path.join(parent_dir, "raytracer_tpu_torch", "csrc"), build_dir=build_dir))
     if not all(checks.values()):
         raise AssertionError(f"phase 15: {checks}")
     res = {}
@@ -3070,11 +3283,16 @@ def phase15(scene, dev, smi, parent_dir):
                                    for w, v in r.items() if w in ("parent", "new"))
                + (f" (max |diff| {r['max_abs_diff']:.3g})" if "max_abs_diff" in r else "")
                for k, r in tiles["ms"].items())
-           + "; P-v8 and the v5 body, the parent's against this tree's (picked W) per call in "
+           + "; P-v8, the v5 body, P-interleave and P-morph, the parent's against this tree's "
+           + "(picked W) per call in "
            + f"{P13_TURN_PAIRS} alternating pairs of rounds (median; new / parent): " + "; ".join(
                f"{k} W{r['w']} {r['parent']['ms']:.4f} -> {r['new']['ms']:.4f} ms "
                f"({r['new']['ms'] / r['parent']['ms']:.3f}x; new [{_fmt(r['new']['turns_ms'])}], "
                f"parent [{_fmt(r['parent']['turns_ms'])}])" for k, r in probes["ms"].items())
+           + "; static SASS instructions of P-interleave and P-morph, the parent's: "
+           + (", ".join(f"{k} {v}" for k, v in sass_pn["parent"].items()) + "; this tree's: "
+              + ", ".join(f"{k} {v}" for k, v in sass_pn["new"].items()) if sass_pn
+              else "not measured (no cuobjdump)")
            + "; in turns, median of 10 (CUDA events; K4 routes per call of 20; min-max): "
            + "; ".join(f"{k} {v['median_ms']:.4f} ms ({v['min_ms']:.4f}-{v['max_ms']:.4f})"
                        for k, v in ms.items())
@@ -3086,9 +3304,11 @@ def phase15(scene, dev, smi, parent_dir):
                        f"{v['median_s_per_step']:.4f})" for k, v in s_step.items())
            + f" on {smi}")
     if not checks["K3 2K new within the parent's spread"]:
+        log(15, msg)
         raise AssertionError(f"phase 15: K3 at 2K {k3n} outside the parent's {k3p}")
     return dict(json=dict(card=smi, checks=checks, ms=ms, resources=res, build_s=build_s,
-                          phase10=s_step, tiles=tiles["ms"], probes=probes["ms"]), msg=msg)
+                          phase10=s_step, tiles=tiles["ms"], probes=probes["ms"],
+                          probes_sass=sass_pn), msg=msg)
 
 
 def _counts():

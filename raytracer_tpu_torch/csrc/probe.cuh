@@ -245,6 +245,14 @@ __device__ __forceinline__ const float* opaque(const float* p) {
   return p;
 }
 
+// The warps an SM holds when each thread takes `regs` registers: each of its
+// 4 schedulers has a quarter of the 65,536 registers, given to a warp in
+// units of 256 (8 a thread), so 80 registers hold 6 warps a scheduler, 24
+// an SM (__launch_bounds__ room for 25 one-warp blocks leaves 72).
+__host__ __device__ constexpr int warps_for_regs(int regs) {
+  return 4 * (16384 / (32 * ((regs + 7) / 8 * 8)));
+}
+
 // Barrier `id` (1..15; 0 is __syncthreads) over the `threads` threads of
 // one chain, which are whole warps.
 __device__ __forceinline__ void chain_sync(int id, int threads) {

@@ -20,22 +20,51 @@
 //   BRUTE  the brute-force rows before the zero row swept first.
 //   CLAMP  pushes with the stack pointer clamped to stack_cap - 4, or not.
 //
-// The packet's loop is the block's: the alive count is __syncthreads_count
-// of lane 0's nxt != NONE in each warp, as the script's condition reads the
-// sum over the 8 chains, so a block of WHILE runs until its last chain
-// ends. FORI and WHILECOUNTER have no block-wide step. The stack is one flat
-// array of 8 * stack_cap entries in shared memory, chain s at s * stack_cap
-// (stack_cap: the tree's stack bound, which the builder sizes so that no
-// walk reaches it); an unclamped push beyond the array traps. A chain's task
-// and stack pointer live in shared memory, written by lane 0 and read by
-// every lane after __syncwarp, as in probe_v5.cuh.
+// A chain is W warps (W = 1, 2 or 4; probe.cuh), each thread holding N = 4
+// / W of its lanes and their six-output records. Per iteration each warp
+// of a chain issues its node record (7 of its lanes' 16-byte loads) and its
+// triangle row (the leaf's, or the trailing zero row: one per lane)
+// together into its slice of shared memory, where every thread reads the
+// 16-byte words back as it uses them; the chain's lane 0 rep keys and the
+// packed hit counts decide the next task (with W > 1 each warp's sums and
+// lane 0's keys go through shared memory under the chain's named barrier,
+// double buffered by iteration), and lane 0 pushes the other hit children
+// onto the warp's copy of the chain's stack (stack_cap entries in dynamic
+// shared memory, the tree's stack bound, which scene/builder.py sizes so no
+// walk reaches it), so a pop needs no barrier. The brute pre-pass and the
+// root-union test split over the chain's warps in the same way; the root
+// test's hit count is summed across them.
 //
-// What bounds it: the dependence chain of one iteration (task -> row loads
-// -> 8 MT records -> 4 slabs -> shuffles -> push/pop -> task) as in the v5
-// body, and for WHILE the block's slowest chain; at the script's 8 packets,
-// 8 blocks on 132 SMs.
+// The loops. A finished WHILE chain (task NONE) changes nothing in the
+// script's packet-wide loop: no push or pop and no hit on the zero row, so
+// each WHILE chain loops on its own and stops when its next task is NONE,
+// or at max_iters; the packet's loop count, the largest of its chains'
+// counts, is their atomicMax into the count the entry point zeroed. A WHILE
+// block is one chain (32 W threads), so a chain that ends early hands its
+// SM slot to the next at once (blocks of 8 / W chains held a finished
+// chain's warps until the block's last chain ended: at 1,056 packets the W
+// = 1 `while` variants took 1.3-1.5x their W = 4 times, and one-chain
+// blocks took v1_while from 4.43 to 4.12 ms). FORI and WHILECOUNTER chains
+// all run the same count, so their blocks hold 8 / W chains (256 threads),
+// which timed 3% faster than one-chain blocks at 1,056 packets.
+// WHILEALIVECAP's stop is the packet's alive count in the same iteration,
+// and its finished chains restart at the root, so a block is one packet of
+// 8 chains (256 W threads) and the count is __syncthreads_count of each
+// chain's leader thread.
+//
+// An unclamped push past the chain's own stack traps; the plain version
+// raises there.
+//
+// What bounds it: the issue of the lanes' instructions (8 six-output MT
+// records and 4 slabs per lane and iteration) and the dependence chain of
+// one iteration (task -> rows -> records -> slabs -> reductions ->
+// push/pop -> task), exposed where the card holds few warps (the script's 8
+// packets); W > 1 adds warps and cuts each warp's lane work, and the
+// wrapper picks W (probes/morph.chosen_w).
 #pragma once
 #include <cuda_runtime.h>
+
+#include <utility>
 
 #include "probe.cuh"
 
@@ -45,9 +74,123 @@ using namespace probe;
 
 enum Loop { FORI, WHILE, WHILECOUNTER, WHILEALIVECAP };
 constexpr int N_VARIANTS = 13;
+constexpr int NREC_Q = 7;   // 16-byte words of a node record's 28 floats
+constexpr int ROW_Q = 32;   // 16-byte words of a row
 
-template <int LOOP, bool OUTS6, bool ROOT, bool BRUTE, bool CLAMP>
-__global__ void __launch_bounds__(P_SUB * 32)
+// The template arguments of each variant, in morph.VARIANTS order.
+struct Spec {
+  int loop;
+  bool outs6, root, brute, clamp;
+};
+constexpr Spec SPECS[N_VARIANTS] = {
+    {FORI, false, false, false, true},            // v0_ablate
+    {WHILE, false, false, false, true},           // v1_while
+    {WHILE, true, false, false, true},            // v2_outs6
+    {WHILE, true, true, false, true},             // v3_rootinit
+    {WHILE, true, true, true, true},              // v4_brute
+    {WHILE, true, true, true, false},             // v5_noclamp
+    {FORI, false, false, false, false},           // v0_noclamp
+    {WHILECOUNTER, false, false, false, true},    // v6_whilecounter
+    {WHILEALIVECAP, false, false, false, true},   // v7_whilealive_cap
+    {WHILEALIVECAP, true, false, false, true},    // v8_cap_outs6
+    {WHILEALIVECAP, true, true, false, true},     // v9_cap_rootinit
+    {WHILEALIVECAP, true, true, true, true},      // v10_cap_brute
+    {WHILEALIVECAP, true, true, true, false},     // v11_cap_noclamp
+};
+
+// WHILEALIVECAP's chains meet at a packet-wide barrier: a block is a packet.
+__host__ __device__ constexpr bool packet_block(int loop) { return loop == WHILEALIVECAP; }
+// Chains per block of a loop kind at chain width w: a packet, a chain
+// (WHILE) or 256 threads.
+__host__ __device__ constexpr int chains_of(int loop, int w) {
+  return packet_block(loop) ? P_SUB : loop == WHILE ? 1 : P_SUB / w;
+}
+__host__ __device__ constexpr int block_of(int loop, int w) { return 32 * w * chains_of(loop, w); }
+// The chain widths a variant admits (probes/morph.ADMITTED_W): each of 1, 2
+// and 4, but for the six-output WHILEALIVECAP variants at W = 4, whose
+// packet block of 1,024 threads leaves a thread 64 registers: v8_cap_outs6
+// spilled 8 bytes there, the others sat at 63-64 (ptxas, sm_90a).
+constexpr bool admits(int variant, int w) {
+  return (w == 1 || w == 2 || w == 4) &&
+         !(w == 4 && packet_block(SPECS[variant].loop) && SPECS[variant].outs6);
+}
+// Registers a thread may take: 80 (the room of 24 warps per SM) for the
+// one-output kernels of W = 1, 128 (16 warps) for the six-output ones,
+// which take 117-121 there, and for W > 1.
+__host__ __device__ constexpr int regs_of(bool outs6, int w) {
+  return w == 1 && !outs6 ? 80 : 128;
+}
+// The blocks per SM __launch_bounds__ makes room for at that budget (24 or
+// 16 warps, probe.cuh warps_for_regs); at least one packet block.
+__host__ __device__ constexpr int min_blocks(int loop, bool outs6, int w) {
+  return warps_for_regs(regs_of(outs6, w)) / (block_of(loop, w) / 32) > 0
+             ? warps_for_regs(regs_of(outs6, w)) / (block_of(loop, w) / 32)
+             : 1;
+}
+
+// What a hit carries besides t_best and best, for a thread's N lanes.
+template <int N>
+struct RecN {
+  int mat[N];
+  float nx[N], ny[N], nz[N];
+};
+
+// The 6-field mt_record of the morph script (probe.cuh's, for N lanes):
+// fields v0, e1, e2 of one record, its float-encoded prim and material ids
+// converted; a hit also takes the material id and the unnormalised normal
+// e1 x e2.
+template <int N>
+__device__ __forceinline__ void mt_record6(LanesN<N>& L, RecN<N>& R, const float (&r)[9],
+                                           int prim, int matid) {
+  const float v0x = r[0], v0y = r[1], v0z = r[2];
+  const float e1x = r[3], e1y = r[4], e1z = r[5];
+  const float e2x = r[6], e2y = r[7], e2z = r[8];
+  const float cx = e1y * e2z - e1z * e2y;
+  const float cy = e1z * e2x - e1x * e2z;
+  const float cz = e1x * e2y - e1y * e2x;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float dx = L.dx[j], dy = L.dy[j], dz = L.dz[j];
+    const float hx = dy * e2z - dz * e2y;
+    const float hy = dz * e2x - dx * e2z;
+    const float hz = dx * e2y - dy * e2x;
+    const float a = e1x * hx + e1y * hy + e1z * hz;
+    bool ok = fabsf(a) >= 1e-8f;
+    const float f = 1.0f / (ok ? a : 1.0f);
+    const float sx = L.ox[j] - v0x, sy = L.oy[j] - v0y, sz = L.oz[j] - v0z;
+    const float u = f * (sx * hx + sy * hy + sz * hz);
+    ok = ok & (u >= 0.0f) & (u <= 1.0f);
+    const float qx = sy * e1z - sz * e1y;
+    const float qy = sz * e1x - sx * e1z;
+    const float qz = sx * e1y - sy * e1x;
+    const float v = f * (dx * qx + dy * qy + dz * qz);
+    ok = ok & (v >= 0.0f) & (u + v <= 1.0f);
+    const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+    ok = ok & (t >= 1e-3f) & (t < L.t_best[j]);
+    L.t_best[j] = ok ? t : L.t_best[j];
+    L.best[j] = ok ? prim : L.best[j];
+    R.mat[j] = ok ? matid : R.mat[j];
+    R.nx[j] = ok ? cx : R.nx[j];
+    R.ny[j] = ok ? cy : R.ny[j];
+    R.nz[j] = ok ? cz : R.nz[j];
+  }
+}
+
+// The 8 records of a triangle row staged as 16-byte words in shared memory.
+template <int N>
+__device__ __forceinline__ void mt_row8(LanesN<N>& L, RecN<N>& R, const float4* tq) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float4* q = tq + k * (TRI_STRIDE / 4);
+    float r[9];
+#pragma unroll
+    for (int f = 0; f < 9; ++f) r[f] = elem(q[f >> 2], f & 3);
+    mt_record6(L, R, r, f2i(q[2].y), f2i(q[2].z));
+  }
+}
+
+template <int LOOP, bool OUTS6, bool ROOT, bool BRUTE, bool CLAMP, int W>
+__global__ void __launch_bounds__(block_of(LOOP, W), min_blocks(LOOP, OUTS6, W))
     probe_morph_kernel(const float* __restrict__ node, const float* __restrict__ tri,
                        const float* __restrict__ o, const float* __restrict__ d,
                        const float* __restrict__ tlim, int zero_row, int n_brute_rows,
@@ -55,99 +198,165 @@ __global__ void __launch_bounds__(P_SUB * 32)
                        int* __restrict__ id_out, int* __restrict__ mat_out,
                        float* __restrict__ nx_out, float* __restrict__ ny_out,
                        float* __restrict__ nz_out, int* __restrict__ iters_out) {
-  extern __shared__ int s_stack[];  // [P_SUB * stack_cap], chain s at s * stack_cap
-  __shared__ int s_task[P_SUB], s_sp[P_SUB];
-  const int p = blockIdx.x, s = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int base = s * stack_cap, n_stack = P_SUB * stack_cap;
-  Lanes L;
-  Rec R;
-  load_rays(L, o, d, p, s, lane);
-  const size_t out_base = (static_cast<size_t>(p) * P_SUB + s) * P_LANE + lane;
+  constexpr bool PB = packet_block(LOOP);
+  constexpr int N = LPT / W;                  // lanes per thread
+  constexpr int CPB = chains_of(LOOP, W);      // chains per block
+  constexpr int WPB = CPB * W;                 // warps per block
+  constexpr int XB = W > 1 ? 2 : 1;            // buffers by iteration parity
+  extern __shared__ int s_stack[];             // [WPB][stack_cap]: each warp's copy
+  __shared__ int s_task[WPB], s_sp[WPB];       // one per warp
+  __shared__ float4 s_nrec[WPB][NREC_Q];       // each warp's loaded rows
+  __shared__ float4 s_trow[WPB][ROW_Q];
+  __shared__ float s_rep[XB][CPB][4];          // the chain's lane 0 keys (W > 1)
+  __shared__ int s_pab[XB][CPB][W][2];         // each warp's packed hit sums (W > 1)
+  __shared__ int s_root[CPB][W];               // each warp's root hits (W > 1)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = warp / W, ws = warp % W;  // chain in the block, warp in the chain
+  const int chain = blockIdx.x * CPB + c;
+  const int p = chain / P_SUB, s = chain % P_SUB;
+  const int lane0 = lane + 32 * N * ws;   // the thread's first lane of the chain
+  const bool leader = ws == 0 && lane == 0;
+  // The thread's first lane in the [P, 8, 128] outputs, made again where
+  // used (held across the loop it takes two registers the 1,024-thread
+  // packet block of W = 4 lacks).
+  auto out_base = [&]() { return (static_cast<size_t>(p) * P_SUB + s) * P_LANE + lane0; };
+  LanesN<N> L;
+  RecN<N> R;
+  load_rays(L, o, d, p, s, lane0);
 #pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    L.t_best[j] = tlim[out_base + 32 * j];
+  for (int j = 0; j < N; ++j) {
+    L.t_best[j] = tlim[out_base() + 32 * j];
     L.best[j] = NONE;
     R.mat[j] = 0;
     R.nx[j] = 0.0f;
     R.ny[j] = 0.0f;
     R.nz[j] = 0.0f;
   }
+  const int sbase = warp * stack_cap;  // the warp's copy of the chain's stack
+  // Chain barrier: a warp's own __syncwarp where the chain is one warp.
+  auto sync_chain = [&]() {
+    if (W == 1) {
+      __syncwarp();
+    } else {
+      chain_sync(1 + c, 32 * W);
+    }
+  };
+
   if (BRUTE) {
-    for (int r = zero_row - n_brute_rows; r < zero_row; ++r)
-      mt_row8(L, R, tri + static_cast<size_t>(r) * ROW);
+    for (int r = zero_row - n_brute_rows; r < zero_row; ++r) {
+      s_trow[warp][lane] = row_word(tri + static_cast<size_t>(r) * ROW, lane);
+      __syncwarp();
+      mt_row8(L, R, s_trow[warp]);
+      __syncwarp();  // every lane has read the row before the next is stored
+    }
   }
 
-  int n_alive;
+  bool alive = true;
   if (ROOT) {
     float box[6];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      box[c] = jmin(jmin(node[c], node[6 + c]), jmin(node[12 + c], node[18 + c]));
+    for (int k = 0; k < 3; ++k) {
+      box[k] = jmin(jmin(node[k], node[6 + k]), jmin(node[12 + k], node[18 + k]));
       float v[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = node[6 * k + 3] > -BIG ? node[6 * k + 3 + c] : -BIG;
-      box[3 + c] = jmax(jmax(v[0], v[1]), jmax(v[2], v[3]));
+      for (int q = 0; q < 4; ++q) v[q] = node[6 * q + 3] > -BIG ? node[6 * q + 3 + k] : -BIG;
+      box[3 + k] = jmax(jmax(v[0], v[1]), jmax(v[2], v[3]));
     }
     int hits = 0;
 #pragma unroll
-    for (int j = 0; j < LPT; ++j) {
+    for (int j = 0; j < N; ++j) {
       float tm;
       hits += slab(L, j, box, tm) ? 1 : 0;
     }
-    const bool alive = warp_sum(hits) > 0;
-    if (lane == 0) {
-      s_task[s] = alive ? 0 : NONE;
-      s_sp[s] = 0;
+    hits = warp_sum(hits);
+    if (W > 1) {
+      if (lane == 0) s_root[c][ws] = hits;
+      sync_chain();
+      hits = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) hits += s_root[c][w];
     }
-    n_alive = __syncthreads_count(lane == 0 && alive);
-  } else {
-    if (lane == 0) {
-      s_task[s] = 0;
-      s_sp[s] = 0;
-    }
-    __syncwarp();
-    n_alive = P_SUB;
+    alive = hits > 0;
   }
+  if (lane == 0) {
+    s_task[warp] = alive ? 0 : NONE;
+    s_sp[warp] = 0;
+  }
+  __syncwarp();
+  // WHILEALIVECAP: the packet's chains alive, counted once per chain.
+  int n_alive = PB ? __syncthreads_count(leader && alive) : 0;
 
-  // One iteration of chain s; returns its next task before any restart.
-  auto body = [&]() -> int {
-    const int task = s_task[s];
+  // Iteration i of the chain; returns its next task before any restart.
+  auto body = [&](int i) -> int {
+    const int task = s_task[warp];
     const bool is_int = task >= 0, is_leaf = task <= -2;
     const float* nrow = node + static_cast<size_t>(is_int ? floordiv(task, 4) : 0) * ROW;
     const float* nrec = nrow + NODE_STRIDE * (is_int ? floormod(task, 4) : 0);
     const float* trow =
         tri + static_cast<size_t>(is_leaf ? floordiv(neg2(task), 64) : zero_row) * ROW;
-    int ch[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) ch[k] = f2i(nrec[24 + k]);
+    float4 wn;
+    if (lane < NREC_Q) wn = row_word(nrec, lane);
+    const float4 wt = row_word(trow, lane);
+    if (lane < NREC_Q) s_nrec[warp][lane] = wn;
+    s_trow[warp][lane] = wt;
+    __syncwarp();
+    const float4* nq = s_nrec[warp];
+    auto nf = [&](int f) { return elem(nq[f >> 2], f & 3); };
 
     // ---- leaf: the 8 records of the row
-    mt_row8(L, R, trow);
+    mt_row8(L, R, s_trow[warp]);
 
     // ---- internal: 4 slabs, lane 0's rep keys, the packed hit counts
-    float rep[4];
+    float r0[4];
     int hits[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       float b[6];
 #pragma unroll
-      for (int c = 0; c < 6; ++c) b[c] = nrec[k * 6 + c];
-      float r0 = 0.0f;
-      int cnt = 0;
+      for (int f = 0; f < 6; ++f) b[f] = nf(k * 6 + f);
+      r0[k] = 0.0f;
+      hits[k] = 0;
 #pragma unroll
-      for (int j = 0; j < LPT; ++j) {
+      for (int j = 0; j < N; ++j) {
         float tk;
         const bool h = slab(L, j, b, tk);
-        if (j == 0) r0 = h ? tk : HALF_BIG;
-        cnt += h ? 1 : 0;
+        if (j == 0) r0[k] = h ? tk : HALF_BIG;
+        hits[k] += h ? 1 : 0;
       }
-      rep[k] = __shfl_sync(FULL, r0, 0);
-      hits[k] = cnt;
     }
-    const int pa = warp_sum(hits[0] + shl16(hits[1]));
-    const int pb = warp_sum(hits[2] + shl16(hits[3]));
+    int pa = warp_sum(hits[0] + shl16(hits[1]));
+    int pb = warp_sum(hits[2] + shl16(hits[3]));
+    float rep[4];
+    if (W == 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) rep[k] = __shfl_sync(FULL, r0[k], 0);
+    } else {
+      float(&xr)[4] = s_rep[i & (XB - 1)][c];
+      int(&xp)[W][2] = s_pab[i & (XB - 1)][c];
+      if (lane == 0) {
+        xp[ws][0] = pa;
+        xp[ws][1] = pb;
+        if (ws == 0) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) xr[k] = r0[k];
+        }
+      }
+      sync_chain();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) rep[k] = xr[k];
+      pa = xp[0][0];
+      pb = xp[0][1];
+#pragma unroll
+      for (int w = 1; w < W; ++w) {
+        pa += xp[w][0];
+        pb += xp[w][1];
+      }
+    }
 
     // ---- scalar: the chain's decision and push/pop
+    int ch[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ch[k] = f2i(nf(24 + k));
     bool anyk[4] = {(pa & 0xFFFF) > 0, (pa >> 16) > 0, (pb & 0xFFFF) > 0, (pb >> 16) > 0};
     int nhit = 0;
 #pragma unroll
@@ -165,24 +374,24 @@ __global__ void __launch_bounds__(P_SUB * 32)
     }
     PROBE_CSWAP(tm, cc, 0, 2) PROBE_CSWAP(tm, cc, 1, 3) PROBE_CSWAP(tm, cc, 0, 1)
     PROBE_CSWAP(tm, cc, 2, 3) PROBE_CSWAP(tm, cc, 1, 2)
-    const int sp = s_sp[s];
-    if (!CLAMP && base + sp + max(nhit - 2, 0) >= n_stack) __trap();  // beyond the array
+    const int sp = s_sp[warp];
+    if (!CLAMP && sp + max(nhit - 2, 0) >= stack_cap) __trap();  // past the chain's stack
     if (lane == 0) {
-      s_stack[base + sp + max(nhit - 4, 0)] = cc[3];
-      s_stack[base + sp + max(nhit - 3, 0)] = cc[2];
-      s_stack[base + sp + max(nhit - 2, 0)] = cc[1];
+      s_stack[sbase + sp + max(nhit - 4, 0)] = cc[3];
+      s_stack[sbase + sp + max(nhit - 3, 0)] = cc[2];
+      s_stack[sbase + sp + max(nhit - 2, 0)] = cc[1];
     }
     __syncwarp();
     const int nsp = CLAMP ? min(sp + max(nhit - 1, 0), stack_cap - 4) : sp + max(nhit - 1, 0);
     const int desc = nhit > 0 ? cc[0] : NONE;
     const bool do_pop = (desc == NONE) && (nsp > 0) && (task != NONE);
-    const int popped = s_stack[base + max(nsp - 1, 0)];
+    const int popped = s_stack[sbase + max(nsp - 1, 0)];
     const int nxt = do_pop ? popped : desc;
-    __syncwarp();  // every lane has read this iteration's task and stack
+    __syncwarp();  // every lane has read this iteration's task, rows and stack
     if (lane == 0) {
       // WHILE keeps a finished chain at NONE; the others restart it at the root.
-      s_task[s] = LOOP == WHILE ? nxt : (nxt == NONE ? 0 : nxt);
-      s_sp[s] = do_pop ? nsp - 1 : nsp;
+      s_task[warp] = LOOP == WHILE ? nxt : (nxt == NONE ? 0 : nxt);
+      s_sp[warp] = do_pop ? nsp - 1 : nsp;
     }
     __syncwarp();  // the next iteration reads what lane 0 wrote
     return nxt;
@@ -190,48 +399,79 @@ __global__ void __launch_bounds__(P_SUB * 32)
 
   int it = 0;
   if (LOOP == FORI) {
-    for (int i = 0; i < iters; ++i) body();
-    it = iters > 0 ? iters : 0;
+    for (; it < iters; ++it) body(it);
   } else if (LOOP == WHILECOUNTER) {
-    for (int c = iters; c > 0; --c, ++it) body();
+    for (int k = iters; k > 0; --k, ++it) body(it);
   } else if (LOOP == WHILE) {
     // max_iters guards the card against a walk that never ends; the plain
     // version stops there too, and the entry point checks it was not hit.
-    for (; n_alive > 0 && it < max_iters; ++it) {
-      const int nxt = body();
-      n_alive = __syncthreads_count(lane == 0 && nxt != NONE);
-    }
+    for (; alive && it < max_iters; ++it) alive = body(it) != NONE;
   } else {
-    for (int c = iters; c > 0 && n_alive > 0; --c, ++it) {
-      const int nxt = body();
-      n_alive = __syncthreads_count(lane == 0 && nxt != NONE);
+    for (int k = iters; k > 0 && n_alive > 0; --k, ++it) {
+      const int nxt = body(it);
+      n_alive = __syncthreads_count(leader && nxt != NONE);
     }
   }
 
 #pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    const size_t i = out_base + 32 * j;
-    t_out[i] = L.t_best[j];
+  for (int j = 0; j < N; ++j) {
+    const size_t q = out_base() + 32 * j;
+    t_out[q] = L.t_best[j];
     if (OUTS6) {
-      id_out[i] = L.best[j];
-      mat_out[i] = R.mat[j];
-      nx_out[i] = R.nx[j];
-      ny_out[i] = R.ny[j];
-      nz_out[i] = R.nz[j];
+      id_out[q] = L.best[j];
+      mat_out[q] = R.mat[j];
+      nx_out[q] = R.nx[j];
+      ny_out[q] = R.ny[j];
+      nz_out[q] = R.nz[j];
     }
   }
-  if (threadIdx.x == 0) iters_out[p] = it;
+  if (LOOP == WHILE) {
+    if (leader) atomicMax(iters_out + p, it);  // zeroed by the entry point
+  } else if (leader && s == 0) {
+    iters_out[p] = it;
+  }
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                           int, int, int, int, int, float*, int*, int*, float*, float*, float*,
                           int*);
 
-// The kernels of v0_ablate .. v0_noclamp (variants 0-6) are instantiated in
-// probe_morph.cu, those of v6_whilecounter .. v11_cap_noclamp (7-12) in
-// probe_morph_part2.cu, so that nvcc compiles the two halves in parallel;
-// nullptr for another variant.
-KernelFn part1_kernel(int variant);
-KernelFn part2_kernel(int variant);
+// The kernel of variant V at chain width W, nullptr for a W that V does not
+// admit.
+template <int V, int W>
+KernelFn kernel_if_admitted() {
+  if constexpr (admits(V, W)) {
+    constexpr Spec S = SPECS[V];
+    return probe_morph_kernel<S.loop, S.outs6, S.root, S.brute, S.clamp, W>;
+  } else {
+    return nullptr;
+  }
+}
+
+// The kernel of `variant` at chain width W when LO <= variant < HI, else
+// nullptr.
+template <int W, int LO, int... I>
+KernelFn kernel_in(int variant, std::integer_sequence<int, I...>) {
+  // Not static: a template's static local is one symbol for the whole process
+  // (GNU unique), so two builds of these sources loaded side by side (phase
+  // 15 of chip_smoke.py loads the parent's) would launch each other's stubs.
+  const KernelFn table[] = {kernel_if_admitted<LO + I, W>()...};
+  return variant >= LO && variant < LO + static_cast<int>(sizeof...(I)) ? table[variant - LO]
+                                                                         : nullptr;
+}
+template <int W, int LO, int HI>
+KernelFn kernels_in(int variant) {
+  return kernel_in<W, LO>(variant, std::make_integer_sequence<int, HI - LO>{});
+}
+
+// The kernels of each chain width, spread over sources so that nvcc compiles
+// them in parallel (cudalib starts one nvcc per source, all at once):
+// probe_morph.cu (W = 1, v0_ablate .. v0_noclamp), probe_morph_part2.cu
+// (W = 1, v6_whilecounter .. v11_cap_noclamp), probe_morph_part3.cu (W =
+// 2) and probe_morph_part4.cu (W = 4). nullptr for another variant or width.
+constexpr int SPLIT = 7;
+KernelFn kernel_w1_hi(int variant);
+KernelFn kernel_w2(int variant);
+KernelFn kernel_w4(int variant);
 
 }  // namespace probe_morph

@@ -367,7 +367,10 @@ KernelFn kernel_if_admitted() {
 // The kernel of `mode` at chain width W when LO <= mode < HI, else nullptr.
 template <int W, int LO, int... I>
 KernelFn kernel_in(int mode, std::integer_sequence<int, I...>) {
-  static const KernelFn table[] = {kernel_if_admitted<LO + I, W>()...};
+  // Not static: a template's static local is one symbol for the whole process
+  // (GNU unique), so two builds of these sources loaded side by side (phase
+  // 15 of chip_smoke.py loads the parent's) would launch each other's stubs.
+  const KernelFn table[] = {kernel_if_admitted<LO + I, W>()...};
   return mode >= LO && mode < LO + static_cast<int>(sizeof...(I)) ? table[mode - LO] : nullptr;
 }
 template <int W, int LO, int HI>

@@ -161,8 +161,8 @@ def require_card(what: str) -> None:
         raise SystemExit(f"{what}: torch.cuda.is_available() is false; this needs a CUDA card")
 
 
-# P-v8 and the v5 body spread a chain over W warps (csrc/probe.cuh): the
-# widths their kernels are built for.
+# P-v8, the v5 body, P-morph and P-interleave spread a chain over W warps
+# (csrc/probe.cuh): the widths their kernels are built for.
 CHAIN_WIDTHS = (1, 2, 4)
 
 
@@ -176,6 +176,12 @@ def pick_w(packets: int, sms: int, admitted, warps_per_sm: int) -> int:
         if w in admitted and packets * P_SUB * w <= warps_per_sm * sms:
             return w
     return 1
+
+
+def sm_count(device=None) -> int:
+    """The SMs of a CUDA device (the current one by default)."""
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device() if device is None else device).multi_processor_count
 
 
 def require_w(w: int, admitted, what: str) -> None:

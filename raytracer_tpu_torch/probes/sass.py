@@ -2,8 +2,11 @@
 library (`cuobjdump -sass`), by kind. A probe's loop body is unrolled
 except for the loop over iterations, so a kernel's count is close to one
 iteration's instructions per thread: it shows what a knockout removed,
-including what the compiler then dropped as dead. chip_smoke.py phase 13
-prints them.
+including what the compiler then dropped as dead. Where a kernel has more
+than one loop (P-morph's brute pre-pass before its walk), `loops` and
+`straight` split the count: each outermost loop's instructions, and those
+outside every loop up to the kernel's exit. chip_smoke.py phase 13 prints
+them.
 """
 
 from __future__ import annotations
@@ -28,16 +31,18 @@ KINDS = {
     "branch": {"BRA", "BRX", "JMP", "EXIT", "RET", "CALL"},
 }
 _FUNC = re.compile(r"Function : (\S+)")
-_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([^;]*)")
+_TARGET = re.compile(r"\b0x([0-9a-f]+)\s*$")   # a branch's absolute target
 # A probe kernel's mangled name: its body and template argument (a variant,
-# mode or case id; G itself for the interleave probe) and, for P-v8 and the
-# v5 body, the chain width W, the scalar probe's tables pre-pass, the v6
-# body (one kernel), or a morph variant (its five template arguments: the
-# loop, then four flags).
+# mode or case id; G itself for the interleave probe) and, for P-v8, the v5
+# body and the interleave probe, the chain width W, the scalar probe's
+# tables pre-pass, the v6 body (one kernel), or a morph variant (its five
+# template arguments: the loop, then four flags; then W).
 _KERNEL = re.compile(r"probe_(v8|v5|interleave|scalar|vstack|ktf|mosaic|feature|bitcast)"
                      r"_kernelILi(\d+)E(?:Li(\d+)E)?"
                      r"|probe_(scalar)_(tables)_kernel|probe_(v6)_kernelE"
-                     r"|probe_(morph)_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E")
+                     r"|probe_(morph)_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E"
+                     r"(?:Li(\d+)E)?")
 
 
 def cuobjdump() -> str:
@@ -45,14 +50,40 @@ def cuobjdump() -> str:
     return os.path.join(os.path.dirname(cudalib._nvcc()), "cuobjdump")
 
 
+def loops(insns) -> tuple[list[int], int]:
+    """(each outermost loop's instruction count, in order; the instructions
+    outside them up to the first EXIT after the last) of one kernel's
+    [(address, opcode, operands)], NOPs left out. A loop is a branch back
+    to an earlier address with no EXIT or RET between the two: the
+    compiler's cold blocks (a trap, a slow reciprocal, a divergent
+    shuffle's fallback) sit after the exit and branch back into the body,
+    and are not loops."""
+    at = {a: i for i, (a, _, _) in enumerate(insns)}
+    ends = [i for i, (_, op, _) in enumerate(insns) if op in ("EXIT", "RET")]
+    found = []
+    for i, (a, op, rest) in enumerate(insns):
+        m = _TARGET.search(rest.strip()) if op == "BRA" else None
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
+            t = at[int(m.group(1), 16)]
+            if not any(t <= e <= i for e in ends):
+                found.append((t, i))
+    top = sorted((t, i) for t, i in found
+                 if not any(t2 <= t and i <= i2 and (t2, i2) != (t, i) for t2, i2 in found))
+    last = top[-1][1] if top else -1
+    end = next((e for e in ends if e > last), len(insns) - 1)
+    inside = {k for t, i in top for k in range(t, i + 1)}
+    return [i - t + 1 for t, i in top], sum(1 for k in range(end + 1) if k not in inside)
+
+
 def parse(sass: str) -> dict:
-    """{(body, instantiation id): {"total": n, kind: n, ...}} of the probe
-    kernels in cuobjdump -sass output; body is "v8", "v5", "interleave",
+    """{(body, instantiation id): {"total": n, kind: n, ..., "loops": [n,
+    ...], "straight": n}} of the probe kernels in cuobjdump -sass output
+    (`loops`, `straight`: loops()); body is "v8", "v5", "interleave",
     "scalar", "vstack", "ktf", "mosaic", "feature", "bitcast", "v6" or
-    "morph", the id an int ((id, W) for a v8 or v5 kernel of chain width W,
-    "tables" for the scalar probe's pre-pass, 0 for v6, the five template
-    arguments for morph)."""
-    out, cur = {}, None
+    "morph", the id an int ((id, W) for a v8, v5 or interleave kernel of
+    chain width W, "tables" for the scalar probe's pre-pass, 0 for v6, the
+    five template arguments for morph, with W as (args, W))."""
+    out, insns, cur = {}, {}, None
     for line in sass.splitlines():
         m = _FUNC.search(line)
         if m:
@@ -67,19 +98,24 @@ def parse(sass: str) -> dict:
             elif k.group(6):
                 cur = (k.group(6), 0)
             else:
-                cur = ("morph", tuple(int(g) for g in k.groups()[7:12]))
+                args = tuple(int(g) for g in k.groups()[7:12])
+                cur = ("morph", args if k.group(13) is None else (args, int(k.group(13))))
             if cur is not None:
                 out[cur] = dict.fromkeys(["total", *KINDS], 0)
+                insns[cur] = []
             continue
         m = _INSN.search(line) if cur is not None else None
-        if not m or m.group(1) == "NOP":
+        if not m or m.group(2) == "NOP":
             continue
-        op = m.group(1).split(".")[0]
+        insns[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+        op = m.group(2).split(".")[0]
         c = out[cur]
         c["total"] += 1
         for kind, ops in KINDS.items():
             if op in ops:
                 c[kind] += 1
+    for key, c in out.items():
+        c["loops"], c["straight"] = loops(insns[key])
     return out
 
 
@@ -94,17 +130,19 @@ def counts(lib_path: str | None = None) -> dict:
 
 
 def name(body: str, i) -> str:
-    """A kernel's name in its probe's own terms: "v8 <variant>", "v5 <mode>"
-    (with " W<w>" for a kernel of chain width w), "interleave G<G>", "scalar
-    <mode>" (or "scalar tables"), "vstack <case>", "ktf <case>", "mosaic
-    <case>", "feature <stage>", "bitcast <probe>", "v6", "morph <variant>"."""
+    """A kernel's name in its probe's own terms: "v8 <variant>", "v5 <mode>",
+    "interleave G<G>", "morph <variant>" (each with " W<w>" for a kernel of
+    chain width w), "scalar <mode>" (or "scalar tables"), "vstack <case>",
+    "ktf <case>", "mosaic <case>", "feature <stage>", "bitcast <probe>",
+    "v6"."""
     from raytracer_tpu_torch.probes import (ablate_v8, bitcast, feature, ktf_probe, morph, mosaic,
                                             scalar_cost, v5_body, vstack)
 
     if body == "morph":
-        return f"morph {morph.variant_of(i)}"
+        return (f"morph {morph.variant_of(i[0])} W{i[1]}" if isinstance(i[0], tuple)
+                else f"morph {morph.variant_of(i)}")
     if body == "interleave":
-        return f"interleave G{i}"
+        return f"interleave G{i[0]} W{i[1]}" if isinstance(i, tuple) else f"interleave G{i}"
     if i == "tables":
         return "scalar tables"
     if body == "v6":

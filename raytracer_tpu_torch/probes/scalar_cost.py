@@ -191,6 +191,17 @@ def work(mode: str, packets: int, iters: int) -> dict:
     return dict(bytes=nbytes, fp32_ops=fp32, int32_ops=int32)
 
 
+def tables_work(packets: int, iters: int) -> dict:
+    """The smem16 tables pre-pass (one thread, csrc/probe_scalar.cu
+    probe_scalar_tables_kernel): bytes (the tables written once), int32
+    operations (per packet and iteration smem16's 16 x (add, and)) and the
+    instructions its one thread issues in order besides those: per packet
+    and iteration 16 shared stores and one load, per packet its table's 64
+    loads and 64 stores."""
+    return dict(bytes=4 * packets * TABLE, int32_ops=32 * packets * iters,
+                serial_ops=32 * packets * iters + 17 * packets * iters + 2 * TABLE * packets)
+
+
 def run(iters: int = ITERS, packets: int = N_PACKETS, out=print) -> dict:
     """What the script's main() does, on the card: one seeded input, the
     smem16 pre-pass (timed apart), then each variant warmed up and 10

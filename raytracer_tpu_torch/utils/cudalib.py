@@ -185,10 +185,11 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_v5_attrs.argtypes = [ci, ip, ip]
     L.rt_probe_v8_w.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
     L.rt_probe_v5_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
-    for name in ("v8", "v5"):
+    for name in ("v8", "v5", "morph", "interleave"):
         getattr(L, f"rt_probe_{name}_attrs_w").argtypes = [ci, ci, ip, ip]
+    for name in ("v8", "v5"):
         getattr(L, f"rt_probe_{name}_pick_w").argtypes = [ci, ci]
-    L.rt_probe_interleave.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
+    L.rt_probe_interleave_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
     L.rt_probe_scalar.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
     L.rt_probe_scalar_tables.argtypes = [ci, ci, vp, vp]
     L.rt_probe_vstack.argtypes = [ci, ci, vp, vp, vp, vp]
@@ -199,25 +200,25 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_mosaic.argtypes = [ci, vp, vp, ci, vp, vp]
     L.rt_probe_feature.argtypes = [ci, vp, vp, ci, vp, vp]
     L.rt_probe_bitcast.argtypes = [ci, vp, ci, vp, vp, vp]
-    L.rt_probe_morph.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp,
-                                 vp, vp, vp, vp]
-    for name in ("interleave", "scalar", "vstack", "ktf", "mosaic", "feature", "bitcast",
-                 "morph"):
+    L.rt_probe_morph_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp,
+                                   vp, vp, vp, vp, vp]
+    for name in ("scalar", "vstack", "ktf", "mosaic", "feature", "bitcast"):
         getattr(L, f"rt_probe_{name}_attrs").argtypes = [ci, ip, ip]
     for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_draws_camera_jax,
                L.rt_draws_bounce_jax, L.rt_draws_camera_ktf, L.rt_draws_bounce_ktf,
                L.rt_trace_closest,
                L.rt_coherence_keys, L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
                L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_probe_v8,
-               L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs, L.rt_probe_interleave,
-               L.rt_probe_interleave_attrs, L.rt_probe_scalar, L.rt_probe_scalar_tables,
+               L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs,
+               L.rt_probe_scalar, L.rt_probe_scalar_tables,
                L.rt_probe_scalar_attrs, L.rt_probe_vstack, L.rt_probe_vstack_attrs,
                L.rt_probe_ktf, L.rt_probe_ktf_attrs, L.rt_probe_v6, L.rt_probe_v6_attrs,
                L.rt_probe_mosaic, L.rt_probe_mosaic_attrs, L.rt_probe_feature,
                L.rt_probe_feature_attrs, L.rt_probe_bitcast, L.rt_probe_bitcast_attrs,
-               L.rt_probe_morph, L.rt_probe_morph_attrs, L.rt_probe_v8_w, L.rt_probe_v5_w,
+               L.rt_probe_v8_w, L.rt_probe_v5_w,
                L.rt_probe_v8_attrs_w, L.rt_probe_v5_attrs_w, L.rt_probe_v8_pick_w,
-               L.rt_probe_v5_pick_w):
+               L.rt_probe_v5_pick_w, L.rt_probe_morph_w, L.rt_probe_morph_attrs_w,
+               L.rt_probe_interleave_w, L.rt_probe_interleave_attrs_w):
         fn.restype = ctypes.c_int
     L.rt_error_string.argtypes = [ci]
     L.rt_error_string.restype = ctypes.c_char_p

@@ -405,15 +405,22 @@ def test_probe_chain_widths_spill_nothing_and_refuse_others(dev, v5_inputs):
                 packets, sms, v5_body.ADMITTED_W[mode], v5_body.WARPS_PER_SM)
 
 
+@pytest.mark.parametrize("w", WIDTHS)
 @pytest.mark.parametrize("G", interleave_probe.GS)
-def test_probe_interleave_equals_v5_full(dev, v5_inputs, G):
-    """csrc/probe_interleave.cu at every G ≡ the v5 full body's plain
-    version bit for bit (8 packets, 12 iterations); one launch counted."""
+def test_probe_interleave_equals_v5_full(dev, v5_inputs, G, w):
+    """csrc/probe_interleave.cu at every G and every chain width it admits
+    (None: the one the wrapper picks) ≡ the v5 full body's plain
+    version bit for bit (8 packets, 12 iterations); one launch counted. A W
+    that G does not admit raises."""
     node, tri, _, _, _, zero_row = v5_inputs
     o, d, tlim = (torch.from_numpy(a) for a in v5_body.make_rays(8, seed=3))
+    args = (*(t.to(dev) for t in (node, tri, o, d, tlim)), zero_row, G, 12)
+    if w is not None and w not in interleave_probe.ADMITTED_W[G]:
+        with pytest.raises(ValueError, match="chain width"):
+            interleave_probe.interleave(*args, w=w)
+        return
     before = interleave_probe.LAUNCHES["probe_interleave"]
-    k = interleave_probe.interleave(*(t.to(dev) for t in (node, tri, o, d, tlim)), zero_row, G,
-                                    12)
+    k = interleave_probe.interleave(*args, w=w)
     assert interleave_probe.LAUNCHES["probe_interleave"] == before + 1
     assert _bitwise(k, v5_body.v5_plain(node, tri, o, d, tlim, zero_row, "full", 12))
 
@@ -855,24 +862,90 @@ def morph_inputs():
     return morph.reference_inputs(morph.N_PACKETS)
 
 
+@pytest.mark.parametrize("w", WIDTHS)
 @pytest.mark.parametrize("variant", list(morph.VARIANTS))
-def test_probe_morph_equals_plain(dev, morph_inputs, variant):
-    """csrc/probe_morph.cuh ≡ morph_plain bit for bit, the packets' loop
-    counts included, at the script's 8 packets with the tree's stack bound."""
+def test_probe_morph_equals_plain(dev, morph_inputs, variant, w):
+    """csrc/probe_morph.cuh at every chain width it admits (None: the one
+    the wrapper picks) ≡ morph_plain bit for bit, the packets' loop
+    counts included, at the script's 8 packets with the tree's stack bound,
+    and on three of them at limits seeded in (0.001, 0.05) (chains the root
+    test leaves at NONE, walks that end unevenly). A W the variant does not
+    admit raises."""
     node, tri, n_brute, cap, o, d, tlim = morph_inputs
+    tl = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.001, 0.05, (3, *tlim.shape[1:])).astype(np.float32))
+    if w is not None and w not in morph.ADMITTED_W[variant]:
+        with pytest.raises(ValueError, match="chain width"):
+            morph.morph(*(t.to(dev) for t in (node, tri, o, d, tlim)), n_brute, cap, variant,
+                        w=w)
+        return
     before = morph.LAUNCHES["probe_morph"]
-    k = morph.morph(*(t.to(dev) for t in (node, tri, o, d, tlim)), n_brute, cap, variant)
-    assert morph.LAUNCHES["probe_morph"] == before + 1
-    p = morph.morph_plain(node, tri, o, d, tlim, n_brute, cap, variant)
-    assert len(k) == len(p) == morph.VARIANTS[variant][1] + 1
-    assert all(_bitwise(a, b) if a.is_floating_point() else torch.equal(a.cpu(), b)
-               for a, b in zip(k, p))
+    for rays in ((o, d, tlim), (o[:3], d[:3], tl)):
+        k = morph.morph(*(t.to(dev) for t in (node, tri, *rays)), n_brute, cap, variant, w=w)
+        p = morph.morph_plain(node, tri, *rays, n_brute, cap, variant)
+        assert len(k) == len(p) == morph.VARIANTS[variant][1] + 1
+        assert all(_bitwise(a, b) if a.is_floating_point() else torch.equal(a.cpu(), b)
+                   for a, b in zip(k, p))
+    assert morph.LAUNCHES["probe_morph"] == before + 2
 
 
 def test_probe_tile_and_morph_resources(dev):
+    """Registers of every tile and morph kernel; 0 local bytes in every
+    P-morph kernel at every chain width and every P-interleave kernel at
+    every G and W."""
     res = [*mosaic.kernel_resources().values(), *feature.kernel_resources().values(),
            *bitcast.kernel_resources().values(), *morph.kernel_resources().values()]
     assert len(res) == 7 + 6 + 4 + 13 and all(r > 0 for r, _ in res)
+    for v in morph.VARIANTS:
+        for w in morph.ADMITTED_W[v]:
+            r, local = morph.kernel_resources((v,), w)[v]
+            assert r > 0 and local == 0, (v, w, r, local)
+    for G in interleave_probe.GS:
+        for w in interleave_probe.ADMITTED_W[G]:
+            r, local = interleave_probe.kernel_resources((G,), {G: w})[G]
+            assert r > 0 and local == 0, (G, w, r, local)
+
+
+def test_probe_morph_interleave_pick_w_and_refusals(dev, morph_inputs):
+    """The wrappers pick W from this card's SM count (P-morph; P-interleave
+    from G alone); the C library builds a kernel at exactly the widths
+    ADMITTED_W lists; a W not built raises in the wrapper and is refused by
+    the C entry point."""
+    import ctypes
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert common.sm_count() == common.sm_count(dev) == sms
+    for packets in (1, 8, 64, 66, 67, 128, 264, 528, 1056):
+        for v in morph.VARIANTS:
+            assert morph.chosen_w(packets, v) == morph.chosen_w(packets, v, sms)
+    assert [interleave_probe.chosen_w(G) for G in interleave_probe.GS] == [2, 4, 4, 4]
+    r, b = ctypes.c_int(), ctypes.c_int()
+    for w in common.CHAIN_WIDTHS:
+        for i, v in enumerate(morph.VARIANTS):
+            built = cudalib.lib().rt_probe_morph_attrs_w(i, w, ctypes.byref(r), ctypes.byref(b))
+            assert (built == 0) == (w in morph.ADMITTED_W[v]), (v, w)
+        for gi, G in enumerate(interleave_probe.GS):
+            built = cudalib.lib().rt_probe_interleave_attrs_w(gi, w, ctypes.byref(r),
+                                                              ctypes.byref(b))
+            assert (built == 0) == (w in interleave_probe.ADMITTED_W[G]), (G, w)
+    node, tri, n_brute, cap, o, d, tlim = (t.to(dev) if torch.is_tensor(t) else t
+                                           for t in morph_inputs)
+    out = torch.zeros((8, 8, 128), device=dev)
+    pk = torch.zeros((8,), dtype=torch.int32, device=dev)
+    lib = cudalib.lib()
+    for w in (0, 3, 8):
+        with pytest.raises(ValueError, match="chain width"):
+            morph.morph(node, tri, o, d, tlim, n_brute, cap, "v1_while", w=w)
+        assert lib.rt_probe_morph_w(node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
+                                    tlim.data_ptr(), tri.shape[0] - 1, n_brute, cap, 4, 100, 8,
+                                    1, w, out.data_ptr(), None, None, None, None, None,
+                                    pk.data_ptr(), cudalib.stream_handle()) != 0
+        assert lib.rt_probe_interleave_w(node.data_ptr(), tri.data_ptr(), o.data_ptr(),
+                                         d.data_ptr(), tlim.data_ptr(), tri.shape[0] - 1, 4, 8, 0,
+                                         w, out.data_ptr(), cudalib.stream_handle()) != 0
+    assert lib.rt_probe_interleave_w(node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
+                                     tlim.data_ptr(), tri.shape[0] - 1, 4, 8, 3, 1,
+                                     out.data_ptr(), cudalib.stream_handle()) != 0
 
 
 @pytest.mark.parametrize("kernel_interleave", [1, 2])
