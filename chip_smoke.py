@@ -53,7 +53,9 @@ plain PyTorch version, and drives the port's three paths:
     its plain version bit for bit at a check size over all packets, the
     full bodies also at the scripts' sizes; every interleave G equals the
     v5 full body; scalar_cost's witness (sc, sorted codes) equals the
-    plain version's; vstack's p1 and p3 equal the push/pop model. The
+    plain version's at every W, and its smem16 pre-pass equals the in-order
+    chain at five sizes; vstack's p1 and p3 equal the push/pop model, every
+    case equals its plain version. The
     entry points of ktf_probe.py (five [8, 128] cases, each against the
     script's host expectation and its plain version on the card) and
     v6.py (the dual-unit traversal on the reference scene's 4-wide tree,
@@ -81,7 +83,12 @@ plain PyTorch version, and drives the port's three paths:
     read under load), each case also held to its plain version at every
     W, P-v8 also on NaN inputs; every interleave G at every W it admits
     equal to the v5 full body, G = 1 beside the v5 full body at the same
-    W, both bounds at the picked W; the P-scalar tables pre-pass's bound;
+    W, both bounds at the picked W; P-scalar at every W and every P-vstack
+    case, timed, with the roofline and a dependence bound (chains of
+    dependent instructions at latencies csrc/probe_latency.cu measures),
+    the P-scalar pre-pass per call and per launch in a CUDA graph beside
+    both; every probe's rank against the larger of its bounds, and a
+    check that no time reads over 100% of any bound;
   * old against new (phase 15, only with --parent DIR, the parent
     commit's tree): the parent's K3, K3-profile, K5 and K4 built from DIR
     against this tree's, each equal to the parent's bit for bit, timed in
@@ -97,7 +104,9 @@ plain PyTorch version, and drives the port's three paths:
     through its own wrappers (every variant and mode at the scripts'
     packets and at 1,056) bit for bit and in alternating rounds; the
     parent's P-morph (8 and 1,056 packets, the loop counts included) and
-    P-interleave (128 and 1,056 packets) the same way; and DIR's own
+    P-interleave (128 and 1,056 packets) the same way, P-scalar (every
+    variant and the smem16 pre-pass) and P-vstack (every case) at the
+    scripts' sizes; and DIR's own
     `chip_smoke.py --phases 10` against this tree's,
     three each in alternation; phases 4, 7, 8 and 12 count the brute MT records
     the cull leaves per traced ray (brute_may_hit) and give K1, K3 and K4
@@ -268,6 +277,10 @@ P13_FILL_PACKETS = 1056    # 8 blocks of 8 warps per SM on 132 SMs
 # graph of this many launches, captured once and replayed between one
 # event pair.
 P13_TURN_PAIRS = 6
+# (packets, iterations) at which phase 13 holds the P-scalar pre-pass to
+# smem16_chain: one packet, fewer and more than 64 iterations, the script's
+# size and twice its iterations.
+P13_TABLES_SIZES = ((1, 1), (9, 150), (65, 5), (256, 403), (256, 806))
 P13_GRAPH_LAUNCHES = 100
 # After this many seconds every thread's traceback is printed and the run
 # exits non-zero: a launch that never ends then names its place, inside
@@ -1651,6 +1664,34 @@ def roofline_mixed(nbytes: int, fp32_ops: int, int32_ops: int, int32_rate: float
     return dict(r, bound_ops=int(fp32_ops), bound_int32_ops=int(int32_ops))
 
 
+BOUND_KEYS = ("bound_ms", "issue_bound_ms", "dep_bound_ms", "bound_sms_ms", "rank_bound_ms")
+
+
+def over_bounds(tree, path: str = "") -> list:
+    """Every reading over 100% in phase 13's results: a dict's time ("ms",
+    and "graph_ms" where timed in a graph; the P-scalar pre-pass's
+    "tables_ms" and "tables_graph_ms") under one of its bounds, as
+    "<where>: <time> ms under <bound> <value> ms"."""
+    out = []
+    if isinstance(tree, dict):
+        for t_key, b_keys in (("ms", BOUND_KEYS), ("graph_ms", BOUND_KEYS),
+                              ("tables_ms", ("tables_bound_ms", "tables_dep_bound_ms")),
+                              ("tables_graph_ms", ("tables_bound_ms", "tables_dep_bound_ms"))):
+            t = tree.get(t_key)
+            if not isinstance(t, float):
+                continue
+            for b in b_keys:
+                v = tree.get(b)
+                if isinstance(v, float) and v > t:
+                    out.append(f"{path}: {t_key} {t:.6f} ms under {b} {v:.6f} ms")
+        for k, v in tree.items():
+            out += over_bounds(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out += over_bounds(v, f"{path}[{i}]")
+    return out
+
+
 def graph_ms(fn, launches: int = P13_GRAPH_LAUNCHES, replays: int = 5) -> float:
     """Device milliseconds per launch of fn: `launches` calls captured once
     in a CUDA graph (after a warm-up on a side stream), the graph replayed
@@ -1875,12 +1916,36 @@ def sm_clock_under_load(fn, seconds: float = 1.5) -> dict:
     return dict(mhz=float(np.median(readings)), readings=readings)
 
 
-def issue_bound_ms(sass_total: int, warps: int, iters: int, n_sm: int, mhz: float) -> float:
-    """The least time for the instructions a probe issues: its kernel's
-    static SASS count (the loop body is unrolled, so about one iteration's
-    instructions of a warp) x warps x iterations over the SMs' schedulers,
-    one instruction each per clock."""
-    return sass_total * warps * iters / (SCHEDULERS_PER_SM * n_sm * mhz * 1e6) * 1e3
+def issue_bound_ms(insns: int, warps: int, iters: int, n_sm: int, mhz: float) -> float:
+    """The least time for the instructions a probe issues: `insns` a warp
+    issues per iteration x warps x iterations over the SMs' schedulers, one
+    instruction each per clock."""
+    return insns * warps * iters / (SCHEDULERS_PER_SM * n_sm * mhz * 1e6) * 1e3
+
+
+# Outermost loops in the SASS of P-v8's, the v5 body's and P-interleave's
+# kernels (sass.loops, sm_90a): one, the loop over iterations (every other
+# loop in their sources has a fixed trip and is unrolled), except in the
+# v5 modes whose iteration is a few instructions, where nvcc unrolls the
+# iteration loop itself and leaves copies of it beside the main one.
+UNROLLED_LOOPS = {"v5 smem8": 2, "v5 minimal": 2, "v5 empty": 3, "v5 carry8": 3}
+
+
+def iter_insns(counts: dict, kernel: str):
+    """The fewest SASS instructions a warp issues per iteration of the loop
+    over iterations of `kernel` ("v8 <variant>", "v5 <mode>" or
+    "interleave"): the shortest path through it (sass.loop_min; the
+    kernel's whole static count read over 100% for the v5 body's small
+    modes: set-up, code outside the loop, branches not taken). None where
+    nvcc unrolled the loop (UNROLLED_LOOPS): a trip then holds an unknown
+    number of iterations. Raises if the kernel has another number of
+    outermost loops than expected, so that no other loop's trip is taken
+    for an iteration."""
+    want = UNROLLED_LOOPS.get(kernel, 1)
+    if len(counts["loop_min"]) != want:
+        raise AssertionError(f"{kernel}: {len(counts['loop_min'])} outermost loops in its SASS "
+                             f"({counts['loops']}), expected {want}")
+    return counts["loop_min"][0] if want == 1 else None
 
 
 def chain_widths(dev, v8_in: dict, v5_in: dict, out) -> dict:
@@ -1979,7 +2044,7 @@ def phase13(dev, smi):
     runs["P-scalar"] = scalar_cost.run(out=out)
     launches["P-scalar"] = scalar_cost.LAUNCHES["probe_scalar"]
     launches["P-scalar tables"] = scalar_cost.LAUNCHES["probe_scalar_tables"]
-    log(13, "vstack p1, p2, p3 (in this process; one block of 8 chains):")
+    log(13, "vstack p1, p2, p3 (in this process; each chain a block of one warp):")
     runs["P-vstack"] = {**vstack.p1(out=out), **vstack.p2(out=out), **vstack.p3(out=out)}
     if not vstack.ok(runs["P-vstack"]):
         raise AssertionError(f"vstack: a case disagrees with the push/pop model: "
@@ -2054,17 +2119,9 @@ def phase13(dev, smi):
     checked, max_err, plain_ms, last_plain = [], {}, {}, {}
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def held(key, name, kernel_fn, plain_fn, timed=None):
-        """kernel_fn() ≡ plain_fn() bit for bit (tuples element by element);
-        max_err[key] takes their largest |difference|, plain_ms[timed] the
-        plain call's device ms."""
-        k = kernel_fn()
-        torch.cuda.synchronize()
-        ev0.record()
-        p = plain_fn()
-        ev1.record()
-        torch.cuda.synchronize()
-        last_plain[key] = p
+    def same(key, name, k, p):
+        """k ≡ p bit for bit (tuples element by element); max_err[key] takes
+        their largest |difference|."""
         ks, ps = (k, p) if isinstance(k, tuple) else ((k,), (p,))
         for a, b in zip(ks, ps):
             if a is None and b is None:
@@ -2075,17 +2132,25 @@ def phase13(dev, smi):
             err = _max_abs(a, b) if a.is_floating_point() else float((a - b).abs().max())
             max_err[key] = max(max_err.get(key, 0.0), err)
         checked.append(name)
+
+    def held(key, name, kernel_fn, plain_fn, timed=None):
+        """kernel_fn() ≡ plain_fn() bit for bit (same); plain_ms[timed] the
+        plain call's device ms."""
+        k = kernel_fn()
+        torch.cuda.synchronize()
+        ev0.record()
+        p = plain_fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        last_plain[key] = p
+        same(key, name, k, p)
         if timed:
             plain_ms[timed] = ev0.elapsed_time(ev1)
         return k
 
     def also(key, name, kernel_fn):
         """kernel_fn() ≡ the plain result `held` kept last under key."""
-        k, p = kernel_fn(), last_plain[key]
-        if k.dtype != p.dtype or k.shape != p.shape or not _bitwise(k, p):
-            raise AssertionError(f"{name}: kernel != plain")
-        max_err[key] = max(max_err.get(key, 0.0), _max_abs(k, p))
-        checked.append(name)
+        same(key, name, kernel_fn(), last_plain[key])
 
     # P-v8 at the picked W and at every W: P13_CHECK_ITERS iterations of
     # every variant at both sizes, full also at the script's iterations,
@@ -2174,22 +2239,30 @@ def phase13(dev, smi):
         for p, r in ((p, runs[f"P-interleave {p}"]["gs"][1])
                      for p in (interleave_probe.N_PACKETS, P13_FILL_PACKETS))))
 
-    # P-scalar: every variant at the script's sizes, acc and the witness.
+    # P-scalar: the pre-pass ≡ smem16_chain at P13_TABLES_SIZES; every
+    # variant at the script's sizes at the picked W and at every other, acc
+    # and the witness.
+    for packets, iters in P13_TABLES_SIZES:
+        got = scalar_cost.smem16_tables(packets, iters, dev)
+        if not torch.equal(got.cpu(), scalar_cost.smem16_tables(packets, iters, "cpu")):
+            raise AssertionError(f"scalar cost: the pre-pass tables != smem16_chain's at "
+                                 f"{packets} packets x {iters} iterations")
+        checked.append(f"scalar tables P{packets} i{iters}")
     x = torch.from_numpy(scalar_cost.make_input()).to(dev)
     tables = scalar_cost.smem16_tables(scalar_cost.N_PACKETS, scalar_cost.ITERS, dev)
-    if not torch.equal(tables.cpu(), scalar_cost.smem16_tables(scalar_cost.N_PACKETS,
-                                                               scalar_cost.ITERS, "cpu")):
-        raise AssertionError("scalar cost: the pre-pass tables != smem16_chain's")
-    checked.append("scalar tables")
     for name in scalar_cost.VARIANTS:
         mode, iters = scalar_cost.variant(name)
-        held("P-scalar", f"scalar {name}",
-             lambda: scalar_cost.scalar_cost(x, mode, iters, tables if mode == "smem16" else None),
+        tab = tables if mode == "smem16" else None
+        held("P-scalar", f"scalar {name}", lambda: scalar_cost.scalar_cost(x, mode, iters, tab),
              lambda: scalar_cost.scalar_plain(x, mode, iters), f"scalar {name}")
+        for w in scalar_cost.ADMITTED_W:
+            also("P-scalar", f"scalar {name} W{w}",
+                 lambda: scalar_cost.scalar_cost(x, mode, iters, tab, w=w))
 
     # P-vstack: every case at a small count, p1 / p3 also beyond the row's
-    # 128 entries, the timing cases at 2,000 iterations, p2_vreg (the row's
-    # case) at the script's 20,000 (its plain version takes ~5 s there).
+    # 128 entries, the timing cases at 2,000 iterations (p2_smem at its
+    # 92-entry clamp), p2_vreg (the row's case) at the script's 20,000 (its
+    # plain version takes ~5 s there).
     for case in vstack.CASES:
         sizes = ((vstack.CHECK_ITERS, 150) if case in vstack.RECORD else
                  (300, vstack.TIMING_ITERS if case == "p2_vreg" else 2000))
@@ -2197,6 +2270,22 @@ def phase13(dev, smi):
             held("P-vstack", f"vstack {case} i{iters}", lambda: vstack.vstack(case, iters, dev),
                  lambda: vstack.vstack_plain(case, iters, dev),
                  f"vstack {case} i{iters}" if iters == sizes[-1] else None)
+    # ... and P-scalar timed at every W (not the path: its counts are read
+    # above), with the pre-pass per launch in a CUDA graph.
+    chain_res = {w: scalar_cost.kernel_resources(scalar_cost.MODES, w)
+                 for w in scalar_cost.ADMITTED_W}
+    sv_widths = {}
+    for name in scalar_cost.VARIANTS:
+        mode, iters = scalar_cost.variant(name)
+        tab = tables if mode == "smem16" else None
+        sv_widths[name] = {"picked": scalar_cost.chosen_w(mode), **{
+            w: dict(ms=common.median(common.time_launches(
+                lambda: scalar_cost.scalar_cost(x, mode, iters, tab, w=w))), iters=iters,
+                    num_regs=chain_res[w][mode][0], local_bytes=chain_res[w][mode][1])
+            for w in scalar_cost.ADMITTED_W}}
+    runs["P-scalar"]["tables_graph_ms"] = graph_ms(
+        lambda: scalar_cost.smem16_tables(scalar_cost.N_PACKETS, scalar_cost.ITERS, dev))
+    lat = common.latency_clocks()
 
     # P-ktf: each case's kernel against its plain version on the card, by
     # the script's rules (bitwise, the unit vectors at atol 1e-5 / 1e-6).
@@ -2351,7 +2440,11 @@ def phase13(dev, smi):
             for G, r in runs[f"P-interleave {packets}"]["gs"].items():
                 r["sass"] = sc[f"interleave G{G} W{r['w']}"]
         for name, r in runs["P-scalar"]["variants"].items():
-            r["sass"] = sc[f"scalar {scalar_cost.variant(name)[0]}"]
+            r["sass"] = sc[f"scalar {scalar_cost.variant(name)[0]} W{r['w']}"]
+        for name, row in sv_widths.items():
+            for w, r in row.items():
+                if w != "picked":
+                    r["sass"] = sc[f"scalar {scalar_cost.variant(name)[0]} W{w}"]
         runs["P-scalar"]["tables_sass"] = sc["scalar tables"]
         for case, r in runs["P-vstack"].items():
             r["sass"] = sc[f"vstack {case}"]
@@ -2405,21 +2498,24 @@ def phase13(dev, smi):
                 continue
             r.update(roofline(wk["bytes"], wk["ops"], f32))
             r["roofline_share"] = r["bound_ms"] / r["ms"]
-            if "sass" in r:
-                r["issue_bound_ms"] = issue_bound_ms(r["sass"]["total"], packets * 8 * w, iters,
-                                                     n_sm, clock["mhz"])
+            n = iter_insns(r["sass"], f"{body_} {case}") if "sass" in r else None
+            if n is not None:
+                r["issue_insns"] = n
+                r["issue_bound_ms"] = issue_bound_ms(n, packets * 8 * w, iters, n_sm,
+                                                     clock["mhz"])
                 r["issue_share"] = r["issue_bound_ms"] / r["ms"]
     bounds_are = (f"roofline: bytes / 3.35 TB/s against fp32 operations / {f32 / 1e12:.1f} "
                   f"TFLOP/s ({FP32_LANES_PER_SM} lanes x {n_sm} SMs x {clock['mhz']:.0f} MHz); "
-                  f"issue: static SASS x warp-iterations / ({SCHEDULERS_PER_SM} x {n_sm} SMs x "
-                  f"{clock['mhz']:.0f} MHz)")
+                  f"issue: the fewest SASS instructions on a path through the loop x "
+                  f"warp-iterations / ({SCHEDULERS_PER_SM} x {n_sm} SMs x {clock['mhz']:.0f} MHz)")
     log(13, f"P-v8 and the v5 body, bounds per chain width ({bounds_are}), each with the share "
             "of it reached: " + "; ".join(
                 f"{name} " + ", ".join(
                     f"W{w} {r['ms']:.4f} ms, roofline {r['bound_ms']:.4f} "
                     f"({100 * r['roofline_share']:.1f}%)"
                     + (f", issue {r['issue_bound_ms']:.4f} ({100 * r['issue_share']:.1f}%; "
-                       f"SASS {r['sass']['total']})" if "sass" in r else ", issue not measured")
+                       f"SASS {r['sass']['total']}, {r['issue_insns']} an iteration)"
+                       if "issue_bound_ms" in r else ", issue not measured")
                     for w, r in row.items() if w != "picked")
                 for name, row in widths.items()))
     # P-interleave and P-morph: both bounds at the picked W, with the share
@@ -2431,8 +2527,9 @@ def phase13(dev, smi):
             r.update(roofline(w["bytes"], w["ops"], f32))
             r["roofline_share"] = r["bound_ms"] / r["ms"]
             if "sass" in r:
-                r["issue_bound_ms"] = issue_bound_ms(r["sass"]["total"], r["warps"],
-                                                     interleave_probe.ITERS, n_sm, clock["mhz"])
+                r["issue_bound_ms"] = issue_bound_ms(iter_insns(r["sass"], "interleave"),
+                                                     r["warps"], interleave_probe.ITERS, n_sm,
+                                                     clock["mhz"])
                 r["issue_share"] = r["issue_bound_ms"] / r["ms"]
     # P-morph's issue bound counts its SASS by loop (sass.loops): the walk's
     # body per warp-iteration, the brute pre-pass's loop per brute row and
@@ -2459,7 +2556,7 @@ def phase13(dev, smi):
     def shares(r):
         return (f"roofline {r['bound_ms']:.4f} ({100 * r['roofline_share']:.1f}%)"
                 + (f", issue {r['issue_bound_ms']:.4f} ({100 * r['issue_share']:.1f}%; SASS "
-                   f"{r['sass']['total']})" if "sass" in r else ", issue not measured"))
+                   f"{r['sass']['total']})" if "issue_bound_ms" in r else ", issue not measured"))
 
     log(13, f"P-interleave, bounds at the picked W ({bounds_are}): " + "; ".join(
         f"{p} packets G={G} W{r['w']} {r['ms']:.4f} ms, {shares(r)}"
@@ -2478,20 +2575,55 @@ def phase13(dev, smi):
         mode, iters = scalar_cost.variant(name)
         w = scalar_cost.work(mode, scalar_cost.N_PACKETS, iters)
         r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate, f32))
-    # The smem16 tables pre-pass: the roofline, and its one thread's
-    # instructions in order at one per clock of the SM clock under load.
+        for wd, rw in sv_widths[name].items():
+            if wd != "picked":
+                rw.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate,
+                                         f32))
+                rw["roofline_share"] = rw["bound_ms"] / rw["ms"]
+                rw["ns_per_iter"] = rw["ms"] * 1e6 / iters
+    # Dependence bounds: a chain's dependent instructions at the latencies
+    # phase 13 measured (csrc/probe_latency.cu, SM clocks) over the card's
+    # maximum SM clock. The smem16 tables pre-pass: the roofline and its
+    # longest chain (a packet's iterations, then the scan of C_p).
+    def dep_ms(alu, shfl):
+        return (alu * lat["alu"] + shfl * lat["shfl"]) / (mhz * 1e3)
+
     tw = scalar_cost.tables_work(scalar_cost.N_PACKETS, scalar_cost.ITERS)
     tb = roofline_mixed(tw["bytes"], 0, tw["int32_ops"], int32_rate, f32)
     runs["P-scalar"].update(tables_bound_ms=tb["bound_ms"], tables_bound_by=tb["bound_by"],
-                            tables_bound_one_thread_ms=tw["serial_ops"] / (clock["mhz"] * 1e3))
-    log(13, f"P-scalar smem16 tables pre-pass {runs['P-scalar']['tables_ms']:.4f} ms: roofline "
-            f"{tb['bound_ms']:.6f} ms ({tb['bound_by']}; {tw['int32_ops']} int32 operations, "
-            f"{tw['bytes']} bytes), its one thread's {tw['serial_ops']} instructions at one per "
-            f"clock {runs['P-scalar']['tables_bound_one_thread_ms']:.4f} ms")
+                            tables_dep_bound_ms=dep_ms(tw["dep_alu"], tw["dep_shfl"]))
+    pre = runs["P-scalar"]
+    pre["tables_rank_bound_ms"] = max(pre["tables_bound_ms"], pre["tables_dep_bound_ms"])
+    log(13, f"P-scalar smem16 tables pre-pass ({scalar_cost.N_PACKETS} x {scalar_cost.ITERS}): "
+            f"{pre['tables_ms']:.5f} ms per call, {pre['tables_graph_ms']:.5f} ms per launch in a "
+            f"CUDA graph of {P13_GRAPH_LAUNCHES}; roofline {tb['bound_ms']:.6f} ms "
+            f"({tb['bound_by']}; {tw['int32_ops']} int32 operations, {tw['bytes']} bytes), "
+            f"dependence {pre['tables_dep_bound_ms']:.5f} ms ({tw['dep_alu']} ALU and "
+            f"{tw['dep_shfl']} shuffle steps at {lat['alu']:.2f} / {lat['shfl']:.2f} clocks, "
+            f"{mhz:.0f} MHz; {100 * pre['tables_rank_bound_ms'] / pre['tables_ms']:.1f}% of the "
+            f"call, {100 * pre['tables_rank_bound_ms'] / pre['tables_graph_ms']:.1f}% of the "
+            f"launch)")
+    log(13, "P-scalar at every W (median of 10 launches; roofline share; the picked W marked *): "
+            + "; ".join(f"{name} " + ", ".join(
+                f"W{w}{'*' if w == row['picked'] else ''} {r['ms']:.4f} ms "
+                f"{r['ns_per_iter']:.1f} ns/iter {100 * r['roofline_share']:.1f}% "
+                f"({r['num_regs']} regs / {r['local_bytes']} B)"
+                for w, r in row.items() if w != "picked") for name, row in sv_widths.items()))
     for case, r in runs["P-vstack"].items():
         w = vstack.work(case, r["iters"])
+        steps = vstack.dependence_steps(case, r["iters"])
         r.update(roofline_mixed(w["bytes"], 0, w["int32_ops"], int32_rate, f32))
-        r["bound_one_sm_ms"] = r["bound_ms"] * n_sm   # one block: one SM's share of the peaks
+        # the 8 SMs the chains run on: their share of the peaks
+        r["bound_sms_ms"] = r["bound_ms"] * n_sm / vstack.P_SUB
+        r["dep_bound_ms"] = dep_ms(steps["alu"], steps["shfl"])
+        r["rank_bound_ms"] = max(r["bound_ms"], r["dep_bound_ms"])
+    log(13, f"P-vstack (median of 10 launches; latencies {lat['alu']:.2f} ALU / "
+            f"{lat['shfl']:.2f} shuffle clocks at {mhz:.0f} MHz): " + "; ".join(
+                f"{case} {r['ms']:.4f} ms {r['ns_per_iter']:.2f} ns/iter, roofline "
+                f"{r['bound_ms']:.5f} (its SMs {r['bound_sms_ms']:.4f}), dependence "
+                f"{r['dep_bound_ms']:.4f} ({100 * r['dep_bound_ms'] / r['ms']:.1f}%) "
+                f"({r['num_regs']} regs / {r['local_bytes']} B)"
+                for case, r in runs["P-vstack"].items()))
     for case, r in runs["P-ktf"].items():
         w = ktf_probe.work(case)
         r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate, f32))
@@ -2542,10 +2674,11 @@ def phase13(dev, smi):
     rows["P-scalar"] = dict(launches=launches["P-scalar"], max_abs_err=max_err["P-scalar"],
                             plain_ms=plain_ms["scalar baseline"], ms_is="baseline",
                             **sv["baseline"], tables_ms=runs["P-scalar"]["tables_ms"],
-                            **{k: runs["P-scalar"][k] for k in ("tables_bound_ms",
-                                                                "tables_bound_by",
-                                                                "tables_bound_one_thread_ms")},
+                            **{k: runs["P-scalar"][k] for k in (
+                                "tables_graph_ms", "tables_bound_ms", "tables_bound_by",
+                                "tables_dep_bound_ms", "tables_rank_bound_ms")},
                             tables_launches=launches["P-scalar tables"], variants=sv,
+                            widths=sv_widths, latency_clocks=lat,
                             plain_ms_variants={k: v for k, v in plain_ms.items()
                                                if k.startswith("scalar")},
                             int32_ops_per_s=int32_rate, max_sm_clock_mhz=mhz)
@@ -2553,7 +2686,7 @@ def phase13(dev, smi):
     rows["P-vstack"] = dict(launches=launches["P-vstack"], max_abs_err=max_err["P-vstack"],
                             plain_ms=plain_ms[f"vstack p2_vreg i{vstack.TIMING_ITERS}"],
                             ms_is="p2_vreg, 20,000 iterations",
-                            **vs["p2_vreg"], cases=vs,
+                            **vs["p2_vreg"], cases=vs, latency_clocks=lat,
                             plain_ms_cases={k: v for k, v in plain_ms.items()
                                             if k.startswith("vstack")},
                             int32_ops_per_s=int32_rate)
@@ -2601,8 +2734,23 @@ def phase13(dev, smi):
     rows["P-feature"]["s7_k4_launches"] = launches["P-feature s7 (K4)"]
     # The order of redesign: each probe's launches x (time - bound), summed
     # over every case at every size (11 launches a case: a warm-up and 10
-    # timed; P-v6 12 in all), at the picked W; the P-scalar pre-pass against
-    # its one thread's bound, beside its roofline.
+    # timed; P-v6 12 in all), at the picked W, against the larger of a
+    # case's bounds: the roofline and, where counted, the issue bound
+    # (P-v8, the v5 body, P-interleave, P-morph) or the dependence bound
+    # (P-vstack, the P-scalar pre-pass).
+    for run_ in (runs["P-v8"], runs["P-v8 fill"]):
+        for v, r in run_["variants"].items():
+            r["issue_bound_ms"] = widths[f"v8 {v} P{run_['packets']}"][r["w"]].get(
+                "issue_bound_ms")
+    for key in v5_probes:
+        for mode, r in runs[key]["modes"].items():
+            r["issue_bound_ms"] = widths[f"v5 {mode} P{v5_body.N_PACKETS}"][r["w"]].get(
+                "issue_bound_ms")
+
+    def larger_bound(r):
+        return max([r["bound_ms"]] + [r[k] for k in ("issue_bound_ms", "rank_bound_ms")
+                                      if r.get(k) is not None])
+
     cases = {"P-v8": [*runs["P-v8"]["variants"].values(), *runs["P-v8 fill"]["variants"].values()],
              **{k: list(runs[k]["modes"].values()) for k in v5_probes},
              "P-interleave": [r for p in (interleave_probe.N_PACKETS, P13_FILL_PACKETS)
@@ -2612,15 +2760,18 @@ def phase13(dev, smi):
              "P-morph": [r for p in morph_in for r in runs[f"P-morph {p}"].values()],
              **{k: [r for c, r in runs[k].items() if c != "s7"]
                 for k in ("P-mosaic", "P-bitcast", "P-feature")}}
-    rank = {k: 11 * sum(r["ms"] - r["bound_ms"] for r in rs) for k, rs in cases.items()}
+    rank = {k: 11 * sum(r["ms"] - larger_bound(r) for r in rs) for k, rs in cases.items()}
     rank["P-v6"] = launches["P-v6"] * (runs["P-v6"]["ms"] - runs["P-v6"]["bound_ms"])
-    sc_pre = runs["P-scalar"]
-    rank["P-scalar pre-pass"] = 11 * (sc_pre["tables_ms"] - sc_pre["tables_bound_one_thread_ms"])
-    rank["P-scalar pre-pass (roofline)"] = 11 * (sc_pre["tables_ms"] - sc_pre["tables_bound_ms"])
+    rank["P-scalar pre-pass"] = 11 * (pre["tables_ms"] - pre["tables_rank_bound_ms"])
     for k, v in rank.items():
         rows[k if k in rows else "P-scalar"].setdefault("rank", {})[k] = v
     log(13, "rank, launches x (time - bound) summed over every case and size (ms): " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(rank.items(), key=lambda kv: -kv[1])))
+    over = over_bounds({**runs, "P-v8/v5 widths": widths, "P-morph/interleave widths": mi_widths,
+                        "P-scalar widths": sv_widths})
+    if over:
+        raise AssertionError("phase 13: a measured time under its bound (a reading over 100%): "
+                             + "; ".join(over))
     secs = time.perf_counter() - t_phase
     log(13, f"every variant == its plain version bit for bit ({len(checked)} checks: "
             f"{P13_CHECK_ITERS} iterations over all packets, the full bodies also at the "
@@ -2628,8 +2779,9 @@ def phase13(dev, smi):
             f"inputs and the v5 body also at {P13_FILL_PACKETS} packets, each case at the "
             f"picked chain width and at every other; interleave every G "
             f"== v5 full at 128 and {P13_FILL_PACKETS} packets; scalar acc, sc and codes at "
-            f"the script's sizes; vstack at 64/150 and 300/2,000 iterations, p2_vreg also at "
-            f"20,000; ktf every case by the script's rules; v6 at {P13_CHECK_ITERS} iterations "
+            f"the script's sizes at every W, the pre-pass at {P13_TABLES_SIZES}; vstack at "
+            f"64/150 and 300/2,000 iterations, p2_vreg also at 20,000; ktf "
+            f"every case by the script's rules; v6 at {P13_CHECK_ITERS} iterations "
             f"(tlim BIG and in (0.05, 0.6)) and at full length on all {v6.N_PACKETS} packets, "
             f"chain iterations {chain_iters}; v6 against K4 on the 4-wide tree: kernel "
             f"{mis_kernel}, plain {mis_plain}; morph every variant at {morph.N_PACKETS} and "
@@ -2962,10 +3114,11 @@ def parent_launch_path(parent_dir: str, build_dir: str):
     """The parent tree's own launch path: its utils/cudalib.py (its library
     the one phase 15 built from its csrc into build_dir), and its
     probes/mosaic.py, probes/feature.py, probes/ablate_v8.py,
-    probes/v5_body.py, probes/morph.py, probes/interleave_probe.py and
-    utils/ktf.py bound to that cudalib. (parent cudalib, {"mosaic": ..,
-    "feature": .., "ablate_v8": .., "v5_body": .., "morph": ..,
-    "interleave_probe": .., "ktf": ..})."""
+    probes/v5_body.py, probes/morph.py, probes/interleave_probe.py,
+    probes/scalar_cost.py, probes/vstack.py and utils/ktf.py bound to that
+    cudalib. (parent cudalib, {"mosaic": .., "feature": .., "ablate_v8": ..,
+    "v5_body": .., "morph": .., "interleave_probe": .., "scalar_cost": ..,
+    "vstack": .., "ktf": ..})."""
     pkg = os.path.join(parent_dir, "raytracer_tpu_torch")
     pc = _load_module(os.path.join(pkg, "utils", "cudalib.py"), "parent_cudalib")
     pc.BUILD_DIR = build_dir
@@ -2975,20 +3128,23 @@ def parent_launch_path(parent_dir: str, build_dir: str):
             ("ablate_v8", ("probes", "ablate_v8.py")), ("v5_body", ("probes", "v5_body.py")),
             ("morph", ("probes", "morph.py")),
             ("interleave_probe", ("probes", "interleave_probe.py")),
+            ("scalar_cost", ("probes", "scalar_cost.py")), ("vstack", ("probes", "vstack.py")),
             ("ktf", ("utils", "ktf.py")))}
     return pc, mods
 
 
 def probes_old_new(dev, pmods) -> dict:
-    """The parent's P-v8, v5 body, P-morph and P-interleave (its wrappers,
-    its cudalib, its kernels) against this tree's on the same inputs, at
-    the scripts' iterations and packets and at P13_FILL_PACKETS: outputs
-    equal bit for bit (P-morph's loop counts too), every variant, mode and
-    G per call (time_launches' median) in P13_TURN_PAIRS alternating pairs
-    of rounds, with the W this tree picks."""
+    """The parent's P-v8, v5 body, P-morph, P-interleave, P-scalar (every
+    variant and the smem16 pre-pass) and P-vstack (every case) (its
+    wrappers, its cudalib, its kernels) against this tree's on the same
+    inputs, at the scripts' iterations and packets and, for the chain
+    probes, at P13_FILL_PACKETS: outputs equal bit for bit (P-morph's loop
+    counts too), each per call (time_launches' median) in P13_TURN_PAIRS
+    alternating pairs of rounds, with the W this tree picks."""
     import torch
 
-    from raytracer_tpu_torch.probes import ablate_v8, common, interleave_probe, morph, v5_body
+    from raytracer_tpu_torch.probes import (ablate_v8, common, interleave_probe, morph,
+                                            scalar_cost, v5_body, vstack)
 
     checks, out = {}, {}
     per_call = lambda f: lambda: common.median(common.time_launches(f))   # noqa: E731
@@ -2997,7 +3153,9 @@ def probes_old_new(dev, pmods) -> dict:
         old, new = fns["parent"](), fns["new"]()
         old, new = (old, new) if isinstance(old, tuple) else ((old,), (new,))
         checks[f"{name} new == parent"] = len(old) == len(new) and all(
-            a.dtype == b.dtype and a.shape == b.shape and _bitwise(a, b) for a, b in zip(old, new))
+            (a is None and b is None) or (a is not None and b is not None and a.dtype == b.dtype
+                                          and a.shape == b.shape and _bitwise(a, b))
+            for a, b in zip(old, new))
         t = alternate({k: per_call(f) for k, f in fns.items()})
         out[name] = {"w": w, **{k: dict(ms=float(np.median(v)), turns_ms=v)
                                 for k, v in t.items()}}
@@ -3036,7 +3194,31 @@ def probes_old_new(dev, pmods) -> dict:
                      {who: (lambda m=m, v=v: m.morph(*margs, nb, cap, v))
                       for who, m in (("parent", pmods["morph"]), ("new", morph))},
                      morph.chosen_w(packets, v))
+    sc_n, sc_i = scalar_cost.N_PACKETS, scalar_cost.ITERS
+    in_turns(f"scalar tables pre-pass P{sc_n} i{sc_i}",
+             {who: (lambda m=m: m.smem16_tables(sc_n, sc_i, dev))
+              for who, m in (("parent", pmods["scalar_cost"]), ("new", scalar_cost))}, None)
+    x = torch.from_numpy(scalar_cost.make_input()).to(dev)
+    tables = scalar_cost.smem16_tables(sc_n, sc_i, dev)
+    for name in scalar_cost.VARIANTS:
+        mode, iters = scalar_cost.variant(name)
+        tab = tables if mode == "smem16" else None
+        in_turns(f"scalar {name}",
+                 {who: (lambda m=m, mode=mode, iters=iters, tab=tab: m.scalar_cost(x, mode, iters,
+                                                                                   tab))
+                  for who, m in (("parent", pmods["scalar_cost"]), ("new", scalar_cost))},
+                 scalar_cost.chosen_w(mode))
+    for case in vstack.CASES:
+        iters = vstack.CHECK_ITERS if case in vstack.RECORD else vstack.TIMING_ITERS
+        in_turns(f"vstack {case} i{iters}",
+                 {who: (lambda m=m, case=case, iters=iters: m.vstack(case, iters, dev))
+                  for who, m in (("parent", pmods["vstack"]), ("new", vstack))}, None)
     return dict(checks=checks, ms=out)
+
+
+def _at(w) -> str:
+    """" W<w>" for a chain width, "" for none."""
+    return "" if w is None else f" W{w}"
 
 
 def sass_old_new(parent_lib: str) -> dict:
@@ -3283,10 +3465,10 @@ def phase15(scene, dev, smi, parent_dir):
                                    for w, v in r.items() if w in ("parent", "new"))
                + (f" (max |diff| {r['max_abs_diff']:.3g})" if "max_abs_diff" in r else "")
                for k, r in tiles["ms"].items())
-           + "; P-v8, the v5 body, P-interleave and P-morph, the parent's against this tree's "
-           + "(picked W) per call in "
+           + "; P-v8, the v5 body, P-interleave, P-morph, P-scalar (and its pre-pass) and "
+           + "P-vstack, the parent's against this tree's (picked W) per call in "
            + f"{P13_TURN_PAIRS} alternating pairs of rounds (median; new / parent): " + "; ".join(
-               f"{k} W{r['w']} {r['parent']['ms']:.4f} -> {r['new']['ms']:.4f} ms "
+               f"{k}{_at(r['w'])} {r['parent']['ms']:.4f} -> {r['new']['ms']:.4f} ms "
                f"({r['new']['ms'] / r['parent']['ms']:.3f}x; new [{_fmt(r['new']['turns_ms'])}], "
                f"parent [{_fmt(r['parent']['turns_ms'])}])" for k, r in probes["ms"].items())
            + "; static SASS instructions of P-interleave and P-morph, the parent's: "

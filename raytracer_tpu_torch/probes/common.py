@@ -1,7 +1,8 @@
 """Pieces the probe bodies share: the plain versions' slab test and
 Möller–Trumbore record (the scripts' `slab` and `mt_record`, term for term),
-the float-to-int conversion of float-encoded ids, and the timing and
-counting of kernel launches on the card."""
+the float-to-int conversion of float-encoded ids, the timing and
+counting of kernel launches on the card, and the latency calibration of
+the chain probes' dependence bounds."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.probes.v5_tables import BIG, P_SUB, TRI_STRIDE
+from raytracer_tpu_torch.utils import cudalib
 
 INT_MAX = 2**31 - 1
 # fp32 operations (arithmetic and compares, not selects) of one lane,
@@ -213,12 +215,35 @@ def median(xs) -> float:
     return float(np.median(xs))
 
 
+LATENCY_STEPS = 1 << 20
+
+
+def latency_clocks() -> dict:
+    """{"alu": clocks, "shfl": clocks}: the latency of one dependent integer
+    ALU operation (a step of csrc/probe_latency.cu's kind 0 is two: an add,
+    then a xor) and of one shuffle on the current card, the fewest SM
+    clocks (clock64 around the loop) of three runs over LATENCY_STEPS steps.
+    The dependence bounds of P-vstack and the P-scalar tables pre-pass
+    multiply their chains by these."""
+    lib = cudalib.lib()
+    clocks = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    sink = torch.zeros((32,), dtype=torch.int32, device="cuda")
+    out = {}
+    for kind, name in enumerate(("alu", "shfl")):
+        got = []
+        for _ in range(3):
+            cudalib.check(lib.rt_probe_latency(LATENCY_STEPS, kind, clocks.data_ptr(),
+                                               sink.data_ptr(), cudalib.stream_handle()),
+                          "probe_latency kernel")
+            got.append(int(clocks.item()) / LATENCY_STEPS / (2 if name == "alu" else 1))
+        out[name] = min(got)
+    return out
+
+
 def kernel_attrs(attrs_fn, ids: dict, what: str) -> dict:
     """{name: (registers per thread, local memory bytes per thread)} of the
     kernels `ids` ({name: id}) through a C entry point attrs_fn(id, &regs,
     &local)."""
-    from raytracer_tpu_torch.utils import cudalib
-
     out = {}
     for name, i in ids.items():
         regs, local = ctypes.c_int(), ctypes.c_int()

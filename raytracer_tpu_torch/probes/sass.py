@@ -50,14 +50,10 @@ def cuobjdump() -> str:
     return os.path.join(os.path.dirname(cudalib._nvcc()), "cuobjdump")
 
 
-def loops(insns) -> tuple[list[int], int]:
-    """(each outermost loop's instruction count, in order; the instructions
-    outside them up to the first EXIT after the last) of one kernel's
-    [(address, opcode, operands)], NOPs left out. A loop is a branch back
-    to an earlier address with no EXIT or RET between the two: the
-    compiler's cold blocks (a trap, a slow reciprocal, a divergent
-    shuffle's fallback) sit after the exit and branch back into the body,
-    and are not loops."""
+def _top_loops(insns) -> tuple[list[tuple[int, int]], list[int], dict]:
+    """(the outermost loops as (first, last) instruction indices, in order;
+    the indices of EXIT and RET; {address: index}) of one kernel's
+    [(address, opcode, operands)]."""
     at = {a: i for i, (a, _, _) in enumerate(insns)}
     ends = [i for i, (_, op, _) in enumerate(insns) if op in ("EXIT", "RET")]
     found = []
@@ -69,16 +65,56 @@ def loops(insns) -> tuple[list[int], int]:
                 found.append((t, i))
     top = sorted((t, i) for t, i in found
                  if not any(t2 <= t and i <= i2 and (t2, i2) != (t, i) for t2, i2 in found))
+    return top, ends, at
+
+
+def loops(insns) -> tuple[list[int], int]:
+    """(each outermost loop's instruction count, in order; the instructions
+    outside them up to the first EXIT after the last) of one kernel's
+    [(address, opcode, operands)], NOPs left out. A loop is a branch back
+    to an earlier address with no EXIT or RET between the two: the
+    compiler's cold blocks (a trap, a slow reciprocal, a divergent
+    shuffle's fallback) sit after the exit and branch back into the body,
+    and are not loops."""
+    top, ends, _ = _top_loops(insns)
     last = top[-1][1] if top else -1
     end = next((e for e in ends if e > last), len(insns) - 1)
     inside = {k for t, i in top for k in range(t, i + 1)}
     return [i - t + 1 for t, i in top], sum(1 for k in range(end + 1) if k not in inside)
 
 
+def loop_min(insns) -> list[int]:
+    """The fewest instructions on any path from each outermost loop's first
+    instruction to its branch back, in order: one pass through the body
+    that issues the least, a branch forward within the body taken or not
+    (an unconditional one's fall-through too), a branch out of it or back
+    inside it not taken. A warp issues at least this many per trip."""
+    top, _, at = _top_loops(insns)
+    out = []
+    for t, i in top:
+        dist = [None] * (i - t + 1)
+        dist[0] = 1
+        for k in range(t, i):
+            d = dist[k - t]
+            if d is None:
+                continue
+            nxt = [k + 1]
+            a, op, rest = insns[k]
+            m = _TARGET.search(rest.strip()) if op == "BRA" else None
+            if m and at.get(int(m.group(1), 16), -1) > k and at[int(m.group(1), 16)] <= i:
+                nxt.append(at[int(m.group(1), 16)])
+            for j in nxt:
+                if dist[j - t] is None or d + 1 < dist[j - t]:
+                    dist[j - t] = d + 1
+        out.append(dist[i - t])
+    return out
+
+
 def parse(sass: str) -> dict:
     """{(body, instantiation id): {"total": n, kind: n, ..., "loops": [n,
-    ...], "straight": n}} of the probe kernels in cuobjdump -sass output
-    (`loops`, `straight`: loops()); body is "v8", "v5", "interleave",
+    ...], "straight": n, "loop_min": [n, ...]}} of the probe kernels in
+    cuobjdump -sass output (`loops`, `straight`: loops(); `loop_min`:
+    loop_min()); body is "v8", "v5", "interleave",
     "scalar", "vstack", "ktf", "mosaic", "feature", "bitcast", "v6" or
     "morph", the id an int ((id, W) for a v8, v5 or interleave kernel of
     chain width W, "tables" for the scalar probe's pre-pass, 0 for v6, the
@@ -116,6 +152,7 @@ def parse(sass: str) -> dict:
                 c[kind] += 1
     for key, c in out.items():
         c["loops"], c["straight"] = loops(insns[key])
+        c["loop_min"] = loop_min(insns[key])
     return out
 
 

@@ -13,7 +13,9 @@ output acc f32[P, 8, 128], and a witness of the scalar work, which acc does
 not show: sc int32[P] after the last iteration and, in vsort, the last
 iteration's sorted codes int32[P, 8, 8]. smem16's 64-entry table carries
 from packet to packet as in the script; `smem16_tables` gives each packet's
-starting table (a one-thread pre-pass kernel on the card, timed apart).
+starting table (on the card a pre-pass kernel, timed apart, that runs every
+packet's chain at once and then scans over the packets). On the card a packet is a block of W warps
+(ADMITTED_W; `chosen_w` picks one per mode).
 
     python -m raytracer_tpu_torch.probes.scalar_cost [iters]
 """
@@ -38,6 +40,11 @@ PAIRS = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7), (1, 2),
          (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5), (1, 2), (3, 4), (5, 6))
 LAUNCHES = {"probe_scalar": 0, "probe_scalar_tables": 0}
 PLAIN_CALLS = {"probe_scalar": 0}
+ADMITTED_W = (1, 2, 4, 8)   # warps per packet, every mode (csrc/probe_scalar.cu)
+# The W `scalar_cost` takes for each mode: the fastest in phase 13 of
+# chip_smoke.py, which times every mode at every W (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §6).
+CHOSEN_W = {"baseline": 8, "alu32": 4, "smem16": 4, "extract8": 8, "vsort": 2}
 
 
 def variant(name: str, iters: int = ITERS) -> tuple[str, int]:
@@ -83,9 +90,12 @@ def smem16_tables(packets: int, iters: int, device) -> torch.Tensor:
         return torch.from_numpy(smem16_chain(packets, iters)[0])
     if device.type != "cuda":
         raise ValueError(f"scalar cost probe: unsupported device {device}")
+    lib = cudalib.lib()
     tables = torch.empty((packets, TABLE), dtype=torch.int32, device=device)
-    cudalib.check(cudalib.lib().rt_probe_scalar_tables(packets, iters, tables.data_ptr(),
-                                                       cudalib.stream_handle()),
+    scratch = torch.empty((lib.rt_probe_scalar_tables_scratch(packets),), dtype=torch.int32,
+                          device=device)
+    cudalib.check(lib.rt_probe_scalar_tables(packets, iters, tables.data_ptr(),
+                                             scratch.data_ptr(), cudalib.stream_handle()),
                   "probe_scalar tables kernel")
     LAUNCHES["probe_scalar_tables"] += 1
     return tables
@@ -133,13 +143,22 @@ def scalar_plain(x, mode: str, iters: int):
     return acc, sc, codes
 
 
-def scalar_cost(x, mode: str, iters: int = ITERS, tables=None):
+def chosen_w(mode: str) -> int:
+    """The warps per packet `scalar_cost` takes for `mode` when no W is
+    asked for (CHOSEN_W, the only copy of the rule)."""
+    return CHOSEN_W[mode]
+
+
+def scalar_cost(x, mode: str, iters: int = ITERS, tables=None, w: int | None = None):
     """(acc, sc, codes) of `iters` iterations of `mode` from x f32[P,8,128]:
-    launches csrc/probe_scalar.cu for a CUDA tensor (smem16 takes `tables`,
-    or makes them with the pre-pass kernel), runs the plain version for a
-    CPU tensor."""
+    launches csrc/probe_scalar.cu for a CUDA tensor at w warps per packet
+    (one of ADMITTED_W; None: chosen_w) (smem16 takes `tables`, or makes
+    them with the pre-pass kernel), runs the plain version for a CPU tensor,
+    whose result no W changes."""
     if mode not in MODES:
         raise ValueError(f"scalar cost probe: unknown mode {mode!r}")
+    if w is not None:
+        common.require_w(w, ADMITTED_W, f"scalar cost probe ({mode})")
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"scalar cost probe: unsupported device {x.device}")
@@ -156,20 +175,25 @@ def scalar_cost(x, mode: str, iters: int = ITERS, tables=None):
              if mode == "vsort" else None)
     code = cudalib.lib().rt_probe_scalar(
         x.data_ptr(), tables.data_ptr() if mode == "smem16" else None, iters, P,
-        MODES.index(mode), out.data_ptr(), sc.data_ptr(),
+        MODES.index(mode), w or chosen_w(mode), out.data_ptr(), sc.data_ptr(),
         codes.data_ptr() if codes is not None else None, cudalib.stream_handle())
     cudalib.check(code, f"probe_scalar kernel ({mode})")
     LAUNCHES["probe_scalar"] += 1
     return out, sc, codes
 
 
-def kernel_resources(modes=MODES + ("tables",)) -> dict:
-    """{mode: (registers per thread, local memory bytes per thread)};
-    "tables" is smem16's pre-pass."""
-    return common.kernel_attrs(
-        cudalib.lib().rt_probe_scalar_attrs,
-        {mode: len(MODES) if mode == "tables" else MODES.index(mode) for mode in modes},
-        "probe_scalar")
+def kernel_resources(modes=MODES + ("tables",), w: int | None = None) -> dict:
+    """{mode: (registers per thread, local memory bytes per thread)} at w
+    warps per packet (None: each mode's chosen_w); "tables" is smem16's
+    pre-pass."""
+    fn = cudalib.lib().rt_probe_scalar_attrs
+    out = {}
+    for mode in modes:
+        i = len(MODES) if mode == "tables" else MODES.index(mode)
+        wm = 1 if mode == "tables" else (w or chosen_w(mode))
+        out.update(common.kernel_attrs(lambda j, r, b, wm=wm: fn(j, wm, r, b), {mode: i},
+                                       "probe_scalar"))
+    return out
 
 
 def work(mode: str, packets: int, iters: int) -> dict:
@@ -192,23 +216,26 @@ def work(mode: str, packets: int, iters: int) -> dict:
 
 
 def tables_work(packets: int, iters: int) -> dict:
-    """The smem16 tables pre-pass (one thread, csrc/probe_scalar.cu
+    """The smem16 tables pre-pass (csrc/probe_scalar.cu
     probe_scalar_tables_kernel): bytes (the tables written once), int32
-    operations (per packet and iteration smem16's 16 x (add, and)) and the
-    instructions its one thread issues in order besides those: per packet
-    and iteration 16 shared stores and one load, per packet its table's 64
-    loads and 64 stores."""
+    operations (per packet and iteration smem16's 16 x (add, and)), and the
+    dependent instructions of its longest chain by kind, at least: a
+    packet's iterations (2 integer ops each: the load's offset (e - sc) mod
+    64, then sc plus it), then the scan of C_p, 32 packets a round (each 5
+    shuffle-and-compose steps and the round's hand-over: 6 shuffles and 6
+    integer ops)."""
+    rounds = -(-max(packets - 1, 0) // 32)
     return dict(bytes=4 * packets * TABLE, int32_ops=32 * packets * iters,
-                serial_ops=32 * packets * iters + 17 * packets * iters + 2 * TABLE * packets)
+                dep_alu=2 * iters + 6 * rounds, dep_shfl=6 * rounds)
 
 
 def run(iters: int = ITERS, packets: int = N_PACKETS, out=print) -> dict:
     """What the script's main() does, on the card: one seeded input, the
-    smem16 pre-pass (timed apart), then each variant warmed up and 10
-    launches timed with CUDA events; prints kernel ms (median), ns per
-    packet-iteration (the script's unit), ns per iteration of one warp
-    (each packet's chain runs on one warp, all packets at once) and its
-    excess over baseline, registers and local memory."""
+    smem16 pre-pass (timed apart), then each variant at its chosen W warmed
+    up and 10 launches timed with CUDA events; prints kernel ms (median),
+    ns per packet-iteration (the script's unit), ns per iteration of a
+    packet (all packets run at once) and its excess over baseline,
+    registers and local memory."""
     common.require_card("scalar_cost")
     dev = torch.device("cuda")
     x = torch.from_numpy(make_input(packets)).to(dev)
@@ -219,19 +246,20 @@ def run(iters: int = ITERS, packets: int = N_PACKETS, out=print) -> dict:
         tables["t"] = smem16_tables(packets, iters, dev)
 
     ms_tables = common.median(common.time_launches(prepass))
-    out(f"smem16 tables pre-pass: {ms_tables:8.4f} ms (one thread, {packets} packets x {iters} "
-        f"iterations; not in smem16's time)   regs {res['tables'][0]} local {res['tables'][1]} B")
+    out(f"smem16 tables pre-pass: {ms_tables:8.4f} ms ({packets} packets x {iters} iterations, "
+        f"each packet's chain at once, then the scan; not in smem16's time)   regs "
+        f"{res['tables'][0]} local {res['tables'][1]} B")
     results = {}
     for name in VARIANTS:
         mode, it = variant(name, iters)
         ms = common.median(common.time_launches(
             lambda: scalar_cost(x, mode, it, tables["t"] if mode == "smem16" else None)))
-        r = dict(ms=ms, iters=it, ns_per_packet_iter=ms * 1e6 / (packets * it),
-                 ns_per_warp_iter=ms * 1e6 / it, num_regs=res[mode][0], local_bytes=res[mode][1])
+        r = dict(ms=ms, iters=it, w=chosen_w(mode), ns_per_packet_iter=ms * 1e6 / (packets * it),
+                 ns_per_iter=ms * 1e6 / it, num_regs=res[mode][0], local_bytes=res[mode][1])
         line = (f"{name:10s}: {ms:8.4f} ms  {r['ns_per_packet_iter']:8.3f} ns/packet-iter  "
-                f"{r['ns_per_warp_iter']:8.2f} ns/warp-iter")
+                f"{r['ns_per_iter']:8.2f} ns/iter  W{r['w']}")
         if name not in ("baseline", "baseline2x"):
-            r["over_baseline_ns"] = r["ns_per_warp_iter"] - results["baseline"]["ns_per_warp_iter"]
+            r["over_baseline_ns"] = r["ns_per_iter"] - results["baseline"]["ns_per_iter"]
             line += f"   +{r['over_baseline_ns']:7.2f} ns over baseline"
         out(line + f"   regs {res[mode][0]} local {res[mode][1]} B")
         results[name] = r

@@ -3,7 +3,8 @@ scripts/vstack_probe.py (p1 kernel :68, p2 `make` :130, p3 kernels :244
 and :292; TPU calls :103, :197, :275, :320).
 
 Chain s of 8 pushes c = (s + 2i) mod 4 values in iteration i and pops one
-when it pushed none (kernel: csrc/probe_vstack.cu, one block of 8 warps).
+when it pushed none (kernel: csrc/probe_vstack.cu, each chain one warp in
+a block of its own).
 
   p1          the shift-register stack (top at entry 0 of a 128-entry row):
               64 iterations, pops and final stack against the NumPy model
@@ -132,9 +133,9 @@ def vstack_plain(case: str, iters: int, device="cpu"):
 
 
 def vstack(case: str, iters: int, device="cuda"):
-    """One block of the case's kernel (csrc/probe_vstack.cu) on a CUDA
-    device; the plain version on the CPU. The case has no inputs, so the
-    device says which runs."""
+    """The case's kernel (csrc/probe_vstack.cu) on a CUDA device; the plain
+    version on the CPU. The case has no inputs, so the device says which
+    runs."""
     if case not in CASES:
         raise ValueError(f"vstack probe: unknown case {case!r}")
     device = torch.device(device)
@@ -144,6 +145,7 @@ def vstack(case: str, iters: int, device="cuda"):
         raise ValueError(f"vstack probe: unsupported device {device}")
     if iters < 0:
         raise ValueError("vstack probe: iters must be >= 0")
+    sums = None
     if case in RECORD:
         pops, stack = (torch.empty((P_SUB, P_LANE), dtype=torch.int32, device=device)
                        for _ in range(2))
@@ -151,9 +153,11 @@ def vstack(case: str, iters: int, device="cuda"):
     else:
         out = torch.empty((P_SUB, P_LANE), dtype=torch.float32, device=device)
         ptrs = (None, None, out.data_ptr())
-    cudalib.check(cudalib.lib().rt_probe_vstack(CASES.index(case), iters, *ptrs,
-                                                cudalib.stream_handle()),
-                  f"probe_vstack kernel ({case})")
+        if case == "p2_smem":   # the chains' total and the count of chains done
+            sums = torch.empty((2,), dtype=torch.int32, device=device)
+    cudalib.check(cudalib.lib().rt_probe_vstack(
+        CASES.index(case), iters, *ptrs, None if sums is None else sums.data_ptr(),
+        cudalib.stream_handle()), f"probe_vstack kernel ({case})")
     LAUNCHES["probe_vstack"] += 1
     return (pops, stack) if case in RECORD else out
 
@@ -164,18 +168,35 @@ def kernel_resources(cases=CASES) -> dict:
                                {case: CASES.index(case) for case in cases}, "probe_vstack")
 
 
+def pushes(iters: int) -> int:
+    """Values pushed by the 8 chains in `iters` iterations: the sum of c."""
+    i = np.arange(iters)[None, :]
+    return int(((np.arange(P_SUB)[:, None] + 2 * i) % 4).sum())
+
+
 def work(case: str, iters: int) -> dict:
     """Bytes (the outputs, written once; there are no inputs) and int32
-    operations of `iters` iterations, counted from the script's code per
-    chain and iteration: the shift register's 4 masked shifts select over
-    128 entries (512), the pointer stack's 3 masked writes compare and
-    select (768) and its masked sum compares, selects and adds (384); each
-    case's chain-uniform arithmetic (c, the values, sp, the pop test and the
-    sum: 20)."""
-    per_chain = {"p1": 512, "p2_vreg": 512, "p2_smem": 0, "p3": 1152,
-                 "p3_timing": 1152}[case] + 20
+    operations of the function, counted once per chain and iteration: a
+    shift register moves its 128-entry row (128); the pointer stack writes
+    its c pushed values and reads its top (c + 1); p2_smem makes its 3
+    stores and one load (4); and each case's chain-uniform arithmetic (c,
+    the values, sp, the pop test and the sum: 20)."""
+    n = P_SUB * iters
+    ops = {"p1": 128 * n, "p2_vreg": 128 * n, "p2_smem": 4 * n,
+           "p3": pushes(iters) + n, "p3_timing": pushes(iters) + n}[case] + 20 * n
     n_out = 2 if case in RECORD else 1
-    return dict(bytes=4 * P_SUB * P_LANE * n_out, int32_ops=per_chain * P_SUB * iters)
+    return dict(bytes=4 * P_SUB * P_LANE * n_out, int32_ops=ops)
+
+
+def dependence_steps(case: str, iters: int) -> dict:
+    """The dependent instructions one chain issues in `iters` iterations,
+    at least, by kind ({"alu": n, "shfl": n}): a shift register's row takes
+    a shuffle and a select an iteration; the pointer stacks' and p2_smem's
+    pointer at least two integer operations (sp + c, then its clamp or the
+    pop's decrement): their reads feed only the sum, a turn late."""
+    if case in ("p1", "p2_vreg"):
+        return dict(alu=iters, shfl=iters)
+    return dict(alu=2 * iters, shfl=0)
 
 
 def _time(case: str, iters: int, res: dict, out):
@@ -188,8 +209,8 @@ def _time(case: str, iters: int, res: dict, out):
     ms = common.median(common.time_launches(call))
     r = dict(ms=ms, iters=iters, ns_per_iter=ms * 1e6 / iters, num_regs=res[case][0],
              local_bytes=res[case][1])
-    out(f"{case:9s}: {ms:8.4f} ms  {r['ns_per_iter']:8.2f} ns/iter ({iters} iterations, one "
-        f"block)   regs {res[case][0]} local {res[case][1]} B")
+    out(f"{case:9s}: {ms:8.4f} ms  {r['ns_per_iter']:8.2f} ns/iter ({iters} iterations)   "
+        f"regs {res[case][0]} local {res[case][1]} B")
     return r, got["out"]
 
 

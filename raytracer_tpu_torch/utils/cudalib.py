@@ -190,9 +190,12 @@ def lib() -> ctypes.CDLL:
     for name in ("v8", "v5"):
         getattr(L, f"rt_probe_{name}_pick_w").argtypes = [ci, ci]
     L.rt_probe_interleave_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
-    L.rt_probe_scalar.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
-    L.rt_probe_scalar_tables.argtypes = [ci, ci, vp, vp]
-    L.rt_probe_vstack.argtypes = [ci, ci, vp, vp, vp, vp]
+    L.rt_probe_scalar.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+    L.rt_probe_scalar_tables.argtypes = [ci, ci, vp, vp, vp]
+    L.rt_probe_scalar_tables_scratch.argtypes = [ci]
+    L.rt_probe_scalar_attrs.argtypes = [ci, ci, ip, ip]
+    L.rt_probe_vstack.argtypes = [ci, ci, vp, vp, vp, vp, vp]
+    L.rt_probe_latency.argtypes = [ci, ci, vp, vp, vp]
     L.rt_probe_ktf.argtypes = [ci, vp, vp, cu, cu, vp, vp, vp, vp, vp]
     L.rt_probe_v6.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp,
                               vp]
@@ -202,7 +205,7 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_bitcast.argtypes = [ci, vp, ci, vp, vp, vp]
     L.rt_probe_morph_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp,
                                    vp, vp, vp, vp, vp]
-    for name in ("scalar", "vstack", "ktf", "mosaic", "feature", "bitcast"):
+    for name in ("vstack", "ktf", "mosaic", "feature", "bitcast"):
         getattr(L, f"rt_probe_{name}_attrs").argtypes = [ci, ip, ip]
     for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_draws_camera_jax,
                L.rt_draws_bounce_jax, L.rt_draws_camera_ktf, L.rt_draws_bounce_ktf,
@@ -210,8 +213,9 @@ def lib() -> ctypes.CDLL:
                L.rt_coherence_keys, L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
                L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_probe_v8,
                L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs,
-               L.rt_probe_scalar, L.rt_probe_scalar_tables,
+               L.rt_probe_scalar, L.rt_probe_scalar_tables, L.rt_probe_scalar_tables_scratch,
                L.rt_probe_scalar_attrs, L.rt_probe_vstack, L.rt_probe_vstack_attrs,
+               L.rt_probe_latency,
                L.rt_probe_ktf, L.rt_probe_ktf_attrs, L.rt_probe_v6, L.rt_probe_v6_attrs,
                L.rt_probe_mosaic, L.rt_probe_mosaic_attrs, L.rt_probe_feature,
                L.rt_probe_feature_attrs, L.rt_probe_bitcast, L.rt_probe_bitcast_attrs,

@@ -425,34 +425,50 @@ def test_probe_interleave_equals_v5_full(dev, v5_inputs, G, w):
     assert _bitwise(k, v5_body.v5_plain(node, tri, o, d, tlim, zero_row, "full", 12))
 
 
+@pytest.mark.parametrize("w", (None, *scalar_cost.ADMITTED_W))
 @pytest.mark.parametrize("mode", scalar_cost.MODES)
-def test_probe_scalar_equals_plain(dev, mode):
-    """csrc/probe_scalar.cu ≡ scalar_plain bit for bit: acc, the witness sc
-    and vsort's codes (5 packets, 70 iterations: smem16's carried table
-    matters past 64)."""
+def test_probe_scalar_equals_plain(dev, mode, w):
+    """csrc/probe_scalar.cu ≡ scalar_plain bit for bit at every W (None: the
+    one the wrapper picks): acc, the witness sc and vsort's codes (5
+    packets, 70 iterations: smem16's carried table matters past 64), also
+    on inputs scaled into ±3,000 with a NaN, where extract8's values
+    convert to non-zero ints and so cross the packet's warps; the wrapper
+    counts its launch; a W not admitted raises."""
     x = torch.from_numpy(scalar_cost.make_input(5, seed=4))
-    before = scalar_cost.LAUNCHES["probe_scalar"]
-    acc, sc, codes = scalar_cost.scalar_cost(x.to(dev), mode, 70)
-    assert scalar_cost.LAUNCHES["probe_scalar"] == before + 1
-    acc_p, sc_p, codes_p = scalar_cost.scalar_plain(x, mode, 70)
-    assert _bitwise(acc, acc_p) and torch.equal(sc.cpu(), sc_p)
-    assert (codes is None) == (codes_p is None)
-    if codes is not None:
-        assert torch.equal(codes.cpu(), codes_p)
+    big = x * torch.from_numpy(np.random.default_rng(2).uniform(
+        -3000, 3000, tuple(x.shape)).astype(np.float32))
+    big[1, 2, 5] = float("nan")
+    for inp in (x, big):
+        before = scalar_cost.LAUNCHES["probe_scalar"]
+        acc, sc, codes = scalar_cost.scalar_cost(inp.to(dev), mode, 70, w=w)
+        assert scalar_cost.LAUNCHES["probe_scalar"] == before + 1
+        acc_p, sc_p, codes_p = scalar_cost.scalar_plain(inp, mode, 70)
+        assert _bitwise(acc, acc_p) and torch.equal(sc.cpu(), sc_p)
+        assert (codes is None) == (codes_p is None)
+        if codes is not None:
+            assert torch.equal(codes.cpu(), codes_p)
+    if w is None:
+        for bad in (0, 3, 16):
+            with pytest.raises(ValueError, match="chain width"):
+                scalar_cost.scalar_cost(x.to(dev), mode, 4, w=bad)
 
 
-def test_probe_scalar_tables_equal_chain(dev):
-    """The one-thread pre-pass gives smem16_chain's starting tables."""
-    got = scalar_cost.smem16_tables(9, 150, dev)
-    assert torch.equal(got.cpu(), scalar_cost.smem16_tables(9, 150, "cpu"))
+@pytest.mark.parametrize("packets, iters", [(1, 1), (9, 150), (65, 5), (256, 403), (256, 806)])
+def test_probe_scalar_tables_equal_chain(dev, packets, iters):
+    """The pre-pass (every packet's chain at once, then the scan over
+    packets) gives smem16_chain's starting tables at phase 13's sizes."""
+    got = scalar_cost.smem16_tables(packets, iters, dev)
+    assert torch.equal(got.cpu(), scalar_cost.smem16_tables(packets, iters, "cpu"))
 
 
 @pytest.mark.parametrize("case", vstack.CASES)
 def test_probe_vstack_equals_plain(dev, case):
-    """csrc/probe_vstack.cu ≡ vstack_plain bit for bit (p1 / p3 at 64
-    iterations, where they also equal the push/pop model, and at 150, past
-    the row's 128 entries; the timing cases at 300)."""
-    for iters in ((64, 150) if case in vstack.RECORD else (300,)):
+    """csrc/probe_vstack.cu ≡ vstack_plain bit for bit: p1 / p3 at 64
+    iterations, where they also equal the push/pop model, and at 150, where
+    sp passes the row's 128 entries; p2_smem at 300 and at 2,000, at its
+    92-entry clamp; the others at 300."""
+    sizes = {"p1": (64, 150), "p3": (64, 150), "p2_smem": (300, 2000)}.get(case, (300,))
+    for iters in sizes:
         k = vstack.vstack(case, iters, dev)
         p = vstack.vstack_plain(case, iters)
         if case in vstack.RECORD:
@@ -464,11 +480,18 @@ def test_probe_vstack_equals_plain(dev, case):
 
 
 def test_probe_resources(dev):
+    """Registers of every probe kernel; 0 local bytes in every P-scalar
+    kernel (each mode at every W, and the pre-pass) and every P-vstack
+    case."""
     regs8, regs5 = ablate_v8.kernel_resources(), v5_body.kernel_resources()
     assert set(regs8) == set(ablate_v8.VARIANTS) and set(regs5) == set(v5_body.MODES)
     more = [*interleave_probe.kernel_resources().values(),
             *scalar_cost.kernel_resources().values(), *vstack.kernel_resources().values()]
     assert all(r > 0 for r, _ in list(regs8.values()) + list(regs5.values()) + more)
+    new = [*vstack.kernel_resources().values(), scalar_cost.kernel_resources(("tables",))["tables"],
+           *(r for w in scalar_cost.ADMITTED_W
+             for r in scalar_cost.kernel_resources(scalar_cost.MODES, w).values())]
+    assert len(new) == 5 + 1 + 20 and all(local == 0 for _, local in new), new
 
 
 def _max_ulp(a, b):

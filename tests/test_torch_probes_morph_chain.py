@@ -234,3 +234,32 @@ def test_sass_splits_a_kernel_by_loop():
     assert c["loops"] == [2, 4]              # 0x20-0x30; 0x60-0x90
     assert c["straight"] == 5                # 0x00, 0x10, 0x50, 0xa0, 0xb0
     assert sass.loops([]) == ([], 0)
+
+
+def test_sass_loop_min_takes_the_shortest_path_through_a_loop():
+    """sass.loop_min: a branch forward inside the body skips its block (the
+    shorter path counts), a branch out of the loop is not taken, a branch
+    back inside the body is passed once; the main loop unrolled with a
+    remainder loop gives the remainder's single pass as the least."""
+    text = """
+        Function : _ZN8probe_v514probe_v5_kernelILi0ELi1EEEvPKfS1_S1_S1_S1_iiiiPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   FADD R2, R3, R4 ;
+        /*0020*/               @P0 BRA 0x60 ;
+        /*0030*/                   FMUL R2, R3, R4 ;
+        /*0040*/                   FMUL R2, R3, R4 ;
+        /*0050*/                   FMUL R2, R3, R4 ;
+        /*0060*/                   FADD R2, R3, R4 ;
+        /*0070*/                   FADD R5, R3, R4 ;
+        /*0080*/               @P2 BRA 0x70 ;
+        /*0090*/               @P1 BRA 0x100 ;
+        /*00a0*/               @P3 BRA 0x10 ;
+        /*00b0*/                   IADD3 R2, R3, R4, RZ ;
+        /*00c0*/               @P4 BRA 0xb0 ;
+        /*00d0*/                   EXIT ;
+        /*00e0*/                   BRA 0xe0 ;
+    """
+    c = sass.parse(text)[("v5", (0, 1))]
+    assert c["loops"] == [10, 2]           # 0x10-0xa0 (with 0x70-0x80 inside); 0xb0-0xc0
+    assert c["loop_min"] == [7, 2]         # 0x10, 0x20 (taken), 0x60-0xa0; 0xb0, 0xc0
+    assert sass.loop_min([]) == []

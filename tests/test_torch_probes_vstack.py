@@ -78,3 +78,20 @@ def test_vstack_model_teeth():
     assert vstack.matches_model("p3", pops * 0, p3_stack, vstack.CHECK_ITERS)[0] is False
     with pytest.raises(ValueError, match="unknown case"):
         vstack.vstack("p4", 1, "cpu")
+
+
+def test_vstack_work_and_dependence_steps():
+    """The function's work per chain and iteration: a shift register's
+    128-entry row move; the pointer stack's pushed values (the model's
+    count) and one read; p2_smem's 3 stores and one load; 20 chain-uniform
+    operations each. The dependence steps: a shuffle and a select an
+    iteration for a shift register, two integer operations for the
+    others."""
+    _, stacks = vstack.model(70)
+    assert vstack.pushes(70) == sum(len(s) for s in stacks) + int((vstack.model(70)[0] != 0).sum())
+    n = 8 * 70
+    assert vstack.work("p1", 70) == dict(bytes=2 * 4 * 1024, int32_ops=148 * n)
+    assert vstack.work("p2_smem", 70)["int32_ops"] == 24 * n
+    assert vstack.work("p3_timing", 70)["int32_ops"] == vstack.pushes(70) + 21 * n
+    assert vstack.dependence_steps("p2_vreg", 70) == dict(alu=70, shfl=70)
+    assert vstack.dependence_steps("p3", 70) == dict(alu=140, shfl=0)
