@@ -57,11 +57,14 @@ plain PyTorch version, and drives the port's three paths:
     chain at five sizes; vstack's p1 and p3 equal the push/pop model, every
     case equals its plain version. The
     entry points of ktf_probe.py (five [8, 128] cases, each against the
-    script's host expectation and its plain version on the card) and
-    v6.py (the dual-unit traversal on the reference scene's 4-wide tree,
-    128 packets: equal to its plain version bit for bit at a check size
-    and at full length, against K4 on the same tree by the script's rule,
-    timed against it in turns); morph.py (the 13 variants of the v5 body
+    script's host expectation and its plain version on the card bit for
+    bit) and v6.py (the dual-unit traversal on the reference scene's 4-wide
+    tree, 128 and 1,056 packets: at every chain width W equal to its plain
+    version bit for bit at a check size and at full length, at two limit
+    sets and at stack_cap 12, against K4 on the same tree by the script's
+    rule, timed against it in turns, every W timed with both bounds, and
+    its two widths in turns at 264 and 528 packets, between the sizes);
+    morph.py (the 13 variants of the v5 body
     morphed toward K4, at the script's 8 packets and at 1,056, each at
     every chain width W equal to its plain version bit for bit, the
     packets' loop counts included, with the chains' live share of the
@@ -75,7 +78,7 @@ plain PyTorch version, and drives the port's three paths:
     feature s2) equal to it bit for bit and timed per call against it in
     alternating rounds (also against the library call on views made
     once), every case's device time per launch from a CUDA graph of 100
-    launches, P-floor's empty kernel as the launch floor both ways, and
+    launches (P-ktf's too), P-floor's empty kernel as the launch floor both ways, and
     the host microseconds of each part of a call; then P-v8 and the v5
     body at every chain width W (1, 2, 4) at the scripts' packets and at
     1,056: ms, registers, local bytes, the roofline and the issue bound
@@ -99,8 +102,10 @@ plain PyTorch version, and drives the port's three paths:
     P-feature through its own wrappers and cudalib (parent_launch_path)
     against this tree's, bit for bit (lanesum, which sums in another order
     since the redesign, by the script's check) and in alternating rounds,
-    per call and per launch in a CUDA graph, and K2's Threefry through the
-    parent's wrapper against this tree's; the parent's P-v8 and v5 body
+    per call and per launch in a CUDA graph, P-ktf the same way (every
+    case bit for bit), and K2's Threefry through the parent's wrapper
+    against this tree's; the parent's P-v6 (128 and 1,056 packets, the six
+    outputs bit for bit, in alternating rounds); the parent's P-v8 and v5 body
     through its own wrappers (every variant and mode at the scripts'
     packets and at 1,056) bit for bit and in alternating rounds; the
     parent's P-morph (8 and 1,056 packets, the loop counts included) and
@@ -277,6 +282,9 @@ P13_FILL_PACKETS = 1056    # 8 blocks of 8 warps per SM on 132 SMs
 # graph of this many launches, captured once and replayed between one
 # event pair.
 P13_TURN_PAIRS = 6
+# Packets between P-v6's two sizes, 16 and 32 chains an SM on 132 SMs, where
+# v6.chosen_w's threshold lies: its two widths there in turns.
+P13_V6_BETWEEN = (264, 528)
 # (packets, iterations) at which phase 13 holds the P-scalar pre-pass to
 # smem16_chain: one packet, fewer and more than 64 iterations, the script's
 # size and twice its iterations.
@@ -1733,8 +1741,9 @@ def alternate(measures: dict, pairs: int = P13_TURN_PAIRS) -> dict:
 
 def tile_calls(dev) -> dict:
     """{"<probe> <case>": (the kernel's call, its library call, the library
-    call on views made beforehand)} of every P-mosaic case and P-feature
-    stage on its script's inputs on the card, each call returning a tuple;
+    call on views made beforehand)} of every P-mosaic case, P-feature
+    stage and P-ktf case on its script's inputs on the card, each call
+    returning a tuple;
     None where one PyTorch call does not compute the case. A library call
     is one PyTorch call computing the case from its input x, the views it
     needs taken inside the call (as the probe rows have timed it): mosaic colbcast
@@ -1743,7 +1752,7 @@ def tile_calls(dev) -> dict:
     s2 x * 2.0 (no view: no second form)."""
     import torch
 
-    from raytracer_tpu_torch.probes import feature, mosaic
+    from raytracer_tpu_torch.probes import feature, ktf_probe, mosaic
 
     tile, i32 = mosaic.TILE, torch.int32
     calls = {}
@@ -1768,6 +1777,9 @@ def tile_calls(dev) -> dict:
         ins = tuple(torch.from_numpy(a).to(dev) for a in feature.inputs(case))
         calls[f"feature {case}"] = (lambda c=case, i=ins: feature.probe_feature(c, *i),
                                     (lambda x=ins[0]: (x * 2.0,)) if case == "s2" else None, None)
+    for case in ktf_probe.CASES:   # no PyTorch call computes Threefry, u01 or the unit vectors
+        ins = tuple(torch.from_numpy(a).to(dev) for a in ktf_probe.inputs(case))
+        calls[f"ktf {case}"] = (lambda c=case, i=ins: ktf_probe.probe_ktf(c, *i), None, None)
     return calls
 
 
@@ -1788,13 +1800,13 @@ def host_us(fn, calls: int = 2000) -> float:
 
 def tile_host_parts(dev) -> dict:
     """Where the host time of a call of the redesigned wrappers goes (host_us
-    of each part alone, mosaic colbcast and feature s2 on their script's
-    inputs): the wrapper, its library call, the bare ctypes launch on
-    buffers made once, each step of the wrapper's own work, and the stream
-    handle as torch.cuda.current_stream() gives it."""
+    of each part alone, mosaic colbcast, feature s2 and ktf sampler_tile on
+    their script's inputs): the wrapper, its library call, the bare ctypes
+    launch on buffers made once, each step of the wrapper's own work, and
+    the stream handle as torch.cuda.current_stream() gives it."""
     import torch
 
-    from raytracer_tpu_torch.probes import feature, mosaic
+    from raytracer_tpu_torch.probes import feature, ktf_probe, mosaic
     from raytracer_tpu_torch.utils import cudalib
 
     x = torch.from_numpy(mosaic.inputs("colbcast")[0]).to(dev)
@@ -1817,6 +1829,18 @@ def tile_host_parts(dev) -> dict:
         "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
         "cudalib.signature(x) == the fast path's": lambda: cudalib.signature(x) == mosaic._X,
     }
+    px = torch.from_numpy(ktf_probe.inputs("sampler_tile")[0]).to(dev)
+    kout = torch.empty((4, *ktf_probe.TILE), device=dev)
+    kp, kop, (k0, k1) = px.data_ptr(), kout.data_ptr(), ktf_probe._KEYS["sampler_tile"]
+    sid = ktf_probe.CASES.index("sampler_tile")
+    parts.update({
+        "ktf sampler_tile wrapper": lambda: ktf_probe.probe_ktf("sampler_tile", px),
+        "ktf sampler_tile ctypes launch alone": lambda: L.rt_probe_ktf(sid, kp, None, k0, k1, kop,
+                                                                       stream),
+        "ktf x.new_empty((4, 8, 128))": lambda: px.new_empty((4, *ktf_probe.TILE),
+                                                             dtype=torch.float32),
+        "ktf out.unbind(0)": lambda: kout.unbind(0),
+    })
     return {k: host_us(f) for k, f in parts.items()}
 
 
@@ -2002,7 +2026,10 @@ def phase13(dev, smi):
     t0 = time.perf_counter()
     node5, tri5, zero_row = v5_body.reference_tables()
     o5, d5, tl5 = (torch.from_numpy(a) for a in v5_body.make_rays(v5_body.N_PACKETS))
-    v6_in = v6.reference_inputs(v6.N_PACKETS)
+    v6_128 = v6.reference_inputs(v6.N_PACKETS)
+    v6_in = {v6.N_PACKETS: v6_128,
+             P13_FILL_PACKETS: (*v6_128[:5], *(torch.from_numpy(a) for a in v5_body.make_rays(
+                 P13_FILL_PACKETS, seed=0)))}
     morph_in = {p: morph.reference_inputs(p) for p in (morph.N_PACKETS, P13_FILL_PACKETS)}
     bc_tabs = bitcast.reference_tables()
     setup_s = time.perf_counter() - t0
@@ -2056,9 +2083,10 @@ def phase13(dev, smi):
     if not all(r["ok"] for r in runs["P-ktf"].values()):
         raise AssertionError(f"ktf probe: a case fails its check: {runs['P-ktf']}")
     launches["P-ktf"] = ktf_probe.LAUNCHES["probe_ktf"]
-    log(13, f"v6.run({v6.N_PACKETS}) (the reference scene's 4-wide tree; v6 against K4 on it, "
-            f"in turns):")
-    runs["P-v6"] = v6.run(v6.N_PACKETS, dev, inputs=v6_in, out=out)
+    for packets in v6_in:
+        log(13, f"v6.run({packets}) (the reference scene's 4-wide tree; v6 at the W it picks "
+                f"against K4 on it, in turns):")
+        runs[f"P-v6 {packets}"] = v6.run(packets, dev, inputs=v6_in[packets], out=out)
     launches["P-v6"] = v6.LAUNCHES["probe_v6"]
     for packets in morph_in:
         log(13, f"morph.run({packets}) (every variant in this process; the reference scene's "
@@ -2090,7 +2118,7 @@ def phase13(dev, smi):
             "P-interleave": 2 * 11 * len(interleave_probe.GS),
             "P-scalar": 11 * len(scalar_cost.VARIANTS), "P-scalar tables": 11,
             "P-vstack": 11 * len(vstack.CASES), "P-ktf": 11 * len(ktf_probe.CASES),
-            "P-v6": 12, "P-morph": 2 * 11 * len(morph.VARIANTS),
+            "P-v6": 2 * 12, "P-morph": 2 * 11 * len(morph.VARIANTS),
             "P-mosaic": 11 * len(mosaic.CASES), "P-bitcast": 11 * len(bitcast.CASES),
             "P-feature": 11 * len(feature.CASES), "P-feature s7 (K4)": 1}
     if launches != want or plain_calls:
@@ -2287,54 +2315,99 @@ def phase13(dev, smi):
         lambda: scalar_cost.smem16_tables(scalar_cost.N_PACKETS, scalar_cost.ITERS, dev))
     lat = common.latency_clocks()
 
-    # P-ktf: each case's kernel against its plain version on the card, by
-    # the script's rules (bitwise, the unit vectors at atol 1e-5 / 1e-6).
+    # P-ktf: each case's kernel (the wrapper's fast path) against its plain
+    # version on the card, bit for bit, the unit vectors too (the entry
+    # point's run held each case to the script's host expectation by its
+    # rules).
     for case in ktf_probe.CASES:
         ins = tuple(torch.from_numpy(x).to(dev) for x in ktf_probe.inputs(case))
-        k = ktf_probe.probe_ktf(case, *ins)
-        torch.cuda.synchronize()
-        ev0.record()
-        p = ktf_probe.ktf_plain(case, *ins)
-        ev1.record()
-        torch.cuda.synchronize()
-        ok, err = ktf_probe.agrees(case, [t.cpu().numpy() for t in k], [t.cpu().numpy() for t in p])
-        if not ok:
-            raise AssertionError(f"ktf {case}: kernel != plain (max |diff| {err})")
-        max_err["P-ktf"] = max(max_err.get("P-ktf", 0.0), err)
-        plain_ms[f"ktf {case}"] = ev0.elapsed_time(ev1)
-        runs["P-ktf"][case]["max_abs_err_plain"] = err
-        checked.append(f"ktf {case}")
+        held("P-ktf", f"ktf {case}", lambda: ktf_probe.probe_ktf(case, *ins),
+             lambda: ktf_probe.ktf_plain(case, *ins), f"ktf {case}")
 
     # P-v6 ≡ its plain version bit for bit (the six outputs and the chains'
-    # iteration counts): P13_CHECK_ITERS iterations at tlim = BIG and at
-    # limits seeded in (0.05, 0.6), then the script's bound on every packet.
-    # Then the script's rule against K4 on the same tree, for the kernel and
-    # for the plain version: t and hit mismatches none, id and material
-    # flips (near-ties) at most NEAR_TIE_MAX of the hits.
-    bvh6, node6, tri6, nb6, cap6, o6, d6, tl6 = v6_in
-    v6_dev = [t.to(dev) for t in (node6, tri6, o6, d6, tl6)]
-    tl6_var = torch.from_numpy(np.random.default_rng(6).uniform(
-        0.05, 0.6, tuple(tl6.shape)).astype(np.float32)).to(dev)
-    for tag, lim in (("", v6_dev[4]), (" tlim(0.05,0.6)", tl6_var)):
-        held("P-v6", f"v6{tag} i{P13_CHECK_ITERS}",
-             lambda: v6.v6(*v6_dev[:4], lim, nb6, cap6, P13_CHECK_ITERS, count=True),
-             lambda: v6.v6_plain(*v6_dev[:4], lim, nb6, cap6, P13_CHECK_ITERS, count=True))
-    k6 = held("P-v6", "v6 full", lambda: v6.v6(*v6_dev, nb6, cap6, count=True),
-              lambda: v6.v6_plain(*v6_dev, nb6, cap6, count=True), "P-v6")
-    p6 = last_plain["P-v6"]
-    bvh6_dev = bvh6.to(dev)
-    o6f, d6f = v6.unpack(v6_dev[2]), v6.unpack(v6_dev[3])
+    # iteration counts) at 128 and 1,056 packets: P13_CHECK_ITERS iterations
+    # and the script's bound, each at tlim = BIG and at limits seeded in
+    # (0.05, 0.6), and the bound at stack_cap 12, where the stall guard and
+    # the clamps fire; the plain version once a set, the kernel at the W it
+    # picks and at every W. Then the script's rule against K4 on the same
+    # tree, for the kernel (both sizes) and for the plain version (128
+    # packets): t and hit mismatches none, id and material flips (near-ties)
+    # at most NEAR_TIE_MAX of the hits.
+    v6_res = {w: v6.kernel_resources(w) for w in v6.ADMITTED_W}
+    if any(local for _, local in v6_res.values()):
+        raise AssertionError(f"v6: local memory in a chain width's kernel: {v6_res}")
+    v6_dev, v6_full = {}, {}
+    for packets, (_, node6, tri6, nb6, cap6, o6, d6, tl6) in v6_in.items():
+        args6 = tuple(t.to(dev) for t in (node6, tri6, o6, d6))
+        tl_big = tl6.to(dev)
+        tl_var = torch.from_numpy(np.random.default_rng(6).uniform(
+            0.05, 0.6, tuple(tl6.shape)).astype(np.float32)).to(dev)
+        v6_dev[packets] = (*args6, tl_big)
+        for tag, lim, cap, iters in (("", tl_big, cap6, P13_CHECK_ITERS),
+                                     (" tlim(0.05,0.6)", tl_var, cap6, P13_CHECK_ITERS),
+                                     ("", tl_big, cap6, None),
+                                     (" tlim(0.05,0.6)", tl_var, cap6, None),
+                                     (" stack_cap 12", tl_big, 12, None)):
+            name = f"v6 P{packets}{tag} {'full' if iters is None else f'i{iters}'}"
+            main_set = iters is None and not tag
+            held("P-v6", name, lambda: v6.v6(*args6, lim, nb6, cap, iters, count=True),
+                 lambda: v6.v6_plain(*args6, lim, nb6, cap, iters, count=True),
+                 "P-v6" if main_set and packets == v6.N_PACKETS else None)
+            if main_set:
+                v6_full[packets] = last_plain["P-v6"]
+            for w in v6.ADMITTED_W:
+                also("P-v6", f"{name} W{w}",
+                     lambda: v6.v6(*args6, lim, nb6, cap, iters, count=True, w=w))
+    p6 = v6_full[v6.N_PACKETS]
+    bvh6_dev = v6_in[v6.N_PACKETS][0].to(dev)
+    o6f, d6f = v6.unpack(v6_dev[v6.N_PACKETS][2]), v6.unpack(v6_dev[v6.N_PACKETS][3])
     ref6 = trace_closest_plain(o6f, d6f, bvh6_dev, float(BIG))
     mis_plain = v6.against_k4(p6[:6], ref6)
-    mis_kernel = runs["P-v6"]["mismatches"]
-    for who, mis in (("kernel", mis_kernel), ("plain", mis_plain)):
+    mis_kernel = runs[f"P-v6 {v6.N_PACKETS}"]["mismatches"]
+    for who, mis in (("kernel", mis_kernel), ("plain", mis_plain),
+                     (f"kernel, {P13_FILL_PACKETS} packets",
+                      runs[f"P-v6 {P13_FILL_PACKETS}"]["mismatches"])):
         if mis["t"] or mis["hit"] or max(mis["tri"], mis["mat"]) > NEAR_TIE_MAX * mis["hits"]:
             raise AssertionError(f"v6 ({who}) against K4 on the 4-wide tree: {mis}")
     if mis_kernel != mis_plain:
         raise AssertionError(f"v6 against K4: kernel {mis_kernel}, plain {mis_plain}")
-    chain_iters = int(p6[6].sum())
-    if chain_iters != int(k6[6].sum()) or chain_iters != runs["P-v6"]["chain_iters"]:
+    chain_iters = {p: int(v6_full[p][6].sum()) for p in v6_in}
+    if any(chain_iters[p] != runs[f"P-v6 {p}"]["chain_iters"] for p in v6_in):
         raise AssertionError("v6: the chains' iteration counts differ between runs")
+    # ... and P-v6 timed at every chain width at both sizes (not the path:
+    # its counts are read above), beside the W the wrapper picks.
+    v6_widths = {}
+    for packets, a6 in v6_dev.items():
+        nb6, cap6 = v6_in[packets][3], v6_in[packets][4]
+        v6_widths[f"v6 P{packets}"] = {"picked": runs[f"P-v6 {packets}"]["w"], **{
+            w: dict(ms=common.median(common.time_launches(
+                lambda: v6.v6(*a6, nb6, cap6, w=w))), num_regs=v6_res[w][0],
+                    local_bytes=v6_res[w][1]) for w in v6.ADMITTED_W}}
+    log(13, f"P-v6 at every chain width (median of {common.TIMED_LAUNCHES} launches; numRegs / "
+            f"localSizeBytes): " + "; ".join(
+                f"{name}: " + ", ".join(f"W{w} {r['ms']:.4f} ms ({r['num_regs']} / "
+                                        f"{r['local_bytes']} B)" for w, r in row.items()
+                                        if w != "picked") + f" (picks W{row['picked']})"
+                for name, row in v6_widths.items()))
+    # ... and between the two sizes, W = 2 against W = 4 in turns, their
+    # outputs equal bit for bit: where the wrapper's threshold lies.
+    v6_between, sms = {}, common.sm_count(dev)
+    node6, tri6, nb6, cap6 = v6_in[v6.N_PACKETS][1:5]
+    for packets in P13_V6_BETWEEN:
+        a6 = tuple(t.to(dev) for t in (node6, tri6, *(
+            torch.from_numpy(a) for a in v5_body.make_rays(packets, seed=0))))
+        outs = [v6.v6(*a6, nb6, cap6, count=True, w=w) for w in v6.ADMITTED_W]
+        if not all(_bitwise(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"v6 P{packets}: the chain widths' outputs differ")
+        t = alternate({w: (lambda w=w: common.median(common.time_launches(
+            lambda: v6.v6(*a6, nb6, cap6, w=w)))) for w in v6.ADMITTED_W})
+        v6_between[f"v6 P{packets}"] = {"picked": v6.chosen_w(packets), **{
+            w: dict(ms=float(np.median(v)), turns_ms=v) for w, v in t.items()}}
+    log(13, f"P-v6 between the sizes, chain widths in {P13_TURN_PAIRS} pairs of rounds "
+            f"(median of the rounds' medians): " + "; ".join(
+                f"{name} ({int(name.split('P')[-1]) * v6.P_SUB / sms:.1f} chains an SM): "
+                + ", ".join(f"W{w} {r['ms']:.4f} ms" for w, r in row.items() if w != "picked")
+                + f" (picks W{row['picked']})" for name, row in v6_between.items()))
 
     # P-morph: every variant at every chain width ≡ its plain version bit
     # for bit, the packets' loop counts included, at the script's 8 packets
@@ -2450,7 +2523,13 @@ def phase13(dev, smi):
             r["sass"] = sc[f"vstack {case}"]
         for case, r in runs["P-ktf"].items():
             r["sass"] = sc[f"ktf {case}"]
-        runs["P-v6"]["sass"] = sc["v6"]
+        for packets in v6_in:
+            r = runs[f"P-v6 {packets}"]
+            r["sass"] = sc[f"v6 W{r['w']}"]
+        for row in v6_widths.values():
+            for w, r in row.items():
+                if w != "picked":
+                    r["sass"] = sc[f"v6 W{w}"]
         for packets in morph_in:
             for v, r in runs[f"P-morph {packets}"].items():
                 r["sass"] = sc[f"morph {v} W{r['w']}"]
@@ -2627,8 +2706,40 @@ def phase13(dev, smi):
     for case, r in runs["P-ktf"].items():
         w = ktf_probe.work(case)
         r.update(roofline_mixed(w["bytes"], w["fp32_ops"], w["int32_ops"], int32_rate, f32))
-    w = v6.work(node6, tri6, o6, chain_iters, nb6)
-    runs["P-v6"].update(roofline(w["bytes"], w["ops"], f32))
+    # P-v6: the roofline on the chains' iterations, and the issue bound by
+    # loop (sass.loop_min): the walk's shortest path per warp-iteration (W
+    # warps a chain-iteration) and the brute pre-pass's per brute row and
+    # warp of every chain.
+    def v6_bounds(r, w, packets):
+        _, node6, tri6, nb6, _, o6, *_ = v6_in[packets]
+        wk = v6.work(node6, tri6, o6, chain_iters[packets], nb6)
+        r.update(roofline(wk["bytes"], wk["ops"], f32))
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        if "sass" not in r:
+            return
+        lm = r["sass"]["loop_min"]
+        if len(lm) != 2:
+            raise AssertionError(f"v6 W{w}: {len(lm)} outermost loops in its SASS "
+                                 f"({r['sass']['loops']}), expected 2 (the brute pre-pass, the "
+                                 f"walk)")
+        r["issue_insns"] = lm[1] * w * chain_iters[packets] + lm[0] * nb6 * packets * v6.P_SUB * w
+        r["issue_bound_ms"] = issue_bound_ms(r["issue_insns"], 1, 1, n_sm, clock["mhz"])
+        r["issue_share"] = r["issue_bound_ms"] / r["ms"]
+
+    for packets in v6_in:
+        r = runs[f"P-v6 {packets}"]
+        v6_bounds(r, r["w"], packets)
+        for w, rw in v6_widths[f"v6 P{packets}"].items():
+            if w != "picked":
+                v6_bounds(rw, w, packets)
+    log(13, f"P-v6, bounds per chain width ({bounds_are}; the issue bound by loop: the walk's "
+            f"shortest path x warp-iterations + the brute loop's x brute rows x warps): "
+            + "; ".join(
+                f"{name} " + ", ".join(
+                    f"W{w} {r['ms']:.4f} ms, {shares(r)}"
+                    + (f", loops {r['sass']['loop_min']} shortest" if "sass" in r else "")
+                    for w, r in row.items() if w != "picked")
+                for name, row in v6_widths.items()))
     for key, mod in (("P-mosaic", mosaic), ("P-bitcast", bitcast), ("P-feature", feature)):
         for case, r in runs[key].items():
             if case != "s7":
@@ -2691,16 +2802,27 @@ def phase13(dev, smi):
                                             if k.startswith("vstack")},
                             int32_ops_per_s=int32_rate)
     kt = runs["P-ktf"]
+    for case, r in kt.items():
+        r.update(tiles["cases"][f"ktf {case}"])
     rows["P-ktf"] = dict(launches=launches["P-ktf"], max_abs_err=max_err["P-ktf"],
                          plain_ms=plain_ms["ktf sampler_tile"], ms_is="sampler_tile",
                          **kt["sampler_tile"], cases=kt,
                          plain_ms_cases={k: v for k, v in plain_ms.items() if k.startswith("ktf")},
-                         int32_ops_per_s=int32_rate)
-    r6 = runs["P-v6"]
+                         int32_ops_per_s=int32_rate, floor_ms=tiles["floor"]["ms"],
+                         floor_graph_ms=tiles["floor"]["graph_ms"],
+                         host_us={k: v for k, v in tiles["host_us"].items()
+                                  if k.startswith("ktf ")})
+    r6, r6f = runs[f"P-v6 {v6.N_PACKETS}"], runs[f"P-v6 {P13_FILL_PACKETS}"]
     rows["P-v6"] = dict(launches=launches["P-v6"], max_abs_err=max_err["P-v6"],
-                        plain_ms=plain_ms["P-v6"], ms_is=f"{v6.N_PACKETS} packets, full length",
+                        plain_ms=plain_ms["P-v6"],
+                        ms_is=f"{v6.N_PACKETS} packets, full length, W {r6['w']}",
                         **{k: v for k, v in r6.items() if k != "times_ms"},
-                        mismatches_plain=mis_plain)
+                        mismatches_plain=mis_plain, ms_1056=r6f["ms"], w_1056=r6f["w"],
+                        ms_k4_1056=r6f["ms_k4"], bound_1056_ms=r6f["bound_ms"],
+                        issue_bound_1056_ms=r6f.get("issue_bound_ms"),
+                        chain_iters_1056=r6f["chain_iters"], mismatches_1056=r6f["mismatches"],
+                        widths=v6_widths, widths_between=v6_between, resources=v6_res,
+                        sm_clock_mhz=clock["mhz"])
     m8, mf = runs[f"P-morph {morph.N_PACKETS}"], runs[f"P-morph {P13_FILL_PACKETS}"]
     rows["P-morph"] = dict(launches=launches["P-morph"], max_abs_err=max_err["P-morph"],
                            plain_ms=plain_ms[f"morph v0_ablate P{morph.N_PACKETS}"],
@@ -2727,8 +2849,8 @@ def phase13(dev, smi):
             rows[key].update(floor_ms=tiles["floor"]["ms"],
                              floor_graph_ms=tiles["floor"]["graph_ms"],
                              host_us={k: v for k, v in tiles["host_us"].items()
-                                      if not k.startswith({"P-mosaic": "feature",
-                                                           "P-feature": "mosaic"}[key])})
+                                      if not k.startswith({"P-mosaic": ("feature", "ktf "),
+                                                           "P-feature": ("mosaic", "ktf ")}[key])})
     rows["P-floor"].update(empty_ms_turns=tiles["floor"]["ms"],
                            empty_graph_ms=tiles["floor"]["graph_ms"])
     rows["P-feature"]["s7_k4_launches"] = launches["P-feature s7 (K4)"]
@@ -2761,14 +2883,14 @@ def phase13(dev, smi):
              **{k: [r for c, r in runs[k].items() if c != "s7"]
                 for k in ("P-mosaic", "P-bitcast", "P-feature")}}
     rank = {k: 11 * sum(r["ms"] - larger_bound(r) for r in rs) for k, rs in cases.items()}
-    rank["P-v6"] = launches["P-v6"] * (runs["P-v6"]["ms"] - runs["P-v6"]["bound_ms"])
+    rank["P-v6"] = 12 * sum(r["ms"] - larger_bound(r) for r in (r6, r6f))
     rank["P-scalar pre-pass"] = 11 * (pre["tables_ms"] - pre["tables_rank_bound_ms"])
     for k, v in rank.items():
         rows[k if k in rows else "P-scalar"].setdefault("rank", {})[k] = v
     log(13, "rank, launches x (time - bound) summed over every case and size (ms): " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(rank.items(), key=lambda kv: -kv[1])))
     over = over_bounds({**runs, "P-v8/v5 widths": widths, "P-morph/interleave widths": mi_widths,
-                        "P-scalar widths": sv_widths})
+                        "P-scalar widths": sv_widths, "P-v6 widths": v6_widths})
     if over:
         raise AssertionError("phase 13: a measured time under its bound (a reading over 100%): "
                              + "; ".join(over))
@@ -2781,10 +2903,11 @@ def phase13(dev, smi):
             f"== v5 full at 128 and {P13_FILL_PACKETS} packets; scalar acc, sc and codes at "
             f"the script's sizes at every W, the pre-pass at {P13_TABLES_SIZES}; vstack at "
             f"64/150 and 300/2,000 iterations, p2_vreg also at 20,000; ktf "
-            f"every case by the script's rules; v6 at {P13_CHECK_ITERS} iterations "
-            f"(tlim BIG and in (0.05, 0.6)) and at full length on all {v6.N_PACKETS} packets, "
-            f"chain iterations {chain_iters}; v6 against K4 on the 4-wide tree: kernel "
-            f"{mis_kernel}, plain {mis_plain}; morph every variant at {morph.N_PACKETS} and "
+            f"every case bit for bit; v6 at every W at {P13_CHECK_ITERS} iterations and at full "
+            f"length (tlim BIG and in (0.05, 0.6)) and at stack_cap 12 on all {v6.N_PACKETS} and "
+            f"{P13_FILL_PACKETS} packets, chain iterations {chain_iters}; v6 against K4 on the "
+            f"4-wide tree: kernel {mis_kernel}, plain {mis_plain}; morph every variant at "
+            f"{morph.N_PACKETS} and "
             f"{P13_FILL_PACKETS} packets, loop counts included; mosaic, bitcast and feature "
             f"every case); full == "
             f"full16 == prod_smem == prod_carry, minimal == smem8; launches {launches} (11 per "
@@ -3115,10 +3238,11 @@ def parent_launch_path(parent_dir: str, build_dir: str):
     the one phase 15 built from its csrc into build_dir), and its
     probes/mosaic.py, probes/feature.py, probes/ablate_v8.py,
     probes/v5_body.py, probes/morph.py, probes/interleave_probe.py,
-    probes/scalar_cost.py, probes/vstack.py and utils/ktf.py bound to that
-    cudalib. (parent cudalib, {"mosaic": .., "feature": .., "ablate_v8": ..,
-    "v5_body": .., "morph": .., "interleave_probe": .., "scalar_cost": ..,
-    "vstack": .., "ktf": ..})."""
+    probes/scalar_cost.py, probes/vstack.py, probes/v6.py, probes/ktf_probe.py
+    and utils/ktf.py bound to that cudalib. (parent cudalib, {"mosaic": ..,
+    "feature": .., "ablate_v8": .., "v5_body": .., "morph": ..,
+    "interleave_probe": .., "scalar_cost": .., "vstack": .., "v6": ..,
+    "ktf_probe": .., "ktf": ..})."""
     pkg = os.path.join(parent_dir, "raytracer_tpu_torch")
     pc = _load_module(os.path.join(pkg, "utils", "cudalib.py"), "parent_cudalib")
     pc.BUILD_DIR = build_dir
@@ -3129,22 +3253,24 @@ def parent_launch_path(parent_dir: str, build_dir: str):
             ("morph", ("probes", "morph.py")),
             ("interleave_probe", ("probes", "interleave_probe.py")),
             ("scalar_cost", ("probes", "scalar_cost.py")), ("vstack", ("probes", "vstack.py")),
+            ("v6", ("probes", "v6.py")), ("ktf_probe", ("probes", "ktf_probe.py")),
             ("ktf", ("utils", "ktf.py")))}
     return pc, mods
 
 
 def probes_old_new(dev, pmods) -> dict:
     """The parent's P-v8, v5 body, P-morph, P-interleave, P-scalar (every
-    variant and the smem16 pre-pass) and P-vstack (every case) (its
+    variant and the smem16 pre-pass), P-vstack (every case) and P-v6 (its
     wrappers, its cudalib, its kernels) against this tree's on the same
     inputs, at the scripts' iterations and packets and, for the chain
-    probes, at P13_FILL_PACKETS: outputs equal bit for bit (P-morph's loop
-    counts too), each per call (time_launches' median) in P13_TURN_PAIRS
-    alternating pairs of rounds, with the W this tree picks."""
+    probes, at P13_FILL_PACKETS: outputs equal bit for bit
+    (P-morph's loop counts too, P-v6's six outputs), each per call
+    (time_launches' median) in P13_TURN_PAIRS alternating pairs of rounds,
+    with the W this tree picks."""
     import torch
 
     from raytracer_tpu_torch.probes import (ablate_v8, common, interleave_probe, morph,
-                                            scalar_cost, v5_body, vstack)
+                                            scalar_cost, v5_body, v6, vstack)
 
     checks, out = {}, {}
     per_call = lambda f: lambda: common.median(common.time_launches(f))   # noqa: E731
@@ -3213,6 +3339,14 @@ def probes_old_new(dev, pmods) -> dict:
         in_turns(f"vstack {case} i{iters}",
                  {who: (lambda m=m, case=case, iters=iters: m.vstack(case, iters, dev))
                   for who, m in (("parent", pmods["vstack"]), ("new", vstack))}, None)
+    _, vnode, vtri, vnb, vcap, *vrays = v6.reference_inputs(v6.N_PACKETS)
+    for packets in (v6.N_PACKETS, P13_FILL_PACKETS):
+        rays = vrays if packets == v6.N_PACKETS else (
+            torch.from_numpy(a) for a in v5_body.make_rays(packets, seed=0))
+        vargs = tuple(t.to(dev) for t in (vnode, vtri, *rays))
+        in_turns(f"v6 P{packets}",
+                 {who: (lambda m=m, vargs=vargs: m.v6(*vargs, vnb, vcap))
+                  for who, m in (("parent", pmods["v6"]), ("new", v6))}, v6.chosen_w(packets))
     return dict(checks=checks, ms=out)
 
 
@@ -3237,9 +3371,9 @@ def sass_old_new(parent_lib: str) -> dict:
 
 
 def tiles_old_new(dev, pc, pmods) -> dict:
-    """The parent's P-mosaic and P-feature (its wrappers, its cudalib, its
-    kernels) against this tree's on the same inputs: outputs equal bit for
-    bit (mosaic lanesum, which sums in another order since the redesign:
+    """The parent's P-mosaic, P-feature and P-ktf (its wrappers, its
+    cudalib, its kernels) against this tree's on the same inputs: outputs
+    equal bit for bit (mosaic lanesum, which sums in another order since the redesign:
     both pass the script's check, the largest difference kept), each case
     per call in alternating pairs (time_launches' event
     pairs) and per launch in a CUDA graph; and K2's Threefry through the
@@ -3247,18 +3381,20 @@ def tiles_old_new(dev, pc, pmods) -> dict:
     2^20 counters, cuda_ms of 50 calls per turn, in alternating pairs."""
     import torch
 
-    from raytracer_tpu_torch.probes import common, feature, mosaic
+    from raytracer_tpu_torch.probes import common, feature, ktf_probe, mosaic
     from raytracer_tpu_torch.utils import ktf
 
     checks, out = {}, {}
     per_call = lambda f: lambda: common.median(common.time_launches(f))   # noqa: E731
     for probe, mod, call in (("mosaic", mosaic, "probe_mosaic"),
-                             ("feature", feature, "probe_feature")):
+                             ("feature", feature, "probe_feature"),
+                             ("ktf", ktf_probe, "probe_ktf")):
+        pmod = pmods["ktf_probe" if probe == "ktf" else probe]
         for case in mod.CASES:
             ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                         for a in mod.inputs(case))
             fns = {who: (lambda f=getattr(m, call), c=case, i=ins: f(c, *i))
-                   for who, m in (("parent", pmods[probe]), ("new", mod))}
+                   for who, m in (("parent", pmod), ("new", mod))}
             old, new = (fns[k]() for k in ("parent", "new"))
             old, new = ((old,), (new,)) if probe == "mosaic" else (old, new)
             row = {}

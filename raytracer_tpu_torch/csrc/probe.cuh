@@ -1,7 +1,9 @@
-// Pieces shared by the traversal-iteration probes (probe_v8.cu, probe_v5.cu):
-// the lanes of a chain, the probes' slab test and Möller–Trumbore record, the
-// chain reductions and the integer and float conversions with the TPU
-// script's semantics.
+// Pieces shared by the traversal-iteration probes (probe_v8.cuh,
+// probe_v5.cuh, probe_morph.cuh, probe_v6.cu and the others): the lanes of a
+// chain, the probes' slab test and their two Möller–Trumbore records (the
+// one-output record of P-v8 and the v5 body, the six-output record of P-v6
+// and P-morph), the chain reductions and the integer and float conversions
+// with the TPU script's semantics.
 //
 // Mapping. A TPU packet is (8, 128): 8 chains ("sub-warps") of 128 lanes,
 // each chain with its own task. Here a chain is one warp and a packet one
@@ -17,7 +19,7 @@
 // thread's 4 lanes and a __shfl_xor_sync butterfly: a min is order-free and
 // an int32 sum exact.
 //
-// P-v8 and the v5 body (probe_v8.cuh, probe_v5.cuh) may spread a chain over
+// P-v8, the v5 body, P-morph, P-interleave and P-v6 may spread a chain over
 // W warps instead: each thread then owns N = 4 / W of its lanes (LanesN<N>,
 // the lanes lane0 + 32 j of load_rays), and the chain's warps combine their
 // partial reductions through shared memory under a named barrier
@@ -153,32 +155,40 @@ __device__ __forceinline__ void mt_record(LanesN<N>& L, const float (&r)[9], int
   }
 }
 
-// What a hit carries besides t_best and best (probe::Lanes).
-struct Rec {
-  int mat[LPT];
-  float nx[LPT], ny[LPT], nz[LPT];
+// What a hit carries besides t_best and best, for a thread's N lanes.
+template <int N>
+struct RecN {
+  int mat[N];
+  float nx[N], ny[N], nz[N];
 };
 
-// The 6-field mt_record of the v6 and morph scripts for the thread's lanes:
-// record rec (v0, e1, e2, float-encoded prim and material ids) of the chain's
-// row; a hit also takes the material id and the unnormalised normal e1 x e2.
-__device__ __forceinline__ void mt_record(Lanes& L, Rec& R, const float* __restrict__ rec) {
-  const float v0x = rec[0], v0y = rec[1], v0z = rec[2];
-  const float e1x = rec[3], e1y = rec[4], e1z = rec[5];
-  const float e2x = rec[6], e2y = rec[7], e2z = rec[8];
-  const int prim = f2i(rec[9]), matid = f2i(rec[10]);
+// The 6-field mt_record of the v6 and morph scripts for the thread's N
+// lanes: fields v0, e1, e2 of one record, its float-encoded prim and
+// material ids converted; a hit also takes the material id and the
+// unnormalised normal e1 x e2. f is __frcp_rn, the IEEE round-to-nearest
+// reciprocal: the bits of 1.0f / x (both are correctly rounded). Its SASS
+// has as many instructions as the division's, yet P-morph with it takes
+// 0.77-0.90x the time of P-morph with the division (an H100 at 700 W,
+// chip_smoke.py phase 15 against the division's build); why is not
+// measured.
+template <int N>
+__device__ __forceinline__ void mt_record6(LanesN<N>& L, RecN<N>& R, const float (&r)[9],
+                                           int prim, int matid) {
+  const float v0x = r[0], v0y = r[1], v0z = r[2];
+  const float e1x = r[3], e1y = r[4], e1z = r[5];
+  const float e2x = r[6], e2y = r[7], e2z = r[8];
   const float cx = e1y * e2z - e1z * e2y;
   const float cy = e1z * e2x - e1x * e2z;
   const float cz = e1x * e2y - e1y * e2x;
 #pragma unroll
-  for (int j = 0; j < LPT; ++j) {
+  for (int j = 0; j < N; ++j) {
     const float dx = L.dx[j], dy = L.dy[j], dz = L.dz[j];
     const float hx = dy * e2z - dz * e2y;
     const float hy = dz * e2x - dx * e2z;
     const float hz = dx * e2y - dy * e2x;
     const float a = e1x * hx + e1y * hy + e1z * hz;
     bool ok = fabsf(a) >= 1e-8f;
-    const float f = 1.0f / (ok ? a : 1.0f);
+    const float f = __frcp_rn(ok ? a : 1.0f);
     const float sx = L.ox[j] - v0x, sy = L.oy[j] - v0y, sz = L.oz[j] - v0z;
     const float u = f * (sx * hx + sy * hy + sz * hz);
     ok = ok & (u >= 0.0f) & (u <= 1.0f);
@@ -196,12 +206,6 @@ __device__ __forceinline__ void mt_record(Lanes& L, Rec& R, const float* __restr
     R.ny[j] = ok ? cy : R.ny[j];
     R.nz[j] = ok ? cz : R.nz[j];
   }
-}
-
-// The 8 records of one triangle row.
-__device__ __forceinline__ void mt_row8(Lanes& L, Rec& R, const float* __restrict__ row) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) mt_record(L, R, row + k * TRI_STRIDE);
 }
 
 // The scripts' slab for lane j against box b (min xyz, max xyz): hit and
@@ -228,6 +232,20 @@ __device__ __forceinline__ bool slab(const LanesN<N>& L, int j, const float (&b)
 // Element c (0..3, a constant once unrolled) of a float4.
 __device__ __forceinline__ float elem(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// The 8 records of a triangle row staged as 16-byte words in shared memory
+// (row_word).
+template <int N>
+__device__ __forceinline__ void mt_row8(LanesN<N>& L, RecN<N>& R, const float4* tq) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float4* q = tq + k * (TRI_STRIDE / 4);
+    float r[9];
+#pragma unroll
+    for (int f = 0; f < 9; ++f) r[f] = elem(q[f >> 2], f & 3);
+    mt_record6(L, R, r, f2i(q[2].y), f2i(q[2].z));
+  }
 }
 
 // 16-byte word i of a 16-byte aligned row: a warp's lanes read a row of up

@@ -128,67 +128,6 @@ __host__ __device__ constexpr int min_blocks(int loop, bool outs6, int w) {
              : 1;
 }
 
-// What a hit carries besides t_best and best, for a thread's N lanes.
-template <int N>
-struct RecN {
-  int mat[N];
-  float nx[N], ny[N], nz[N];
-};
-
-// The 6-field mt_record of the morph script (probe.cuh's, for N lanes):
-// fields v0, e1, e2 of one record, its float-encoded prim and material ids
-// converted; a hit also takes the material id and the unnormalised normal
-// e1 x e2.
-template <int N>
-__device__ __forceinline__ void mt_record6(LanesN<N>& L, RecN<N>& R, const float (&r)[9],
-                                           int prim, int matid) {
-  const float v0x = r[0], v0y = r[1], v0z = r[2];
-  const float e1x = r[3], e1y = r[4], e1z = r[5];
-  const float e2x = r[6], e2y = r[7], e2z = r[8];
-  const float cx = e1y * e2z - e1z * e2y;
-  const float cy = e1z * e2x - e1x * e2z;
-  const float cz = e1x * e2y - e1y * e2x;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float dx = L.dx[j], dy = L.dy[j], dz = L.dz[j];
-    const float hx = dy * e2z - dz * e2y;
-    const float hy = dz * e2x - dx * e2z;
-    const float hz = dx * e2y - dy * e2x;
-    const float a = e1x * hx + e1y * hy + e1z * hz;
-    bool ok = fabsf(a) >= 1e-8f;
-    const float f = 1.0f / (ok ? a : 1.0f);
-    const float sx = L.ox[j] - v0x, sy = L.oy[j] - v0y, sz = L.oz[j] - v0z;
-    const float u = f * (sx * hx + sy * hy + sz * hz);
-    ok = ok & (u >= 0.0f) & (u <= 1.0f);
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float v = f * (dx * qx + dy * qy + dz * qz);
-    ok = ok & (v >= 0.0f) & (u + v <= 1.0f);
-    const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-    ok = ok & (t >= 1e-3f) & (t < L.t_best[j]);
-    L.t_best[j] = ok ? t : L.t_best[j];
-    L.best[j] = ok ? prim : L.best[j];
-    R.mat[j] = ok ? matid : R.mat[j];
-    R.nx[j] = ok ? cx : R.nx[j];
-    R.ny[j] = ok ? cy : R.ny[j];
-    R.nz[j] = ok ? cz : R.nz[j];
-  }
-}
-
-// The 8 records of a triangle row staged as 16-byte words in shared memory.
-template <int N>
-__device__ __forceinline__ void mt_row8(LanesN<N>& L, RecN<N>& R, const float4* tq) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float4* q = tq + k * (TRI_STRIDE / 4);
-    float r[9];
-#pragma unroll
-    for (int f = 0; f < 9; ++f) r[f] = elem(q[f >> 2], f & 3);
-    mt_record6(L, R, r, f2i(q[2].y), f2i(q[2].z));
-  }
-}
-
 template <int LOOP, bool OUTS6, bool ROOT, bool BRUTE, bool CLAMP, int W>
 __global__ void __launch_bounds__(block_of(LOOP, W), min_blocks(LOOP, OUTS6, W))
     probe_morph_kernel(const float* __restrict__ node, const float* __restrict__ tri,

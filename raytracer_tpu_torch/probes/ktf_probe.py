@@ -17,9 +17,14 @@ utils/ktf.py's, and both are held to the script's expectations:
 
 Inputs are the script's: default_rng(7), int32 words drawn over the whole
 range (pixels masked to 22 bits). The kernel is held to its plain version
-on the same device by the same rules. The entry point runs each case in a
-subprocess, as the script does, so that a device fault ends one case and
-not the run; a case that fails a check exits 1.
+on the same device bit for bit, the unit vectors too (both take the card's
+IEEE sqrtf, cosf and sinf in the same order). On the card `probe_ktf`
+takes the launch path of probes/mosaic.py: one signature comparison per
+input, the key words computed at import, the entry point bound once, one
+[n_out, 8, 128] output returned as its rows, the stream's raw handle.
+The entry point runs each case in a subprocess, as the script does, so
+that a device fault ends one case and not the run; a case that fails a
+check exits 1.
 
     python -m raytracer_tpu_torch.probes.ktf_probe [case] [--device cpu]
 """
@@ -93,31 +98,56 @@ def ktf_plain(case: str, *ins: torch.Tensor) -> tuple:
     return (smp.rr_uniform(), *smp.unit_vector_parts(ktf.SCATTER))
 
 
+# The inputs the fast path takes, as cudalib.signature gives them; each
+# case's id, input count, output dtype and key words (csrc/probe_ktf.cu).
+_IN = (True, torch.int32, TILE, True)
+_IDS = {case: i for i, case in enumerate(CASES)}
+_N_IN = {case: 1 if case in ("u01", "sampler_tile") else 2 for case in CASES}
+_DTYPE = {case: torch.int32 if case in INT_OUT else torch.float32 for case in CASES}
+_KEYS = {case: tuple(k & 0xFFFFFFFF for k in ((K0, K1) if case == "threefry"
+                                               else ktf.key_words(KEY))) for case in CASES}
+_kernel = None   # rt_probe_ktf, bound at the first launch
+
+
+def _takes(case: str, ins: tuple) -> bool:
+    """The wrapper's rules, with their errors, for inputs off its fast
+    path: True where the kernel takes them (on the card), False where the
+    plain version does (on the CPU); anything else raises."""
+    _case_id(case)
+    if len(ins) != _N_IN[case]:
+        raise ValueError(f"ktf probe: {case} takes {_N_IN[case]} int32 [8, 128] inputs, "
+                         f"got {len(ins)}")
+    dev = ins[0].device.type if torch.is_tensor(ins[0]) else "cuda"
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"ktf probe: unsupported device {ins[0].device}")
+    for j, t in enumerate(ins):
+        cudalib.require_cuda(f"input {j}", t, torch.int32, TILE, device_type=dev)
+    return dev == "cuda"
+
+
 def probe_ktf(case: str, *ins: torch.Tensor) -> tuple:
     """The case's kernel (csrc/probe_ktf.cu) on CUDA tensors, its plain
-    version on CPU tensors."""
-    _case_id(case)
-    if not ins[0].is_cuda:
-        if ins[0].device.type != "cpu":
-            raise ValueError(f"ktf probe: unsupported device {ins[0].device}")
+    version on CPU tensors: its outputs, [8, 128] each (on the card the rows
+    of one [n_out, 8, 128] tensor)."""
+    global _kernel
+    n = _N_IN.get(case, -1)
+    fast = (len(ins) == n and cudalib.signature(ins[0]) == _IN
+            and (n == 1 or cudalib.signature(ins[1]) == _IN))
+    if not fast and not _takes(case, ins):
         return ktf_plain(case, *ins)
-    for j, t in enumerate(ins):
-        cudalib.require_cuda(f"input {j}", t, torch.int32, TILE)
-    return _ktf_cuda(case, *ins)
-
-
-def _ktf_cuda(case: str, *ins: torch.Tensor) -> tuple:
-    c = CASES.index(case)
-    dtype = torch.int32 if case in INT_OUT else torch.float32
-    outs = [torch.empty(TILE, dtype=dtype, device=ins[0].device) for _ in range(N_OUT[case])]
-    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
-    k0, k1 = (K0, K1) if case == "threefry" else ktf.key_words(KEY)
-    b = ins[1].data_ptr() if len(ins) > 1 else None
-    cudalib.check(cudalib.lib().rt_probe_ktf(c, ins[0].data_ptr(), b, k0 & 0xFFFFFFFF,
-                                             k1 & 0xFFFFFFFF, *ptrs, cudalib.stream_handle()),
-                  f"probe_ktf kernel ({case})")
+    a = ins[0].data_ptr()
+    b = ins[1].data_ptr() if n == 2 else None
+    if (a | (b or 0)) & 15:
+        cudalib.require_aligned("input 0", a)
+        cudalib.require_aligned("input 1", b)
+    if _kernel is None:
+        _kernel = cudalib.lib().rt_probe_ktf
+    out = ins[0].new_empty((N_OUT[case], *TILE), dtype=_DTYPE[case])
+    code = _kernel(_IDS[case], a, b, *_KEYS[case], out.data_ptr(), cudalib.stream_handle())
+    if code:
+        cudalib.check(code, f"probe_ktf kernel ({case})")
     LAUNCHES["probe_ktf"] += 1
-    return tuple(outs)
+    return out.unbind(0)
 
 
 def expected(case: str, *ins: np.ndarray) -> tuple:

@@ -36,11 +36,12 @@ _TARGET = re.compile(r"\b0x([0-9a-f]+)\s*$")   # a branch's absolute target
 # A probe kernel's mangled name: its body and template argument (a variant,
 # mode or case id; G itself for the interleave probe) and, for P-v8, the v5
 # body and the interleave probe, the chain width W, the scalar probe's
-# tables pre-pass, the v6 body (one kernel), or a morph variant (its five
-# template arguments: the loop, then four flags; then W).
+# tables pre-pass, the v6 body (one kernel per W; the parent's form has no
+# W), or a morph variant (its five template arguments: the loop, then four
+# flags; then W).
 _KERNEL = re.compile(r"probe_(v8|v5|interleave|scalar|vstack|ktf|mosaic|feature|bitcast)"
                      r"_kernelILi(\d+)E(?:Li(\d+)E)?"
-                     r"|probe_(scalar)_(tables)_kernel|probe_(v6)_kernelE"
+                     r"|probe_(scalar)_(tables)_kernel|probe_(v6)_kernel(?:ILi(\d+)EE|E)"
                      r"|probe_(morph)_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E"
                      r"(?:Li(\d+)E)?")
 
@@ -117,8 +118,9 @@ def parse(sass: str) -> dict:
     loop_min()); body is "v8", "v5", "interleave",
     "scalar", "vstack", "ktf", "mosaic", "feature", "bitcast", "v6" or
     "morph", the id an int ((id, W) for a v8, v5 or interleave kernel of
-    chain width W, "tables" for the scalar probe's pre-pass, 0 for v6, the
-    five template arguments for morph, with W as (args, W))."""
+    chain width W, "tables" for the scalar probe's pre-pass, 0 for v6 ((0,
+    W) for the kernel of chain width W), the five template arguments for
+    morph, with W as (args, W))."""
     out, insns, cur = {}, {}, None
     for line in sass.splitlines():
         m = _FUNC.search(line)
@@ -132,10 +134,10 @@ def parse(sass: str) -> dict:
             elif k.group(4):
                 cur = (k.group(4), k.group(5))
             elif k.group(6):
-                cur = (k.group(6), 0)
+                cur = (k.group(6), 0 if k.group(7) is None else (0, int(k.group(7))))
             else:
-                args = tuple(int(g) for g in k.groups()[7:12])
-                cur = ("morph", args if k.group(13) is None else (args, int(k.group(13))))
+                args = tuple(int(g) for g in k.groups()[8:13])
+                cur = ("morph", args if k.group(14) is None else (args, int(k.group(14))))
             if cur is not None:
                 out[cur] = dict.fromkeys(["total", *KINDS], 0)
                 insns[cur] = []
@@ -171,7 +173,7 @@ def name(body: str, i) -> str:
     "interleave G<G>", "morph <variant>" (each with " W<w>" for a kernel of
     chain width w), "scalar <mode>" (or "scalar tables"), "vstack <case>",
     "ktf <case>", "mosaic <case>", "feature <stage>", "bitcast <probe>",
-    "v6"."""
+    "v6" (" W<w>" for a kernel of chain width w)."""
     from raytracer_tpu_torch.probes import (ablate_v8, bitcast, feature, ktf_probe, morph, mosaic,
                                             scalar_cost, v5_body, vstack)
 
@@ -183,7 +185,7 @@ def name(body: str, i) -> str:
     if i == "tables":
         return "scalar tables"
     if body == "v6":
-        return "v6"
+        return f"v6 W{i[1]}" if isinstance(i, tuple) else "v6"
     names = {"v8": ablate_v8.VARIANTS, "v5": v5_body.MODES, "scalar": scalar_cost.MODES,
              "vstack": vstack.CASES, "ktf": ktf_probe.CASES, "mosaic": mosaic.CASES,
              "feature": feature.CASES, "bitcast": bitcast.CASES}

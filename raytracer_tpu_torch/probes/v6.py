@@ -4,20 +4,23 @@
 In each iteration a chain of 128 rays runs two units: a leaf unit sweeps
 one triangle row from a leaf-row stack while an internal unit expands one
 node of a 4-wide tree from a node stack, on the row-per-node v6 tables
-(probes/v6_tables.py). Kernel: csrc/probe_v6.cu (a chain per warp, a
-packet of 8 chains per block); plain PyTorch version: `v6_plain`, which
-takes the same steps in the same order, the chains as [P, 8] tensors and
-their lanes as [P, 8, 128]. Both return, per ray, t (the limit where
-nothing is hit), the original face id (-1), its material id (0) and the
-unnormalized normal (0): six [P, 8, 128] arrays.
+(probes/v6_tables.py). Kernel: csrc/probe_v6.cu (a chain of W = 2 or 4
+warps in a block of its own, looping to its own end; `chosen_w` picks W);
+plain PyTorch version: `v6_plain`, which takes the same steps in the same
+order, the chains as [P, 8] tensors and their lanes as [P, 8, 128]. Both
+return, per ray, t (the limit where nothing is hit), the original face id
+(-1), its material id (0) and the unnormalized normal (0): six
+[P, 8, 128] arrays, and each chain's iteration count. No W changes the
+plain version's result.
 
 The entry point does what the script's main() does, on the reference
 scene built 4-wide: 131,072 seeded rays (`v5_body.make_rays`, tlim BIG),
 v6 held against `trace_closest` (K4 on the same tree, sort=False) by the
 script's rule — t within rtol 1e-5, ids, materials and hits equal — and
-the two timed in turns (CUDA events, median of 10).
+the two timed in turns (CUDA events, median of 10); `--w W` takes that
+chain width instead of the picked one.
 
-    python -m raytracer_tpu_torch.probes.v6 [n_packets] [--device cpu]
+    python -m raytracer_tpu_torch.probes.v6 [n_packets] [--w W] [--device cpu]
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ from raytracer_tpu_torch.utils import cudalib
 N_PACKETS = 128
 IDLE = -1            # leaf unit idle: it sweeps the zero row
 T_RTOL = 1e-5        # the script's rule against K4 (:430)
+# The chain widths csrc/probe_v6.cu is built at (its `kernel_of`), and the
+# chains per SM up to which `chosen_w` takes the widest.
+ADMITTED_W = (2, 4)
+W4_CHAINS_PER_SM = 16
 LAUNCHES = {"probe_v6": 0}
 PLAIN_CALLS = {"probe_v6": 0}
 
@@ -49,9 +56,9 @@ def default_max_iters(node, tri, n_brute_rows: int) -> int:
 def v6_plain(node, tri, o, d, tlim, n_brute_rows: int, stack_cap: int, max_iters=None,
              count: bool = False):
     """Plain version: (t, id, mat, nx, ny, nz), each [P, 8, 128], and with
-    `count` also i32[P, 8], the iterations each chain ran (the packet's
-    loop runs while any of its chains has work; a finished chain's
-    iterations change nothing and are not counted)."""
+    `count` also i32[P, 8], the iterations each chain ran (the loop runs
+    while any chain has work; a finished chain's iterations change nothing
+    and are not counted, so each chain's count is that of its own loop)."""
     PLAIN_CALLS["probe_v6"] += 1
     if max_iters is None:
         max_iters = default_max_iters(node, tri, n_brute_rows)
@@ -152,14 +159,20 @@ def _check(node, tri, o, d, tlim, n_brute_rows: int, stack_cap: int, max_iters: 
         raise ValueError(f"v6: stack_cap {stack_cap} outside [12, 4096]")
     if max_iters < 0:
         raise ValueError("v6: max_iters must be >= 0")
+    cudalib.require_aligned("node", node.data_ptr())   # rows read 16 bytes at a time
+    cudalib.require_aligned("tri", tri.data_ptr())
 
 
 def v6(node, tri, o, d, tlim, n_brute_rows: int, stack_cap: int, max_iters=None,
-       count: bool = False):
+       count: bool = False, w: int | None = None):
     """(t, id, mat, nx, ny, nz) of the dual-unit traversal, [P, 8, 128]
     each (with `count`, also the chains' iterations i32[P, 8]): launches
-    csrc/probe_v6.cu for CUDA tensors, runs the plain version for CPU
-    tensors. max_iters None is the script's bound."""
+    csrc/probe_v6.cu for CUDA tensors at chain width w (one of ADMITTED_W;
+    None: `chosen_w` on the tensors' card), runs the plain version for CPU
+    tensors, whose result no W changes. max_iters None is the script's
+    bound."""
+    if w is not None:
+        common.require_w(w, ADMITTED_W, "v6")
     if not o.is_cuda:
         if o.device.type != "cpu":
             raise ValueError(f"v6: unsupported device {o.device}")
@@ -167,32 +180,49 @@ def v6(node, tri, o, d, tlim, n_brute_rows: int, stack_cap: int, max_iters=None,
     if max_iters is None:
         max_iters = default_max_iters(node, tri, n_brute_rows)
     _check(node, tri, o, d, tlim, n_brute_rows, stack_cap, max_iters)
-    return _v6_cuda(node, tri, o, d, tlim, n_brute_rows, stack_cap, max_iters, count)
-
-
-def _v6_cuda(node, tri, o, d, tlim, n_brute_rows, stack_cap, max_iters, count):
     P, dev = o.shape[0], o.device
+    if w is None:
+        w = chosen_w(P, common.sm_count(dev))
     f32 = [torch.empty((P, P_SUB, P_LANE), dtype=torch.float32, device=dev) for _ in range(4)]
     i32 = [torch.empty((P, P_SUB, P_LANE), dtype=torch.int32, device=dev) for _ in range(2)]
     iters = torch.empty((P, P_SUB), dtype=torch.int32, device=dev)
     t, nx, ny, nz = f32
     ids, mat = i32
-    code = cudalib.lib().rt_probe_v6(
+    code = cudalib.lib().rt_probe_v6_w(
         node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(), tlim.data_ptr(),
-        tri.shape[0] - 1, n_brute_rows, stack_cap, max_iters, P, t.data_ptr(), ids.data_ptr(),
+        tri.shape[0] - 1, n_brute_rows, stack_cap, max_iters, P, w, t.data_ptr(), ids.data_ptr(),
         mat.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), iters.data_ptr(),
         cudalib.stream_handle())
-    cudalib.check(code, "probe_v6 kernel")
+    cudalib.check(code, f"probe_v6 kernel (W {w})")
     LAUNCHES["probe_v6"] += 1
     out = (t, ids, mat, nx, ny, nz)
     return (*out, iters) if count else out
 
 
-def kernel_resources() -> tuple[int, int]:
-    """(registers per thread, local memory bytes per thread)."""
+def chosen_w(packets: int, sms: int | None = None) -> int:
+    """The chain width `v6` takes for `packets` packets on a card of `sms`
+    SMs (the current card's by default): W = 4 while the card has at most
+    W4_CHAINS_PER_SM chains an SM, else W = 2. On an NVIDIA H100 80GB HBM3
+    (132 SMs, 700 W; chip_smoke.py phase 13 times both widths at 128 and
+    1,056 packets and in turns at 264 and 528), in one run: at 7.8 chains
+    an SM W = 4 took 0.554 ms against 0.619 at W = 2, at 16 0.853 against
+    0.866, at 32 1.512 against 1.450, at 64 2.844 against 2.624. So the
+    widths cross between 16 and 32 chains an SM; no size in between was
+    timed. Few chains leave the schedulers idle between an iteration's
+    dependent steps, and four warps a chain fill them; many chains fill
+    them anyway, and W = 2 repeats the chain-uniform work (the rows, the
+    sums, the decisions) in half as many warps."""
+    sms = common.sm_count() if sms is None else sms
+    return 4 if packets * P_SUB <= W4_CHAINS_PER_SM * sms else 2
+
+
+def kernel_resources(w: int) -> tuple[int, int]:
+    """(registers per thread, local memory bytes per thread) of the kernel of
+    chain width w."""
+    common.require_w(w, ADMITTED_W, "v6")
     regs, local = ctypes.c_int(), ctypes.c_int()
-    cudalib.check(cudalib.lib().rt_probe_v6_attrs(ctypes.byref(regs), ctypes.byref(local)),
-                  "probe_v6 attributes")
+    cudalib.check(cudalib.lib().rt_probe_v6_attrs_w(w, ctypes.byref(regs), ctypes.byref(local)),
+                  f"probe_v6 attributes (W {w})")
     return regs.value, local.value
 
 
@@ -242,30 +272,36 @@ def against_k4(out, ref) -> dict:
                 hits=int(found.sum()))
 
 
-def run(packets: int = N_PACKETS, device="cuda", inputs=None, out=print) -> dict:
+def run(packets: int = N_PACKETS, device="cuda", inputs=None, out=print,
+        w: int | None = None) -> dict:
     """What the script's main() does: v6 and K4 on the reference scene's
     4-wide tree, the mismatch counts and, on the card, the two timed in
-    alternating turns (CUDA events, median of 10 each)."""
+    alternating turns (CUDA events, median of 10 each), v6 at chain width
+    w (None: the one `v6` picks)."""
     from raytracer_tpu_torch.ops.cuda_traverse import trace_closest
 
     device = torch.device(device)
     if device.type == "cuda":
         common.require_card("v6")
+    if w is not None:
+        common.require_w(w, ADMITTED_W, "v6")
     bvh, node, tri, n_brute, cap, o, d, tlim = inputs or reference_inputs(packets)
     bvh = bvh.to(device)
     node, tri, o, d, tlim = (t.to(device).contiguous() for t in (node, tri, o, d, tlim))
     o_flat, d_flat = unpack(o), unpack(d)
     ref = trace_closest(o_flat, d_flat, bvh, float(BIG), sort=False)
-    res = v6(node, tri, o, d, tlim, n_brute, cap, count=True)
+    res = v6(node, tri, o, d, tlim, n_brute, cap, count=True, w=w)
     mis = against_k4(res[:6], ref)
     r = dict(packets=o.shape[0], mismatches=mis, chain_iters=int(res[6].sum()),
-             max_iters=default_max_iters(node, tri, n_brute), stack_cap=cap)
+             longest_chain=int(res[6].max()), max_iters=default_max_iters(node, tri, n_brute),
+             stack_cap=cap)
     out(f"mismatches: t={mis['t']} tri={mis['tri']} mat={mis['mat']} hit={mis['hit']} "
         f"(n={mis['n']}, hits={mis['hits']}); chain iterations {r['chain_iters']} (the "
-        f"longest chain {int(res[6].max())}, bound {r['max_iters']})")
+        f"longest chain {r['longest_chain']}, bound {r['max_iters']})")
     if o.is_cuda:
+        w = chosen_w(o.shape[0]) if w is None else w
         fns = {"v5": lambda: trace_closest(o_flat, d_flat, bvh, float(BIG), sort=False),
-               "v6": lambda: v6(node, tri, o, d, tlim, n_brute, cap)}
+               "v6": lambda: v6(node, tri, o, d, tlim, n_brute, cap, w=w)}
         for fn in fns.values():
             fn()
         torch.cuda.synchronize()
@@ -279,20 +315,26 @@ def run(packets: int = N_PACKETS, device="cuda", inputs=None, out=print) -> dict
                 torch.cuda.synchronize()
                 times[k].append(a.elapsed_time(b))
         ms = {k: common.median(v) for k, v in times.items()}
-        regs, local = kernel_resources()
-        r.update(ms=ms["v6"], ms_k4=ms["v5"], times_ms=times, num_regs=regs, local_bytes=local)
+        regs, local = kernel_resources(w)
+        r.update(ms=ms["v6"], ms_k4=ms["v5"], times_ms=times, w=w, num_regs=regs,
+                 local_bytes=local)
         p = o.shape[0]
         out(f"v5: {ms['v5']:8.4f} ms  ({ms['v5'] / p * 1e3:7.2f} us/packet)   (K4, 4-wide tree)")
         out(f"v6: {ms['v6']:8.4f} ms  ({ms['v6'] / p * 1e3:7.2f} us/packet)  speedup "
-            f"x{ms['v5'] / ms['v6']:.2f}   regs {regs} local {local} B")
+            f"x{ms['v5'] / ms['v6']:.2f}   W {w}  regs {regs} local {local} B")
     return r
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = common.device_arg(argv, "v6")
+    w = None
+    if "--w" in argv:
+        i = argv.index("--w")
+        w = int(argv[i + 1])
+        del argv[i:i + 2]
     packets = int(argv[0]) if argv else N_PACKETS
-    run(packets, device)
+    run(packets, device, w=w)
     return 0
 
 

@@ -187,6 +187,7 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_v5_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
     for name in ("v8", "v5", "morph", "interleave"):
         getattr(L, f"rt_probe_{name}_attrs_w").argtypes = [ci, ci, ip, ip]
+    L.rt_probe_v6_attrs_w.argtypes = [ci, ip, ip]
     for name in ("v8", "v5"):
         getattr(L, f"rt_probe_{name}_pick_w").argtypes = [ci, ci]
     L.rt_probe_interleave_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
@@ -196,10 +197,9 @@ def lib() -> ctypes.CDLL:
     L.rt_probe_scalar_attrs.argtypes = [ci, ci, ip, ip]
     L.rt_probe_vstack.argtypes = [ci, ci, vp, vp, vp, vp, vp]
     L.rt_probe_latency.argtypes = [ci, ci, vp, vp, vp]
-    L.rt_probe_ktf.argtypes = [ci, vp, vp, cu, cu, vp, vp, vp, vp, vp]
-    L.rt_probe_v6.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp,
-                              vp]
-    L.rt_probe_v6_attrs.argtypes = [ip, ip]
+    L.rt_probe_ktf.argtypes = [ci, vp, vp, cu, cu, vp, vp]
+    L.rt_probe_v6_w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp,
+                                vp, vp]
     L.rt_probe_mosaic.argtypes = [ci, vp, vp, ci, vp, vp]
     L.rt_probe_feature.argtypes = [ci, vp, vp, ci, vp, vp]
     L.rt_probe_bitcast.argtypes = [ci, vp, ci, vp, vp, vp]
@@ -216,7 +216,7 @@ def lib() -> ctypes.CDLL:
                L.rt_probe_scalar, L.rt_probe_scalar_tables, L.rt_probe_scalar_tables_scratch,
                L.rt_probe_scalar_attrs, L.rt_probe_vstack, L.rt_probe_vstack_attrs,
                L.rt_probe_latency,
-               L.rt_probe_ktf, L.rt_probe_ktf_attrs, L.rt_probe_v6, L.rt_probe_v6_attrs,
+               L.rt_probe_ktf, L.rt_probe_ktf_attrs, L.rt_probe_v6_w, L.rt_probe_v6_attrs_w,
                L.rt_probe_mosaic, L.rt_probe_mosaic_attrs, L.rt_probe_feature,
                L.rt_probe_feature_attrs, L.rt_probe_bitcast, L.rt_probe_bitcast_attrs,
                L.rt_probe_v8_w, L.rt_probe_v5_w,

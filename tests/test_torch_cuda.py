@@ -732,32 +732,76 @@ def test_k3_k5_profile_width4(dev, bunny4):
 
 @pytest.mark.parametrize("case", ktf_probe.CASES)
 def test_probe_ktf_case(dev, case):
-    """csrc/probe_ktf.cu: each case against the script's expectation and
-    against its plain version on the card, by the script's rules."""
+    """csrc/probe_ktf.cu: each case against the script's expectation by the
+    script's rules, and through the wrapper's fast path against its plain
+    version on the card bit for bit (the unit vectors too): one launch a
+    call, one [n_out, 8, 128] output returned as its rows."""
     before = ktf_probe.LAUNCHES["probe_ktf"]
     assert ktf_probe.run_case(case, dev, out=lambda line: None)["ok"]
     assert ktf_probe.LAUNCHES["probe_ktf"] == before + 1 + 10
     ins = tuple(torch.from_numpy(x).to(dev) for x in ktf_probe.inputs(case))
     k, p = ktf_probe.probe_ktf(case, *ins), ktf_probe.ktf_plain(case, *ins)
-    assert ktf_probe.agrees(case, [t.cpu().numpy() for t in k], [t.cpu().numpy() for t in p])[0]
+    assert ktf_probe.LAUNCHES["probe_ktf"] == before + 12
+    assert len(k) == len(p) == ktf_probe.N_OUT[case]
+    assert all(a.dtype == b.dtype and a.shape == b.shape == ktf_probe.TILE and _bitwise(a, b)
+               for a, b in zip(k, p))
+    assert all(a.untyped_storage().data_ptr() == k[0].untyped_storage().data_ptr() for a in k)
+    with pytest.raises(ValueError, match="expected torch.int32"):
+        ktf_probe.probe_ktf(case, ins[0].float(), *ins[1:])
+    with pytest.raises(ValueError, match="expected shape"):
+        ktf_probe.probe_ktf(case, ins[0][:4].contiguous(), *ins[1:])
 
 
-def test_probe_v6_equals_plain(dev):
-    """csrc/probe_v6.cu ≡ v6_plain bit for bit on all six outputs and the
-    chains' iteration counts (2 packets of the reference scene's 4-wide
-    tree, at 12 iterations and at the script's bound), and the rule against
-    K4 holds."""
+@pytest.mark.parametrize("w", (None, *v6.ADMITTED_W))
+def test_probe_v6_equals_plain(dev, w):
+    """csrc/probe_v6.cu at every chain width (None: the one the wrapper
+    picks) ≡ v6_plain bit for bit on all six outputs and the chains'
+    iteration counts: 2 packets of the reference scene's 4-wide tree, at 12
+    iterations and at the script's bound, at limits in (0.05, 0.6), and at
+    stack_cap 12, where the stall guard and the clamps change the walk; 0
+    local bytes; the rule against K4 holds."""
     bvh, node, tri, n_brute, cap, o, d, tlim = v6.reference_inputs(2)
     args = [t.to(dev) for t in (node, tri, o, d, tlim)]
-    for iters in (12, None):
+    tl = torch.from_numpy(np.random.default_rng(6).uniform(
+        0.05, 0.6, tuple(tlim.shape)).astype(np.float32))
+    for iters, lim, stack in ((12, tlim, cap), (None, tlim, cap), (None, tl, cap),
+                              (None, tlim, 12)):
         before = v6.LAUNCHES["probe_v6"]
-        k = v6.v6(*args, n_brute, cap, max_iters=iters, count=True)
+        k = v6.v6(*args[:4], lim.to(dev), n_brute, stack, max_iters=iters, count=True, w=w)
         assert v6.LAUNCHES["probe_v6"] == before + 1
-        p = v6.v6_plain(node, tri, o, d, tlim, n_brute, cap, max_iters=iters, count=True)
+        p = v6.v6_plain(node, tri, o, d, lim, n_brute, stack, max_iters=iters, count=True)
         assert all(_bitwise(a, b) if a.is_floating_point() else torch.equal(a.cpu(), b)
-                   for a, b in zip(k, p))
-    r = v6.run(2, dev, inputs=(bvh, node, tri, n_brute, cap, o, d, tlim), out=lambda line: None)
+                   for a, b in zip(k, p)), (iters, stack)
+    regs, local = v6.kernel_resources(w or v6.chosen_w(2))
+    assert regs > 0 and local == 0
+    r = v6.run(2, dev, inputs=(bvh, node, tri, n_brute, cap, o, d, tlim), out=lambda line: None,
+               w=w)
     assert sum(r["mismatches"][key] for key in ("t", "tri", "mat", "hit")) == 0
+
+
+def test_probe_v6_refuses_unbuilt_widths(dev):
+    """A chain width not built raises in the wrapper and is refused by the C
+    entry point; the wrapper's pick is this card's."""
+    import ctypes
+
+    _, node, tri, n_brute, cap, o, d, tlim = v6.reference_inputs(1)
+    node, tri, o, d, tlim = (t.to(dev) for t in (node, tri, o, d, tlim))
+    out = torch.zeros((1, 8, 128), device=dev)
+    it = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    r, b = ctypes.c_int(), ctypes.c_int()
+    lib = cudalib.lib()
+    for w in (0, 1, 3, 8):
+        with pytest.raises(ValueError, match="chain width"):
+            v6.v6(node, tri, o, d, tlim, n_brute, cap, w=w)
+        assert lib.rt_probe_v6_w(node.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
+                                 tlim.data_ptr(), tri.shape[0] - 1, n_brute, cap, 4, 1, w,
+                                 out.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(),
+                                 out.data_ptr(), out.data_ptr(), it.data_ptr(),
+                                 cudalib.stream_handle()) != 0
+        assert lib.rt_probe_v6_attrs_w(w, ctypes.byref(r), ctypes.byref(b)) != 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for packets in (1, 2, 128, 1056):
+        assert v6.chosen_w(packets) == v6.chosen_w(packets, sms)
 
 
 @pytest.mark.parametrize("case", mosaic.CASES)
