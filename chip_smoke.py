@@ -73,9 +73,10 @@ plain PyTorch version, and drives the port's three paths:
     the script's own check and its plain version bit for bit; bitcast's
     p1, p3 and p4 say BAD as the script does, the ids being float-encoded;
     feature's s7 is one K4 launch on the box-only scene); then the
-    single-tile probes redesigned for the card (P-mosaic, P-feature s1-s6):
-    each case with a library call (mosaic colbcast, concat, bitcast,
-    feature s2) equal to it bit for bit and timed per call against it in
+    single-tile probes redesigned for the card (P-mosaic, P-bitcast,
+    P-feature s1-s6): each case with a library call (mosaic colbcast,
+    concat, bitcast, bitcast p3 and p4, feature s2) equal to it bit for
+    bit and timed per call against it in
     alternating rounds (also against the library call on views made
     once), every case's device time per launch from a CUDA graph of 100
     launches (P-ktf's too), P-floor's empty kernel as the launch floor both ways, and
@@ -98,8 +99,8 @@ plain PyTorch version, and drives the port's three paths:
     turns at the main path's sizes with K3's chunk sizes; the parent's K4
     route (this tree's wrappers over the parent's library) against this
     tree's at 262,144 and 1,048,576 rays; the parent's draws (the chain
-    through its K2) against the draw kernels; the parent's P-mosaic and
-    P-feature through its own wrappers and cudalib (parent_launch_path)
+    through its K2) against the draw kernels; the parent's P-mosaic,
+    P-bitcast and P-feature through its own wrappers and cudalib (parent_launch_path)
     against this tree's, bit for bit (lanesum, which sums in another order
     since the redesign, by the script's check) and in alternating rounds,
     per call and per launch in a CUDA graph, P-ktf the same way (every
@@ -1739,20 +1740,46 @@ def alternate(measures: dict, pairs: int = P13_TURN_PAIRS) -> dict:
     return out
 
 
+def bitcast_library(case: str, tab, r0: int) -> tuple:
+    """(the library call, the library call on views made beforehand) of a
+    P-bitcast case on its table, each returning a tuple of i32[8, 128];
+    (None, None) where one PyTorch call does not compute it. p3: nodes 0-7
+    are records 0-3 of rows 0 and 1, their child codes fields 24-27, padded
+    to the tile by torch.nn.functional.pad; p4: record k's ids (fields 9
+    and 10 of row r0) repeated to lanes c with c % 8 = k, one [2, 8, 128]
+    repeat unbound into (best, mat). p1 needs a copy before its pad (the
+    reshape of a strided [8, 2]) and p2 a bucketize and a lookup: no single
+    call."""
+    import torch
+
+    pad, i32 = torch.nn.functional.pad, torch.int32
+    if case == "p3":
+        codes = tab[0:2].view(8, 32)[:, 24:28].view(i32)
+        return ((lambda: (pad(tab[0:2].view(8, 32)[:, 24:28].view(i32), (0, 124)),)),
+                (lambda: (pad(codes, (0, 124)),)))
+    if case == "p4":
+        ids = tab[r0].view(8, 16)[:, 9:11].view(i32).t().unsqueeze(1)
+        return ((lambda: tab[r0].view(8, 16)[:, 9:11].view(i32).t().unsqueeze(1)
+                 .repeat(1, 8, 16).unbind(0)),
+                (lambda: ids.repeat(1, 8, 16).unbind(0)))
+    return None, None
+
+
 def tile_calls(dev) -> dict:
     """{"<probe> <case>": (the kernel's call, its library call, the library
-    call on views made beforehand)} of every P-mosaic case, P-feature
-    stage and P-ktf case on its script's inputs on the card, each call
-    returning a tuple;
+    call on views made beforehand)} of every P-mosaic case, P-bitcast case
+    (on the reference scene's v5 tables), P-feature stage and P-ktf case on
+    its script's inputs on the card, each call returning a tuple;
     None where one PyTorch call does not compute the case. A library call
     is one PyTorch call computing the case from its input x, the views it
     needs taken inside the call (as the probe rows have timed it): mosaic colbcast
     torch.mul(x, x[:, 3:4]), concat torch.mul(x[0:1] expanded, x[0, 5]),
-    bitcast .contiguous() of the int32 view of lane 25 expanded; feature
+    bitcast .contiguous() of the int32 view of lane 25 expanded; bitcast p3
+    and p4 as bitcast_library gives them (p1 and p2 none); feature
     s2 x * 2.0 (no view: no second form)."""
     import torch
 
-    from raytracer_tpu_torch.probes import feature, ktf_probe, mosaic
+    from raytracer_tpu_torch.probes import bitcast, feature, ktf_probe, mosaic
 
     tile, i32 = mosaic.TILE, torch.int32
     calls = {}
@@ -1773,6 +1800,11 @@ def tile_calls(dev) -> dict:
             lib = lambda x=x: (x.view(i32)[:, 25:26].expand(tile).contiguous(),)   # noqa: E731
             once = lambda ids=ids: (ids.contiguous(),)   # noqa: E731
         calls[f"mosaic {case}"] = (lambda c=case, i=ins: (mosaic.probe_mosaic(c, *i),), lib, once)
+    tabs = bitcast.reference_tables()
+    for case in bitcast.CASES:
+        tab, r0 = bitcast.case_input(case, tabs, dev)
+        calls[f"bitcast {case}"] = (lambda c=case, t=tab, r=r0: bitcast.probe_bitcast(c, t, r),
+                                    *bitcast_library(case, tab, r0))
     for case in feature.CASES:
         ins = tuple(torch.from_numpy(a).to(dev) for a in feature.inputs(case))
         calls[f"feature {case}"] = (lambda c=case, i=ins: feature.probe_feature(c, *i),
@@ -1800,13 +1832,15 @@ def host_us(fn, calls: int = 2000) -> float:
 
 def tile_host_parts(dev) -> dict:
     """Where the host time of a call of the redesigned wrappers goes (host_us
-    of each part alone, mosaic colbcast, feature s2 and ktf sampler_tile on
-    their script's inputs): the wrapper, its library call, the bare ctypes
-    launch on buffers made once, each step of the wrapper's own work, and
-    the stream handle as torch.cuda.current_stream() gives it."""
+    of each part alone, mosaic colbcast, feature s2, ktf sampler_tile and
+    bitcast p4 on their script's inputs): the wrapper, its library call, the
+    bare ctypes launch on buffers made once, each step of the wrapper's own
+    work (bitcast p4's two outputs both ways: two new_empty, or one
+    [2, 8, 128] new_empty unbound into views), and the stream handle as
+    torch.cuda.current_stream() gives it."""
     import torch
 
-    from raytracer_tpu_torch.probes import feature, ktf_probe, mosaic
+    from raytracer_tpu_torch.probes import bitcast, feature, ktf_probe, mosaic
     from raytracer_tpu_torch.utils import cudalib
 
     x = torch.from_numpy(mosaic.inputs("colbcast")[0]).to(dev)
@@ -1840,6 +1874,21 @@ def tile_host_parts(dev) -> dict:
         "ktf x.new_empty((4, 8, 128))": lambda: px.new_empty((4, *ktf_probe.TILE),
                                                              dtype=torch.float32),
         "ktf out.unbind(0)": lambda: kout.unbind(0),
+    })
+    tab, r0 = bitcast.case_input("p4", bitcast.reference_tables(), dev)
+    library, _ = bitcast_library("p4", tab, r0)
+    b0, b1 = (torch.empty(bitcast.TILE, dtype=torch.int32, device=dev) for _ in range(2))
+    tp, b0p, b1p = tab.data_ptr(), b0.data_ptr(), b1.data_ptr()
+    parts.update({
+        "bitcast p4 wrapper": lambda: bitcast.probe_bitcast("p4", tab, r0),
+        "bitcast p4 library call": library,
+        "bitcast p4 ctypes launch alone": lambda: L.rt_probe_bitcast(bitcast.P4, tp, r0, b0p, b1p,
+                                                                     stream),
+        "bitcast p4 two tab.new_empty((8, 128))": lambda: (
+            tab.new_empty(bitcast.TILE, dtype=torch.int32),
+            tab.new_empty(bitcast.TILE, dtype=torch.int32)),
+        "bitcast p4 tab.new_empty((2, 8, 128)).unbind(0)": lambda: tab.new_empty(
+            (2, *bitcast.TILE), dtype=torch.int32).unbind(0),
     })
     return {k: host_us(f) for k, f in parts.items()}
 
@@ -2834,7 +2883,7 @@ def phase13(dev, smi):
                            plain_ms_variants={k: v for k, v in plain_ms.items()
                                               if k.startswith("morph")},
                            sm_clock_mhz=clock["mhz"])
-    for key, first, mod in (("P-mosaic", "colbcast", "mosaic"), ("P-bitcast", "p1", "bitcast"),
+    for key, first, mod in (("P-mosaic", "colbcast", "mosaic"), ("P-bitcast", "p4", "bitcast"),
                             ("P-feature", "s2", "feature")):
         cases = runs[key]
         for case, r in cases.items():
@@ -2845,12 +2894,10 @@ def phase13(dev, smi):
                          plain_ms_cases={k: v for k, v in plain_ms.items()
                                          if k.startswith(mod)},
                          int32_ops_per_s=int32_rate)
-        if key != "P-bitcast":
-            rows[key].update(floor_ms=tiles["floor"]["ms"],
-                             floor_graph_ms=tiles["floor"]["graph_ms"],
-                             host_us={k: v for k, v in tiles["host_us"].items()
-                                      if not k.startswith({"P-mosaic": ("feature", "ktf "),
-                                                           "P-feature": ("mosaic", "ktf ")}[key])})
+        others = tuple(f"{m} " for m in ("mosaic", "bitcast", "feature", "ktf") if m != mod)
+        rows[key].update(floor_ms=tiles["floor"]["ms"], floor_graph_ms=tiles["floor"]["graph_ms"],
+                         host_us={k: v for k, v in tiles["host_us"].items()
+                                  if not k.startswith(others)})
     rows["P-floor"].update(empty_ms_turns=tiles["floor"]["ms"],
                            empty_graph_ms=tiles["floor"]["graph_ms"])
     rows["P-feature"]["s7_k4_launches"] = launches["P-feature s7 (K4)"]
@@ -3236,11 +3283,11 @@ def cudalib_as(mod):
 def parent_launch_path(parent_dir: str, build_dir: str):
     """The parent tree's own launch path: its utils/cudalib.py (its library
     the one phase 15 built from its csrc into build_dir), and its
-    probes/mosaic.py, probes/feature.py, probes/ablate_v8.py,
+    probes/mosaic.py, probes/bitcast.py, probes/feature.py, probes/ablate_v8.py,
     probes/v5_body.py, probes/morph.py, probes/interleave_probe.py,
     probes/scalar_cost.py, probes/vstack.py, probes/v6.py, probes/ktf_probe.py
     and utils/ktf.py bound to that cudalib. (parent cudalib, {"mosaic": ..,
-    "feature": .., "ablate_v8": .., "v5_body": .., "morph": ..,
+    "bitcast": .., "feature": .., "ablate_v8": .., "v5_body": .., "morph": ..,
     "interleave_probe": .., "scalar_cost": .., "vstack": .., "v6": ..,
     "ktf_probe": .., "ktf": ..})."""
     pkg = os.path.join(parent_dir, "raytracer_tpu_torch")
@@ -3248,7 +3295,8 @@ def parent_launch_path(parent_dir: str, build_dir: str):
     pc.BUILD_DIR = build_dir
     with cudalib_as(pc):
         mods = {name: _load_module(os.path.join(pkg, *rel), f"parent_{name}") for name, rel in (
-            ("mosaic", ("probes", "mosaic.py")), ("feature", ("probes", "feature.py")),
+            ("mosaic", ("probes", "mosaic.py")), ("bitcast", ("probes", "bitcast.py")),
+            ("feature", ("probes", "feature.py")),
             ("ablate_v8", ("probes", "ablate_v8.py")), ("v5_body", ("probes", "v5_body.py")),
             ("morph", ("probes", "morph.py")),
             ("interleave_probe", ("probes", "interleave_probe.py")),
@@ -3371,7 +3419,8 @@ def sass_old_new(parent_lib: str) -> dict:
 
 
 def tiles_old_new(dev, pc, pmods) -> dict:
-    """The parent's P-mosaic, P-feature and P-ktf (its wrappers, its
+    """The parent's P-mosaic, P-bitcast (on the reference scene's v5
+    tables), P-feature and P-ktf (its wrappers, its
     cudalib, its kernels) against this tree's on the same inputs: outputs
     equal bit for bit (mosaic lanesum, which sums in another order since the redesign:
     both pass the script's check, the largest difference kept), each case
@@ -3381,18 +3430,20 @@ def tiles_old_new(dev, pc, pmods) -> dict:
     2^20 counters, cuda_ms of 50 calls per turn, in alternating pairs."""
     import torch
 
-    from raytracer_tpu_torch.probes import common, feature, ktf_probe, mosaic
+    from raytracer_tpu_torch.probes import bitcast, common, feature, ktf_probe, mosaic
     from raytracer_tpu_torch.utils import ktf
 
     checks, out = {}, {}
     per_call = lambda f: lambda: common.median(common.time_launches(f))   # noqa: E731
+    tabs = bitcast.reference_tables()
     for probe, mod, call in (("mosaic", mosaic, "probe_mosaic"),
+                             ("bitcast", bitcast, "probe_bitcast"),
                              ("feature", feature, "probe_feature"),
                              ("ktf", ktf_probe, "probe_ktf")):
         pmod = pmods["ktf_probe" if probe == "ktf" else probe]
         for case in mod.CASES:
-            ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                        for a in mod.inputs(case))
+            ins = bitcast.case_input(case, tabs, dev) if probe == "bitcast" else tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in mod.inputs(case))
             fns = {who: (lambda f=getattr(m, call), c=case, i=ins: f(c, *i))
                    for who, m in (("parent", pmod), ("new", mod))}
             old, new = (fns[k]() for k in ("parent", "new"))

@@ -22,65 +22,97 @@
 // p4 reproduce the script's bitcast, __float_as_int, and not the f2i the
 // traversal converts ids with.
 //
-// Mapping: one block of 8 warps, warp s is row s, thread l owns lanes l,
-// l+32, l+64, l+96 (probe.cuh). What bounds it: the launch; a tile reads at
-// most 8 table rows.
+// Mapping (probe_tile.cuh): one block of 8 warps, warp s is row s, thread l
+// owns the adjacent lanes 4l..4l+3 and writes them with one 128-bit store.
+// Record k's ids sit at floats 16k + 9 and 16k + 10 of row r0, an odd offset
+// no 8-byte load reaches; fields 8-11 are one 16-byte aligned word. So in
+// p1 and p4 lanes 0-7 of a warp each load one record's word (8 loads a
+// warp), and the ids reach the threads that store them by __shfl_sync. p3's child codes are fields
+// 24-27 of a node record, 16-byte aligned: thread 0 of a warp loads them as
+// one word. What bounds it: the launch (the bound is 0.0000012-0.0000025 ms
+// of bytes, mostly the output tiles); the body is at most one load and one
+// shuffle round before each thread's store.
 #include <cuda_runtime.h>
 
 #include "probe.cuh"
+#include "probe_tile.cuh"
 
 namespace probe_bitcast {
 
-using namespace probe;
+using probe::FULL;
+using probe::NODE_STRIDE;
+using probe::P_SUB;
+using probe::ROW;
+using probe::TRI_STRIDE;
 
 enum Case { P1, P2, P3, P4, N_CASES };
 
+__device__ __forceinline__ void store4(int* row, int lane, int4 v) {
+  reinterpret_cast<int4*>(row)[lane] = v;
+}
+
+// Record k's (prim id, material id) bits, k = lane & 7, read by lanes 0-7
+// as fields 8-11 of row `row` and held by every lane l as record l & 7's.
+__device__ __forceinline__ int2 record_ids(const float* __restrict__ row, int lane) {
+  int2 ids = make_int2(0, 0);
+  if (lane < 8) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(row + lane * TRI_STRIDE + 8));
+    ids = make_int2(__float_as_int(f.y), __float_as_int(f.z));
+  }
+  return ids;
+}
+
 // tab: the triangle table (p1, p4), the node table (p3), or x f32[8, 128]
-// (p2); r0: p1's and p4's row; o0, o1: i32[8, 128] (o1: p4's mat).
+// (p2), 16-byte aligned; r0: p1's and p4's row; o0, o1: i32[8, 128] (o1:
+// p4's mat).
 template <int C>
 __global__ void __launch_bounds__(P_SUB * 32)
     probe_bitcast_kernel(const float* __restrict__ tab, int r0, int* __restrict__ o0,
                          int* __restrict__ o1) {
   const int s = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* row0 = o0 + s * ROW;
+  if constexpr (C == P2) {
+    const float4 v = tile::load4(tab + s * ROW, lane);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    int best[4];
 #pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    const int c = lane + 32 * j;
-    const size_t i = static_cast<size_t>(s) * ROW + c;
-    if constexpr (C == P1 || C == P4) {
-      const float* row = tab + static_cast<size_t>(r0) * ROW;
-      int acc = 0, best = -1, mat = 0;
+    for (int i = 0; i < 4; ++i) {
+      best[i] = -1;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int id0 = __float_as_int(row[k * TRI_STRIDE + 9]);
-        const int id1 = __float_as_int(row[k * TRI_STRIDE + 10]);
-        if constexpr (C == P1) {
-          acc = c == 2 * k ? id0 : acc;
-          acc = c == 2 * k + 1 ? id1 : acc;
-        } else {
-          const bool ok = floormod(c, 8) == k;
-          best = ok ? id0 : best;
-          mat = ok ? id1 : mat;
-        }
+      for (int k = 0; k < 4; ++k) {
+        best[i] = x[i] > static_cast<float>(k) * 0.5f ? 100 + k : best[i];
       }
-      if constexpr (C == P1) {
-        o0[i] = acc;
-      } else {
-        o0[i] = best;
-        o1[i] = mat;
-      }
-    } else if constexpr (C == P2) {
-      const float x = tab[i];
-      int best = -1;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) best = x > static_cast<float>(k) * 0.5f ? 100 + k : best;
-      o0[i] = best;
+    }
+    store4(row0, lane, make_int4(best[0], best[1], best[2], best[3]));
+  } else if constexpr (C == P3) {
+    // Node s: row s / 4, record s % 4; its child codes are fields 24-27.
+    int4 ch = make_int4(0, 0, 0, 0);
+    if (lane == 0) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(
+          tab + (s >> 2) * ROW + NODE_STRIDE * (s & 3) + 24));
+      ch = make_int4(__float_as_int(f.x), __float_as_int(f.y), __float_as_int(f.z),
+                     __float_as_int(f.w));
+    }
+    store4(row0, lane, ch);
+  } else {
+    const int2 ids = record_ids(tab + static_cast<size_t>(r0) * ROW, lane);
+    if constexpr (C == P1) {
+      // Thread l < 4 holds lanes 4l..4l+3: records 2l and 2l + 1.
+      const int k = (2 * lane) & 7;
+      const int a0 = __shfl_sync(FULL, ids.x, k), a1 = __shfl_sync(FULL, ids.y, k);
+      const int b0 = __shfl_sync(FULL, ids.x, k + 1), b1 = __shfl_sync(FULL, ids.y, k + 1);
+      store4(row0, lane, lane < 4 ? make_int4(a0, a1, b0, b1) : make_int4(0, 0, 0, 0));
     } else {
-      const float* nrec = tab + static_cast<size_t>(floordiv(s, 4)) * ROW +
-                          NODE_STRIDE * floormod(s, 4);
-      int acc = 0;
+      // Lane 4l + i has c % 8 = 4 (l & 1) + i: records 4 (l & 1)..+3.
+      const int k = 4 * (lane & 1);
+      int best[4], mat[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc = c == k ? __float_as_int(nrec[24 + k]) : acc;
-      o0[i] = acc;
+      for (int i = 0; i < 4; ++i) {
+        best[i] = __shfl_sync(FULL, ids.x, k + i);
+        mat[i] = __shfl_sync(FULL, ids.y, k + i);
+      }
+      store4(row0, lane, make_int4(best[0], best[1], best[2], best[3]));
+      store4(o1 + s * ROW, lane, make_int4(mat[0], mat[1], mat[2], mat[3]));
     }
   }
 }

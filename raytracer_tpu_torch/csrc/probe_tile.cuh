@@ -1,5 +1,6 @@
 // The [8, 128] tile mapping of the single-tile probes redesigned for Hopper
-// (probe_mosaic.cu, probe_feature.cu); the other probes keep probe.cuh's.
+// (probe_mosaic.cu, probe_feature.cu, probe_ktf.cu, probe_bitcast.cu); the
+// other probes keep probe.cuh's.
 //
 // One block of 8 warps; warp s is row s, and thread l owns the four
 // adjacent lanes 4l..4l+3 of it, so a warp reads or writes its row as 512

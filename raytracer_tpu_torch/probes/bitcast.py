@@ -42,6 +42,8 @@ from raytracer_tpu_torch.probes.v5_tables import P_LANE, P_SUB, pack_tables
 from raytracer_tpu_torch.utils import cudalib
 
 CASES = ("p1", "p2", "p3", "p4")   # csrc/probe_bitcast.cu order
+P1, P2, P3, P4 = range(len(CASES))
+_IDS = {case: i for i, case in enumerate(CASES)}
 TILE = (P_SUB, P_LANE)
 LAUNCHES = {"probe_bitcast": 0}
 PLAIN_CALLS = {"probe_bitcast": 0}
@@ -83,9 +85,9 @@ def p2_input() -> np.ndarray:
 
 
 def _case_id(case: str) -> int:
-    if case not in CASES:
+    if case not in _IDS:
         raise ValueError(f"bitcast probe: unknown probe {case!r} ({', '.join(CASES)})")
-    return CASES.index(case)
+    return _IDS[case]
 
 
 def case_input(case: str, tabs: Tables, device) -> tuple[torch.Tensor, int]:
@@ -131,30 +133,68 @@ def bitcast_plain(case: str, tab: torch.Tensor, r0: int) -> tuple:
     return best, mat
 
 
-def probe_bitcast(case: str, tab: torch.Tensor, r0: int) -> tuple:
-    """The case's kernel (csrc/probe_bitcast.cu) on a CUDA tensor, its plain
-    version on a CPU tensor."""
+# The fast path's inputs: p2's x as cudalib.signature gives it; a table's
+# (on a card, dtype, shape[1:], contiguous), then its rows against the
+# last row the case reads.
+_X = (True, torch.float32, TILE, True)
+_TAB = (True, torch.float32, (P_LANE,), True)
+_kernel = None   # rt_probe_bitcast, bound at the first launch
+
+
+def _takes(case: str, tab, r0: int) -> bool:
+    """The wrapper's rules, with their errors, for inputs off its fast
+    path: True where the kernel takes them (on the card), False where the
+    plain version does (on the CPU); anything else raises."""
     c = _case_id(case)
-    if not tab.is_cuda:
-        if tab.device.type != "cpu":
-            raise ValueError(f"bitcast probe: unsupported device {tab.device}")
-        return bitcast_plain(case, tab, r0)
-    if case == "p2":
-        cudalib.require_cuda("x", tab, torch.float32, TILE)
+    dev = tab.device.type if torch.is_tensor(tab) else "cuda"
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"bitcast probe: unsupported device {tab.device}")
+    if c == P2:
+        cudalib.require_cuda("x", tab, torch.float32, TILE, device_type=dev)
     else:
-        cudalib.require_cuda("table", tab, torch.float32)
-        rows = 2 if case == "p3" else r0 + 1
-        if tab.dim() != 2 or tab.shape[1] != 128 or tab.shape[0] < rows or r0 < 0:
+        cudalib.require_cuda("table", tab, torch.float32, device_type=dev)
+        rows = 2 if c == P3 else r0 + 1
+        if tab.dim() != 2 or tab.shape[1] != P_LANE or tab.shape[0] < rows or r0 < 0:
             raise ValueError(f"bitcast probe: {case} reads rows up to {rows - 1} of a "
                              f"f32[rows, 128] table, got {tuple(tab.shape)}")
-    outs = [torch.empty(TILE, dtype=torch.int32, device=tab.device)
-            for _ in range(2 if case == "p4" else 1)]
-    o1 = outs[1].data_ptr() if case == "p4" else None
-    cudalib.check(cudalib.lib().rt_probe_bitcast(c, tab.data_ptr(), r0, outs[0].data_ptr(), o1,
-                                                 cudalib.stream_handle()),
-                  f"probe_bitcast kernel ({case})")
+    return dev == "cuda"
+
+
+def probe_bitcast(case: str, tab: torch.Tensor, r0: int) -> tuple:
+    """The case's kernel (csrc/probe_bitcast.cu) on a CUDA tensor, its plain
+    version on a CPU tensor: its i32[8, 128] outputs (p4: best, mat; on the
+    card the rows of one [2, 8, 128] tensor, which took less host time than
+    two allocations). The inputs it takes on the card take the fast path:
+    one comparison for the input's kind and one for its rows, the output
+    from new_empty, the entry point bound once, the stream's raw handle."""
+    global _kernel
+    c = _IDS.get(case, -1)
+    if c == P2:
+        fast = cudalib.signature(tab) == _X
+    else:
+        fast = (c >= 0 and isinstance(tab, torch.Tensor)
+                and (tab.is_cuda, tab.dtype, tab.shape[1:], tab.is_contiguous()) == _TAB
+                and 0 <= r0 and (1 if c == P3 else r0) < tab.shape[0])
+    if not fast and not _takes(case, tab, r0):
+        return bitcast_plain(case, tab, r0)
+    tp = tab.data_ptr()
+    if tp & 15:
+        cudalib.require_aligned("x" if c == P2 else "table", tp)
+    if _kernel is None:
+        _kernel = cudalib.lib().rt_probe_bitcast
+    if c == P4:   # best and mat, the rows of one buffer
+        out = tab.new_empty((2, *TILE), dtype=torch.int32)
+        op = out.data_ptr()
+        code = _kernel(c, tp, r0, op, op + 4 * P_SUB * P_LANE, cudalib.stream_handle())
+        outs = out.unbind(0)
+    else:
+        out = tab.new_empty(TILE, dtype=torch.int32)
+        code = _kernel(c, tp, r0, out.data_ptr(), None, cudalib.stream_handle())
+        outs = (out,)
+    if code:
+        cudalib.check(code, f"probe_bitcast kernel ({case})")
     LAUNCHES["probe_bitcast"] += 1
-    return tuple(outs)
+    return outs
 
 
 def verdict(case: str, outs, tabs: Tables) -> tuple[bool, str]:
@@ -186,14 +226,15 @@ def verdict(case: str, outs, tabs: Tables) -> tuple[bool, str]:
 
 def work(case: str) -> dict:
     """Bytes (what the case reads once, its outputs written once) and
-    operations of one tile, counted from csrc/probe_bitcast.cu per
-    element: p1 16 int32 compare-selects on one 512-byte row; p2 4 fp32
-    compares (and 4 selects); p3 4 compare-selects on 8 node records of
-    128 bytes; p4 8 compares on lane % 8 (16 selects) on one row."""
+    operations of one tile, counted from csrc/probe_bitcast.cu: p1 and p4
+    read the two ids of 8 records (64 bytes), p3 the four child codes of 8
+    node records (128 bytes), p2 its tile; p2 takes 4 fp32 compares and 4
+    selects per element, and p1, p3 and p4 only move bits (loads, shuffles,
+    stores), no operation on them."""
     n = TILE[0] * TILE[1]
-    read = {"p1": 512, "p2": 4 * n, "p3": 8 * 128, "p4": 512}[case]
+    read = {"p1": 64, "p2": 4 * n, "p3": 128, "p4": 64}[case]
     n_out = 2 if case == "p4" else 1
-    fp, it = {"p1": (0, 16 * n), "p2": (4 * n, 4 * n), "p3": (0, 4 * n), "p4": (0, 8 * n)}[case]
+    fp, it = (4 * n, 4 * n) if case == "p2" else (0, 0)
     return dict(bytes=read + 4 * n * n_out, fp32_ops=fp, int32_ops=it)
 
 

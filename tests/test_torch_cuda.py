@@ -579,9 +579,7 @@ def test_lane_list_corners_repeated(dev, width, interleave):
     take through atomicAdd (the parent commit's csrc/megakernel.cuh) K5 at
     width 4 lost a lane in about 0.5% of the chunk-1 launches at 1,000
     lanes, or hung."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     got = smoke.lane_list_repeats(dev, widths=(width,), interleaves=(interleave,))
     kernel = "K5" if interleave == 2 else "K3"
     assert got["launches"][kernel] >= 200 * 3 * len(smoke.LANE_CASES) + 2000
@@ -829,11 +827,18 @@ def test_probe_feature_stage(dev, case):
 
 def _tile_calls(dev, probe):
     """(name, the kernel's call, the plain version's call) of every P-mosaic
-    case or P-feature stage on its script's inputs on the card; each call
-    returns a tuple of tensors."""
-    mod = {"mosaic": mosaic, "feature": feature}[probe]
+    case, P-feature stage or P-bitcast case (on the reference scene's v5
+    tables) on its script's inputs on the card; each call returns a tuple
+    of tensors."""
+    mod = {"mosaic": mosaic, "feature": feature, "bitcast": bitcast}[probe]
     calls = []
+    tabs = bitcast.reference_tables() if probe == "bitcast" else None
     for case in mod.CASES:
+        if probe == "bitcast":
+            ins = bitcast.case_input(case, tabs, dev)
+            calls.append((case, lambda c=case, i=ins: bitcast.probe_bitcast(c, *i),
+                          lambda c=case, i=ins: bitcast.bitcast_plain(c, *i)))
+            continue
         ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in mod.inputs(case))
         if probe == "mosaic":
             calls.append((case, lambda c=case, i=ins: (mosaic.probe_mosaic(c, *i),),
@@ -858,7 +863,7 @@ def test_stream_handle_follows_the_current_stream(dev):
         assert cudalib.stream_handle() == torch.cuda.current_stream(dev).cuda_stream
 
 
-@pytest.mark.parametrize("probe", ["mosaic", "feature"])
+@pytest.mark.parametrize("probe", ["mosaic", "feature", "bitcast"])
 def test_probe_tiles_on_a_side_stream(dev, probe):
     """Every case launched on a side torch.cuda.Stream, one launch counted
     each, equals its plain version bit for bit."""
@@ -875,7 +880,7 @@ def test_probe_tiles_on_a_side_stream(dev, probe):
         assert len(got) == len(want) and all(_bitwise(a, b) for a, b in zip(got, want)), name
 
 
-@pytest.mark.parametrize("probe", ["mosaic", "feature"])
+@pytest.mark.parametrize("probe", ["mosaic", "feature", "bitcast"])
 def test_probe_tiles_in_a_cuda_graph(dev, probe):
     """Every case captured once in a CUDA graph (one launch counted each,
     at capture; none at replay), its outputs overwritten, then replayed:
@@ -922,6 +927,66 @@ def test_probe_bitcast_case(dev, case):
     assert len(k) == len(p) and all(torch.equal(a.cpu(), b) for a, b in zip(k, p))
     ok = bitcast.verdict(case, [t.cpu().numpy() for t in k], tabs)[0]
     assert ok == bitcast.verdict(case, [t.numpy() for t in p], tabs)[0] == (case == "p2")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.fixture(scope="module")
+def bitcast_tables():
+    return bitcast.reference_tables()
+
+
+@pytest.mark.parametrize("case", ["p3", "p4"])
+def test_probe_bitcast_equals_its_library_call(dev, bitcast_tables, case):
+    """p3 and p4 ≡ the library calls chip_smoke.py times them against
+    (bitcast_library: the views taken inside the call, and made
+    beforehand) bit for bit on the card."""
+    tab, r0 = bitcast.case_input(case, bitcast_tables, dev)
+    k = bitcast.probe_bitcast(case, tab, r0)
+    for call in _chip_smoke().bitcast_library(case, tab, r0):
+        lib = call()
+        assert len(lib) == len(k)
+        assert all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                   for a, b in zip(k, lib))
+
+
+@pytest.mark.parametrize("case", bitcast.CASES)
+def test_probe_bitcast_fast_and_slow_paths(dev, bitcast_tables, monkeypatch, case):
+    """The fast path and the wrapper's rules (_takes, reached when the fast
+    path's signatures are made to match nothing) launch once each with the
+    same outputs (p4's two the rows of one buffer); a table or x that
+    starts one float into its buffer (not 16-byte aligned) raises and
+    launches nothing, on either path."""
+    tab, r0 = bitcast.case_input(case, bitcast_tables, dev)
+    before = bitcast.LAUNCHES["probe_bitcast"]
+    fast = bitcast.probe_bitcast(case, tab, r0)
+    assert all(t.shape == bitcast.TILE and t.dtype == torch.int32 for t in fast)
+    assert {t.untyped_storage().data_ptr() for t in fast} == {fast[0].untyped_storage().data_ptr()}
+    buf = torch.empty(tab.numel() + 1, device=dev)
+    buf[1:].copy_(tab.reshape(-1))
+    shifted = buf[1:].view(tab.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    for slow in (False, True):
+        if slow:
+            monkeypatch.setattr(bitcast, "_X", None)
+            monkeypatch.setattr(bitcast, "_TAB", None)
+            got = bitcast.probe_bitcast(case, tab, r0)
+            assert len(got) == len(fast) and all(torch.equal(a, b) for a, b in zip(got, fast))
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            bitcast.probe_bitcast(case, shifted, r0)
+    assert bitcast.LAUNCHES["probe_bitcast"] == before + 2
+
+
+def test_probe_bitcast_resources(dev):
+    """Every P-bitcast kernel takes registers and 0 local bytes."""
+    res = bitcast.kernel_resources()
+    assert set(res) == set(bitcast.CASES)
+    assert all(regs > 0 and local == 0 for regs, local in res.values()), res
 
 
 @pytest.fixture(scope="module")
