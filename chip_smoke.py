@@ -3778,7 +3778,9 @@ def kernels_launched(fn, tries: int = 3) -> dict:
     the idle microseconds between them (host dispatch, when the card waits
     for it), and the busy microseconds of each name. A trace that holds no
     device activity is taken again, up to `tries` times in all (empty if
-    none holds any)."""
+    none holds any). The program's spans (`rt.*`, utils/profiling) sit on
+    the card's timeline too, as user annotations: they are no device
+    activity and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3789,7 +3791,9 @@ def kernels_launched(fn, tries: int = 3) -> dict:
             fn()
             torch.cuda.synchronize()
         acts = sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not (getattr(e, "is_user_annotation", False)
+                                or e.name.startswith("rt."))),
                       key=lambda e: e.time_range.start)
         if acts:
             break
@@ -4448,7 +4452,7 @@ def phase16(scene, dev, smi) -> dict:
     from raytracer_tpu_torch.models.fused import render_image_fused
     from raytracer_tpu_torch.ops import intersect as isect
     from raytracer_tpu_torch.render import iter_spp_accumulation, render_image_chunked
-    from raytracer_tpu_torch.utils import ktf
+    from raytracer_tpu_torch.utils import ktf, profiling
     from raytracer_tpu_torch.utils import rng as rngu
 
     t_phase = time.perf_counter()
@@ -4480,19 +4484,20 @@ def phase16(scene, dev, smi) -> dict:
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    stats = wf.new_stats()
+    before = profiling.totals()
     t0 = time.perf_counter()
-    img = wf.render_image_wavefront(scene, cam, cfg, 0, stats=stats)
+    img = wf.render_image_wavefront(scene, cam, cfg, 0)
     torch.cuda.synchronize()
     frame_s = [time.perf_counter() - t0]
     counts = _counts()
+    host_reads, iters = (profiling.totals()[k] - before.get(k, 0)
+                         for k in ("host_reads", "wavefront.iterations"))
     peak = torch.cuda.max_memory_allocated()
     for _ in range(P16_FRAMES - 1):
         t0 = time.perf_counter()
         wf.render_image_wavefront(scene, cam, cfg, 0)
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
-    iters = sum(stats["stage_iterations"])
     if counts["k4"] != iters or counts["k2_threefry"] < iters or counts["plain"]:
         raise AssertionError(f"2K wavefront frame: K4 launches {counts['k4']} (iterations "
                              f"{iters}), K2 launches {counts['k2_threefry']}, plain calls "
@@ -4512,9 +4517,8 @@ def phase16(scene, dev, smi) -> dict:
         f"{cfg.width * cfg.height} pixels differ, mean diff {mean_diff:.2e}, max abs "
         f"{max_abs:.3g}, means {img.mean().item():.6f} / {k3.mean().item():.6f}; s per frame "
         f"(host clock, synchronized) {_fmt(frame_s)}, median {med:.4f} s "
-        f"({rays / med / 1e6:.2f} M camera rays/s); iterations per cascade stage "
-        f"{stats['stage_iterations']} ({iters} in all), host reads {stats['host_reads']}; K4 "
-        f"launches {counts['k4']}, K2 launches {counts['k2']} (Threefry "
+        f"({rays / med / 1e6:.2f} M camera rays/s); {iters} iterations, host reads "
+        f"{host_reads}; K4 launches {counts['k4']}, K2 launches {counts['k2']} (Threefry "
         f"{counts['k2_threefry']}, {counts['k2_threefry'] / max(iters, 1):.2f} per iteration), "
         f"plain calls {counts['plain']}; peak memory {peak / 2**30:.3f} GiB "
         f"({(peak - mem0) / 2**30:.3f} GiB above the scene's {mem0 / 2**30:.3f}) on {smi}")
@@ -4677,8 +4681,7 @@ def phase16(scene, dev, smi) -> dict:
 
     summary = dict(
         known=known, frame_s=frame_s, median_s=med, mrays_per_s=rays / med / 1e6,
-        stage_iterations=stats["stage_iterations"], iterations=iters,
-        host_reads=stats["host_reads"], launches=counts, vs_k3=dict(
+        iterations=iters, host_reads=host_reads, launches=counts, vs_k3=dict(
             bad=bad, mean_diff=mean_diff, max_abs=max_abs, pixels_differing=n_px),
         peak_bytes=peak, scene_bytes=mem0, kernels=prof["kernels"],
         activities=prof["activities"], busy_us=prof["busy_us"], span_us=prof["span_us"],
@@ -5051,12 +5054,20 @@ def phase19(scene, dev, smi) -> dict:
     from raytracer_tpu_torch.ops import cuda_megakernel
     from raytracer_tpu_torch.ops import cuda_traverse as ct
     from raytracer_tpu_torch.ops import intersect as isect
-    from raytracer_tpu_torch.ops import traverse
     from raytracer_tpu_torch.ops.bvh import build_lbvh
     from raytracer_tpu_torch.ops.bvh4 import BIG, build_bvh4, widen_bvh
     from raytracer_tpu_torch.render import render_image_chunked
     from raytracer_tpu_torch.scene import assets, builder, native
     from raytracer_tpu_torch.scene.types import TriMesh
+    from raytracer_tpu_torch.utils import profiling
+
+    def lbvh_counts(before: dict) -> dict:
+        """The LBVH route's lockstep steps, host reads and traversals since
+        `before` (a traversal reads once per step and once more to end)."""
+        now = profiling.totals()
+        c = {k: now.get(n, 0) - before.get(n, 0) for k, n in (
+            ("steps", "lbvh.steps"), ("host_reads", "host_reads"))}
+        return dict(c, calls=c["host_reads"] - c["steps"])
 
     t_phase = time.perf_counter()
     msgs, res = [], {"card": smi}
@@ -5256,12 +5267,12 @@ def phase19(scene, dev, smi) -> dict:
     ref = isect.intersect_scene(scene, o, d, 1e-3)
     torch.cuda.synchronize()
     _reset_counts()
-    traverse.STATS.update(calls=0, steps=0, host_reads=0)
+    before = profiling.totals()
     t0 = time.perf_counter()
     got = isect.intersect_scene(only, o, d, 1e-3)
     torch.cuda.synchronize()
     only_s = time.perf_counter() - t0
-    stats = dict(traverse.STATS)
+    stats = lbvh_counts(before)
     c = _counts()
     hit = ref.hit
     both = hit & got.hit
@@ -5292,13 +5303,13 @@ def phase19(scene, dev, smi) -> dict:
     with torch.no_grad():
         want = render_image_chunked(scene, showcase_camera(pre), pre, 0)
         _reset_counts()
-        traverse.STATS.update(calls=0, steps=0, host_reads=0)
+        before = profiling.totals()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img_o = render_image_chunked(only, showcase_camera(pre), pre, 0)
         torch.cuda.synchronize()
         mk_s = time.perf_counter() - t0
-    stats, c = dict(traverse.STATS), _counts()
+    stats, c = lbvh_counts(before), _counts()
     bad_o, mean_diff_o, max_o = image_agreement(img_o, want)
     if not (bad_o <= IMG_BAD_FRAC and mean_diff_o <= MEAN_TOL and c["k4"] == 0
             and bool(torch.isfinite(img_o).all())):

@@ -33,6 +33,7 @@ import torch
 from raytracer_tpu_torch.render import as_key, pixel_grid, render_pixels
 from raytracer_tpu_torch.scene.types import Materials
 from raytracer_tpu_torch.utils import rng as rngu
+from raytracer_tpu_torch.utils.profiling import span
 
 DEFAULT_FIELDS = ("albedo", "roughness", "emission", "ior")
 # Camera-pose entries a params dict may carry beside the material fields.
@@ -176,10 +177,13 @@ def pairs_loss(base_scene, cam, cfg, params, keys, tgts, px, py):
 
 def value_and_grad(loss_fn, params: dict):
     """(loss, {name: gradient}) of loss_fn(params) at detached copies of
-    `params` (an unused field gets a zero gradient)."""
+    `params` (an unused field gets a zero gradient). The spans
+    `rt.train.forward` and `rt.train.backward` hold the two halves."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = loss_fn(leaves)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    with span("rt.train.forward"):
+        loss = loss_fn(leaves)
+    with span("rt.train.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     return loss.detach(), {k: torch.zeros_like(v) if g is None else g
                            for (k, v), g in zip(leaves.items(), grads)}
 
@@ -227,21 +231,22 @@ def make_train_step_accum(base_scene, cam, cfg, targets, keys, chunk: int = 8,
               tgts[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
 
     def train_step(params, adam_state):
-        loss_sum, grad_sum = None, None
-        for kc, tc in parts:
-            loss_c, grads_c = value_and_grad(
-                lambda p: pairs_loss(base_scene, cam, cfg, p, kc, tc, px, py), params)
-            if grad_sum is None:
-                loss_sum, grad_sum = loss_c, grads_c
-            else:
-                loss_sum = loss_sum + loss_c
-                grad_sum = {k: grad_sum[k] + grads_c[k] for k in grad_sum}
-        inv = 1.0 / n_chunks
-        grads = {k: g * inv for k, g in grad_sum.items()}
-        cur_lr = lr_fn(adam_state.step) if lr_fn is not None else lr
-        adam_state, params = adam_update(adam_state, grads, params, lr=cur_lr,
-                                         lr_scales=lr_scales)
-        return params, adam_state, loss_sum * inv
+        with span("rt.train.step", root=True):
+            loss_sum, grad_sum = None, None
+            for kc, tc in parts:
+                loss_c, grads_c = value_and_grad(
+                    lambda p: pairs_loss(base_scene, cam, cfg, p, kc, tc, px, py), params)
+                if grad_sum is None:
+                    loss_sum, grad_sum = loss_c, grads_c
+                else:
+                    loss_sum = loss_sum + loss_c
+                    grad_sum = {k: grad_sum[k] + grads_c[k] for k in grad_sum}
+            inv = 1.0 / n_chunks
+            grads = {k: g * inv for k, g in grad_sum.items()}
+            cur_lr = lr_fn(adam_state.step) if lr_fn is not None else lr
+            adam_state, params = adam_update(adam_state, grads, params, lr=cur_lr,
+                                             lr_scales=lr_scales)
+            return params, adam_state, loss_sum * inv
 
     return train_step
 

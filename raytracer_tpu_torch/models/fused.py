@@ -17,6 +17,7 @@ from raytracer_tpu_torch.ops.cuda_megakernel import (fused_megakernel_available,
                                                      render_tiles_fused_plain)
 from raytracer_tpu_torch.render import mean_over_passes
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid, blocked_pixel_grid
+from raytracer_tpu_torch.utils.profiling import span
 
 
 def _fused_pixel_grid(cfg):
@@ -40,8 +41,12 @@ def fused_lanes(scene, cam, cfg, seed: int, px, py, spp: int | None = None,
     spp = cfg.spp if spp is None else spp
     render = render_tiles_fused_plain if plain else render_tiles_fused
     kw = {} if plain else {"interleave": interleave}
-    return mean_over_passes(cfg, spp, lambda s, done: render(
-        scene, cam, cfg, seed, px, py, spp=s, sample_offset=done, **kw))
+
+    def one_pass(s, done):
+        with span("rt.fused.pass"):
+            return render(scene, cam, cfg, seed, px, py, spp=s, sample_offset=done, **kw)
+
+    return mean_over_passes(cfg, spp, one_pass)
 
 
 def render_image_fused(scene, cam, cfg, seed: int, spp: int | None = None,
@@ -50,8 +55,13 @@ def render_image_fused(scene, cam, cfg, seed: int, spp: int | None = None,
     f32[H,W,3] on the scene's device. `plain=True` runs the plain
     PyTorch version on that device instead of the kernel. `interleave`
     is the kernel's lanes per thread (1: K3, 2: K5); None reads
-    RAYTRACER_TPU_INTERLEAVE (default 1)."""
-    dev = scene.materials.type.device
-    px, py, inv = (t.to(dev) for t in _fused_pixel_grid(cfg))
-    acc = fused_lanes(scene, cam, cfg, seed, px, py, spp, plain=plain, interleave=interleave)
-    return acc[inv].reshape(cfg.height, cfg.width, 3)
+    RAYTRACER_TPU_INTERLEAVE (default 1). One request: the root span
+    `rt.fused.render`."""
+    with span("rt.fused.render", root=True):
+        dev = scene.materials.type.device
+        with span("rt.fused.grid"):
+            px, py, inv = (t.to(dev) for t in _fused_pixel_grid(cfg))
+        acc = fused_lanes(scene, cam, cfg, seed, px, py, spp, plain=plain,
+                          interleave=interleave)
+        with span("rt.fused.gather"):
+            return acc[inv].reshape(cfg.height, cfg.width, 3)

@@ -15,7 +15,11 @@ The JAX module's `lax.while_loop` conditions and its raygen
 `lax.cond` are host decisions here: before each iteration one
 device-to-host read fetches the pending count and the count of lanes
 that may claim a sample; raygen is skipped when none may (the claim
-selects would leave the state as it is).
+selects would leave the state as it is). While a profiler records, the
+spans `rt.wavefront.stage`, `.read` and `.iteration` mark each drain
+stage, each such read and each iteration; the counters `host_reads` and
+`wavefront.iterations` count the reads and the iterations
+(utils/profiling).
 
 The drain cascade (cfg.drain_cascade) packs the pending lanes into
 smaller buffers once per stage (torch.nonzero and a gather) and
@@ -48,9 +52,10 @@ from raytracer_tpu_torch.ops import materials as mat_ops
 from raytracer_tpu_torch.ops import tonemap
 from raytracer_tpu_torch.render import as_key, mean_over_passes
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
-from raytracer_tpu_torch.utils import ktf
+from raytracer_tpu_torch.utils import ktf, profiling
 from raytracer_tpu_torch.utils import rng as rngu
 from raytracer_tpu_torch.utils.cudalib import device_scope
+from raytracer_tpu_torch.utils.profiling import span
 
 
 def _lane_pkeys(cfg, key, px, py):
@@ -152,25 +157,26 @@ def _wavefront_body_maker(scene, cam, cfg, spp: int, sample_offset: int, use_fus
     return make_body
 
 
-def _drain(body, state, spp: int, limit: int, stats: dict | None):
+def _drain(body, state, spp: int, limit: int):
     """Run `body` until at most `limit` lanes are pending (active, or
     holding a sample to start). One device-to-host read per iteration
-    fetches the pending count and the count of lanes that may claim."""
+    fetches the pending count and the count of lanes that may claim.
+    Returns (state, the iterations run)."""
     iters = 0
     while True:
         budget = state["sample"] < spp
         pend = state["active"] | budget
         claim = budget & ~state["active"]
-        n_pend, n_claim = torch.stack([pend.sum(), claim.sum()]).tolist()
-        if stats is not None:
-            stats["host_reads"] += 1
+        with span("rt.wavefront.read"):
+            n_pend, n_claim = torch.stack([pend.sum(), claim.sum()]).tolist()
+            profiling.count("host_reads")
         if n_pend <= limit:
             break
-        state = body(state, n_claim > 0)
+        with span("rt.wavefront.iteration"):
+            state = body(state, n_claim > 0)
+        profiling.count("wavefront.iterations")
         iters += 1
-    if stats is not None:
-        stats["stage_iterations"].append(iters)
-    return state
+    return state, iters
 
 
 def cascade_caps(n: int, drain_cascade) -> list:
@@ -183,12 +189,6 @@ def cascade_caps(n: int, drain_cascade) -> list:
         if c < n and (not caps or c < caps[-1]):
             caps.append(c)
     return caps
-
-
-def new_stats() -> dict:
-    """A record for render_pixels_wavefront(stats=): iterations per
-    cascade stage (the full buffer first) and device-to-host reads."""
-    return {"stage_iterations": [], "host_reads": 0}
 
 
 def _new_state(n: int, dev) -> dict:
@@ -208,40 +208,46 @@ def _pending(state, spp: int) -> torch.Tensor:
     return state["active"] | (state["sample"] < spp)
 
 
-def _cascade(make_body, state, px, py, pkeys, spp: int, caps: list, last: int,
-             stats: dict | None):
+def _pending_lanes(state, spp: int) -> torch.Tensor:
+    """Indices of the pending lanes (nonzero reads its count: a host read)."""
+    idx = torch.nonzero(_pending(state, spp)).squeeze(1)
+    profiling.count("host_reads")
+    return idx
+
+
+def _cascade(make_body, state, px, py, pkeys, spp: int, caps: list, last: int):
     """Drain `state` (the lanes px, py) through the cascade stages `caps`
-    (pending-lane thresholds, decreasing), then down to `last` pending."""
-    state = _drain(make_body(px, py, pkeys), state, spp, caps[0] if caps else last, stats)
+    (pending-lane thresholds, decreasing), then down to `last` pending.
+    Each stage is a span `rt.wavefront.stage`."""
+    with span("rt.wavefront.stage"):
+        state, _ = _drain(make_body(px, py, pkeys), state, spp, caps[0] if caps else last)
     for i in range(len(caps)):
         nxt = caps[i + 1] if i + 1 < len(caps) else last
-        # At most caps[i] lanes are pending here; nonzero's indices are
-        # unique, so the scatter back writes each lane once.
-        idx = torch.nonzero(_pending(state, spp)).squeeze(1)
-        if stats is not None:
-            stats["host_reads"] += 1   # nonzero reads its count
-        cstate = {k: v[idx] for k, v in state.items()}
-        cbody = make_body(px[idx], py[idx], _take(pkeys, idx))
-        cstate = _drain(cbody, cstate, spp, nxt, stats)
-        for k in state:
-            state[k][idx] = cstate[k]
+        with span("rt.wavefront.stage"):
+            # At most caps[i] lanes are pending here; nonzero's indices are
+            # unique, so the scatter back writes each lane once.
+            idx = _pending_lanes(state, spp)
+            cstate = {k: v[idx] for k, v in state.items()}
+            cbody = make_body(px[idx], py[idx], _take(pkeys, idx))
+            cstate, _ = _drain(cbody, cstate, spp, nxt)
+            for k in state:
+                state[k][idx] = cstate[k]
     return state
 
 
 @torch.no_grad()
 def render_pixels_wavefront(scene, cam, px, py, cfg, key, spp: int | None = None,
-                            sample_offset: int = 0, stats: dict | None = None) -> torch.Tensor:
+                            sample_offset: int = 0) -> torch.Tensor:
     """Mean linear radiance f32[N,3] over spp samples of the pixels
     (px, py) (i32[N], py = 0 the bottom row), on their device.
     `sample_offset` shifts the global sample indices, so spp-batched
-    calls draw the same numbers as one pass. `stats` (new_stats())
-    gathers the iterations per stage and the host reads."""
+    calls draw the same numbers as one pass."""
     spp = cfg.spp if spp is None else int(spp)
     n = px.shape[0]
     make_body = _wavefront_body_maker(scene, cam, cfg, spp, int(sample_offset),
                                       isect.fused_trace_available(scene))
     state = _cascade(make_body, _new_state(n, px.device), px, py, _lane_pkeys(cfg, key, px, py),
-                     spp, cascade_caps(n, cfg.drain_cascade), 0, stats)
+                     spp, cascade_caps(n, cfg.drain_cascade), 0)
     return state["acc"] / float(spp)
 
 
@@ -281,7 +287,7 @@ def _unpack(rows):
 
 
 def rebalance_local(scene, cam, px, py, cfg, key, spp: int, sample_offset: int, cap: int,
-                    shard: int, stats: dict | None = None):
+                    shard: int):
     """Stage 1 of the rebalance on one shard's n lanes (px, py): the
     wavefront down to `cap` pending lanes, through the cascade stages
     above `cap`. Returns (state, bundle): bundle is int32[cap,
@@ -292,10 +298,8 @@ def rebalance_local(scene, cam, px, py, cfg, key, spp: int, sample_offset: int, 
                                       isect.fused_trace_available(scene))
     caps = [c for c in cascade_caps(n, cfg.drain_cascade) if c > cap]
     state = _cascade(make_body, _new_state(n, dev), px, py, _lane_pkeys(cfg, key, px, py), spp,
-                     caps, cap, stats)
-    idx = torch.nonzero(_pending(state, spp)).squeeze(1)
-    if stats is not None:
-        stats["host_reads"] += 1
+                     caps, cap)
+    idx = _pending_lanes(state, spp)
     fill = _new_state(cap, dev)
     fill["sample"].fill_(spp)
     zeros = torch.zeros((cap,), dtype=torch.int32, device=dev)
@@ -307,7 +311,7 @@ def rebalance_local(scene, cam, px, py, cfg, key, spp: int, sample_offset: int, 
 
 
 def rebalance_stripe(scene, cam, pooled, shard: int, n_shards: int, cfg, key, spp: int,
-                     sample_offset: int, stats: dict | None = None):
+                     sample_offset: int):
     """Stage 2 on one shard: from the pool (every shard's bundle in shard
     order, int32[S·cap, BUNDLE_COLS]) take the stripe shard + S·i and
     drain it to the end, the draws rebuilt from each lane's pixel.
@@ -318,10 +322,10 @@ def rebalance_stripe(scene, cam, pooled, shard: int, n_shards: int, cfg, key, sp
     state, spx, spy, origin = _unpack(pooled[take])
     make_body = _wavefront_body_maker(scene, cam, cfg, spp, sample_offset,
                                       isect.fused_trace_available(scene))
-    st = stats if stats is not None else new_stats()
-    state = _drain(make_body(spx, spy, _lane_pkeys(cfg, key, spx, spy)), state, spp, 0, st)
-    return torch.cat([origin[:, None], state["acc"].view(torch.int32)], dim=1), \
-        st["stage_iterations"][-1]
+    with span("rt.wavefront.stage"):
+        state, iters = _drain(make_body(spx, spy, _lane_pkeys(cfg, key, spx, spy)), state, spp,
+                              0)
+    return torch.cat([origin[:, None], state["acc"].view(torch.int32)], dim=1), iters
 
 
 def rebalance_return(state, results, shard: int, spp: int) -> torch.Tensor:
@@ -340,7 +344,7 @@ def rebalance_return(state, results, shard: int, spp: int) -> torch.Tensor:
 @torch.no_grad()
 def render_pixels_wavefront_rebalanced(lanes: dict, cfg, key, all_gather, n_shards: int,
                                        spp: int | None = None, sample_offset: int = 0,
-                                       rebalance_div: int = 8, stats: dict | None = None):
+                                       rebalance_div: int = 8):
     """The wavefront over S = n_shards shards of n lanes each with the
     cross-shard drain rebalance (JAX models/wavefront.py:260). `lanes`
     maps each shard this process renders to (scene, cam, px, py) on its
@@ -361,26 +365,28 @@ def render_pixels_wavefront_rebalanced(lanes: dict, cfg, key, all_gather, n_shar
     for s, (scene, cam, px, py) in lanes.items():
         with device_scope(px.device):
             local[s], bundles[s] = rebalance_local(scene, cam, px, py, cfg, key, spp,
-                                                   sample_offset, cap, s, stats)
+                                                   sample_offset, cap, s)
     pooled = all_gather(bundles)
     results, iters = {}, {}
     for s, (scene, cam, px, _) in lanes.items():
         with device_scope(px.device):
             results[s], iters[s] = rebalance_stripe(scene, cam, pooled[s], s, n_shards, cfg, key,
-                                                    spp, sample_offset, stats)
+                                                    spp, sample_offset)
     back = all_gather(results)
     return {s: rebalance_return(local[s], back[s], s, spp) for s in lanes}, iters
 
 
 @torch.no_grad()
-def render_image_wavefront(scene, cam, cfg, key, spp: int | None = None,
-                           stats: dict | None = None) -> torch.Tensor:
+def render_image_wavefront(scene, cam, cfg, key, spp: int | None = None) -> torch.Tensor:
     """Full-image wavefront render → linear f32[H,W,3] on the scene's
     device, lanes in 8x128 screen tiles. spp above cfg.spp_per_pass is
-    split into passes keyed by sample offset, each weighted s / spp."""
-    dev = scene.materials.type.device
-    px, py, inv = (t.to(dev) for t in _tiled_pixel_grid(cfg))
-    spp = cfg.spp if spp is None else int(spp)
-    rgb = mean_over_passes(cfg, spp, lambda s, done: render_pixels_wavefront(
-        scene, cam, px, py, cfg, key, spp=s, sample_offset=done, stats=stats))
-    return rgb[inv].reshape(cfg.height, cfg.width, 3)
+    split into passes keyed by sample offset, each weighted s / spp.
+    One request: the root span `rt.wavefront.render`."""
+    with span("rt.wavefront.render", root=True):
+        dev = scene.materials.type.device
+        with span("rt.wavefront.grid"):
+            px, py, inv = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+        spp = cfg.spp if spp is None else int(spp)
+        rgb = mean_over_passes(cfg, spp, lambda s, done: render_pixels_wavefront(
+            scene, cam, px, py, cfg, key, spp=s, sample_offset=done))
+        return rgb[inv].reshape(cfg.height, cfg.width, 3)

@@ -37,7 +37,7 @@ from raytracer_tpu_torch.ops.cuda_traverse import _traverse_plain
 from raytracer_tpu_torch.ops.materials import lookup_params, scatter_fused
 from raytracer_tpu_torch.ops.sphere import BIG, intersect_spheres
 from raytracer_tpu_torch.scene.types import DIFFUSE_LIGHT
-from raytracer_tpu_torch.utils import cudalib, ktf
+from raytracer_tpu_torch.utils import cudalib, ktf, profiling
 
 MAX_SPHERES = cudalib.MAX_SPHERES
 MAX_MATERIALS = cudalib.MAX_MATERIALS
@@ -47,8 +47,8 @@ KERNEL_BLOCK = 128     # threads per block of K3, K3-profile and K5
 KERNEL_CHUNK = 64      # lanes a block of K3, K3-profile or K5 takes from the lane list at a time
 SKY_TOP = (0.5, 0.7, 1.0)
 # Launches counted by the wrapper: K3, K5 (G = 2) and K3-profile.
-LAUNCHES = {"render_fused": 0, "render_fused_g2": 0, "render_fused_profile": 0}
-PLAIN_CALLS = {"render_plain": 0}   # calls of the plain path loop
+LAUNCHES = profiling.group("launch", ("render_fused", "render_fused_g2", "render_fused_profile"))
+PLAIN_CALLS = profiling.group("plain", ("render_plain",))   # calls of the plain path loop
 
 
 def _check_interleave(g: int) -> int:
@@ -79,7 +79,7 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff, profile=F
     SUM f32[N,3] over spp samples. With `profile`, K3-profile's: also
     each lane's K1 steps and path iterations, i32[N] each (a path
     iteration per step the lane is pending, a roulette kill included)."""
-    PLAIN_CALLS["render_plain"] += 1
+    PLAIN_CALLS.count("render_plain")
     n = pix.shape[0]
     dev = pix.device
     ll, hor, ver = basis["lower_left"], basis["horizontal"], basis["vertical"]
@@ -267,17 +267,17 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, chu
                                          scratch[1].data_ptr(), aux.data_ptr(), block, chunk,
                                          lane_list.data_ptr(), cudalib.stream_handle())
         cudalib.check(code, "fused path-loop kernel (profile)")
-        LAUNCHES["render_fused_profile"] += 1
+        LAUNCHES.count("render_fused_profile")
         return out, cost, aux, scratch[0], scratch[1]
     if kind == "g2":
         code = L.rt_render_fused_g2(*args, block, chunk, lane_list.data_ptr(),
                                     cudalib.stream_handle())
         cudalib.check(code, "fused path-loop kernel (G=2)")
-        LAUNCHES["render_fused_g2"] += 1
+        LAUNCHES.count("render_fused_g2")
         return out
     code = L.rt_render_fused(*args, block, chunk, lane_list.data_ptr(), cudalib.stream_handle())
     cudalib.check(code, "fused path-loop kernel")
-    LAUNCHES["render_fused"] += 1
+    LAUNCHES.count("render_fused")
     return out
 
 

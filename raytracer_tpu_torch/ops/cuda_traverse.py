@@ -44,14 +44,15 @@ import torch
 from raytracer_tpu_torch.ops.bvh4 import BIG, sort_by_key
 from raytracer_tpu_torch.ops.packets import coherence_keys32
 from raytracer_tpu_torch.ops.triangle import face_normal, moller_trumbore
-from raytracer_tpu_torch.utils import cudalib
+from raytracer_tpu_torch.utils import cudalib, profiling
 
 NONE = -1
 KERNEL_BLOCK = 128  # threads per block of K4
 # Launches, counted by the wrappers: K4's (all, and those through the
 # coherence sort) and the key kernel's.
-LAUNCHES = {"trace_closest": 0, "trace_closest_sorted": 0, "coherence_keys": 0}
-PLAIN_CALLS = {"traverse_plain": 0}  # calls of the plain traversal (K1/K4's plain version)
+LAUNCHES = profiling.group("launch", ("trace_closest", "trace_closest_sorted", "coherence_keys"))
+# Calls of the plain traversal (K1/K4's plain version).
+PLAIN_CALLS = profiling.group("plain", ("traverse_plain",))
 
 
 # K1's cull of the brute pre-pass (csrc/traverse.cuh `brute_skip`). Each
@@ -192,7 +193,7 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float, count: bool = False):
     and with `count` also i32[N], the steps each ray's walk took (one
     node expansion or one leaf each; 0 for a dead ray and for the brute
     pre-pass) — K1's count in K3-profile (csrc/traverse.cuh, COUNT)."""
-    PLAIN_CALLS["traverse_plain"] += 1
+    PLAIN_CALLS.count("traverse_plain")
     n = o.shape[0]
     dev = o.device
     t_best = t_lim.to(torch.float32).clone()
@@ -367,7 +368,7 @@ def coherence_keys_cuda(origins, dirs, bvh4) -> torch.Tensor:
                                            bvh4.sort_box.data_ptr(), n, keys.data_ptr(),
                                            cudalib.stream_handle())
     cudalib.check(code, "coherence key kernel")
-    LAUNCHES["coherence_keys"] += 1
+    LAUNCHES.count("coherence_keys")
     return keys
 
 
@@ -397,7 +398,7 @@ def _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min: float, perm=None,
         view, origins.data_ptr(), dirs.data_ptr(), ptr(t_lim), t_hi, float(t_min), n, ptr(perm),
         *(ptr(rec.get(k)) for k in RECORD), KERNEL_BLOCK, cudalib.stream_handle())
     cudalib.check(code, "trace_closest kernel")
-    LAUNCHES["trace_closest"] += 1
+    LAUNCHES.count("trace_closest")
     return rec
 
 
@@ -426,7 +427,7 @@ def trace_closest(origins, dirs, bvh4, t_max, t_min: float = 1e-3, sort: bool = 
             return _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min, fields=fields)
         perm = torch.argsort(coherence_keys_cuda(origins, dirs, bvh4), stable=True)
         rec = _trace_closest_cuda(origins, dirs, bvh4, t_max, t_min, perm=perm, fields=fields)
-        LAUNCHES["trace_closest_sorted"] += 1
+        LAUNCHES.count("trace_closest_sorted")
         return rec
     if origins.device.type != "cpu":
         raise ValueError(f"trace_closest: unsupported device {origins.device}")

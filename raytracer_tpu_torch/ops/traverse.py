@@ -12,8 +12,9 @@ child first, the far one pushed on a 64-deep stack) or tests its leaf's
 single triangle, with the reference's closest-hit semantics: candidates
 on [t_min, closest so far], the slab test hits iff tmax > tmin clamped
 (Core/AABB.cuh:123-146). Rays that miss the root box never start. The
-loop's `any(active)` is one host read per step; `STATS` counts the
-steps and the reads of the calls since it was reset.
+loop's `any(active)` is one host read per step. A call is the span
+`rt.lbvh.traverse`; the counters `lbvh.steps` and `host_reads` count
+its steps and reads (utils/profiling).
 """
 
 from __future__ import annotations
@@ -22,12 +23,11 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.ops.triangle import intersect_tri_single
+from raytracer_tpu_torch.utils import profiling
 
 BIG = np.float32(3.0e38)
 STACK_DEPTH = 64
 SENTINEL = -1
-# Steps of the lockstep loop and host reads, summed over calls.
-STATS = {"calls": 0, "steps": 0, "host_reads": 0}
 
 
 def _slab(origins, inv_d, node_min, node_max, t_lo, t_hi):
@@ -48,6 +48,11 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min, t_max):
     origins/dirs: f32[N,3]; t_max: a scalar or f32[N] (pre-pruned, e.g. by
     the sphere pass). Returns (t f32[N] (BIG on a miss), tri_id i32[N] in
     ORIGINAL face order, 0 on a miss)."""
+    with profiling.span("rt.lbvh.traverse"):
+        return _intersect_bvh(origins, dirs, mesh, bvh, t_min, t_max)
+
+
+def _intersect_bvh(origins, dirs, mesh, bvh, t_min, t_max):
     n = origins.shape[0]
     dev = origins.device
     leaf_base = bvh.left.shape[0]
@@ -71,12 +76,11 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min, t_max):
     t_best = t_hi0
     best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
     lanes = torch.arange(n, device=dev)
-    STATS["calls"] += 1
     while True:
-        STATS["host_reads"] += 1
+        profiling.count("host_reads")
         if not bool(active.any()):
             break
-        STATS["steps"] += 1
+        profiling.count("lbvh.steps")
         is_leaf = node >= leaf_base
         # Internal: test both children (the gathers of leaf lanes read node 0).
         ni = torch.where(is_leaf, 0, node)

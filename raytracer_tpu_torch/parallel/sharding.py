@@ -286,8 +286,7 @@ def render_image_wavefront_sharded(scene, cam, cfg, key, mesh: Mesh | None = Non
 @torch.no_grad()
 def render_image_wavefront_rebalanced(scene, cam, cfg, key, mesh: Mesh | None = None,
                                       spp: int | None = None, interleave: bool = True,
-                                      rebalance_div: int = 8, report_iters: bool = False,
-                                      stats: dict | None = None):
+                                      rebalance_div: int = 8, report_iters: bool = False):
     """Sharded wavefront render with the cross-shard drain rebalance
     (models/wavefront.render_pixels_wavefront_rebalanced): once a
     shard's pending lanes fall to n_local // rebalance_div, the pending
@@ -306,7 +305,7 @@ def render_image_wavefront_rebalanced(scene, cam, cfg, key, mesh: Mesh | None = 
     for k, done, w in spp_passes(cfg, spp):
         rgb, it = render_pixels_wavefront_rebalanced(
             lanes, cfg, key, mesh.all_gather, mesh.size, spp=k, sample_offset=done,
-            rebalance_div=rebalance_div, stats=stats)
+            rebalance_div=rebalance_div)
         for s in lanes:
             part = rgb[s] if w is None else rgb[s] * w
             parts[s] = part if s not in parts else parts[s] + part

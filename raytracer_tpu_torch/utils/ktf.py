@@ -30,6 +30,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.utils import profiling
+
 # Purpose tags (must stay < 16; see the counter layout above).
 JITTER = 1      # raygen pixel jitter: (u, v) from one block
 LENS = 2        # raygen lens-disk sample: (u1, u2) from one block
@@ -66,7 +68,7 @@ def threefry2x32(k0, k1, c0: torch.Tensor, c1: torch.Tensor):
     """Standard Threefry-2x32, 20 rounds, on int32 tensors (k0/k1 python
     ints or int32 tensors, c0/c1 broadcastable int32 tensors). Returns
     (x0, x1) int32."""
-    PLAIN_CALLS["threefry2x32"] += 1
+    PLAIN_CALLS.count("threefry2x32")
     c0 = torch.as_tensor(c0, dtype=torch.int32)
     c1 = torch.as_tensor(c1, dtype=torch.int32, device=c0.device)
     k0 = _i32(k0) if not torch.is_tensor(k0) else k0
@@ -214,8 +216,9 @@ def sampler(key, pixel_ids, sample=0, bounce=0) -> KtfSampler:
 
 # K2 launches: the Threefry blocks of csrc/ktf.cu's two entry points, and
 # its draw kernels (camera and bounce draws, both families).
-LAUNCHES = {"threefry2x32": 0, "camera_draws": 0, "bounce_draws": 0}
-PLAIN_CALLS = {"threefry2x32": 0}  # calls of the plain Threefry (K2's plain version)
+LAUNCHES = profiling.group("launch", ("threefry2x32", "camera_draws", "bounce_draws"))
+# Calls of the plain Threefry (K2's plain version).
+PLAIN_CALLS = profiling.group("plain", ("threefry2x32",))
 KERNEL_BLOCK = 256
 
 
@@ -250,7 +253,7 @@ def threefry2x32_kernel(k0, k1, c0, c1):
             flat[1].data_ptr(), n, x0.data_ptr(), x1.data_ptr(), KERNEL_BLOCK,
             cudalib.stream_handle())
     cudalib.check(code, "threefry2x32 kernel")
-    LAUNCHES["threefry2x32"] += 1
+    LAUNCHES.count("threefry2x32")
     return x0.reshape(shape), x1.reshape(shape)
 
 
@@ -395,7 +398,7 @@ def camera_draws(trace: TraceDraws) -> dict:
     cudalib.check(cudalib.lib().rt_draws_camera_ktf(*args, out.data_ptr(),
                                                     cudalib.stream_handle()),
                   "camera draw kernel (ktf)")
-    LAUNCHES["camera_draws"] += 1
+    LAUNCHES.count("camera_draws")
     return d
 
 
@@ -412,5 +415,5 @@ def bounce_draws(trace: TraceDraws, bounce: int, rr: bool) -> dict:
     cudalib.check(cudalib.lib().rt_draws_bounce_ktf(*args, int(bounce), int(bool(rr)),
                                                     out.data_ptr(), cudalib.stream_handle()),
                   "bounce draw kernel (ktf)")
-    LAUNCHES["bounce_draws"] += 1
+    LAUNCHES.count("bounce_draws")
     return d

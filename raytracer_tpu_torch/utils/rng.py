@@ -258,7 +258,7 @@ def camera_draws(pkeys, samples: int, s0: int) -> dict:
     cudalib.check(cudalib.lib().rt_draws_camera_jax(
         pkeys[0].data_ptr(), pkeys[1].data_ptr(), n, total, int(s0), keys.data_ptr(),
         out.data_ptr(), cudalib.stream_handle()), "camera draw kernel (jax)")
-    ktf.LAUNCHES["camera_draws"] += 1
+    ktf.LAUNCHES.count("camera_draws")
     return dict(d, keys=(keys[0], keys[1]))
 
 
@@ -277,7 +277,7 @@ def bounce_draws(keys, bounce: int, rr: bool) -> dict:
     cudalib.check(cudalib.lib().rt_draws_bounce_jax(
         keys[0].data_ptr(), keys[1].data_ptr(), total, int(bounce), int(bool(rr)),
         out.data_ptr(), cudalib.stream_handle()), "bounce draw kernel (jax)")
-    ktf.LAUNCHES["bounce_draws"] += 1
+    ktf.LAUNCHES.count("bounce_draws")
     return d
 
 

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from raytracer_tpu.ops import bvh as jbvh
 from raytracer_tpu.ops import triangle as jtri
@@ -31,6 +32,7 @@ from raytracer_tpu_torch.ops import packets
 from raytracer_tpu_torch.ops import traverse as ttraverse
 from raytracer_tpu_torch.ops.triangle import intersect_tri_single
 from raytracer_tpu_torch.scene.types import TriMesh
+from raytracer_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -166,9 +168,10 @@ def test_intersect_bvh_matches_jax(limit):
     t_max = (np.float32(3e38) if limit == "big"
              else rs.uniform(-0.5, 4.0, 2048).astype(np.float32))
     jt, jid = jintersect_bvh(jnp.asarray(o), jnp.asarray(d), jm, jb, 1e-3, jnp.asarray(t_max))
-    ttraverse.STATS.update(calls=0, steps=0, host_reads=0)
-    t, tid = ttraverse.intersect_bvh(torch.from_numpy(o), torch.from_numpy(d), tm, tb, 1e-3,
-                                     torch.as_tensor(t_max))
+    with profile(activities=[ProfilerActivity.CPU]):
+        t, tid = ttraverse.intersect_bvh(torch.from_numpy(o), torch.from_numpy(d), tm, tb, 1e-3,
+                                         torch.as_tensor(t_max))
+    calls = [r for r in profiling.recorded() if r.name == "rt.lbvh.traverse"]
     jt, jid = np.asarray(jt), np.asarray(jid)
     hit = jt < 1e30
     assert hit.mean() > 0.03
@@ -177,5 +180,6 @@ def test_intersect_bvh_matches_jax(limit):
     np.testing.assert_array_equal(tid.numpy()[hit], jid[hit])
     np.testing.assert_array_equal(tid.numpy(), jid)
     assert tid.dtype == torch.int32
-    s = ttraverse.STATS
-    assert s["calls"] == 1 and s["host_reads"] == s["steps"] + 1 and s["steps"] > 10
+    c = calls[0].counts
+    assert len(calls) == 1
+    assert c["host_reads"] == c["lbvh.steps"] + 1 and c["lbvh.steps"] > 10

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from raytracer_tpu.camera import make_camera as jmake_camera
 from raytracer_tpu.config import RenderConfig as JRenderConfig
@@ -40,6 +41,7 @@ from raytracer_tpu_torch.parallel import multihost
 from raytracer_tpu_torch.parallel import sharding as sh
 from raytracer_tpu_torch.render import render_image
 from raytracer_tpu_torch.scene.builder import cornell_materials_scene, cornell_spheres_scene
+from raytracer_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -99,16 +101,16 @@ def test_wavefront_over_shards_is_bitwise(spheres, mesh8, interleave):
 def test_rebalanced_wavefront_is_bitwise_and_near_jax(spheres, mesh8):
     kw = dict(width=128, height=64, spp=2, max_bounces=6)
     cfg = RenderConfig(**kw)
-    stats = {"stage_iterations": [], "host_reads": 0}
-    got, iters = sh.render_image_wavefront_rebalanced(spheres, _cam(cfg), cfg, 9, mesh=mesh8,
-                                                      rebalance_div=8, report_iters=True,
-                                                      stats=stats)
+    with profile(activities=[ProfilerActivity.CPU]):
+        got, iters = sh.render_image_wavefront_rebalanced(spheres, _cam(cfg), cfg, 9, mesh=mesh8,
+                                                          rebalance_div=8, report_iters=True)
+    stages = [s for s in profiling.recorded() if s.name == "rt.wavefront.stage"]
     assert torch.equal(got, render_image_wavefront(spheres, _cam(cfg), cfg, 9))
     assert iters.shape == (8,) and iters.dtype == torch.int32
     assert bool((iters >= 1).all()) and bool((iters < cfg.spp * cfg.max_bounces + 8).all())
     # Each shard of 1,024 lanes (cap 128): the full buffer, the cascade
     # stage of 512, then its stripe's drain.
-    assert len(stats["stage_iterations"]) == 8 * 3
+    assert len(stages) == 8 * 3
     jcfg = JRenderConfig(**kw)
     want, jiters = jsh.render_image_wavefront_rebalanced(
         jcornell_spheres(), _jcam(jcfg), jcfg, jax.random.key(9), mesh=jsh.make_mesh(),

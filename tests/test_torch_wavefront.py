@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from raytracer_tpu.camera import make_camera as jmake_camera
 from raytracer_tpu.config import RenderConfig as JRenderConfig
@@ -32,6 +33,7 @@ from raytracer_tpu_torch.models.wavefront import render_image_wavefront
 from raytracer_tpu_torch.ops.intersect import fused_trace_available, trace_frame_fused
 from raytracer_tpu_torch.render import iter_spp_accumulation, render_image
 from raytracer_tpu_torch.scene.builder import cornell_materials_scene, cornell_spheres_scene
+from raytracer_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -132,14 +134,20 @@ def test_drain_cascade_is_bitwise(scene_name, rng_impl):
     pose = INSIDE if scene_name == "cornell_materials" else {}
     cfg = RenderConfig(width=24, height=12, spp=8, max_bounces=8, rng_impl=rng_impl)
     cam = make_camera(aspect_ratio=cfg.aspect_ratio, **pose)
-    stats = wavefront.new_stats()
-    with_cascade = render_image_wavefront(scene, cam, cfg, 17, stats=stats)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with_cascade = render_image_wavefront(scene, cam, cfg, 17)
+    spans = profiling.recorded()
     plain = render_image_wavefront(scene, cam, cfg.replace(drain_cascade=()), 17)
     assert torch.equal(with_cascade, plain)
     caps = wavefront.cascade_caps(2048, cfg.drain_cascade)
     assert caps == [1024, 256, 64, 16]
-    assert len(stats["stage_iterations"]) == 1 + len(caps)
-    assert stats["host_reads"] == sum(stats["stage_iterations"]) + 2 * len(caps) + 1
+    stages = [s for s in spans if s.name == "rt.wavefront.stage"]
+    stage_iterations = [len(profiling.children(s, spans, "rt.wavefront.iteration"))
+                        for s in stages]
+    host_reads = sum(s.counts.get("host_reads", 0) for s in spans)
+    assert len(stage_iterations) == 1 + len(caps)
+    assert host_reads == sum(stage_iterations) + 2 * len(caps) + 1
+    assert sum(s.counts.get("wavefront.iterations", 0) for s in stages) == sum(stage_iterations)
     assert with_cascade.mean() > 0.05
 
 
