@@ -187,6 +187,13 @@ plain PyTorch version, and drives the port's three paths:
     flagship 2560x1440 at 2000 spp through K3 in 16-spp resumable batches,
     its mean within 2% of FLAGSHIP_r05.json's (the JAX package's render
     of the same frame).
+  * the lane grid LG (phase 21, ops/cuda_lane_grid, csrc/lane_grid.cu):
+    the main path's 2560x1440 frame in the blocked layout (the fused
+    path) and the tiled layout (the wavefront), one launch each, px, py
+    and inv bit for bit against the plain closed form on the card and
+    against the numpy builders, the kernel timed against its bound, the
+    plain form on the card and the numpy grid with its pageable copy that
+    it replaced. Phases 7 and 16 read one LG launch a frame.
 
 Every kernel row carries its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -197,7 +204,7 @@ SMs; the probes' rows at the SM clock read under load). The datasheet's
 67 TFLOP/s counts a fused multiply-add as two operations, and every kernel
 here is built -fmad=false. int32: the SM's 64 INT32 units at that clock.
 
-    python3 chip_smoke.py              # phases 1-14, 16, 17, 19 and 20 (what CI runs)
+    python3 chip_smoke.py              # phases 1-14, 16, 17 and 19-21 (what CI runs)
     python3 chip_smoke.py --phases 16  # the wavefront alone
     python3 chip_smoke.py --phases 17  # the sharded paths and two processes
     python3 chip_smoke.py --phases 1,2,19,20   # the LBVH, the milestones and the flagship
@@ -494,8 +501,8 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17,19,20",
-                    help="comma-separated phases to run (default: 1-14, 16, 17, 19 and 20; "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17,19,20,21",
+                    help="comma-separated phases to run (default: 1-14, 16, 17 and 19-21; "
                          "phase 15 needs --parent, phase 18 four cards)")
     ap.add_argument("--parent", default=None,
                     help="phase 15: a directory holding the parent commit's tree "
@@ -511,7 +518,7 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.camera import showcase_camera
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.models.fused import _fused_pixel_grid, render_image_fused
-    from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
+    from raytracer_tpu_torch.ops import cuda_lane_grid, cuda_megakernel, cuda_traverse
     from raytracer_tpu_torch.ops.bvh4 import BIG
     from raytracer_tpu_torch.ops.tonemap import to_rgba8
     from raytracer_tpu_torch.ops.triangle import intersect_tris_brute
@@ -730,12 +737,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         cuda_megakernel.LAUNCHES["render_fused"] = 0
         cuda_megakernel.PLAIN_CALLS["render_plain"] = 0
+        cuda_lane_grid.LAUNCHES["lane_grid"] = 0
+        cuda_lane_grid.PLAIN_CALLS["lane_grid"] = 0
         t0 = time.perf_counter()
         img = render_image_fused(scene, cam, cfg, 0)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         n3 = cuda_megakernel.LAUNCHES["render_fused"]
         plain_calls = cuda_megakernel.PLAIN_CALLS["render_plain"]
+        lg_launches = cuda_lane_grid.LAUNCHES["lane_grid"]
+        if lg_launches != 1 or cuda_lane_grid.PLAIN_CALLS["lane_grid"]:
+            raise AssertionError(f"main path: lane-grid launches {lg_launches}, plain lane grids "
+                                 f"{cuda_lane_grid.PLAIN_CALLS['lane_grid']} (one launch a frame)")
         with open(EXPECTED) as f:
             expected = json.load(f)["mean_rgb_ktf"]
         mean = img.mean().item()
@@ -776,10 +789,10 @@ def main(argv=None) -> int:
         rays = cfg.width * cfg.height * cfg.spp
         # Spread: ten more frames, timed the same way (host clock around a
         # synchronized frame; one K3 launch each). CUDA events around the
-        # same calls give the frame's stream time, which includes the host
-        # building the lane grid (the events are queued before it), so
-        # their share of the host time is host-inclusive, not the card's
-        # busy share (phase 11 times the kernel alone).
+        # same calls give the frame's stream time, which includes the host's
+        # gaps between the frame's launches (the events are queued before
+        # them), so their share of the host time is host-inclusive, not the
+        # card's busy share (phase 11 times the kernel alone).
         repeats, dev_s = [], []
         for _ in range(10):
             ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -804,13 +817,19 @@ def main(argv=None) -> int:
                f"{len(repeats)} repeats {med:.4f} s ({rays / med / 1e6:.2f} M camera rays/s); "
                f"mean {mean:.6f} "
                f"(band {MAIN_BAND} of {expected:.6f}); K3 launches {n3}, plain path-loop "
-               f"calls {plain_calls}; wrote {os.path.relpath(png, ROOT)}; "
+               f"calls {plain_calls}, LG launches {lg_launches}; wrote "
+               f"{os.path.relpath(png, ROOT)}; "
                f"repeat frames (s, host clock): {', '.join(f'{r:.4f}' for r in repeats)}; "
                f"stream time (s, CUDA events): {', '.join(f'{r:.4f}' for r in dev_s)}; "
                f"host-inclusive stream share {stream_share:.3f}")
         launches = n3
     else:
-        launches = 0
+        launches = lg_launches = 0
+
+    if 21 in phases:
+        r21 = phase21(dev, smi)
+        kernels["LG"] = r21["row"]
+        log(21, r21["msg"])
 
     if 8 in phases:
         r8, scaling = phase8(scene, dev)
@@ -1004,15 +1023,17 @@ def main(argv=None) -> int:
     # camera and bounce draws); K5 in phase 11 (the 2K frame with interleave 2);
     # K3-profile in phase 12 (build_schedule at 2K); the probes in phase 13
     # (their entry points); the width-4 kernels in phase 14 (the CLI on
-    # the 4-wide tree). K1 is __device__ code inside K3 and K4, and K2
-    # runs inline in K3 too: those rows add the serving path's K3 launches.
+    # the 4-wide tree); LG in phase 7 (one a frame; phase 16 adds the
+    # wavefront frame's, and phase 21 times it alone). K1 is __device__
+    # code inside K3 and K4, and K2 runs inline in K3 too: those rows add
+    # the serving path's K3 launches.
     # The wavefront path (phase 16) adds its own counts, from 0 just before
     # one 2K frame: K4's and K1's (one per iteration) and K2's Threefry
     # launches, as wavefront_path_launches fields.
     # The sharded paths (phase 17) add theirs, each from 0 just before one
     # frame or render, as sharded_path_launches fields (sharded_launches).
     # ms / plain_ms / max_abs_err / the bound come from the phase that
-    # times each kernel alone (3, 4, 5/7, 8, 11, 12, 13, 14).
+    # times each kernel alone (3, 4, 5/7, 8, 11, 12, 13, 14, 21).
     src = "raytracer_tpu_torch/csrc/"
     t_k4 = train["k4"] if train else 0
     table = [
@@ -1107,6 +1128,10 @@ def main(argv=None) -> int:
          "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair, n_children 4) -> "
          "raytracer_tpu/ops/pallas_interleave.py:22", "K5/w4",
          kernels.get("K5/w4", {}).get("launches", 0), {"width": 4}),
+        ("lane grid (LG: the lanes' px, py and every pixel's lane, blocked or tiled layout, in "
+         "one launch)", "lane_grid.cu", "none: the JAX package builds the grid in numpy on the "
+         "host (raytracer_tpu/schedule.py:116, raytracer_tpu/models/wavefront.py:416)", "LG",
+         lg_launches, {"wavefront_path_launches": wave["lg"] if wave else 0}),
     ]
     rows = []
     for name, source, replaces, key, n_launch, extra in table:
@@ -1383,8 +1408,8 @@ def phase11(scene, dev, smi):
     if not (bad <= IMG_BAD_FRAC and mean_diff <= MEAN_TOL):
         raise AssertionError(f"K5 vs plain on the preflight lanes: {bad:.4%} elements beyond "
                              f"tolerance, mean diff {mean_diff}")
-    # Kernel times on a lane grid made once (render_image_fused rebuilds
-    # the grid on the host for every frame).
+    # Kernel times on a lane grid made once (render_image_fused builds
+    # the grid anew, on the card, for every frame).
     ms = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py, interleave=2), 20)
     ms_k3 = cuda_ms(lambda: cm.render_tiles_fused(scene, cam, cfg, 0, px, py, interleave=1), 20)
 
@@ -1459,7 +1484,7 @@ def phase11(scene, dev, smi):
            + ", ".join(f"{k} {med[k]:.4f} / {med_dev[k]:.4f}" for k in times)
            + f"; K5/K3 kernels {med['K5'] / med['K3']:.3f}, frames "
            f"{med['K5 frame'] / med['K3 frame']:.3f}; the card idles "
-           f"{1 - med['K3'] / med['K3 frame']:.3f} of a K3 frame (the host builds the lane grid); "
+           f"{1 - med['K3'] / med['K3 frame']:.3f} of a K3 frame (the host's work around K3); "
            f"K3 kernel host s {_fmt(times['K3'][0])}; K5 kernel host s {_fmt(times['K5'][0])}; "
            f"numRegs / localSizeBytes: "
            + ", ".join(f"{k} {r} / {b}" for k, (r, b) in res.items())
@@ -4435,6 +4460,79 @@ def k2_held(args, int32_rate) -> dict:
     return row
 
 
+def phase21(dev, smi) -> dict:
+    """The lane grid on the card at the main path's 2560x1440 frame: the
+    blocked layout (lane_grid, the fused path's) and the tiled one
+    (tiled_lane_grid, the wavefront's), one launch each, px, py and inv bit
+    for bit against the plain closed form run on the card and against the
+    numpy builders; the kernel's time (CUDA events, back to back) against
+    its bound, a synchronized call on the host clock, the plain form's
+    time on the card, and the numpy grid with its pageable copy (the
+    route the kernel replaced) on the host clock."""
+    import torch
+
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.models.fused import _fused_pixel_grid
+    from raytracer_tpu_torch.ops import cuda_lane_grid as lg
+    from raytracer_tpu_torch.schedule import _tiled_pixel_grid
+
+    cfg = RenderConfig(**MAIN)
+    w, h = cfg.width, cfg.height
+    routes = {"blocked": (lg.lane_grid, _fused_pixel_grid, lg.BLOCKED),
+              "tiled": (lg.tiled_lane_grid, _tiled_pixel_grid, lg.TILED)}
+    if lg.fused_layout(cfg) != lg.BLOCKED:
+        raise AssertionError(f"the main frame {w}x{h} does not take the blocked layout")
+    lg.LAUNCHES["lane_grid"] = lg.PLAIN_CALLS["lane_grid"] = 0
+    grids = {k: kernel(cfg, dev) for k, (kernel, _, _) in routes.items()}
+    torch.cuda.synchronize()
+    if lg.LAUNCHES["lane_grid"] != 2 or lg.PLAIN_CALLS["lane_grid"]:
+        raise AssertionError(f"lane grid: {lg.LAUNCHES['lane_grid']} launches, "
+                             f"{lg.PLAIN_CALLS['lane_grid']} plain calls for two grids")
+    res = {}
+    for k, (_, numpy_grid, layout) in routes.items():
+        plain = lg.build(w, h, layout, dev, plain=True)
+        t0 = time.perf_counter()
+        ref = numpy_grid(cfg)
+        numpy_s = time.perf_counter() - t0
+        for name, g, p, x in zip(("px", "py", "inv"), grids[k], plain, ref):
+            if not (g.is_cuda and g.dtype == p.dtype == x.dtype and torch.equal(g, p)
+                    and torch.equal(g.cpu(), x)):
+                raise AssertionError(f"lane grid, {k} layout, {name}: the kernel's differs from "
+                                     f"the plain form on the card or the numpy builder's")
+        copy_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            [t.to(dev) for t in numpy_grid(cfg)]
+            torch.cuda.synchronize()
+            copy_s.append(time.perf_counter() - t0)
+        sync_s = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            lg.build(w, h, layout, dev)
+            torch.cuda.synchronize()
+            sync_s.append(time.perf_counter() - t0)
+        res[k] = dict(ms=cuda_ms(lambda: lg.build(w, h, layout, dev), 50),
+                      plain_ms=cuda_ms(lambda: lg.build(w, h, layout, dev, plain=True), 20),
+                      host_ms=float(np.median(sync_s)) * 1e3, numpy_ms=numpy_s * 1e3,
+                      numpy_copy_ms=float(np.median(copy_s)) * 1e3, lanes=grids[k][0].numel())
+    bound = roofline(_nbytes(*grids["blocked"]), 0)
+    b, t = res["blocked"], res["tiled"]
+    row = dict(max_abs_err=0.0, ms=b["ms"], plain_ms=b["plain_ms"], **bound,
+               roofline_pct=100 * bound["bound_ms"] / b["ms"], host_ms=b["host_ms"],
+               numpy_copy_ms=b["numpy_copy_ms"], tiled_ms=t["ms"], tiled_plain_ms=t["plain_ms"],
+               tiled_host_ms=t["host_ms"], tiled_numpy_copy_ms=t["numpy_copy_ms"],
+               lanes=b["lanes"], tiled_lanes=t["lanes"])
+    msg = (f"lane grid at {w}x{h}, one launch a layout, px, py, inv bitwise = the plain form on "
+           f"the card = the numpy builders; " + "; ".join(
+               f"{k} ({v['lanes']} lanes): kernel {v['ms']:.4f} ms (CUDA events, back to back), "
+               f"{v['host_ms']:.4f} ms a synchronized call (host clock), plain form on the card "
+               f"{v['plain_ms']:.4f} ms, numpy grid {v['numpy_ms']:.1f} ms and with its pageable "
+               f"copy {v['numpy_copy_ms']:.1f} ms (median of 3)" for k, v in res.items())
+           + f"; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: {bound['bound_bytes']} "
+           f"bytes written), {row['roofline_pct']:.1f}% of it in the blocked layout on {smi}")
+    return dict(row=row, msg=msg)
+
+
 def phase16(scene, dev, smi) -> dict:
     """The wavefront integrator (models/wavefront.py) on the card: the
     known answers in both draw families, the 2K frame against K3, the
@@ -4450,6 +4548,7 @@ def phase16(scene, dev, smi) -> dict:
     from raytracer_tpu_torch.io.checkpoint import _atomic_save, render_image_resumable
     from raytracer_tpu_torch.models import wavefront as wf
     from raytracer_tpu_torch.models.fused import render_image_fused
+    from raytracer_tpu_torch.ops import cuda_lane_grid as lg
     from raytracer_tpu_torch.ops import intersect as isect
     from raytracer_tpu_torch.render import iter_spp_accumulation, render_image_chunked
     from raytracer_tpu_torch.utils import ktf, profiling
@@ -4482,6 +4581,7 @@ def phase16(scene, dev, smi) -> dict:
     wf.render_image_wavefront(scene, cam, cfg, 0)   # warm-up (same shapes)
     torch.cuda.synchronize()
     _reset_counts()
+    lg.LAUNCHES["lane_grid"] = lg.PLAIN_CALLS["lane_grid"] = 0
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     before = profiling.totals()
@@ -4489,7 +4589,7 @@ def phase16(scene, dev, smi) -> dict:
     img = wf.render_image_wavefront(scene, cam, cfg, 0)
     torch.cuda.synchronize()
     frame_s = [time.perf_counter() - t0]
-    counts = _counts()
+    counts = dict(_counts(), lg=lg.LAUNCHES["lane_grid"], lg_plain=lg.PLAIN_CALLS["lane_grid"])
     host_reads, iters = (profiling.totals()[k] - before.get(k, 0)
                          for k in ("host_reads", "wavefront.iterations"))
     peak = torch.cuda.max_memory_allocated()
@@ -4498,10 +4598,12 @@ def phase16(scene, dev, smi) -> dict:
         wf.render_image_wavefront(scene, cam, cfg, 0)
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
-    if counts["k4"] != iters or counts["k2_threefry"] < iters or counts["plain"]:
+    if (counts["k4"] != iters or counts["k2_threefry"] < iters or counts["plain"]
+            or counts["lg"] != 1 or counts["lg_plain"]):
         raise AssertionError(f"2K wavefront frame: K4 launches {counts['k4']} (iterations "
                              f"{iters}), K2 launches {counts['k2_threefry']}, plain calls "
-                             f"{counts['plain']}")
+                             f"{counts['plain']}, LG launches {counts['lg']}, plain lane grids "
+                             f"{counts['lg_plain']}")
     k3 = render_image_fused(scene, cam, cfg, 0)
     bad, mean_diff, max_abs = image_agreement(img, k3)
     n_px = int((img != k3).any(dim=-1).sum())
@@ -4520,7 +4622,8 @@ def phase16(scene, dev, smi) -> dict:
         f"({rays / med / 1e6:.2f} M camera rays/s); {iters} iterations, host reads "
         f"{host_reads}; K4 launches {counts['k4']}, K2 launches {counts['k2']} (Threefry "
         f"{counts['k2_threefry']}, {counts['k2_threefry'] / max(iters, 1):.2f} per iteration), "
-        f"plain calls {counts['plain']}; peak memory {peak / 2**30:.3f} GiB "
+        f"plain calls {counts['plain']}, LG launches {counts['lg']}; peak memory "
+        f"{peak / 2**30:.3f} GiB "
         f"({(peak - mem0) / 2**30:.3f} GiB above the scene's {mem0 / 2**30:.3f}) on {smi}")
 
     # 3. The cascade on and off, bit for bit; 4. the jax family against the

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracer_tpu_torch.ops.cuda_lane_grid import BLOCKED, fused_layout, lane_grid
 from raytracer_tpu_torch.ops.cuda_megakernel import (fused_megakernel_available,
                                                      render_tiles_fused,
                                                      render_tiles_fused_plain)
@@ -21,11 +22,11 @@ from raytracer_tpu_torch.utils.profiling import span
 
 
 def _fused_pixel_grid(cfg):
-    """Lane layout: 32x32-pixel packets with 8(w)x16(h) sub-blocks on
-    frames that divide into them; the 8x128 screen-tile order otherwise,
-    where 32x32 padding would inflate the lane count."""
-    if cfg.width % 32 == 0 and cfg.height % 32 == 0:
-        return blocked_pixel_grid(cfg, 32, 32, 8, 16)
+    """Lane layout in numpy, as ops/cuda_lane_grid.fused_layout picks it:
+    32x32-pixel packets with 8(w)x16(h) sub-blocks, or the 8x128
+    screen-tile order."""
+    if fused_layout(cfg) == BLOCKED:
+        return blocked_pixel_grid(cfg, *BLOCKED)
     return _tiled_pixel_grid(cfg)
 
 
@@ -53,14 +54,13 @@ def render_image_fused(scene, cam, cfg, seed: int, spp: int | None = None,
                        plain: bool = False, interleave: int | None = None) -> torch.Tensor:
     """Full-image render through the fused path loop → linear
     f32[H,W,3] on the scene's device. `plain=True` runs the plain
-    PyTorch version on that device instead of the kernel. `interleave`
-    is the kernel's lanes per thread (1: K3, 2: K5); None reads
-    RAYTRACER_TPU_INTERLEAVE (default 1). One request: the root span
-    `rt.fused.render`."""
+    PyTorch versions of the lane grid and the path loop on that device
+    instead of their kernels. `interleave` is the kernel's lanes per
+    thread (1: K3, 2: K5); None reads RAYTRACER_TPU_INTERLEAVE (default
+    1). One request: the root span `rt.fused.render`."""
     with span("rt.fused.render", root=True):
-        dev = scene.materials.type.device
         with span("rt.fused.grid"):
-            px, py, inv = (t.to(dev) for t in _fused_pixel_grid(cfg))
+            px, py, inv = lane_grid(cfg, scene.materials.type.device, plain)
         acc = fused_lanes(scene, cam, cfg, seed, px, py, spp, plain=plain,
                           interleave=interleave)
         with span("rt.fused.gather"):

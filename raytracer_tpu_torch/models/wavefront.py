@@ -50,8 +50,8 @@ from raytracer_tpu_torch.camera import generate_rays
 from raytracer_tpu_torch.ops import intersect as isect
 from raytracer_tpu_torch.ops import materials as mat_ops
 from raytracer_tpu_torch.ops import tonemap
+from raytracer_tpu_torch.ops.cuda_lane_grid import tiled_lane_grid
 from raytracer_tpu_torch.render import as_key, mean_over_passes
-from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 from raytracer_tpu_torch.utils import ktf, profiling
 from raytracer_tpu_torch.utils import rng as rngu
 from raytracer_tpu_torch.utils.cudalib import device_scope
@@ -383,9 +383,8 @@ def render_image_wavefront(scene, cam, cfg, key, spp: int | None = None) -> torc
     split into passes keyed by sample offset, each weighted s / spp.
     One request: the root span `rt.wavefront.render`."""
     with span("rt.wavefront.render", root=True):
-        dev = scene.materials.type.device
         with span("rt.wavefront.grid"):
-            px, py, inv = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+            px, py, inv = tiled_lane_grid(cfg, scene.materials.type.device)
         spp = cfg.spp if spp is None else int(spp)
         rgb = mean_over_passes(cfg, spp, lambda s, done: render_pixels_wavefront(
             scene, cam, px, py, cfg, key, spp=s, sample_offset=done))

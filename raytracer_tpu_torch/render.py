@@ -148,19 +148,19 @@ def iter_spp_accumulation(scene, cam, cfg, key, integrator: str = "wavefront",
                                           s, key, sample_offset=offset)
                               for row0 in range(0, h, rows_per_chunk)], dim=0)
     elif integrator == "fused":
-        from raytracer_tpu_torch.models.fused import _fused_pixel_grid
+        from raytracer_tpu_torch.ops.cuda_lane_grid import lane_grid
         from raytracer_tpu_torch.ops.cuda_megakernel import render_tiles_fused
 
-        px, py, inv = (t.to(dev) for t in _fused_pixel_grid(cfg))
+        px, py, inv = lane_grid(cfg, dev)
 
         def batch(s, offset):
             mean = render_tiles_fused(scene, cam, cfg, key, px, py, spp=s, sample_offset=offset)
             return mean[inv].reshape(h, w, 3)
     elif integrator == "wavefront":
         from raytracer_tpu_torch.models.wavefront import render_pixels_wavefront
-        from raytracer_tpu_torch.schedule import _tiled_pixel_grid
+        from raytracer_tpu_torch.ops.cuda_lane_grid import tiled_lane_grid
 
-        px, py, inv = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+        px, py, inv = tiled_lane_grid(cfg, dev)
 
         def batch(s, offset):
             mean = render_pixels_wavefront(scene, cam, px, py, cfg, key, spp=s,

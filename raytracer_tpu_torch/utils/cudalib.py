@@ -171,6 +171,7 @@ def lib() -> ctypes.CDLL:
     L.rt_trace_closest.argtypes = [ctypes.POINTER(BvhView), vp, vp, vp, cf, cf, ci, vp,
                                    vp, vp, vp, vp, vp, ci, vp]
     L.rt_coherence_keys.argtypes = [vp, vp, vp, ci, vp, vp]
+    L.rt_lane_grid.argtypes = [ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
     ip = ctypes.POINTER(ctypes.c_int)
     L.rt_trace_closest_attrs.argtypes = [ci, ip, ip]
     fused = [ctypes.POINTER(FusedParams), ctypes.POINTER(BvhView), vp, vp, vp, vp, vp, vp, vp, ci]
@@ -210,7 +211,7 @@ def lib() -> ctypes.CDLL:
     for fn in (L.rt_ktf_threefry, L.rt_ktf_threefry_keyed, L.rt_draws_camera_jax,
                L.rt_draws_bounce_jax, L.rt_draws_camera_ktf, L.rt_draws_bounce_ktf,
                L.rt_trace_closest,
-               L.rt_coherence_keys, L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
+               L.rt_coherence_keys, L.rt_lane_grid, L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
                L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_probe_v8,
                L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs,
                L.rt_probe_scalar, L.rt_probe_scalar_tables, L.rt_probe_scalar_tables_scratch,

@@ -32,11 +32,11 @@
 Spans (`rt.` marks the program's own; "root" opens a request):
 
   rt.fused.render (root)      models/fused.render_image_fused: one image
-    rt.fused.grid             the lane grid and its copy to the device
+    rt.fused.grid             the lane grid, built on the card
     rt.fused.pass             one path-loop call (K3, K5 or the plain loop), host side
     rt.fused.gather           the lanes back into image order
   rt.wavefront.render (root)  models/wavefront.render_image_wavefront: one image
-    rt.wavefront.grid         the lane grid and its copy to the device
+    rt.wavefront.grid         the lane grid, built on the card
     rt.wavefront.stage        one drain stage, its compaction included
       rt.wavefront.read       the pending-count read: the host waits on the device
       rt.wavefront.iteration  one bounce of the buffer, enqueued by the host

@@ -29,9 +29,9 @@ import torch
 
 from raytracer_tpu_torch.camera import showcase_camera
 from raytracer_tpu_torch.config import RenderConfig
-from raytracer_tpu_torch.models.fused import render_image_fused
+from raytracer_tpu_torch.models.fused import _fused_pixel_grid, fused_lanes, render_image_fused
 from raytracer_tpu_torch.models.wavefront import render_image_wavefront
-from raytracer_tpu_torch.ops import cuda_megakernel, cuda_traverse
+from raytracer_tpu_torch.ops import cuda_lane_grid, cuda_megakernel, cuda_traverse
 from raytracer_tpu_torch.ops.bvh4 import BIG
 from raytracer_tpu_torch.ops.packets import coherence_keys, coherence_keys32
 from raytracer_tpu_torch.probes import (ablate_v8, base_probe, bitcast, common, feature,
@@ -40,7 +40,7 @@ from raytracer_tpu_torch.probes import (ablate_v8, base_probe, bitcast, common, 
 from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 from raytracer_tpu_torch.scene.builder import (cornell_materials_scene, reference_scene,
                                                tree_width)
-from raytracer_tpu_torch.utils import cudalib, ktf
+from raytracer_tpu_torch.utils import cudalib, ktf, profiling
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
@@ -227,6 +227,84 @@ def test_k3_preflight_known_answer(dev, bunny):
     cfg = RenderConfig(width=128, height=40, spp=2, max_bounces=12)
     img = render_image_fused(bunny, showcase_camera(cfg), cfg, 0)
     assert abs(img.mean().item() - 0.276287317276001) <= 0.02 * 0.276287317276001
+
+
+LANE_GRID_SIZES = [(2560, 1440), (3840, 2160), (1920, 1088), (1920, 1080), (33, 64), (17, 9),
+                   (1, 1), (24, 40), (100, 7)]
+
+
+@pytest.mark.parametrize("layout", ["BLOCKED", "TILED"])
+@pytest.mark.parametrize("w,h", LANE_GRID_SIZES)
+def test_lane_grid_kernel_equals_plain(dev, w, h, layout):
+    """The lane-grid kernel's (px, py, inv) is the plain closed form's bit
+    for bit, dtypes included, run on the CPU (the CPU tests hold that to
+    numpy and to the JAX package) and on the card, in one launch, at
+    sizes that divide exactly, pad, or are narrower than a packet, up to
+    3840x2160."""
+    lay = getattr(cuda_lane_grid, layout)
+    launches = cuda_lane_grid.LAUNCHES["lane_grid"]
+    got = cuda_lane_grid.build(w, h, lay, dev)
+    torch.cuda.synchronize()
+    assert cuda_lane_grid.LAUNCHES["lane_grid"] == launches + 1
+    on_card = cuda_lane_grid.build(w, h, lay, dev, plain=True)
+    assert cuda_lane_grid.LAUNCHES["lane_grid"] == launches + 1
+    for g, want, p in zip(got, cuda_lane_grid.lane_grid_plain(w, h, lay), on_card):
+        assert g.is_cuda and g.dtype == want.dtype and torch.equal(g.cpu(), want)
+        assert p.is_cuda and p.dtype == want.dtype and torch.equal(p, g)
+
+
+def test_plain_fused_route_builds_its_grid_without_the_kernel(dev, bunny):
+    """render_image_fused(plain=True) on the card takes the plain lane
+    grid on the card, so the plain route that K3 and K5 are held to runs
+    no hand-written kernel for its grid; its image is the kernel route's
+    image through the plain path loop on the kernel's grid."""
+    cfg = RenderConfig(width=64, height=40, spp=1, max_bounces=3, rng_impl="ktf")
+    cam = showcase_camera(cfg)
+    launches = cuda_lane_grid.LAUNCHES["lane_grid"]
+    plain_calls = cuda_lane_grid.PLAIN_CALLS["lane_grid"]
+    got = render_image_fused(bunny, cam, cfg, 5, plain=True)
+    assert cuda_lane_grid.LAUNCHES["lane_grid"] == launches
+    assert cuda_lane_grid.PLAIN_CALLS["lane_grid"] == plain_calls + 1
+    px, py, inv = cuda_lane_grid.lane_grid(cfg, dev)
+    want = fused_lanes(bunny, cam, cfg, 5, px, py, plain=True)[inv].reshape(cfg.height,
+                                                                           cfg.width, 3)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("integrator", ["fused", "wavefront"])
+def test_one_lane_grid_launch_a_render_and_no_copy_in_its_span(dev, bunny, integrator):
+    """A profiled request launches the lane-grid kernel once, inside its
+    grid span, and nothing in that span copies to the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    render = render_image_fused if integrator == "fused" else render_image_wavefront
+    cfg = RenderConfig(width=256, height=128, spp=2, max_bounces=4, rng_impl="ktf")
+    cam = showcase_camera(cfg)
+    render(bunny, cam, cfg, 0)   # the kernel library loads
+    launches = cuda_lane_grid.LAUNCHES["lane_grid"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render(bunny, cam, cfg, 0)
+        torch.cuda.synchronize()
+    assert cuda_lane_grid.LAUNCHES["lane_grid"] == launches + 1
+    (grid,) = [s for s in profiling.recorded() if s.name == f"rt.{integrator}.grid"]
+    assert grid.counts == {"launch.lane_grid": 1}
+    events = prof.profiler.kineto_results.events()
+    assert [e.name() for e in events if "memcpy" in e.name().lower()
+            and grid.start_ns <= e.start_ns() <= grid.end_ns] == []
+    assert any("lane_grid" in e.name() and not str(e.device_type()).endswith("CPU")
+               for e in events)
+
+
+def test_fused_2k_image_equals_the_numpy_grid_route(dev, bunny):
+    """A 2560x1440 4 spp image through the grid built on the card is the
+    image through the numpy grid and its copy, bit for bit."""
+    cfg = RenderConfig(width=2560, height=1440, spp=4)
+    cam = showcase_camera(cfg)
+    got = render_image_fused(bunny, cam, cfg, 11)
+    px, py, inv = (t.to(dev) for t in _fused_pixel_grid(cfg))
+    want = fused_lanes(bunny, cam, cfg, 11, px, py)[inv].reshape(cfg.height, cfg.width, 3)
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(got).all()) and got.mean().item() > 0.05
 
 
 def test_k2_keyed_entry_bitwise(dev):
