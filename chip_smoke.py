@@ -194,6 +194,13 @@ plain PyTorch version, and drives the port's three paths:
     against the numpy builders, the kernel timed against its bound, the
     plain form on the card and the numpy grid with its pageable copy that
     it replaced. Phases 7 and 16 read one LG launch a frame.
+  * the sphere tree (phase 22, scene/builder.build_sphere_tree, csrc/path.cuh
+    sphere_search): the "Ray Tracing in One Weekend" final scene (487
+    spheres, no triangle) built with its tree (its node count, sweep set
+    and build time), K3's registers and local memory with and without the
+    tree, and one 64-spp pass of its 1200x675 frame through K3 with the
+    tree against K3 sweeping all 487 spheres (taken past the 16-sphere
+    budget here alone): bit for bit, timed in turns.
 
 Every kernel row carries its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -204,7 +211,7 @@ SMs; the probes' rows at the SM clock read under load). The datasheet's
 67 TFLOP/s counts a fused multiply-add as two operations, and every kernel
 here is built -fmad=false. int32: the SM's 64 INT32 units at that clock.
 
-    python3 chip_smoke.py              # phases 1-14, 16, 17 and 19-21 (what CI runs)
+    python3 chip_smoke.py              # phases 1-14, 16, 17 and 19-22 (what CI runs)
     python3 chip_smoke.py --phases 16  # the wavefront alone
     python3 chip_smoke.py --phases 17  # the sharded paths and two processes
     python3 chip_smoke.py --phases 1,2,19,20   # the LBVH, the milestones and the flagship
@@ -501,8 +508,8 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17,19,20,21",
-                    help="comma-separated phases to run (default: 1-14, 16, 17 and 19-21; "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17,19,20,21,22",
+                    help="comma-separated phases to run (default: 1-14, 16, 17 and 19-22; "
                          "phase 15 needs --parent, phase 18 four cards)")
     ap.add_argument("--parent", default=None,
                     help="phase 15: a directory holding the parent commit's tree "
@@ -831,6 +838,11 @@ def main(argv=None) -> int:
         kernels["LG"] = r21["row"]
         log(21, r21["msg"])
 
+    if 22 in phases:
+        r22 = phase22(dev, smi)
+        kernels["K3-tree"] = r22["row"]
+        log(22, r22["msg"])
+
     if 8 in phases:
         r8, scaling = phase8(scene, dev)
         p8, t1 = r8["phase 8"], r8[f"training bounce {P8_TRAIN_BOUNCES[0]}"]
@@ -1033,7 +1045,7 @@ def main(argv=None) -> int:
     # The sharded paths (phase 17) add theirs, each from 0 just before one
     # frame or render, as sharded_path_launches fields (sharded_launches).
     # ms / plain_ms / max_abs_err / the bound come from the phase that
-    # times each kernel alone (3, 4, 5/7, 8, 11, 12, 13, 14, 21).
+    # times each kernel alone (3, 4, 5/7, 8, 11, 12, 13, 14, 21, 22).
     src = "raytracer_tpu_torch/csrc/"
     t_k4 = train["k4"] if train else 0
     table = [
@@ -1128,6 +1140,10 @@ def main(argv=None) -> int:
          "raytracer_tpu/ops/pallas_megakernel.py:538 (per_pair, n_children 4) -> "
          "raytracer_tpu/ops/pallas_interleave.py:22", "K5/w4",
          kernels.get("K5/w4", {}).get("launches", 0), {"width": 4}),
+        ("fused_path_loop with the sphere tree (K3-tree: the spheres found through the tree's "
+         "walk in traverse.cuh, the RTIOW scene)", "megakernel_tree.cu",
+         "raytracer_tpu/ops/pallas_megakernel.py:623 (the JAX package sweeps every sphere)",
+         "K3-tree", kernels.get("K3-tree", {}).get("launches", 0), {}),
         ("lane grid (LG: the lanes' px, py and every pixel's lane, blocked or tiled layout, in "
          "one launch)", "lane_grid.cu", "none: the JAX package builds the grid in numpy on the "
          "host (raytracer_tpu/schedule.py:116, raytracer_tpu/models/wavefront.py:416)", "LG",
@@ -4530,6 +4546,132 @@ def phase21(dev, smi) -> dict:
                f"copy {v['numpy_copy_ms']:.1f} ms (median of 3)" for k, v in res.items())
            + f"; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: {bound['bound_bytes']} "
            f"bytes written), {row['roofline_pct']:.1f}% of it in the blocked layout on {smi}")
+    return dict(row=row, msg=msg)
+
+
+RTIOW_CONFIG = os.path.join(ROOT, "benchmark", "configs", "rtiow_final_1200.json")
+RTIOW_ROOFLINE = os.path.join(ROOT, "benchmark", "metrics", "k3_roofline.rtiow.json")
+RTIOW_SAMPLE = 4096   # lanes of the frame held to the plain version,
+RTIOW_SAMPLE_SPP = 8  # at this many samples each (the plain version takes ~5 min at 64)
+
+
+def phase22(dev, smi) -> dict:
+    """The "Ray Tracing in One Weekend" final scene with its sphere tree,
+    built from benchmark/configs/rtiow_final_1200.json as the benchmark
+    builds it (benchmark/program.scene, then build_sphere_tree): the
+    tree's node count, sweep set and build seconds; K3's registers and
+    local memory with and without the tree; one 64-spp pass of the
+    1200x675 frame at 50 bounces through K3 with the tree, with the
+    launch counters zeroed first (one launch of the tree's K3, none of
+    the sweep's); RTIOW_SAMPLE seeded lanes of the frame at
+    RTIOW_SAMPLE_SPP samples through K3 with the tree against the plain
+    version on the card, held to phase 5's tolerance; the frame bit for
+    bit against K3 sweeping all 487 spheres (the sweep route taken past
+    the 16-sphere budget, here alone), both timed in turns with CUDA
+    events; the bound from the frozen work a
+    path (benchmark/metrics/k3_roofline.rtiow.json) at the fp32 peak;
+    the frame written to renders/."""
+    import json
+
+    import torch
+
+    from benchmark import program
+    from raytracer_tpu_torch.models.fused import render_image_fused
+    from raytracer_tpu_torch.ops import cuda_megakernel
+    from raytracer_tpu_torch.ops.tonemap import to_rgba8
+    from raytracer_tpu_torch.scene import builder
+    from raytracer_tpu_torch.utils.image import write_png
+
+    with open(RTIOW_CONFIG) as f:
+        conf = json.load(f)
+    with open(RTIOW_ROOFLINE) as f:
+        ops_per_path = json.load(f)["ops_per_path"]
+    w, h = conf["resolution"]
+    spp = conf["spp_per_pass"]
+    cfg = program.render_config(conf).replace(spp=spp, spp_per_pass=spp)
+    cam = program.camera(conf, cfg)
+    t0 = time.perf_counter()
+    scene, _ = program.scene(conf, ROOT, "cpu")
+    tree = builder.build_sphere_tree(scene.spheres)
+    build_s = time.perf_counter() - t0
+    scene = scene.replace(sphere_tree=tree).to(dev)
+    sweep = scene.replace(sphere_tree=None)
+    res = cuda_megakernel.kernel_resources()
+    res_tree = cuda_megakernel.kernel_resources(sphere_tree=True)
+    seed = 2024
+
+    render_image_fused(scene, cam, cfg, seed)          # warm-up (same shapes)
+    torch.cuda.synchronize()
+    for key in cuda_megakernel.LAUNCHES:
+        cuda_megakernel.LAUNCHES[key] = 0
+    img = render_image_fused(scene, cam, cfg, seed)
+    torch.cuda.synchronize()
+    launches = dict(cuda_megakernel.LAUNCHES)
+    if launches["render_fused_tree"] != 1 or launches["render_fused"] != 0:
+        raise AssertionError(f"one pass of the RTIOW frame: launches {launches}, want one "
+                             f"render_fused_tree and no render_fused")
+
+    gen = torch.Generator().manual_seed(seed)
+    flat = torch.randperm(w * h, generator=gen)[:RTIOW_SAMPLE].to(torch.int32)
+    px, py = (flat % w).to(dev), (flat // w).to(dev)
+    k3 = cuda_megakernel.render_tiles_fused(scene, cam, cfg, seed, px, py, spp=RTIOW_SAMPLE_SPP)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    p = cuda_megakernel.render_tiles_fused_plain(scene, cam, cfg, seed, px, py,
+                                                 spp=RTIOW_SAMPLE_SPP)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    sample_ms = cuda_ms(lambda: cuda_megakernel.render_tiles_fused(scene, cam, cfg, seed, px, py,
+                                                                   spp=RTIOW_SAMPLE_SPP), 3)
+    bad, mean_diff, max_err = image_agreement(k3, p)
+    if not (torch.isfinite(k3).all() and bad <= IMG_BAD_FRAC and mean_diff <= MEAN_TOL):
+        raise AssertionError(f"K3 with the sphere tree vs plain on {RTIOW_SAMPLE} lanes of the "
+                             f"RTIOW frame at {RTIOW_SAMPLE_SPP} spp: {bad:.4%} elements beyond "
+                             f"{IMG_ATOL}+{IMG_RTOL}|x| (limit {IMG_BAD_FRAC:.1%}), mean diff "
+                             f"{mean_diff:.3g} (limit {MEAN_TOL}), max abs {max_err:.3g}")
+
+    budget = cuda_megakernel.MAX_SPHERES
+    cuda_megakernel.MAX_SPHERES = scene.spheres.count
+    try:
+        if not torch.equal(img, render_image_fused(sweep, cam, cfg, seed)):
+            raise AssertionError("K3 through the sphere tree differs from K3's sweep")
+        ms = {"tree": [], "sweep": []}
+        for _ in range(2):
+            for name, sc in (("tree", scene), ("sweep", sweep), ("sweep", sweep),
+                             ("tree", scene)):
+                ms[name].append(cuda_ms(lambda: render_image_fused(sc, cam, cfg, seed), 1))
+    finally:
+        cuda_megakernel.MAX_SPHERES = budget
+    os.makedirs(os.path.join(ROOT, "renders"), exist_ok=True)
+    png = os.path.join(ROOT, "renders", "chip_smoke_rtiow_64spp.png")
+    write_png(png, to_rgba8(img).cpu().numpy())
+    tree_ms, sweep_ms = float(np.median(ms["tree"])), float(np.median(ms["sweep"]))
+    paths = w * h * spp
+    bound = roofline(24 * w * h, int(round(paths * ops_per_path)))
+    row = dict(launches=launches["render_fused_tree"], max_abs_err=max_err, ms=tree_ms,
+               plain_ms=plain_ms, **bound, roofline_pct=100 * bound["bound_ms"] / tree_ms,
+               sample_lanes=RTIOW_SAMPLE, sample_spp=RTIOW_SAMPLE_SPP, sample_ms=sample_ms,
+               sample_bad_frac=bad, sample_mean_diff=mean_diff, sweep_ms=sweep_ms, nodes=tree.nodes,
+               sweep=tree.sweep.tolist(), build_s=build_s, regs=res_tree["K3"][0],
+               local_bytes=res_tree["K3"][1], regs_without_tree=res["K3"][0],
+               local_bytes_without_tree=res["K3"][1])
+    msg = (f"RTIOW final scene ({scene.spheres.count} spheres, {scene.materials.count} "
+           f"materials): tree of {tree.nodes} nodes, sweep set {tree.sweep.tolist()}, stack "
+           f"bound {tree.stack_depth}, scene and tree built in {build_s:.3f} s; K3 registers / "
+           f"local bytes with the tree {res_tree['K3']}, K3-profile {res_tree['K3-profile']}, "
+           f"K5 {res_tree['K5']}; without it {res['K3']}; {w}x{h} at {spp} spp, one pass: "
+           f"launches {launches['render_fused_tree']} render_fused_tree, "
+           f"{launches['render_fused']} render_fused; {RTIOW_SAMPLE} seeded lanes at "
+           f"{RTIOW_SAMPLE_SPP} spp against the plain version on the card: {bad:.4%} elements "
+           f"beyond {IMG_ATOL}+{IMG_RTOL}|x| (limit {IMG_BAD_FRAC:.1%}), mean diff "
+           f"{mean_diff:.3g} (limit {MEAN_TOL}), max abs {max_err:.3g}, kernel {sample_ms:.2f} ms vs plain {plain_ms:.0f} ms; K3 through "
+           f"the tree == K3 sweeping every sphere bit for bit, {tree_ms:.2f} ms against "
+           f"{sweep_ms:.2f} ms ({sweep_ms / tree_ms:.2f}x; CUDA events, median of 4 in turns: "
+           f"{_fmt(ms['tree'])} / {_fmt(ms['sweep'])}); bound {bound['bound_ms']:.3f} ms "
+           f"({bound['bound_by']}: {paths} paths x {ops_per_path} frozen ops at "
+           f"{FP32_OPS_PER_S / 1e12:.1f} TFLOP/s), {row['roofline_pct']:.2f}% of it; wrote "
+           f"{os.path.relpath(png, ROOT)}; on {smi}")
     return dict(row=row, msg=msg)
 
 

@@ -101,12 +101,12 @@ def main(argv=None):
         cam = showcase_camera(cfg)
 
     if args.integrator == "fused":
-        from raytracer_tpu_torch.models.fused import fused_available
+        from raytracer_tpu_torch.ops.cuda_megakernel import fused_unavailable
 
-        if not fused_available(scene, cfg):
-            raise SystemExit("--integrator fused needs a bvh4 scene of width 4 or 8 within "
-                             "the kernel's sphere/material budgets (use cornell_bunny / "
-                             "cornell_materials with RAYTRACER_TPU_BVH_WIDTH 4 or 8)")
+        why = fused_unavailable(scene)
+        if why is not None:
+            raise SystemExit(f"--integrator fused needs a bvh4 scene of width 4 or 8 and, above "
+                             f"16 spheres, its sphere tree: {why}")
     from raytracer_tpu_torch.utils.profiling import Meter, log_metrics, trace
 
     prof = trace(args.profile, device) if args.profile else contextlib.nullcontext()

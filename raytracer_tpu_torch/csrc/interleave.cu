@@ -16,7 +16,7 @@ extern "C" int rt_render_fused_g2(const FusedParams* p, const trav::BvhView* bvh
   if (n > 0) {
     const mk::FusedArgs a{*p, *bvh, pix, px, py, path::Tables{sph, sph_mat, mat, mat_type}, n,
                           out, nullptr, nullptr, nullptr, block, chunk, next,
-                          static_cast<cudaStream_t>(stream)};
+                          static_cast<cudaStream_t>(stream), {}, nullptr, nullptr};
     return static_cast<int>(bvh->width == 4 ? g2::launch_w4(a) : g2::launch<8>(a));
   }
   return static_cast<int>(cudaGetLastError());

@@ -81,9 +81,10 @@ __device__ __forceinline__ ktf::Sampler sampler(const FusedParams& p, const Slot
 }
 
 // Before K1: claim a sample (camera ray at bounce 0) if the slot has none,
-// Russian roulette, the sphere sweep.
-__device__ __forceinline__ void begin(const FusedParams& p, const path::Tables& tb, Slot& L,
-                                      Pending& st) {
+// Russian roulette, the sphere sweep (or with TREE the sphere tree's search).
+template <bool TREE>
+__device__ __forceinline__ void begin(const FusedParams& p, const path::Tables& tb,
+                                      const path::SphereTreeView& tree, Slot& L, Pending& st) {
   st.survived = false;
   st.ray = trav::Ray{0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, -1.0f};  // dead, but fully set
   if (L.lane < 0) return;
@@ -99,7 +100,7 @@ __device__ __forceinline__ void begin(const FusedParams& p, const path::Tables& 
   st.survived = path::roulette(p, sampler(p, L), L.bounce, L.r);
   if (!st.survived) return;  // killed: this sample adds zero
   st.a_q = L.r.dx * L.r.dx + L.r.dy * L.r.dy + L.r.dz * L.r.dz;
-  st.sh = path::sphere_sweep(p, tb, L.r, st.a_q);
+  st.sh = path::spheres<TREE, false>(p, tb, tree, L.r, st.a_q, nullptr, nullptr);
   st.ray = trav::Ray{L.r.ox, L.r.oy, L.r.oz, L.r.dx, L.r.dy, L.r.dz, st.sh.t};
 }
 
@@ -130,11 +131,12 @@ __device__ __forceinline__ void finish(const FusedParams& p, const path::Tables&
 
 // The kernel's body; `next` is the lane-list counter (zero before the
 // launch) and `chunk` the lanes a block takes at a time, as K3's.
-template <int K>
+template <int K, bool TREE>
 __device__ __forceinline__ void body(const FusedParams& p, const trav::BvhView& bvh_in,
                                      const int* __restrict__ pix, const int* __restrict__ pxi,
                                      const int* __restrict__ pyi, const path::Tables& tb, int n,
-                                     int chunk, int* __restrict__ next, float* __restrict__ out) {
+                                     int chunk, int* __restrict__ next, float* __restrict__ out,
+                                     const path::SphereTreeView& tree) {
   __shared__ trav::BruteStage stage;
   const trav::BvhView bvh = trav::stage_brute(bvh_in, stage);
   __shared__ unsigned long long word;
@@ -145,8 +147,8 @@ __device__ __forceinline__ void body(const FusedParams& p, const trav::BvhView& 
   load(b, mk::take_lane(&word, next, n, chunk), pix, pxi, pyi);
   while (a.lane >= 0 || b.lane >= 0) {
     Pending sa, sb;
-    begin(p, tb, a, sa);
-    begin(p, tb, b, sb);
+    begin<TREE>(p, tb, tree, a, sa);
+    begin<TREE>(p, tb, tree, b, sb);
     trav::Hit ha, hb;
     trav::traverse2<K>(bvh, sa.ray, sb.ray, p.t_min, ha, hb);
     finish(p, tb, a, sa, ha, &word, next, n, chunk, pix, pxi, pyi, out);
@@ -158,33 +160,39 @@ __device__ __forceinline__ void body(const FusedParams& p, const trav::BvhView& 
 // (24 warps; 128 registers uncapped, 16 warps) at 2,288 bytes of local
 // memory per thread against 2,096. The 2K kernel ran 7% faster than
 // uncapped so, and 5% faster than at 96 registers (PERF.md §6).
-template <int K>
+// TREE: as K3's; the tree's argument comes last.
+template <int K, bool TREE>
 __global__ void __maxnreg__(80)
     fused_path_g2_kernel(FusedParams p, trav::BvhView bvh, const int* __restrict__ pix,
                          const int* __restrict__ pxi, const int* __restrict__ pyi,
                          path::Tables tb, int n, int chunk, int* __restrict__ next,
-                         float* __restrict__ out) {
-  body<K>(p, bvh, pix, pxi, pyi, tb, n, chunk, next, out);
+                         float* __restrict__ out, path::SphereTreeView tree) {
+  body<K, TREE>(p, bvh, pix, pxi, pyi, tb, n, chunk, next, out, tree);
 }
 
-template <int K>
+template <int K, bool TREE = false>
 cudaError_t launch(const mk::FusedArgs& a) {
   int grid = 0;  // no more blocks than the lanes fill at two per thread
-  const cudaError_t e = mk::persistent_grid(fused_path_g2_kernel<K>, a.block,
+  const cudaError_t e = mk::persistent_grid(fused_path_g2_kernel<K, TREE>, a.block,
                                             (a.n + 2 * a.block - 1) / (2 * a.block), grid);
   if (e != cudaSuccess) return e;
-  fused_path_g2_kernel<K><<<grid, a.block, 0, a.stream>>>(a.p, a.bvh, a.pix, a.px, a.py, a.tb,
-                                                          a.n, a.chunk, a.next, a.out);
+  fused_path_g2_kernel<K, TREE><<<grid, a.block, 0, a.stream>>>(
+      a.p, a.bvh, a.pix, a.px, a.py, a.tb, a.n, a.chunk, a.next, a.out, a.st);
   return cudaGetLastError();
 }
 
-template <int K>
+template <int K, bool TREE = false>
 cudaError_t attributes(cudaFuncAttributes* attr) {
-  return cudaFuncGetAttributes(attr, fused_path_g2_kernel<K>);
+  return cudaFuncGetAttributes(attr, fused_path_g2_kernel<K, TREE>);
 }
 
 // The width-4 instantiations (interleave_w4.cu).
 cudaError_t launch_w4(const mk::FusedArgs& a);
 cudaError_t attributes_w4(cudaFuncAttributes* attr);
+
+// The sphere tree's instantiation over a width-8 triangle tree
+// (interleave_tree.cu).
+cudaError_t launch_tree(const mk::FusedArgs& a);
+cudaError_t attributes_tree(cudaFuncAttributes* attr);
 
 }  // namespace g2

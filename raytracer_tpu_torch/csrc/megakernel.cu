@@ -48,6 +48,13 @@ cudaError_t launch_fused(bool profile, const mk::FusedArgs& a) {
 
 }  // namespace
 
+cudaError_t mk::packet_bill(const int* k1_steps, const int* path_iters, int n, float* aux,
+                            cudaStream_t stream) {
+  const int g = n / PACKET;
+  packet_bill_kernel<<<(g + 127) / 128, 128, 0, stream>>>(k1_steps, path_iters, g, aux);
+  return cudaGetLastError();
+}
+
 // `chunk` lanes per take from the lane list; `next` an int on the card, 0
 // before the launch (the wrapper's torch.zeros).
 extern "C" int rt_render_fused(const FusedParams* p, const trav::BvhView* bvh, const int* pix,
@@ -59,7 +66,7 @@ extern "C" int rt_render_fused(const FusedParams* p, const trav::BvhView* bvh, c
   if (n > 0) {
     const mk::FusedArgs a{*p, *bvh, pix, px, py, path::Tables{sph, sph_mat, mat, mat_type}, n,
                           out, nullptr, nullptr, nullptr, block, chunk, next,
-                          static_cast<cudaStream_t>(stream)};
+                          static_cast<cudaStream_t>(stream), {}, nullptr, nullptr};
     return static_cast<int>(launch_fused(false, a));
   }
   return static_cast<int>(cudaGetLastError());
@@ -79,11 +86,11 @@ extern "C" int rt_render_fused_profile(const FusedParams* p, const trav::BvhView
   if (n > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const mk::FusedArgs a{*p, *bvh, pix, px, py, path::Tables{sph, sph_mat, mat, mat_type}, n,
-                          out, cost, k1_steps, path_iters, block, chunk, next, s};
+                          out, cost, k1_steps, path_iters, block, chunk, next, s, {}, nullptr,
+                          nullptr};
     const cudaError_t e = launch_fused(true, a);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int g = n / PACKET;
-    packet_bill_kernel<<<(g + 127) / 128, 128, 0, s>>>(k1_steps, path_iters, g, aux);
+    return static_cast<int>(mk::packet_bill(k1_steps, path_iters, n, aux, s));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,8 +46,10 @@
 // which the refill answers; the BVH's dependent loads and the Threefry
 // draws are a smaller share. The camera,
 // roulette and sample constants travel by value in FusedParams; spheres
-// (<= 16) and materials (<= 28) are read from small global tables whose
-// uniform or few distinct addresses the L1 serves.
+// and materials are read from global tables whose uniform or few distinct
+// addresses the L1 serves. Up to 16 spheres are swept by every ray; a
+// scene of more takes the TREE instantiations, which find them through the
+// sphere tree (path.cuh sphere_search, megakernel_tree.cu).
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -77,6 +79,11 @@ struct FusedArgs {
   int chunk;
   int* next;
   cudaStream_t stream;
+  // The sphere tree's launches (TREE): the tree, and K3-profile's lane
+  // counts of its walk (null otherwise).
+  path::SphereTreeView st;
+  int* sph_steps;
+  int* sph_tests;
 };
 
 // One take of the word: add 1 and return the word as it was. The threads
@@ -147,13 +154,20 @@ __device__ __forceinline__ int take_lane(unsigned long long* word, int* __restri
 // threads fit an SM: K3 keeps 64 registers and 32 warps per SM (78
 // uncapped, 24 warps) at a few more bytes of local memory, and runs faster
 // so (PERF.md §6). Blocks of more than 256 threads do not launch.
-template <int K, bool PROFILE>
+//
+// TREE: the spheres are found through the sphere tree (path::sphere_search)
+// in place of the sweep over all of them; K3-profile then also counts each
+// lane's sphere-tree steps and sphere tests. The tree's arguments come last,
+// so the instantiations without it (TREE = false: every scene of at most 16
+// spheres) take their parameters where they did before the tree existed.
+template <int K, bool PROFILE, bool TREE>
 __global__ void __launch_bounds__(256, 4) fused_path_kernel(FusedParams p, trav::BvhView bvh_in,
                                   const int* __restrict__ pix, const int* __restrict__ pxi,
                                   const int* __restrict__ pyi, path::Tables tb, int n, int chunk,
                                   int* __restrict__ next, float* __restrict__ out,
                                   float* __restrict__ cost, int* __restrict__ k1_steps,
-                                  int* __restrict__ path_iters) {
+                                  int* __restrict__ path_iters, path::SphereTreeView st,
+                                  int* __restrict__ sph_steps, int* __restrict__ sph_tests) {
   __shared__ trav::BruteStage stage;
   const trav::BvhView bvh = trav::stage_brute(bvh_in, stage);
   __shared__ unsigned long long word;
@@ -173,6 +187,7 @@ __global__ void __launch_bounds__(256, 4) fused_path_kernel(FusedParams p, trav:
   float ax = 0.0f, ay = 0.0f, az = 0.0f;  // radiance sum of the finished samples
   float cx = 0.0f, cy = 0.0f, cz = 0.0f;  // the current sample's radiance
   int k1 = 0, iters = 0;                  // K3-profile counts
+  int ssteps = 0, stests = 0;             // K3-profile's sphere-tree counts (TREE)
   while (lane >= 0) {
     const uint32_t s_eff = static_cast<uint32_t>(s + p.sample_offset);
     if (!active) {
@@ -188,7 +203,8 @@ __global__ void __launch_bounds__(256, 4) fused_path_kernel(FusedParams p, trav:
     bool more = false;
     if (path::roulette(p, smp, bounce, r)) {  // killed: this sample adds zero
       const float a_q = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
-      const path::SphereHit sh = path::sphere_sweep(p, tb, r, a_q);
+      const path::SphereHit sh = path::spheres<TREE, PROFILE>(p, tb, st, r, a_q, &ssteps,
+                                                              &stests);
       // K1: closest triangle in [t_min, t_sph).
       const trav::Hit h = trav::traverse<K, PROFILE>(bvh, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
                                                      sh.t, p.t_min, PROFILE ? &k1 : nullptr);
@@ -210,6 +226,10 @@ __global__ void __launch_bounds__(256, 4) fused_path_kernel(FusedParams p, trav:
       cost[lane] = static_cast<float>(iters + k1);
       k1_steps[lane] = k1;
       path_iters[lane] = iters;
+      if constexpr (TREE) {
+        sph_steps[lane] = ssteps;
+        sph_tests[lane] = stests;
+      }
     }
     lane = take_lane(&word, next, n, chunk);
     if (lane >= 0) {
@@ -223,6 +243,8 @@ __global__ void __launch_bounds__(256, 4) fused_path_kernel(FusedParams p, trav:
     az = 0.0f;
     k1 = 0;
     iters = 0;
+    ssteps = 0;
+    stests = 0;
   }
 }
 
@@ -241,25 +263,34 @@ cudaError_t persistent_grid(F kernel, int block, int fill, int& grid) {
   return cudaSuccess;
 }
 
-template <int K, bool PROFILE>
+template <int K, bool PROFILE, bool TREE = false>
 cudaError_t launch(const FusedArgs& a) {
   int grid = 0;
-  const cudaError_t e =
-      persistent_grid(fused_path_kernel<K, PROFILE>, a.block, (a.n + a.block - 1) / a.block, grid);
+  const cudaError_t e = persistent_grid(fused_path_kernel<K, PROFILE, TREE>, a.block,
+                                        (a.n + a.block - 1) / a.block, grid);
   if (e != cudaSuccess) return e;
-  fused_path_kernel<K, PROFILE><<<grid, a.block, 0, a.stream>>>(
+  fused_path_kernel<K, PROFILE, TREE><<<grid, a.block, 0, a.stream>>>(
       a.p, a.bvh, a.pix, a.px, a.py, a.tb, a.n, a.chunk, a.next, a.out, a.cost, a.k1_steps,
-      a.path_iters);
+      a.path_iters, a.st, a.sph_steps, a.sph_tests);
   return cudaGetLastError();
 }
 
-template <int K, bool PROFILE>
+template <int K, bool PROFILE, bool TREE = false>
 cudaError_t attributes(cudaFuncAttributes* attr) {
-  return cudaFuncGetAttributes(attr, fused_path_kernel<K, PROFILE>);
+  return cudaFuncGetAttributes(attr, fused_path_kernel<K, PROFILE, TREE>);
 }
 
 // The width-4 instantiations (megakernel_w4.cu).
 cudaError_t launch_w4(bool profile, const FusedArgs& a);
 cudaError_t attributes_w4(bool profile, cudaFuncAttributes* attr);
+
+// The sphere tree's instantiations over a width-8 triangle tree
+// (megakernel_tree.cu).
+cudaError_t launch_tree(bool profile, const FusedArgs& a);
+cudaError_t attributes_tree(bool profile, cudaFuncAttributes* attr);
+
+// K3-profile's per-packet aux plane after its launch (megakernel.cu).
+cudaError_t packet_bill(const int* k1_steps, const int* path_iters, int n, float* aux,
+                        cudaStream_t stream);
 
 }  // namespace mk

@@ -8,7 +8,8 @@
 // thin-lens camera ray with jitter and lens draws at bounce 0; Russian
 // roulette from min_bounces with survival min(max throughput,
 // rr_max_prob); sphere sweep against the running best (root_near <=
-// t_sph); K1 (traverse.cuh) with t_lim = t_sph; tri_wins = t_tri < t_sph;
+// t_sph), or with the sphere tree the same answer through it
+// (sphere_search); K1 (traverse.cuh) with t_lim = t_sph; tri_wins = t_tri < t_sph;
 // the four materials' scatter; emission with the quirk flag; sky on miss;
 // black at max bounce.
 #pragma once
@@ -122,6 +123,128 @@ __device__ __forceinline__ SphereHit sphere_sweep(const FusedParams& p, const Ta
     }
   }
   return s;
+}
+
+// The sphere tree (scene/types.SphereTree, utils/cudalib.SphereTreeView):
+// an 8-wide tree over the spheres' padded boxes, its leaves' spheres
+// (center, radius) and their indices in leaf order, and the sweep set, the
+// few spheres whose boxes would swallow the root (the ground), which every
+// ray tests first, in ascending index order.
+constexpr int SPHERE_STACK_CAP = 64;  // utils/cudalib.SPHERE_STACK_CAP
+struct SphereTreeView {
+  const float* bounds;   // [n, 8, 6]
+  const int* children;   // [n, 8], coded as trav::BvhView's
+  const float4* sph;     // [L] center, radius in leaf order
+  const int* ids;        // [L] sphere index of each leaf slot
+  const int* sweep;      // [n_sweep] sphere indices, ascending
+  int n_sweep;
+  // The growth of the walk's boxes for a ray from o (scene/builder
+  // .sphere_growth): g = (ga L + gb) L + gc with L = |o - c| + h.
+  float cx, cy, cz, h, ga, gb, gc;
+};
+
+// The best sphere so far: its root and index (-1 before any).
+struct SphereBest {
+  float t;
+  int id;
+};
+
+// sphere_sweep's test of sphere k against the running best, with its
+// formula and comparisons, and one more rule: an equal root goes to the
+// lower index. The sweep keeps the first of equal roots, the lowest
+// index; a walk meets the spheres in another order, and this rule gives
+// it the sweep's sphere.
+__device__ __forceinline__ void sphere_test(const FusedParams& p, float scx, float scy,
+                                            float scz, float srad, int k, const Ray& r,
+                                            float a_q, SphereBest& b) {
+  const float ocx = r.ox - scx, ocy = r.oy - scy, ocz = r.oz - scz;
+  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float c_q = ocx * ocx + ocy * ocy + ocz * ocz - srad * srad;
+  const float disc = half_b * half_b - a_q * c_q;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float root_near = (-half_b - sq) / a_q;
+  const float root_far = (-half_b + sq) / a_q;
+  const bool near_ok = (root_near >= p.t_min) && (root_near <= b.t);
+  const bool far_ok = (root_far >= p.t_min) && (root_far <= b.t);
+  const float root = near_ok ? root_near : root_far;
+  const bool valid = (disc >= 0.0f) && (near_ok || far_ok);
+  if (valid && ((root < b.t) || (root == b.t && k < b.id))) {
+    b.t = root;
+    b.id = k;
+  }
+}
+
+// The leaf test of the sphere tree's walk (trav::walk): sphere_test of
+// each sphere of the leaf's range, in order, into the best b; the walk's
+// boxes grown by g; COUNT adds the tests to *tests (K3-profile).
+template <bool COUNT>
+struct SphereLeaf {
+  static constexpr bool GROWN = true;
+  const SphereTreeView& st;
+  const FusedParams& p;
+  const Ray& r;
+  float a_q;
+  int* tests;
+  float g;
+  __device__ __forceinline__ void operator()(int lo, int cnt, SphereBest& b) const {
+    for (int k = 0; k < cnt; ++k) {
+      const float4 s = st.sph[lo + k];
+      sphere_test(p, s.x, s.y, s.z, s.w, st.ids[lo + k], r, a_q, b);
+    }
+    if constexpr (COUNT) *tests += cnt;
+  }
+};
+
+// sphere_sweep's answer through the tree: the sweep set, then the walk
+// limited by its best. Each sphere's root is sphere_sweep's, and the
+// winner is the least root with the least index among equal roots, as
+// the sweep's. The walk's boxes are the spheres' own, grown for this ray
+// by g, more than the sweep's roots can round outside a sphere from this
+// far away (scene/builder.sphere_growth), so no box is culled whose
+// sphere the sweep would take. COUNT adds the walk's steps and leaf
+// tests to *steps and *tests.
+template <bool COUNT>
+__device__ __forceinline__ SphereHit sphere_search(const FusedParams& p, const Tables& tb,
+                                                   const SphereTreeView& st, const Ray& r,
+                                                   float a_q, int* steps, int* tests) {
+  const float ex = r.ox - st.cx, ey = r.oy - st.cy, ez = r.oz - st.cz;
+  const float reach = sqrtf(ex * ex + ey * ey + ez * ez) + st.h;
+  const float g = (st.ga * reach + st.gb) * reach + st.gc;
+  SphereBest b{trav::BIG, -1};
+  for (int j = 0; j < st.n_sweep; ++j) {
+    const int k = st.sweep[j];
+    sphere_test(p, tb.sph[4 * k], tb.sph[4 * k + 1], tb.sph[4 * k + 2], tb.sph[4 * k + 3], k, r,
+                a_q, b);
+  }
+  const SphereLeaf<COUNT> leaf{st, p, r, a_q, tests, g};
+  trav::walk<8, SPHERE_STACK_CAP, COUNT>(st.bounds, st.children, r.ox, r.oy, r.oz,
+                                         1.0f / r.dx, 1.0f / r.dy, 1.0f / r.dz, p.t_min, b, leaf,
+                                         steps);
+  SphereHit s{trav::BIG, 0.0f, 0.0f, 0.0f, 1.0f, 0};
+  if (b.t < trav::BIG) {
+    const int k = b.id;
+    const float srad = tb.sph[4 * k + 3];
+    s.t = b.t;
+    s.cx = tb.sph[4 * k];
+    s.cy = tb.sph[4 * k + 1];
+    s.cz = tb.sph[4 * k + 2];
+    s.r = (srad != 0.0f) ? srad : 1.0f;
+    s.mat = tb.sph_mat[k];
+  }
+  return s;
+}
+
+// The closest sphere of a path iteration: with the tree (TREE), the
+// search; without it, the sweep over every sphere.
+template <bool TREE, bool COUNT>
+__device__ __forceinline__ SphereHit spheres(const FusedParams& p, const Tables& tb,
+                                             const SphereTreeView& st, const Ray& r, float a_q,
+                                             int* steps, int* tests) {
+  if constexpr (TREE) {
+    return sphere_search<COUNT>(p, tb, st, r, a_q, steps, tests);
+  } else {
+    return sphere_sweep(p, tb, r, a_q);
+  }
 }
 
 // The rest of a path iteration once K1 has found h within [t_min, s.t):

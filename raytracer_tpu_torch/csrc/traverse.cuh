@@ -1,6 +1,8 @@
 // K1: closest-hit traversal of one ray as a __device__ function, with a
 // counting instantiation for K3-profile, and traverse2, the walks of two
-// rays merged into one loop for K5.
+// rays merged into one loop for K5. Its walk (`walk`) takes the leaf test
+// as a template parameter: Möller–Trumbore here (TriangleLeaf), the
+// ray-sphere test for the sphere tree (path.cuh sphere_search).
 //
 // Replaces raytracer_tpu/ops/pallas_traverse.py traverse_tile (:319) with
 // hoist_invariants (:254), the body shared by the TPU's path-loop kernel
@@ -145,6 +147,15 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b, float ox, floa
   return tmax > tmin;
 }
 
+// The slab test of a child box grown by g on every side (a sphere tree's
+// walk: path.cuh sphere_search), slab's rules otherwise.
+__device__ __forceinline__ bool slab_grown(const float* __restrict__ b, float g, float ox,
+                                           float oy, float oz, float ix, float iy, float iz,
+                                           float t_min, float t_best, float& entry) {
+  const float grown[6] = {b[0] - g, b[1] - g, b[2] - g, b[3] + g, b[4] + g, b[5] + g};
+  return slab(grown, ox, oy, oz, ix, iy, iz, t_min, t_best, entry);
+}
+
 // min / max that return NaN when either operand is NaN (PTX min.NaN and
 // max.NaN, sm_80+), as torch.minimum / maximum do in the plain mirror.
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -270,11 +281,11 @@ __device__ __forceinline__ void sort_children(float (&key)[K], int (&code)[K]) {
 }
 #undef TRAV_CSWAP
 
-// One step of a ray's walk from its own stack, as traverse's loop body
+// One step of a ray's walk from its own stack, as walk's loop body
 // takes it: expand the node in `task` (nearest hit child next, the other
 // hit children pushed far to near) or test the leaf it names, then take
 // the next task. False once the walk has ended. traverse2 runs it;
-// traverse keeps the body written out: calling step there took K3 from 64
+// walk keeps the body written out: calling step there took K3 from 64
 // to 68 registers (ptxas, sm_90a) and its 2K spp8 mb20 kernel from 46.27
 // to 47.39 ms, median of 10 in alternating turns with non-overlapping
 // ranges (NVIDIA H100 80GB HBM3, 700 W). K4 went from 54 to 50 registers
@@ -323,6 +334,82 @@ __device__ __forceinline__ bool step(const BvhView& bvh, float ox, float oy, flo
   return true;
 }
 
+// The leaf test of K1's walk over the triangle tree: Möller–Trumbore of
+// each record of the leaf's range, in order, into h.
+struct TriangleLeaf {
+  static constexpr bool GROWN = false;  // the walk's boxes as the tree holds them
+  const BvhView& bvh;
+  float ox, oy, oz, dx, dy, dz, t_min;
+  __device__ __forceinline__ void operator()(int lo, int cnt, Hit& h) const {
+    for (int k = 0; k < cnt; ++k)
+      mt_record(bvh.tri + 9 * static_cast<size_t>(lo + k), bvh.prim[lo + k], bvh.fmat[lo + k],
+                ox, oy, oz, dx, dy, dz, t_min, h);
+  }
+};
+
+// K1's walk of one ray over a K-wide tree (bounds [n, K, 6], children
+// [n, K] coded as in BvhView) from a per-thread stack of CAP entries,
+// nearest child first: expand the node (the hit children sorted by entry
+// distance, the nearest next, the others pushed far to near) or run
+// `leaf(lo, cnt, h)` on the leaf range, then take the next task. The leaf
+// test updates the running best h, whose t bounds the slab tests, and
+// says whether the boxes are grown by its `g` (Leaf::GROWN): TriangleLeaf
+// for the triangle tree (traverse), path.cuh's SphereLeaf for the sphere
+// tree. COUNT adds to *iters the steps the walk takes, one node expansion
+// or one leaf each. h is a parameter of its own, not a member of the leaf
+// test: so K3, K3-profile and K4 compile to the SASS they had before the
+// walk was shared, instruction for instruction (sm_90a, nvcc 12.8).
+template <int K, int CAP, bool COUNT, class Best, class Leaf>
+__device__ __forceinline__ void walk(const float* bounds, const int* children, float ox,
+                                     float oy, float oz, float ix, float iy, float iz,
+                                     float t_min, Best& h, const Leaf& leaf, int* iters) {
+  int stack[CAP];
+  int sp = 0;
+  int task = 0;  // the root
+  while (true) {
+    if constexpr (COUNT) ++*iters;
+    int next = NONE;
+    if (task >= 0) {
+      const float* nb = bounds + static_cast<size_t>(task) * (K * 6);
+      const int* nc = children + static_cast<size_t>(task) * K;
+      float key[K];
+      int code[K];
+      int nhit = 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c = nc[k];
+        float entry = 0.0f;
+        bool valid;
+        if constexpr (Leaf::GROWN) {
+          valid = slab_grown(nb + 6 * k, leaf.g, ox, oy, oz, ix, iy, iz, t_min, h.t, entry);
+        } else {
+          valid = slab(nb + 6 * k, ox, oy, oz, ix, iy, iz, t_min, h.t, entry);
+        }
+        valid = valid && c != NONE;
+        key[k] = valid ? entry : BIG;
+        code[k] = c;
+        nhit += valid ? 1 : 0;
+      }
+      sort_children<K>(key, code);
+      if (nhit > 0) next = code[0];
+      // Push the other hit children far to near, so the nearest pops first.
+#pragma unroll
+      for (int k = K - 1; k >= 1; --k)
+        if (k < nhit && sp < CAP) stack[sp++] = code[k];
+    } else {
+      const int c = -task - 2;
+      const int lo = c >> 3;
+      const int cnt = (c & 7) + 1;
+      leaf(lo, cnt, h);
+    }
+    if (next == NONE) {
+      if (sp == 0) break;
+      next = stack[--sp];
+    }
+    task = next;
+  }
+}
+
 // COUNT (K3-profile) adds to *iters the number of steps the walk takes:
 // one node expansion or one leaf each, 0 for a dead ray and for the brute
 // pre-pass. It is the per-thread counterpart of traverse_tile(profile=True)'s
@@ -339,49 +426,9 @@ __device__ inline Hit traverse(const BvhView& bvh, float ox, float oy, float oz,
 
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   brute_prepass(bvh, ox, oy, oz, dx, dy, dz, ix, iy, iz, t_lim, t_min, h);
-
-  int stack[STACK_CAP];
-  int sp = 0;
-  int task = 0;  // the root
-  while (true) {
-    if constexpr (COUNT) ++*iters;
-    int next = NONE;
-    if (task >= 0) {
-      const float* nb = bvh.bounds + static_cast<size_t>(task) * (K * 6);
-      const int* nc = bvh.children + static_cast<size_t>(task) * K;
-      float key[K];
-      int code[K];
-      int nhit = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int c = nc[k];
-        float entry = 0.0f;
-        const bool valid = slab(nb + 6 * k, ox, oy, oz, ix, iy, iz, t_min, h.t, entry) &&
-                           c != NONE;
-        key[k] = valid ? entry : BIG;
-        code[k] = c;
-        nhit += valid ? 1 : 0;
-      }
-      sort_children<K>(key, code);
-      if (nhit > 0) next = code[0];
-      // Push the other hit children far to near, so the nearest pops first.
-#pragma unroll
-      for (int k = K - 1; k >= 1; --k)
-        if (k < nhit && sp < STACK_CAP) stack[sp++] = code[k];
-    } else {
-      const int c = -task - 2;
-      const int lo = c >> 3;
-      const int cnt = (c & 7) + 1;
-      for (int k = 0; k < cnt; ++k)
-        mt_record(bvh.tri + 9 * static_cast<size_t>(lo + k), bvh.prim[lo + k], bvh.fmat[lo + k],
-                  ox, oy, oz, dx, dy, dz, t_min, h);
-    }
-    if (next == NONE) {
-      if (sp == 0) break;
-      next = stack[--sp];
-    }
-    task = next;
-  }
+  const TriangleLeaf leaf{bvh, ox, oy, oz, dx, dy, dz, t_min};
+  walk<K, STACK_CAP, COUNT>(bvh.bounds, bvh.children, ox, oy, oz, ix, iy, iz, t_min, h, leaf,
+                            iters);
   return h;
 }
 

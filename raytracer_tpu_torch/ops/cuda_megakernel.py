@@ -14,6 +14,14 @@ plane that `schedule.build_schedule` reads. On CPU tensors it runs
 per lane, and the profile counts are integers the plain loop counts the
 same way.
 
+A scene with a sphere tree (`Scene.sphere_tree`, scene/builder
+.build_sphere_tree) launches the kernels' TREE instantiations, which find
+each ray's sphere through the tree (csrc/path.cuh sphere_search) with the
+sweep's answer; a scene of more than MAX_SPHERES spheres needs one. The
+plain version keeps the sweep over every sphere, which defines the
+answer (K3-profile's sphere-tree counts come from the tree's plain walk,
+ops/sphere.closest_sphere_tree).
+
 `_render_plain` is the TPU kernel's lane-stable loop restated over
 tensors: all pending lanes advance one bounce per step, a lane that
 ends a sample claims its next sample on the following step, and every
@@ -35,19 +43,21 @@ import torch
 from raytracer_tpu_torch.camera import camera_basis
 from raytracer_tpu_torch.ops.cuda_traverse import _traverse_plain
 from raytracer_tpu_torch.ops.materials import lookup_params, scatter_fused
-from raytracer_tpu_torch.ops.sphere import BIG, intersect_spheres
+from raytracer_tpu_torch.ops.sphere import BIG, closest_sphere_tree, intersect_spheres
 from raytracer_tpu_torch.scene.types import DIFFUSE_LIGHT
 from raytracer_tpu_torch.utils import cudalib, ktf, profiling
 
 MAX_SPHERES = cudalib.MAX_SPHERES
-MAX_MATERIALS = cudalib.MAX_MATERIALS
 PACKET = 1024          # lanes per "packet" in host_chunk_packets units
 WARP = 32
 KERNEL_BLOCK = 128     # threads per block of K3, K3-profile and K5
 KERNEL_CHUNK = 64      # lanes a block of K3, K3-profile or K5 takes from the lane list at a time
 SKY_TOP = (0.5, 0.7, 1.0)
-# Launches counted by the wrapper: K3, K5 (G = 2) and K3-profile.
-LAUNCHES = profiling.group("launch", ("render_fused", "render_fused_g2", "render_fused_profile"))
+# Launches counted by the wrapper: K3, K5 (G = 2) and K3-profile, and their
+# instantiations with the sphere tree.
+LAUNCHES = profiling.group("launch", ("render_fused", "render_fused_g2", "render_fused_profile",
+                                      "render_fused_tree", "render_fused_g2_tree",
+                                      "render_fused_profile_tree"))
 PLAIN_CALLS = profiling.group("plain", ("render_plain",))   # calls of the plain path loop
 
 
@@ -64,14 +74,32 @@ def _default_interleave() -> int:
     return _check_interleave(int(os.environ.get("RAYTRACER_TPU_INTERLEAVE", "1")))
 
 
+def fused_unavailable(scene) -> str | None:
+    """Why the fused path loop cannot render this scene, or None when it
+    can: it needs a triangle tree of a width the kernels are built for (4
+    or 8; a scene of spheres alone has the empty mesh's degenerate tree),
+    and above MAX_SPHERES spheres the sphere tree, which the kernels walk
+    over a width-8 triangle tree. Materials are read from a table in
+    global memory, any number of them."""
+    if scene.bvh4 is None or scene.bvh4.face_mat is None:
+        return "the fused path loop needs the scene's triangle tree (scene.bvh4 with face_mat)"
+    width = int(scene.bvh4.children.shape[1])
+    if width not in cudalib.BVH_WIDTHS:
+        return f"the fused path loop is built for tree widths {cudalib.BVH_WIDTHS}, not {width}"
+    tree = scene.sphere_tree
+    if tree is None and scene.spheres.count > MAX_SPHERES:
+        return (f"{scene.spheres.count} spheres: the fused path loop sweeps at most "
+                f"{MAX_SPHERES} and finds more through their sphere tree; attach "
+                "scene/builder.build_sphere_tree(scene.spheres) as scene.sphere_tree")
+    if tree is not None and width != 8:
+        return "the sphere tree's kernels take a width-8 triangle tree"
+    return None
+
+
 def fused_megakernel_available(scene) -> bool:
-    """True when the fused path loop can render this scene: a tree of a
-    width the kernels are built for (4 or 8) within their budgets."""
-    return (scene.bvh4 is not None
-            and scene.bvh4.face_mat is not None
-            and int(scene.bvh4.children.shape[1]) in cudalib.BVH_WIDTHS
-            and scene.spheres.count <= MAX_SPHERES
-            and scene.materials.count <= MAX_MATERIALS)
+    """True when the fused path loop can render this scene
+    (fused_unavailable gives the reason when not)."""
+    return fused_unavailable(scene) is None
 
 
 def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff, profile=False):
@@ -80,6 +108,7 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff, profile=F
     each lane's K1 steps and path iterations, i32[N] each (a path
     iteration per step the lane is pending, a roulette kill included)."""
     PLAIN_CALLS.count("render_plain")
+    tree = scene.sphere_tree if profile else None
     n = pix.shape[0]
     dev = pix.device
     ll, hor, ver = basis["lower_left"], basis["horizontal"], basis["vertical"]
@@ -97,6 +126,8 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff, profile=F
     active = torch.zeros((n,), dtype=torch.bool, device=dev)
     k1_steps = torch.zeros((n,), dtype=torch.int32, device=dev)
     path_iters = torch.zeros((n,), dtype=torch.int32, device=dev)
+    sph_steps = torch.zeros((n,), dtype=torch.int32, device=dev)
+    sph_tests = torch.zeros((n,), dtype=torch.int32, device=dev)
 
     while True:
         lanes = torch.nonzero(active | (sample < spp)).squeeze(1)
@@ -139,6 +170,12 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff, profile=F
         # Sphere sweep, then K1 within [t_min, t_sph).
         ol, dl = o[lanes], d[lanes]
         t_sph, sid = intersect_spheres(ol, dl, spheres.center, spheres.radius, t_min, BIG)
+        if tree is not None:
+            # K3-profile's sphere-tree counts: the tree's walk, where the
+            # kernel runs it (lanes that roulette kept).
+            _, _, ss, st = closest_sphere_tree(ol, dl, spheres, tree, t_min, count=True)
+            sph_steps[lanes] += torch.where(survived, ss, torch.zeros_like(ss))
+            sph_tests[lanes] += torch.where(survived, st, torch.zeros_like(st))
         t_lim = torch.where(survived, t_sph, torch.full_like(t_sph, -1.0))
         t_tri, _, mat_tri, ng, *steps = _traverse_plain(ol, dl, bvh, t_lim, t_min, count=profile)
         if profile:
@@ -187,7 +224,7 @@ def _render_plain(scene, basis, cfg, k0, k1, pix, pxf, pyf, spp, soff, profile=F
         bounce[lanes] = torch.where(cont, b + 1, b)
         active[lanes] = cont
     if profile:
-        return acc, k1_steps, path_iters
+        return (acc, k1_steps, path_iters) + ((sph_steps, sph_tests) if tree is not None else ())
     return acc
 
 
@@ -209,9 +246,6 @@ def _pack_tables(scene):
     """Spheres → f32[S,4] (center, radius) + i32[S]; materials →
     f32[M,8] (albedo, emission, roughness, ior) + i32[M] types."""
     s, m = scene.spheres, scene.materials
-    if s.count > MAX_SPHERES or m.count > MAX_MATERIALS:
-        raise ValueError(f"fused kernel budgets: {s.count} spheres (max {MAX_SPHERES}), "
-                         f"{m.count} materials (max {MAX_MATERIALS})")
     sph = torch.cat([s.center, s.radius[:, None]], dim=1).contiguous()
     mat = torch.cat([m.albedo, m.emission, m.roughness[:, None], m.ior[:, None]], dim=1)
     return sph, s.mat_id.contiguous(), mat.contiguous(), m.type.contiguous()
@@ -220,9 +254,12 @@ def _pack_tables(scene):
 def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, chunk, kind):
     """Launch K3 (kind "k3"), K5 ("g2") or K3-profile ("profile") over the
     lanes: radiance SUM f32[N,3]; K3-profile also cost f32[N], aux f32[N]
-    and the lane K1 steps and path iterations, i32[N] each. K3 and
+    and the lane K1 steps and path iterations, i32[N] each, and with the
+    sphere tree the lane sphere-tree steps and sphere tests. K3 and
     K3-profile take the lanes `chunk` at a time through a counter on the
-    card that starts at 0; so does K5, two lanes per thread."""
+    card that starts at 0; so does K5, two lanes per thread. A scene with
+    `sphere_tree` launches the TREE instantiations; one without sweeps
+    every sphere, however many (the budget is _render's)."""
     n = pix.shape[0]
     # The int32 counter passes n by at most one chunk per block (< 2**13
     # blocks: 32 per SM).
@@ -259,34 +296,51 @@ def _render_cuda(scene, basis, cfg, k0, k1, pix, pxi, pyi, spp, soff, block, chu
     args = (prm, view, pix.data_ptr(), pxi.data_ptr(), pyi.data_ptr(), sph.data_ptr(),
             sph_mat.data_ptr(), mat.data_ptr(), mat_type.data_ptr(), n, out.data_ptr())
     L = cudalib.lib()
+    # The TREE instantiations take the tree's view last (K3-profile's also
+    # the lane sphere-tree counts): entry points and launch keys "*_tree".
+    tree = None if scene.sphere_tree is None else cudalib.sphere_tree_view(scene.sphere_tree)
+    suffix, extra = ("", ()) if tree is None else ("_tree", (ctypes.byref(tree),))
+    stream = cudalib.stream_handle()
     if kind == "profile":
         cost = torch.full((n,), float("nan"), dtype=torch.float32, device=dev)
         aux = torch.full((n,), float("nan"), dtype=torch.float32, device=dev)
-        scratch = torch.full((2, n), -1, dtype=torch.int32, device=dev)
-        code = L.rt_render_fused_profile(*args, cost.data_ptr(), scratch[0].data_ptr(),
-                                         scratch[1].data_ptr(), aux.data_ptr(), block, chunk,
-                                         lane_list.data_ptr(), cudalib.stream_handle())
+        scratch = torch.full((2 if tree is None else 4, n), -1, dtype=torch.int32, device=dev)
+        code = getattr(L, "rt_render_fused_profile" + suffix)(
+            *args, cost.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), aux.data_ptr(),
+            block, chunk, lane_list.data_ptr(), stream, *extra,
+            *(c.data_ptr() for c in scratch[2:]))
         cudalib.check(code, "fused path-loop kernel (profile)")
-        LAUNCHES.count("render_fused_profile")
-        return out, cost, aux, scratch[0], scratch[1]
+        LAUNCHES.count("render_fused_profile" + suffix)
+        return (out, cost, aux, *scratch)
     if kind == "g2":
-        code = L.rt_render_fused_g2(*args, block, chunk, lane_list.data_ptr(),
-                                    cudalib.stream_handle())
+        code = getattr(L, "rt_render_fused_g2" + suffix)(*args, block, chunk,
+                                                          lane_list.data_ptr(), stream, *extra)
         cudalib.check(code, "fused path-loop kernel (G=2)")
-        LAUNCHES.count("render_fused_g2")
+        LAUNCHES.count("render_fused_g2" + suffix)
         return out
-    code = L.rt_render_fused(*args, block, chunk, lane_list.data_ptr(), cudalib.stream_handle())
+    code = getattr(L, "rt_render_fused" + suffix)(*args, block, chunk, lane_list.data_ptr(),
+                                                   stream, *extra)
     cudalib.check(code, "fused path-loop kernel")
-    LAUNCHES.count("render_fused")
+    LAUNCHES.count("render_fused" + suffix)
     return out
 
 
-def kernel_resources() -> dict:
+def kernel_resources(sphere_tree: bool = False) -> dict:
     """{kernel: (registers per thread, local memory bytes per thread)} of
     K3, K3-profile and K5 on the card (cudaFuncGetAttributes), for each
-    tree width: "K3" etc. at width 8, "K3/w4" etc. at width 4."""
+    tree width: "K3" etc. at width 8, "K3/w4" etc. at width 4; with
+    `sphere_tree`, their TREE instantiations (width 8 alone) under the
+    same names."""
     L = cudalib.lib()
     out = {}
+    if sphere_tree:
+        for name, call in (("K3", lambda r, b: L.rt_render_fused_tree_attrs(0, r, b)),
+                           ("K3-profile", lambda r, b: L.rt_render_fused_tree_attrs(1, r, b)),
+                           ("K5", L.rt_render_fused_g2_tree_attrs)):
+            regs, local = ctypes.c_int(0), ctypes.c_int(0)
+            cudalib.check(call(ctypes.byref(regs), ctypes.byref(local)), f"{name} (tree) attributes")
+            out[name] = (regs.value, local.value)
+        return out
     for width in cudalib.BVH_WIDTHS[::-1]:
         tag = "" if width == 8 else f"/w{width}"
         for name, call in (("K3", lambda w, r, b: L.rt_render_fused_attrs(w, 0, r, b)),
@@ -302,10 +356,9 @@ def kernel_resources() -> dict:
 def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packets, block,
             use_kernel: bool, profile: bool, interleave, lane_counts: bool = False,
             chunk: int = KERNEL_CHUNK):
-    if not fused_megakernel_available(scene):
-        raise ValueError(f"the fused path loop needs a bvh4 scene of width {cudalib.BVH_WIDTHS} "
-                         f"within the kernel's budgets ({MAX_SPHERES} spheres, "
-                         f"{MAX_MATERIALS} materials)")
+    why = fused_unavailable(scene)
+    if why is not None:
+        raise ValueError(why)
     g = _default_interleave() if interleave is None else _check_interleave(int(interleave))
     n = px.shape[0]
     if profile and g != 1:
@@ -338,9 +391,9 @@ def _render(scene, cam, cfg, seed, px, py, spp, sample_offset, host_chunk_packet
                                 spp, sample_offset, profile=profile)
             if not profile:
                 return res
-            acc, k1_steps, path_iters = res
+            acc, k1_steps, path_iters, *spheres = res
             return (acc, (k1_steps + path_iters).to(torch.float32),
-                    _packet_bill(k1_steps, path_iters), k1_steps, path_iters)
+                    _packet_bill(k1_steps, path_iters), k1_steps, path_iters, *spheres)
 
     step = n if not host_chunk_packets else int(host_chunk_packets) * PACKET
     parts = [run(lo, min(lo + step, n)) for lo in range(0, n, max(step, 1))]
@@ -368,7 +421,8 @@ def render_tiles_fused(scene, cam, cfg, seed: int, px, py, spp=None, sample_offs
     of the warp's largest lane total of K1 steps) and the outer path
     iterations (row 1: the largest lane iteration count). `lane_counts`
     adds the counts they are made of: the lane K1 steps and path
-    iterations, i32[N] each.
+    iterations, i32[N] each, and for a scene with a sphere tree each
+    lane's sphere-tree steps and sphere tests in its walk.
 
     `sample_offset` shifts the sample index of every draw, so passes of
     a split spp give the samples a single pass would. `host_chunk_packets`

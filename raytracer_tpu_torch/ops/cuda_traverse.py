@@ -229,17 +229,39 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float, count: bool = False):
                     bvh.brute_prim[None].expand(m, tb), bvh.brute_mat[None].expand(m, tb),
                     torch.ones((m, tb), dtype=torch.bool, device=dev))
 
-    k_w = bvh.children.shape[1]
-    cap = bvh.stack_depth + 4
-    inv_d = 1.0 / d
+    slot = torch.arange(8, device=dev)
+
+    def tri_leaf(rl, lo, cnt):
+        idx = (lo[:, None] + slot[None, :]).clamp(max=bvh.tri.shape[0] - 1)
+        leaf_update(rl, bvh.tri[idx], bvh.prim_index[idx], bvh.face_mat[idx],
+                    slot[None, :] < cnt[:, None])
+
+    walk_plain(o, 1.0 / d, bvh.bounds, bvh.children, bvh.stack_depth + 4, t_best, live, t_min,
+               tri_leaf, steps if count else None)
+    return out
+
+
+def walk_plain(o, inv_d, bounds, children, cap: int, t_best, rays, t_min: float, leaf,
+               steps=None, grow=None):
+    """Plain version of K1's walk (csrc/traverse.cuh `walk`) for the rays
+    `rays` (indices into o / inv_d f32[N,3]) over a K-wide tree (bounds
+    [n, K, 6], children [n, K], coded as ops/bvh4's), all live rays one
+    node or leaf per step: a node's hit children (slab tests against
+    t_best, which the leaf test updates in place) ordered by
+    ops/bvh4.sort_by_key, the nearest next, the others pushed far to near
+    on a per-ray stack of `cap` entries; a leaf range is handed to
+    `leaf(rays, lo, cnt)`. `steps` (i32[N]), where given, counts each
+    ray's steps; `grow` (f32[N]), where given, grows every box by the
+    ray's own margin (csrc/traverse.cuh slab_grown)."""
+    n = o.shape[0]
+    dev = o.device
+    k_w = children.shape[1]
     stack = torch.zeros((n, cap), dtype=torch.int32, device=dev)
     sp = torch.zeros((n,), dtype=torch.int64, device=dev)
     task = torch.zeros((n,), dtype=torch.int32, device=dev)
-    rays = live
-    slot = torch.arange(8, device=dev)
     kk = torch.arange(k_w, device=dev)
     while rays.numel():
-        if count:
+        if steps is not None:
             steps[rays] += 1
         tk = task[rays]
         nxt = torch.full_like(tk, NONE)
@@ -248,11 +270,15 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float, count: bool = False):
         if bool(inner.any()):
             ri = rays[inner]
             node = tk[inner].long()
-            b = bvh.bounds[node]                                  # [m,K,6]
-            ch = bvh.children[node]                               # [m,K]
+            b = bounds[node]                                      # [m,K,6]
+            ch = children[node]                                   # [m,K]
             oo, ii = o[ri, None, :], inv_d[ri, None, :]
-            t0 = (b[..., 0:3] - oo) * ii
-            t1 = (b[..., 3:6] - oo) * ii
+            lo, hi = b[..., 0:3], b[..., 3:6]
+            if grow is not None:
+                g = grow[ri, None, None]
+                lo, hi = lo - g, hi + g
+            t0 = (lo - oo) * ii
+            t1 = (hi - oo) * ii
             lo3, hi3 = torch.minimum(t0, t1), torch.maximum(t0, t1)
             # torch.minimum/maximum propagate NaN (0*inf), so such a box
             # compares as a miss, as in the reference and the kernel.
@@ -272,15 +298,10 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float, count: bool = False):
             stack[ri[pr], pos[pr, pk].clamp(max=cap - 1)] = codes[pr, pk]
             sp[ri] = sp[ri] + torch.clamp_min(nhit - 1, 0)
 
-        leaf = ~inner
-        if bool(leaf.any()):
-            rl = rays[leaf]
-            code = (-tk[leaf] - 2).long()
-            lo = code // 8
-            cnt = code % 8 + 1
-            idx = (lo[:, None] + slot[None, :]).clamp(max=bvh.tri.shape[0] - 1)
-            leaf_update(rl, bvh.tri[idx], bvh.prim_index[idx], bvh.face_mat[idx],
-                        slot[None, :] < cnt[:, None])
+        at_leaf = ~inner
+        if bool(at_leaf.any()):
+            code = (-tk[at_leaf] - 2).long()
+            leaf(rays[at_leaf], code // 8, code % 8 + 1)
 
         pop = (nxt == NONE) & (sp[rays] > 0)
         rp = rays[pop]
@@ -288,7 +309,6 @@ def _traverse_plain(o, d, bvh, t_lim, t_min: float, count: bool = False):
         nxt[pop] = stack[rp, sp[rp]]
         task[rays] = nxt
         rays = rays[nxt != NONE]
-    return out
 
 
 def _finish(t_best, best, mat, nrm):

@@ -328,16 +328,20 @@ def render_image_fused_sharded(scene, cam, cfg, seed: int, mesh: Mesh | None = N
     pass, lanes in 8x128 screen tiles, the packets dealt round-robin
     (`interleave`). Each shard takes a whole number of 1024-lane
     packets. Bit for bit models/fused.render_image_fused (the kernels
-    work per lane, so the lane order does not change a pixel)."""
-    from raytracer_tpu_torch.models.fused import fused_available, fused_lanes
+    work per lane, so the lane order does not change a pixel). A scene's
+    sphere tree goes to every shard with it: the shards take the route
+    models/fused does."""
+    from raytracer_tpu_torch.models.fused import fused_lanes
+    from raytracer_tpu_torch.ops.cuda_megakernel import fused_unavailable
     from raytracer_tpu_torch.schedule import _tiled_pixel_grid
 
     mesh = make_mesh() if mesh is None else mesh
     g = _tiled_pixel_grid(cfg)[0].shape[0] // PACKET
     if g % mesh.size:
         raise ValueError(f"packet count {g} not divisible by mesh size {mesh.size}")
-    if not fused_available(scene, cfg):
-        raise ValueError("scene exceeds the fused-kernel budgets (see ops/cuda_megakernel.py)")
+    why = fused_unavailable(scene)
+    if why is not None:
+        raise ValueError(why)
     px, py, unperm, inv = _tiled_lanes(cfg, mesh, interleave)
     parts = _per_shard(_shard_lanes(mesh, scene, px, py), lambda s, sc, x, y: fused_lanes(
         sc, cam, cfg, seed, x, y, spp, interleave=kernel_interleave))

@@ -8,6 +8,10 @@ kernel (CUDAKernels.h:56-84): loaded meshes + a ground sphere
 scenes are host-side constructors returning tensor dataclasses on the
 CPU; `Scene.to(device)` moves them.
 
+`build_sphere_tree` builds the fused path loop's sphere tree (the
+reference's scene-level BVH over its objects, Core/BVHNode.cuh:21-84),
+which a scene of more than 16 spheres needs on the fused path.
+
 As in the JAX module, missing asset files are generated
 (scene/assets.ensure_assets; the default directory is the repository's
 assets/models, where they are committed), and when the native BVH
@@ -41,8 +45,10 @@ from raytracer_tpu_torch.scene.types import (
     Materials,
     Scene,
     Spheres,
+    SphereTree,
     TriMesh,
 )
+from raytracer_tpu_torch.utils import profiling
 
 # The reference's hardcoded extras (CUDAKernels.h:69-73).
 GROUND_SPHERE = dict(center=(0.0, -1000.0, 0.0), radius=999.0, albedo=(0.5, 0.5, 0.5))
@@ -50,6 +56,7 @@ MIRROR_SPHERE = dict(center=(0.2, 0.2, 0.0), radius=0.05, albedo=(0.7, 0.6, 0.5)
 BVH_WIDTH = 8  # default tree width; RAYTRACER_TPU_BVH_WIDTH overrides it
 ASSETS_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
                                           "assets", "models"))
+MAX_SWEEP = 16  # spheres the sphere tree leaves to the sweep (csrc/path.cuh sphere_search)
 
 
 @contextlib.contextmanager
@@ -210,6 +217,18 @@ def partition_brute_faces(mesh: TriMesh, area_ratio: float = 100.0,
     return big.astype(np.int64), all_ids[keep]
 
 
+def _bvh4(mesh: TriMesh, caller: str):
+    """The native binned-SAH BVH4 over `mesh`, or where the native builder
+    raises `NativeUnavailable`, build_bvh4 of its LBVH, with a warning
+    that names `caller`."""
+    try:
+        return native.build_bvh4_native(mesh)
+    except native.NativeUnavailable as e:
+        warnings.warn(f"{caller}: the native builder is unavailable ({e}); "
+                      "building the LBVH and collapsing it instead")
+        return build_bvh4(mesh, build_lbvh(mesh))
+
+
 def build_scene_bvh4(mesh: TriMesh):
     """Native binned-SAH BVH4 (native/scenekit.cpp) over the dense-mesh
     faces, widened to RAYTRACER_TPU_BVH_WIDTH (8 by default) as the JAX
@@ -228,12 +247,7 @@ def build_scene_bvh4(mesh: TriMesh):
                       face_mat=mesh.face_mat[torch.from_numpy(tree_ids)])
     else:
         sub = mesh
-    try:
-        b4 = native.build_bvh4_native(sub)
-    except native.NativeUnavailable as e:
-        warnings.warn(f"build_scene_bvh4: the native builder is unavailable ({e}); "
-                      "building the LBVH and collapsing it instead")
-        b4 = build_bvh4(sub, build_lbvh(sub))
+    b4 = _bvh4(sub, "build_scene_bvh4")
     width = int(os.environ.get("RAYTRACER_TPU_BVH_WIDTH", str(BVH_WIDTH)))
     if width > 4:
         b4 = widen_bvh(b4, width)
@@ -298,3 +312,96 @@ def cornell_materials_scene(assets_dir: str | None = None, build_bvh: bool = Tru
     if build_bvh:
         scene = scene.replace(bvh4=build_scene_bvh4(scene.mesh))
     return scene
+
+
+def partition_sweep_spheres(radius: np.ndarray):
+    """partition_brute_faces's rule applied to spheres: the spheres whose
+    box dwarfs the median sphere's (a radius above 10 times the median's,
+    so a box area above 100 times, as the faces' area ratio) are swept by
+    every ray instead of swallowing the tree's root box; at most
+    MAX_SWEEP of them, and at least one sphere stays in the tree, else
+    none is split off. Returns (sweep ids, tree ids), int64 arrays of
+    sphere indices, ascending."""
+    r = np.abs(np.asarray(radius, np.float64))
+    ids = np.arange(r.shape[0], dtype=np.int64)
+    big = r > 10.0 * max(float(np.median(r)), 1e-30)
+    if not big.any() or big.sum() > MAX_SWEEP or big.all():
+        return ids[:0], ids
+    return ids[big], ids[~big]
+
+
+def sphere_boxes(center: np.ndarray, radius: np.ndarray) -> np.ndarray:
+    """The spheres' boxes f32[S, 6] (lo xyz, hi xyz), c -/+ |r| rounded
+    outward to float32: the tree's leaves. The walk grows them for each
+    ray (sphere_growth)."""
+    c = np.asarray(center, np.float64).reshape(-1, 3)
+    r = np.abs(np.asarray(radius, np.float64))[:, None]
+    lo64, hi64 = c - r, c + r
+    lo32, hi32 = lo64.astype(np.float32), hi64.astype(np.float32)
+    lo32 = np.where(lo32 > lo64, np.nextafter(lo32, np.float32(-np.inf)), lo32)
+    hi32 = np.where(hi32 < hi64, np.nextafter(hi32, np.float32(np.inf)), hi32)
+    return np.concatenate([lo32, hi32], axis=1)
+
+
+EPS32 = 2.0 ** -24  # float32's unit roundoff
+
+
+def sphere_growth(center: np.ndarray, radius: np.ndarray) -> tuple:
+    """(cx, cy, cz, h, ga, gb, gc): the walk grows every box of the tree by
+    g = (ga L + gb) L + gc for a ray from o, L = |o - c| + h, c the
+    centre of the spheres' boxes and h the farthest sphere centre from it,
+    so L >= |o - c_i| for every sphere i of the tree.
+
+    Why: the sweep's root of a ray with |o - c_i| = L rounds its
+    discriminant by at most ~15 eps |d|^2 L^2, so the point of its root
+    (a grazing hit, or a miss the sweep takes by a rounding) lies within
+    |r| + 7.6 eps L^2 / |r| + 8 eps L + 4 eps |r| of the centre; the slab
+    test and the grown bounds round by 3 eps (L + |r| + g) + eps |c_i| more.
+    g is twice 10 eps L^2 / r_min + 12 eps L + 4 eps (|c| + h + 2 r_max),
+    so the walk visits every box whose sphere the sweep takes, its ties
+    included, from any origin: a few thousandths of a unit at the RTIOW
+    scene's camera, more for rays from far on its ground."""
+    c = np.asarray(center, np.float64).reshape(-1, 3)
+    r = np.abs(np.asarray(radius, np.float64))
+    mid = 0.5 * ((c - r[:, None]).min(axis=0) + (c + r[:, None]).max(axis=0))
+    h = float(np.linalg.norm(c - mid, axis=1).max())
+    r_min = max(float(r.min()), 1e-6 * (h + 1.0))
+    r_max = float(r.max())
+    ga, gb = 2.0 * 10.0 * EPS32 / r_min, 2.0 * 12.0 * EPS32
+    gc = 2.0 * 4.0 * EPS32 * (float(np.linalg.norm(mid)) + h + 2.0 * r_max)
+    return (float(mid[0]), float(mid[1]), float(mid[2]), h, ga, gb, gc)
+
+
+def build_sphere_tree(spheres: Spheres) -> SphereTree:
+    """The fused path loop's sphere tree over `spheres` (any device; the
+    tree comes back on the CPU). partition_sweep_spheres splits off the
+    sweep set. The native binned-SAH builder (scene/native.build_bvh4_native,
+    the triangle builder) builds a 4-wide tree over the rest, each sphere
+    given as the one triangle (lo, hi, (lo + hi) / 2) of its box
+    (sphere_boxes): that triangle's box is the sphere's, and its centroid
+    the box's centre, to a rounding. Its leaves are aligned to rows of 8 slots, and
+    ops/bvh4.widen_bvh widens it to 8. Where the native builder is
+    unavailable, the LBVH collapsed by build_bvh4 builds it instead, as in
+    build_scene_bvh4. Span `rt.scene.sphere_tree`; counter
+    `sphere_tree.nodes`, the tree's node count."""
+    with profiling.span("rt.scene.sphere_tree"):
+        c = spheres.center.detach().cpu().numpy().astype(np.float32)
+        r = spheres.radius.detach().cpu().numpy().astype(np.float32)
+        sweep, rest = partition_sweep_spheres(r)
+        box = sphere_boxes(c[rest], r[rest])
+        lo, hi = box[:, :3], box[:, 3:]
+        verts = np.stack([lo, hi, 0.5 * (lo + hi)], axis=1).reshape(-1, 3)
+        n = rest.shape[0]
+        mesh = TriMesh(vertices=torch.from_numpy(verts),
+                       faces=torch.arange(3 * n, dtype=torch.int32).reshape(n, 3),
+                       face_mat=torch.zeros((n,), dtype=torch.int32))
+        wide = widen_bvh(_bvh4(mesh, "build_sphere_tree"), 8)
+        slot = wide.prim_index.numpy()
+        ids = np.where(slot >= 0, rest[np.maximum(slot, 0)], -1).astype(np.int32)
+        rec = np.concatenate([c[ids], r[ids, None]], axis=1)
+        rec[slot < 0] = 0.0
+        tree = SphereTree(bounds=wide.bounds, children=wide.children, sph=torch.from_numpy(rec),
+                          ids=torch.from_numpy(ids), sweep=torch.from_numpy(sweep.astype(np.int32)),
+                          stack_depth=wide.stack_depth, grow=sphere_growth(c[rest], r[rest]))
+        profiling.count("sphere_tree.nodes", tree.nodes)
+    return tree

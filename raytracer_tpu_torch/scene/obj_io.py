@@ -244,8 +244,12 @@ def load_scene_objs(filenames: list[str]):
     """Load + consolidate a list of OBJ files (SceneManager::initMeshes).
 
     Returns (TriMesh merged soup with *global* face material ids,
-    Materials table from all files' inferred materials).
+    Materials table from all files' inferred materials). No file gives
+    the empty mesh (TriMesh.empty's degenerate triangle, which no ray
+    hits) and no material: a scene of spheres alone.
     """
+    if not filenames:
+        return TriMesh.empty(), Materials.from_lists(types=[], albedos=np.zeros((0, 3)))
     global_mats: list[MaterialData] = []
     meshes: list[MeshData] = []
     for fn in filenames:

@@ -2,8 +2,9 @@
 
 Frozen dataclasses of tensors: a material table, a sphere list and one
 merged triangle soup, plus the BVH8 (ops/bvh4.Bvh4), or the binary LBVH
-(Bvh, ops/bvh.build_lbvh) of a scene that holds only that, and the
-fitted light rectangle of the differentiable path. `.to(device)` moves
+(Bvh, ops/bvh.build_lbvh) of a scene that holds only that, the fitted
+light rectangle of the differentiable path, and the sphere tree
+(SphereTree, scene/builder.build_sphere_tree) of a scene of many spheres. `.to(device)` moves
 every tensor field, recursively.
 
 Material type tags follow the reference enum order
@@ -158,6 +159,29 @@ class Bvh(_ToDevice):
 
 
 @dataclasses.dataclass(frozen=True)
+class SphereTree(_ToDevice):
+    """An 8-wide tree over the spheres' padded boxes (the fused path
+    loop's sphere search, csrc/path.cuh sphere_search; plain version
+    ops/sphere.closest_sphere_tree), built by scene/builder.build_sphere_tree.
+    Child codes as ops/bvh4's; a leaf range names slots of `sph` / `ids`."""
+
+    bounds: torch.Tensor    # f32[N, 8, 6] child boxes (min3, max3); empty slots inf/-inf
+    children: torch.Tensor  # i32[N, 8]
+    sph: torch.Tensor       # f32[L, 4] center, radius in leaf order (zero on padding)
+    ids: torch.Tensor       # i32[L] leaf slot -> sphere index (-1 on padding)
+    sweep: torch.Tensor     # i32[B] the spheres every ray tests first, ascending
+    stack_depth: int = 0    # worst-case stack bound of the walk (ops/bvh4.compute_stack_depth)
+    # (cx, cy, cz, h, ga, gb, gc), floats: the walk grows its boxes by
+    # (ga L + gb) L + gc for a ray from o, L = |o - c| + h
+    # (scene/builder.sphere_growth).
+    grow: tuple = (0.0,) * 7
+
+    @property
+    def nodes(self) -> int:
+        return self.children.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene(_ToDevice):
     materials: Materials
     spheres: Spheres
@@ -173,6 +197,9 @@ class Scene(_ToDevice):
     # scene has no bvh4 (ops/intersect.intersect_scene). Last, so that no
     # positional construction shifts.
     bvh: Optional[Bvh] = None
+    # The sphere tree the fused path loop finds spheres through; a scene of
+    # more than cudalib.MAX_SPHERES spheres needs one there.
+    sphere_tree: Optional[SphereTree] = None
 
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)

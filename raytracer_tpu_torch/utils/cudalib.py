@@ -36,8 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 STACK_CAP = 256  # per-thread traversal stack entries (csrc/traverse.cuh)
 BVH_WIDTHS = (4, 8)  # the tree widths the kernels are built for (csrc/traverse.cuh)
-MAX_SPHERES = 16
-MAX_MATERIALS = 28
+MAX_SPHERES = 16  # spheres the fused path loop sweeps; above it, the sphere tree
+SPHERE_STACK_CAP = 64  # per-thread stack of the sphere tree's walk (csrc/path.cuh)
 MAX_BRUTE = 64   # brute triangles the kernels stage per block (csrc/traverse.cuh)
 
 _LIB = None
@@ -155,6 +155,27 @@ class FusedParams(ctypes.Structure):
     ]
 
 
+class SphereTreeView(ctypes.Structure):
+    """Mirror of csrc/path.cuh `SphereTreeView` (device pointers, the
+    sweep set's size and the growth of the walk's boxes)."""
+
+    _fields_ = [
+        ("bounds", ctypes.c_void_p),
+        ("children", ctypes.c_void_p),
+        ("sph", ctypes.c_void_p),
+        ("ids", ctypes.c_void_p),
+        ("sweep", ctypes.c_void_p),
+        ("n_sweep", ctypes.c_int),
+        ("cx", ctypes.c_float),
+        ("cy", ctypes.c_float),
+        ("cz", ctypes.c_float),
+        ("h", ctypes.c_float),
+        ("ga", ctypes.c_float),
+        ("gb", ctypes.c_float),
+        ("gc", ctypes.c_float),
+    ]
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
@@ -180,6 +201,13 @@ def lib() -> ctypes.CDLL:
     L.rt_render_fused_profile.argtypes = fused + [vp, vp, vp, vp, vp, ci, ci, vp, vp]
     L.rt_render_fused_attrs.argtypes = [ci, ci, ip, ip]
     L.rt_render_fused_g2_attrs.argtypes = [ci, ip, ip]
+    stree = [ctypes.POINTER(SphereTreeView)]
+    L.rt_render_fused_tree.argtypes = fused + [vp, ci, ci, vp, vp] + stree
+    L.rt_render_fused_g2_tree.argtypes = fused + [vp, ci, ci, vp, vp] + stree
+    L.rt_render_fused_profile_tree.argtypes = fused + [vp, vp, vp, vp, vp, ci, ci, vp, vp] \
+        + stree + [vp, vp]
+    L.rt_render_fused_tree_attrs.argtypes = [ci, ip, ip]
+    L.rt_render_fused_g2_tree_attrs.argtypes = [ip, ip]
     L.rt_probe_v8.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
     L.rt_probe_v5.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
     L.rt_probe_v8_attrs.argtypes = [ci, ip, ip]
@@ -212,7 +240,9 @@ def lib() -> ctypes.CDLL:
                L.rt_draws_bounce_jax, L.rt_draws_camera_ktf, L.rt_draws_bounce_ktf,
                L.rt_trace_closest,
                L.rt_coherence_keys, L.rt_lane_grid, L.rt_trace_closest_attrs, L.rt_render_fused, L.rt_render_fused_g2, L.rt_render_fused_profile,
-               L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_probe_v8,
+               L.rt_render_fused_attrs, L.rt_render_fused_g2_attrs, L.rt_render_fused_tree,
+               L.rt_render_fused_g2_tree, L.rt_render_fused_profile_tree,
+               L.rt_render_fused_tree_attrs, L.rt_render_fused_g2_tree_attrs, L.rt_probe_v8,
                L.rt_probe_v5, L.rt_probe_v8_attrs, L.rt_probe_v5_attrs,
                L.rt_probe_scalar, L.rt_probe_scalar_tables, L.rt_probe_scalar_tables_scratch,
                L.rt_probe_scalar_attrs, L.rt_probe_vstack, L.rt_probe_vstack_attrs,
@@ -331,3 +361,27 @@ def bvh_view(bvh) -> BvhView:
                                    bvh.brute_mat.data_ptr())
         v.n_brute = tb
     return v
+
+
+def sphere_tree_view(tree) -> SphereTreeView:
+    """SphereTreeView over a scene/types.SphereTree whose tensors are on the
+    card (the caller keeps `tree` alive across the launch). A tree of
+    another width, one deeper than the walk's stack, or leaf records that
+    are not 16-byte aligned (the kernels read each as one float4) raise."""
+    n, k = tree.children.shape
+    if k != 8:
+        raise ValueError(f"sphere tree width {k}: the kernels walk 8-wide sphere trees")
+    if tree.stack_depth + 4 > SPHERE_STACK_CAP:
+        raise ValueError(f"sphere tree stack bound {tree.stack_depth}+4 exceeds the kernels' "
+                         f"{SPHERE_STACK_CAP}")
+    slots, b = tree.ids.shape[0], tree.sweep.shape[0]
+    require_cuda("sphere_tree.bounds", tree.bounds, torch.float32, (n, 8, 6))
+    require_cuda("sphere_tree.children", tree.children, torch.int32, (n, 8))
+    require_cuda("sphere_tree.sph", tree.sph, torch.float32, (slots, 4))
+    require_cuda("sphere_tree.ids", tree.ids, torch.int32, (slots,))
+    require_cuda("sphere_tree.sweep", tree.sweep, torch.int32, (b,))
+    require_aligned("sphere_tree.sph", tree.sph.data_ptr())
+    return SphereTreeView(bounds=tree.bounds.data_ptr(), children=tree.children.data_ptr(),
+                          sph=tree.sph.data_ptr(), ids=tree.ids.data_ptr(),
+                          sweep=tree.sweep.data_ptr() if b else None, n_sweep=b,
+                          **dict(zip(("cx", "cy", "cz", "h", "ga", "gb", "gc"), tree.grow)))

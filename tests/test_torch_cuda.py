@@ -1189,3 +1189,128 @@ def test_rebalanced_wavefront_two_shards_on_one_card(dev, bunny):
     assert torch.equal(got, want)
     assert iters.shape == (2,) and bool((iters >= 1).all())
     assert torch.equal(render_image_wavefront_sharded(bunny, cam, cfg, 0, mesh=mesh), want)
+
+
+# ---- the sphere tree (scene/builder.build_sphere_tree) in K3, K5, K3-profile
+
+
+@pytest.fixture(scope="module")
+def rtiow(dev):
+    """The RTIOW configuration's scene as the benchmark builds it
+    (benchmark/program.scene), with its sphere tree, on the card."""
+    from benchmark import manifest, program
+    from raytracer_tpu_torch.scene.builder import build_sphere_tree
+
+    sc, _ = program.scene(manifest.config("rtiow_final_1200"), manifest.ROOT, "cpu")
+    return sc.replace(sphere_tree=build_sphere_tree(sc.spheres)).to(dev)
+
+
+def _rtiow_view(width, height, spp, bounces):
+    """RenderConfig and camera of the committed RTIOW configuration at a
+    small size, with no roulette."""
+    from benchmark import manifest, program
+
+    cfg = RenderConfig(width=width, height=height, spp=spp, max_bounces=bounces,
+                       min_bounces=bounces, reference_emission_quirk=False, rng_impl="ktf")
+    return cfg, program.camera(manifest.config("rtiow_final_1200"), cfg)
+
+
+def test_k3_sphere_tree_equals_the_sweep(dev, rtiow, monkeypatch):
+    """K3 through the sphere tree gives K3's sweep over all 487 spheres bit
+    for bit (the sweep route taken test-side, past the 16-sphere budget),
+    and agrees with the plain version as K3 does."""
+    cfg, cam = _rtiow_view(128, 40, 2, 50)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    before = cuda_megakernel.LAUNCHES["render_fused_tree"]
+    tree = cuda_megakernel.render_tiles_fused(rtiow, cam, cfg, 5, px, py)
+    assert cuda_megakernel.LAUNCHES["render_fused_tree"] == before + 1
+    with pytest.raises(ValueError, match="sphere tree"):
+        cuda_megakernel.render_tiles_fused(rtiow.replace(sphere_tree=None), cam, cfg, 5, px, py)
+    monkeypatch.setattr(cuda_megakernel, "MAX_SPHERES", 10**6)
+    sweep = cuda_megakernel.render_tiles_fused(rtiow.replace(sphere_tree=None), cam, cfg, 5,
+                                               px, py)
+    assert torch.equal(tree, sweep)
+    p = cuda_megakernel.render_tiles_fused_plain(rtiow, cam, cfg, 5, px, py)
+    bad = (tree - p).abs() > 5e-4 + 2e-4 * p.abs()
+    assert bad.float().mean().item() < 0.005
+    assert abs(tree.mean().item() - p.mean().item()) < 1e-3
+
+
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_k5_with_the_sphere_tree_equals_k3(dev, rtiow, block):
+    cfg, cam = _rtiow_view(128, 40, 2, 50)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    k3 = cuda_megakernel.render_tiles_fused(rtiow, cam, cfg, 9, px, py, interleave=1)
+    before = cuda_megakernel.LAUNCHES["render_fused_g2_tree"]
+    k5 = cuda_megakernel.render_tiles_fused(rtiow, cam, cfg, 9, px, py, interleave=2, block=block)
+    odd = cuda_megakernel.render_tiles_fused(rtiow, cam, cfg, 9, px[:1023], py[:1023],
+                                             interleave=2, block=block)
+    assert cuda_megakernel.LAUNCHES["render_fused_g2_tree"] == before + 2
+    assert torch.equal(k5, k3) and torch.equal(odd, k3[:1023])
+
+
+def test_k3_profile_with_the_sphere_tree(dev, rtiow):
+    """K3-profile through the tree: its radiance is K3's bit for bit; its
+    lane counts (K1 steps, path iterations, sphere-tree steps and tests)
+    are the plain version's on every lane whose radiance is the plain
+    version's to the bit (the lanes whose paths the two libraries' cos /
+    sin did not part)."""
+    cfg, cam = _rtiow_view(64, 16, 2, 50)
+    px, py, _ = (t.to(dev) for t in _tiled_pixel_grid(cfg))
+    k3 = cuda_megakernel.render_tiles_fused(rtiow, cam, cfg, 4, px, py)
+    before = cuda_megakernel.LAUNCHES["render_fused_profile_tree"]
+    rgb, cost, aux, *counts = cuda_megakernel.render_tiles_fused(
+        rtiow, cam, cfg, 4, px, py, profile=True, lane_counts=True)
+    assert cuda_megakernel.LAUNCHES["render_fused_profile_tree"] == before + 1
+    assert torch.equal(rgb, k3) and len(counts) == 4
+    cpu = rtiow.to("cpu")
+    p_rgb, _, _, *p_counts = cuda_megakernel.render_tiles_fused_plain(
+        cpu, cam, cfg, 4, px.cpu(), py.cpu(), profile=True, lane_counts=True)
+    same = (rgb.cpu() == p_rgb).all(dim=1)
+    assert same.float().mean().item() > 0.9
+    for k, p in zip(counts, p_counts):
+        assert torch.equal(k.cpu()[same], p[same])
+    assert (counts[2] > 0).all() and (counts[3] > 0).any()
+
+
+def test_fused_image_with_the_sphere_tree_and_its_launch(dev, rtiow):
+    """render_image_fused of the scene: one launch of the tree's K3 a
+    pass, none of the sweep's, and a finite image."""
+    cfg, cam = _rtiow_view(160, 90, 4, 50)
+    for key in cuda_megakernel.LAUNCHES:
+        cuda_megakernel.LAUNCHES[key] = 0
+    img = render_image_fused(rtiow, cam, cfg, 11)
+    assert cuda_megakernel.LAUNCHES["render_fused_tree"] == 1
+    assert cuda_megakernel.LAUNCHES["render_fused"] == 0
+    assert img.shape == (90, 160, 3) and torch.isfinite(img).all()
+
+
+def _ptxas_spills(fragment):
+    """(registers, spill stores, spill loads) of the kernels whose mangled
+    name holds `fragment`, from the library's ptxas report."""
+    cudalib.lib()
+    with open(cudalib.BUILD_INFO["path"] + ".ptxas.txt") as f:
+        lines = f.read().splitlines()
+    out, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1] if fragment in ln else None
+        elif cur and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out.setdefault(cur, [0, 0, 0])[1:] = nums[1:3]
+        elif cur and "Used" in ln and "registers" in ln:
+            out.setdefault(cur, [0, 0, 0])[0] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
+def test_k3_resources_with_and_without_the_sphere_tree(dev):
+    """K3's instantiation without the tree (every scene of at most 16
+    spheres) keeps its 64 registers; the tree's K3 fits the same launch
+    bounds and spills no more than it."""
+    plain = cuda_megakernel.kernel_resources()
+    tree = cuda_megakernel.kernel_resources(sphere_tree=True)
+    assert set(tree) == {"K3", "K3-profile", "K5"}
+    assert plain["K3"][0] == 64 and tree["K3"][0] <= 64
+    (without,) = _ptxas_spills("fused_path_kernelILi8ELb0ELb0E").values()
+    (with_tree,) = _ptxas_spills("fused_path_kernelILi8ELb0ELb1E").values()
+    assert without[0] == 64 and with_tree[1] <= without[1] and with_tree[2] <= without[2]
