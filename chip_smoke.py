@@ -201,6 +201,13 @@ plain PyTorch version, and drives the port's three paths:
     tree, and one 64-spp pass of its 1200x675 frame through K3 with the
     tree against K3 sweeping all 487 spheres (taken past the 16-sphere
     budget here alone): bit for bit, timed in turns.
+  * the training step's CUDA graph (phase 23, diff/inverse.ChunkGraph) at
+    the benchmark cell's size (256x256, 16 pairs in chunks of 8, 32 spp,
+    6 bounces, ktf draws): three steps through the graph against the same
+    steps run eagerly (twice, for their own run-to-run gap) from the same
+    params and Adam state, the losses bit for bit, the gradients and
+    params within that gap; one capture, two replays a step; the
+    capture's seconds, the peak memory, and both routes' steps in turns.
 
 Every kernel row carries its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -211,7 +218,7 @@ SMs; the probes' rows at the SM clock read under load). The datasheet's
 67 TFLOP/s counts a fused multiply-add as two operations, and every kernel
 here is built -fmad=false. int32: the SM's 64 INT32 units at that clock.
 
-    python3 chip_smoke.py              # phases 1-14, 16, 17 and 19-22 (what CI runs)
+    python3 chip_smoke.py              # phases 1-14, 16, 17 and 19-23 (what CI runs)
     python3 chip_smoke.py --phases 16  # the wavefront alone
     python3 chip_smoke.py --phases 17  # the sharded paths and two processes
     python3 chip_smoke.py --phases 1,2,19,20   # the LBVH, the milestones and the flagship
@@ -221,7 +228,8 @@ here is built -fmad=false. int32: the SM's 64 INT32 units at that clock.
                                      # (renders/parent: `git archive` of the parent commit)
 
 Every phase raises on failure, so the script exits non-zero. The last
-lines are a `train` JSON line (phase 10), a `probes` JSON line (phase 13),
+lines are a `train` JSON line (phase 10), a `train_graph` JSON line (phase
+23), a `probes` JSON line (phase 13),
 a `wavefront` JSON line (phase 16), an `lbvh` JSON line (phase 19), a
 `milestones` JSON line (phase 20: each config's record and launches, the
 flagship's wall clock and mean), a `sharding` JSON line (phase 17:
@@ -508,8 +516,8 @@ def image_agreement(a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17,19,20,21,22",
-                    help="comma-separated phases to run (default: 1-14, 16, 17 and 19-22; "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17,19,20,21,22,23",
+                    help="comma-separated phases to run (default: 1-14, 16, 17 and 19-23; "
                          "phase 15 needs --parent, phase 18 four cards)")
     ap.add_argument("--parent", default=None,
                     help="phase 15: a directory holding the parent commit's tree "
@@ -843,6 +851,11 @@ def main(argv=None) -> int:
         kernels["K3-tree"] = r22["row"]
         log(22, r22["msg"])
 
+    if 23 in phases:
+        r23 = phase23(dev, smi)
+        log(23, r23["msg"])
+        print(json.dumps({"train_graph": r23["summary"]}), flush=True)
+
     if 8 in phases:
         r8, scaling = phase8(scene, dev)
         p8, t1 = r8["phase 8"], r8[f"training bounce {P8_TRAIN_BOUNCES[0]}"]
@@ -929,11 +942,11 @@ def main(argv=None) -> int:
                 f"{P10_STEPS} Adam steps, losses {train['losses']} (JAX package "
                 f"{train['reference_losses']}, max rel err {max(train['loss_rel_err']):.2e}), "
                 f"s/step {train['step_s']} (median of steps 2-3 {train['s_per_step']:.3f}), peak "
-                f"memory {train['max_memory_allocated'] / 2**30:.2f} GiB; K4 launches "
-                f"{train['k4']} = {P10_STEPS} steps x {exp // P10_STEPS} ({train['k4_formula']}), "
-                f"all sorted, key kernel launches {train['keys']}; K2 route launches "
-                f"{train['k2']} = {P10_STEPS} steps x {exp2['k2'] // P10_STEPS} "
-                f"({train['k2_formula']}: Threefry {train['k2_threefry']}, camera draws "
+                f"memory {train['max_memory_allocated'] / 2**30:.2f} GiB; graph counters "
+                f"{train['graphs']}; K4 launches the host enqueued {train['k4']} "
+                f"({train['k4_formula']}), all sorted, key kernel launches {train['keys']}; K2 "
+                f"route launches {train['k2']} ({train['k2_formula']}: Threefry "
+                f"{train['k2_threefry']}, camera draws "
                 f"{train['k2_camera']}, bounce draws {train['k2_bounce']}); one chunk's "
                 f"forward and backward (torch.profiler): {train['chunk_kernels']['kernels']} "
                 f"kernels, {train['chunk_kernels']['activities']} with memsets and copies, the "
@@ -4234,6 +4247,7 @@ def phase10(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    graphs = dict(inverse.GRAPHS)
     losses, times = [], []
     for _ in range(P10_STEPS):
         t0 = time.perf_counter()
@@ -4242,22 +4256,28 @@ def phase10(dev):
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     counts = _counts()
+    graphs = {k: inverse.GRAPHS[k] - graphs[k] for k in graphs}
     peak = torch.cuda.max_memory_allocated()
     bad = [k for k, v in params.items() if not bool(torch.isfinite(v).all())]
     if bad or not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training state: losses {losses}, params {bad}")
     # K4 launches once per bounce of each trace; a chunk of pairs renders
-    # its chunk x H x W pixels in traces of samples_per_trace samples.
+    # its chunk x H x W pixels in traces of samples_per_trace samples. The
+    # host launches a chunk's kernels when it captures it, and before that
+    # those of the warm-up's WARM_UP_PIXELS pixels; every chunk replays.
     n_px = P10_CHUNK * cfg.width * cfg.height
     per = samples_per_trace(cfg, n_px, cfg.spp)
     traces = -(-cfg.spp // per)
+    warm = -(-cfg.spp // samples_per_trace(cfg, inverse.WARM_UP_PIXELS, cfg.spp))
     n_chunks = P10_PAIRS // P10_CHUNK
-    k4_expected = P10_STEPS * n_chunks * traces * cfg.max_bounces
+    if graphs != dict(graph_captures=1, graph_replays=P10_STEPS * n_chunks):
+        raise AssertionError(f"training path: graph counters {graphs}")
+    runs = traces + warm   # traces the host enqueued: the captured chunk's and the warm-up's
+    k4_expected = runs * cfg.max_bounces
     # The K2 route per chunk: one Threefry launch (render_pixels folds the
     # pixel ids into the pair keys), then per trace one camera and one
     # bounce draw kernel per bounce.
-    k2_expected = dict(k2_threefry=P10_STEPS * n_chunks, k2_camera=P10_STEPS * n_chunks * traces,
-                       k2_bounce=P10_STEPS * n_chunks * traces * cfg.max_bounces)
+    k2_expected = dict(k2_threefry=2, k2_camera=runs, k2_bounce=runs * cfg.max_bounces)
     k2_expected["k2"] = sum(k2_expected.values())
     chunk = chunk_census(scene, cfg, cam, keys, targets, params)
 
@@ -4304,12 +4324,12 @@ def phase10(dev):
         fd[f"{field}{[int(i) for i in idx]}"] = {"autograd": g_ad, "fd": g_fd}
     return dict(losses=losses, step_s=[round(t, 4) for t in times],
                 s_per_step=float(np.median(times[1:])), max_memory_allocated=peak,
-                k4_expected=k4_expected,
-                k4_formula=f"{n_chunks} chunks x {traces} traces of {per} samples x "
-                           f"{cfg.max_bounces} bounces",
+                k4_expected=k4_expected, host_traces=runs, graphs=graphs,
+                k4_formula=f"the captured chunk's {traces} traces of {per} samples and the "
+                           f"warm-up's {warm}, x {cfg.max_bounces} bounces",
                 k2_expected=k2_expected,
-                k2_formula=f"{n_chunks} chunks x ({traces} traces x (1 camera + "
-                           f"{cfg.max_bounces} bounces) + 1 lane-key fold)",
+                k2_formula=f"{runs} traces x (1 camera + {cfg.max_bounces} bounces) + 2 "
+                           f"lane-key folds",
                 chunk_kernels=chunk,
                 small_loss=float(loss_k), small_loss_plain=float(loss_p), grad_frac=grad_frac,
                 fd=fd, **counts)
@@ -4673,6 +4693,162 @@ def phase22(dev, smi) -> dict:
            f"{FP32_OPS_PER_S / 1e12:.1f} TFLOP/s), {row['roofline_pct']:.2f}% of it; wrote "
            f"{os.path.relpath(png, ROOT)}; on {smi}")
     return dict(row=row, msg=msg)
+
+
+P23 = dict(width=256, height=256, spp=32, max_bounces=6, rng_impl="ktf")
+P23_PAIRS, P23_CHUNK, P23_STEPS, P23_TURNS = 16, 8, 3, 3
+
+
+def _train_run(step, params, steps: int) -> dict:
+    """`steps` steps of `step` from `params` and a fresh Adam state: the
+    losses, the gradients as adam_update receives them, the params after
+    each step and each step's seconds (host clock to a synchronize)."""
+    import torch
+
+    from raytracer_tpu_torch.diff import inverse
+
+    grads, update = [], inverse.adam_update
+
+    def seen(state, g, p, **kw):
+        grads.append({k: v.clone() for k, v in g.items()})
+        return update(state, g, p, **kw)
+
+    inverse.adam_update = seen
+    try:
+        state, out = inverse.adam_init(params), dict(losses=[], params=[], s=[])
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state)
+            torch.cuda.synchronize()
+            out["s"].append(time.perf_counter() - t0)
+            out["losses"].append(loss.clone())
+            out["params"].append({k: v.clone() for k, v in params.items()})
+    finally:
+        inverse.adam_update = update
+    out["grads"] = grads
+    return out
+
+
+def _max_gap(a: list, b: list) -> float:
+    return max(float((x[k] - y[k]).abs().max()) for x, y in zip(a, b) for k in x)
+
+
+def phase23(dev, smi) -> dict:
+    """The training step at the benchmark cell's size (256x256, 16 pairs
+    in chunks of 8, 32 spp, 6 bounces, ktf draws, the edge term on)
+    through ChunkGraph against the same step run eagerly, from the same
+    params and Adam state: the eager route twice (its own run-to-run
+    gap), then the graph route (step 1 warms up, captures and replays,
+    the later steps replay); its losses bit for bit the eager route's,
+    its gradients and params within the eager run-to-run gap; the
+    capture's seconds (the warm-up, the capture and the instantiation,
+    and the end of the capture with the instantiation apart); the
+    counters; the peak memory of each route; and both routes' steps
+    timed in turns."""
+    import torch
+
+    from raytracer_tpu_torch.diff import inverse
+    from raytracer_tpu_torch.ops import cuda_traverse
+
+    scene, cfg, cam, keys, targets, params = inverse_setup(dev, P23, P23_PAIRS)
+    kw = dict(chunk=P23_CHUNK, lr=P10_LR, lr_fn=inverse.cosine_lr(P10_LR, P10_SCHEDULE_STEPS, 0.05),
+              lr_scales=P10_LR_SCALES)
+    n_chunks = P23_PAIRS // P23_CHUNK
+    graph_cls = inverse.ChunkGraph
+    inverse.ChunkGraph = lambda *a: None   # the step without the graph: eager on the card
+    try:
+        eager_step = inverse.make_train_step_accum(scene, cam, cfg, targets, keys, **kw)
+    finally:
+        inverse.ChunkGraph = graph_cls
+    torch.cuda.reset_peak_memory_stats()
+    eager = [_train_run(eager_step, params, P23_STEPS) for _ in range(2)]
+    eager_peak = torch.cuda.max_memory_allocated()
+
+    capture_s, end_s = [], []
+    capture, capture_end = inverse.ChunkGraph._capture, torch.cuda.CUDAGraph.capture_end
+
+    def timed_capture(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        capture(self, *a)
+        torch.cuda.synchronize()
+        capture_s.append(time.perf_counter() - t0)
+
+    def timed_end(self):   # the end of the capture and the graph's instantiation
+        t0 = time.perf_counter()
+        capture_end(self)
+        end_s.append(time.perf_counter() - t0)
+
+    before = dict(inverse.GRAPHS)
+    k4_before = cuda_traverse.LAUNCHES["trace_closest"]
+    graph_step = inverse.make_train_step_accum(scene, cam, cfg, targets, keys, **kw)
+    inverse.ChunkGraph._capture = timed_capture
+    torch.cuda.CUDAGraph.capture_end = timed_end
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        graph = _train_run(graph_step, params, P23_STEPS)
+        capture_peak = torch.cuda.max_memory_allocated()
+    finally:
+        inverse.ChunkGraph._capture = capture
+        torch.cuda.CUDAGraph.capture_end = capture_end
+    counts = {k: inverse.GRAPHS[k] - before[k] for k in before}
+    k4_host = cuda_traverse.LAUNCHES["trace_closest"] - k4_before
+    bitwise = all(torch.equal(a, b) for a, b in zip(graph["losses"], eager[0]["losses"]))
+    gaps = dict(eager_grads=_max_gap(eager[1]["grads"], eager[0]["grads"]),
+                graph_grads=_max_gap(graph["grads"], eager[0]["grads"]),
+                eager_params=_max_gap(eager[1]["params"], eager[0]["params"]),
+                graph_params=_max_gap(graph["params"], eager[0]["params"]))
+    want = dict(graph_captures=1, graph_replays=P23_STEPS * n_chunks)
+    if (not bitwise or counts != want or gaps["graph_grads"] > gaps["eager_grads"]
+            or gaps["graph_params"] > gaps["eager_params"]):
+        raise AssertionError(
+            f"graph route: losses {[float(x) for x in graph['losses']]} against the eager "
+            f"{[float(x) for x in eager[0]['losses']]} (bitwise {bitwise}), gaps {gaps}, "
+            f"counters {counts} (want {want})")
+    # Both routes on, in turns, from where each left off.
+    turns = dict(eager=[], graph=[])
+    state = dict(eager=(eager[0]["params"][-1], inverse.adam_init(params)),
+                 graph=(graph["params"][-1], inverse.adam_init(params)))
+    steps = dict(eager=eager_step, graph=graph_step)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2 * P23_TURNS):
+        for name in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            p, st = state[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, st, loss = steps[name](p, st)
+            float(loss)
+            turns[name].append(time.perf_counter() - t0)
+            state[name] = (p, st)
+    reserved = torch.cuda.memory_reserved()
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    out = dict(card=smi, size=P23, pairs=P23_PAIRS, chunk=P23_CHUNK,
+               losses=[float(x) for x in graph["losses"]], losses_bitwise=bitwise, gaps=gaps,
+               counters=counts, k4_host_launches=k4_host,
+               eager_step_s=[round(x, 4) for x in eager[0]["s"] + eager[1]["s"]],
+               graph_step_s=[round(x, 4) for x in graph["s"]],
+               capture_s=[round(x, 4) for x in capture_s],
+               capture_end_s=[round(x, 4) for x in end_s],
+               turns_s={k: [round(x, 4) for x in v] for k, v in turns.items()},
+               median_s=med, speedup=med["eager"] / med["graph"],
+               eager_peak_gib=eager_peak / 2**30, capture_step_peak_gib=capture_peak / 2**30,
+               reserved_gib=reserved / 2**30)
+    msg = (f"training step at {P23['width']}x{P23['height']} spp{P23['spp']} "
+           f"mb{P23['max_bounces']}, {P23_PAIRS} pairs in chunks of {P23_CHUNK}: graph route "
+           f"losses {out['losses']} bit for bit the eager route's ({bitwise}); gradient gap "
+           f"{gaps['graph_grads']:.3g} (eager run to run {gaps['eager_grads']:.3g}), params "
+           f"{gaps['graph_params']:.3g} ({gaps['eager_params']:.3g}); warm-up, capture and "
+           f"instantiation {out['capture_s']} s (of it the end and instantiation "
+           f"{out['capture_end_s']} s); "
+           f"steps eager {out['eager_step_s']} s, graph "
+           f"{out['graph_step_s']} s; in turns eager {turns['eager']} graph {turns['graph']} "
+           f"(medians {med['eager']:.4f} / {med['graph']:.4f} s, {out['speedup']:.2f}x); "
+           f"counters {counts}, K4 launches enqueued by the host {k4_host}; peak allocated "
+           f"eager {out['eager_peak_gib']:.2f} GiB, over the capture step "
+           f"{out['capture_step_peak_gib']:.2f} GiB, reserved with both {out['reserved_gib']:.2f} "
+           f"GiB on {smi}")
+    return dict(summary=out, msg=msg)
 
 
 def phase16(scene, dev, smi) -> dict:

@@ -70,7 +70,8 @@ def make_camera(
     position = _f32(position)
     if focus_dist is None:
         if position.requires_grad or position.device.type != "cpu":
-            target_t = torch.as_tensor(target, dtype=torch.float32, device=position.device)
+            target_t = (target.to(position.device, torch.float32) if torch.is_tensor(target)
+                        else vm.constant(tuple(float(x) for x in target), position.device))
             focus_dist = torch.linalg.vector_norm(position - target_t)
         else:
             focus_dist = float(np.linalg.norm(position.numpy() - np.asarray(target, np.float32)))

@@ -20,11 +20,16 @@ parallel/sharding.Mesh: each shard's loss is its pixels' squared error
 weighted 1/n (padding lanes 0), and the shards' losses and gradients
 are summed (all_reduce under a process group, a host sum in one
 process) before one Adam update.
+
+`make_train_step_accum` on a card takes one chunk's loss and gradient
+as one CUDA graph (ChunkGraph), captured in the first step and replayed
+for every chunk; on the CPU it runs them eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -32,12 +37,15 @@ import torch
 
 from raytracer_tpu_torch.render import as_key, pixel_grid, render_pixels
 from raytracer_tpu_torch.scene.types import Materials
+from raytracer_tpu_torch.utils import profiling
 from raytracer_tpu_torch.utils import rng as rngu
 from raytracer_tpu_torch.utils.profiling import span
 
 DEFAULT_FIELDS = ("albedo", "roughness", "emission", "ior")
 # Camera-pose entries a params dict may carry beside the material fields.
 CAM_FIELDS = ("cam_position", "cam_yaw", "cam_pitch", "cam_fov")
+# ChunkGraph's captures and replays.
+GRAPHS = profiling.group("train", ("graph_captures", "graph_replays"))
 
 
 class AdamState(NamedTuple):
@@ -213,12 +221,91 @@ def make_train_step_multi(base_scene, cam, cfg, targets, keys, lr: float = 2e-2,
     return train_step
 
 
+# Pixels of one pair that ChunkGraph's warm-up renders before the capture.
+WARM_UP_PIXELS = 64
+
+
+class ChunkGraph:
+    """One chunk's loss and gradient, value_and_grad of loss_fn(params,
+    keys, targets, px, py) at the pixels (px, py), as one CUDA graph
+    replayed for every chunk: the chunks share their shapes and sample
+    offsets, so only the params, keys and targets change between
+    replays, and they are copied into the graph's static inputs.
+
+    The first step warms up on a side stream, with the loss of one pair's
+    first WARM_UP_PIXELS pixels (what a capture cannot do, such as
+    building the kernel library or a device constant, is done by then;
+    kernels of other sizes load during the capture), then captures the
+    forward and torch.autograd.grad over static leaves. Every chunk,
+    the first step's too, replays the graph (span `rt.train.replay`).
+    The loss and gradients live in the graph's memory pool, and the next
+    replay overwrites them."""
+
+    def __init__(self, loss_fn, px, py):
+        self.loss_fn, self.px, self.py = loss_fn, px, py
+        self.graph = None
+
+    def step(self, params: dict, parts):
+        """(loss, gradients) of each chunk of `parts` at `params`, each
+        yielded before the next chunk runs."""
+        if self.graph is None:
+            self._capture(params, parts[0])
+        with torch.no_grad():
+            for k, leaf in self.leaves.items():
+                leaf.copy_(params[k])
+        for (k0, k1), tgts in parts:
+            self.keys[0].copy_(k0)
+            self.keys[1].copy_(k1)
+            self.tgts.copy_(tgts)
+            with span("rt.train.replay"):
+                self.graph.replay()
+                GRAPHS.count("graph_replays")
+            yield self.loss, self.grads
+
+    def _capture(self, params: dict, part):
+        (k0, k1), tgts = part
+        n = WARM_UP_PIXELS
+        main = torch.cuda.current_stream(self.px.device)
+        side = torch.cuda.Stream(self.px.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            value_and_grad(lambda p: self.loss_fn(p, (k0[:1], k1[:1]), tgts[:1, :n],
+                                                  self.px[:n], self.py[:n]), params)
+        main.wait_stream(side)
+        self.leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        self.keys, self.tgts = (k0.clone(), k1.clone()), tgts.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        # torch.cuda.graph synchronizes and releases the cached blocks
+        # before it captures into the graph's own pool.
+        with torch.cuda.graph(self.graph):
+            loss = self.loss_fn(self.leaves, self.keys, self.tgts, self.px, self.py)
+            grads = torch.autograd.grad(loss, list(self.leaves.values()), allow_unused=True)
+        self.loss = loss.detach()
+        self.grads = {k: torch.zeros_like(v) if g is None else g
+                      for (k, v), g in zip(self.leaves.items(), grads)}
+        GRAPHS.count("graph_captures")
+
+
+def _chunk_sums(chunks):
+    """The sums of the chunks' losses and gradients, each chunk's taken
+    before the next chunk is made."""
+    loss_sum = grad_sum = None
+    for loss_c, grads_c in chunks:
+        if grad_sum is None:
+            loss_sum, grad_sum = loss_c.clone(), {k: g.clone() for k, g in grads_c.items()}
+        else:
+            loss_sum = loss_sum + loss_c
+            grad_sum = {k: grad_sum[k] + grads_c[k] for k in grad_sum}
+    return loss_sum, grad_sum
+
+
 def make_train_step_accum(base_scene, cam, cfg, targets, keys, chunk: int = 8,
                           lr: float = 2e-2, lr_fn=None, lr_scales: dict | None = None):
     """make_train_step_multi at K pairs, with the gradient accumulated
     over K/chunk renders of `chunk` pairs each, so peak memory is one
     chunk's graph. Equal chunks partition the pairs, so the mean of the
-    chunk means is the K-pair mean."""
+    chunk means is the K-pair mean. With the scene on a card the chunks
+    run through one ChunkGraph; on the CPU eagerly."""
     k_total = targets.shape[0]
     if k_total % chunk:
         raise ValueError(f"{k_total} pairs do not split into chunks of {chunk}")
@@ -230,17 +317,15 @@ def make_train_step_accum(base_scene, cam, cfg, targets, keys, chunk: int = 8,
     parts = [((keys[0][i * chunk:(i + 1) * chunk], keys[1][i * chunk:(i + 1) * chunk]),
               tgts[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
 
+    loss_fn = functools.partial(pairs_loss, base_scene, cam, cfg)
+    graph = ChunkGraph(loss_fn, px, py) if dev.type == "cuda" else None
+
     def train_step(params, adam_state):
         with span("rt.train.step", root=True):
-            loss_sum, grad_sum = None, None
-            for kc, tc in parts:
-                loss_c, grads_c = value_and_grad(
-                    lambda p: pairs_loss(base_scene, cam, cfg, p, kc, tc, px, py), params)
-                if grad_sum is None:
-                    loss_sum, grad_sum = loss_c, grads_c
-                else:
-                    loss_sum = loss_sum + loss_c
-                    grad_sum = {k: grad_sum[k] + grads_c[k] for k in grad_sum}
+            chunks = (graph.step(params, parts) if graph is not None else
+                      (value_and_grad(lambda p: loss_fn(p, kc, tc, px, py), params)
+                       for kc, tc in parts))
+            loss_sum, grad_sum = _chunk_sums(chunks)
             inv = 1.0 / n_chunks
             grads = {k: g * inv for k, g in grad_sum.items()}
             cur_lr = lr_fn(adam_state.step) if lr_fn is not None else lr

@@ -59,7 +59,8 @@ def _edge_light_term(scene, cfg, origins, dirs, throughput, t_detached, alive):
     # covers the light's own hit: t_hit == t_pl there).
     gate = alive & ~bad & (t_pl > cfg.t_min) & (t_pl <= t_detached * 1.02)
     soft = torch.where(gate, soft, torch.zeros_like(soft))
-    emission = scene.materials.emission[rect[14].long()].detach()
+    # A one-element index: a 0-d one would read the row number back to the host.
+    emission = scene.materials.emission[rect[14:15].long()][0].detach()
     weight = throughput.detach() * emission[None, :]
     return (soft - soft.detach())[:, None] * weight
 

@@ -29,7 +29,10 @@ def intersect_spheres(origins, dirs, centers, radii, t_min, t_max):
     so this function serves as its plain version."""
     n = origins.shape[0]
     dev = origins.device
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (n,))
+    # A scalar limit as a fill: a copy from the host cannot be captured
+    # into a CUDA graph.
+    t_max = (torch.broadcast_to(t_max.to(dev, torch.float32), (n,)) if torch.is_tensor(t_max)
+             else torch.full((n,), float(t_max), dtype=torch.float32, device=dev))
     ox, oy, oz = origins.unbind(-1)
     dx, dy, dz = dirs.unbind(-1)
     a = dx * dx + dy * dy + dz * dz

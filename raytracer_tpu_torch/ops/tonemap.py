@@ -19,8 +19,8 @@ def sky_color(dirs: torch.Tensor) -> torch.Tensor:
     """Background gradient for miss rays (CRTUtility.cuh:34-38)."""
     unit = vm.normalize(dirs, eps=1e-20)
     t = 0.5 * (unit[..., 1:2] + 1.0)
-    top = torch.tensor(SKY_TOP, dtype=torch.float32, device=dirs.device)
-    bottom = torch.tensor(SKY_BOTTOM, dtype=torch.float32, device=dirs.device)
+    top = vm.constant(SKY_TOP, dirs.device)
+    bottom = vm.constant(SKY_BOTTOM, dirs.device)
     return (1.0 - t) * bottom + t * top
 
 

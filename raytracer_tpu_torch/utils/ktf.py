@@ -328,7 +328,8 @@ class TraceDraws:
             return w if w.dim() == 0 else w.repeat(m)
 
         return KtfSampler(tile(self.k0), tile(self.k1), self.pixel.repeat(m), samples,
-                          torch.tensor(bounce, dtype=torch.int32, device=dev), kernel=kernel)
+                          torch.full((), int(bounce), dtype=torch.int32, device=dev),
+                          kernel=kernel)
 
 
 def camera_draws_plain(trace: TraceDraws, kernel: bool = False) -> dict:

@@ -41,8 +41,10 @@ Spans (`rt.` marks the program's own; "root" opens a request):
       rt.wavefront.read       the pending-count read: the host waits on the device
       rt.wavefront.iteration  one bounce of the buffer, enqueued by the host
   rt.train.step (root)        diff/inverse.make_train_step_accum: one Adam step
-    rt.train.forward          a chunk's loss (diff/inverse.value_and_grad)
+    rt.train.forward          a chunk's loss (diff/inverse.value_and_grad), run eagerly
     rt.train.backward         its torch.autograd.grad
+    rt.train.replay           a chunk's replay of diff/inverse.ChunkGraph (on a card,
+                              from the second step: no forward or backward span then)
   rt.lbvh.traverse            ops/traverse.intersect_bvh: one lockstep traversal
 
 Counters by name: `host_reads` (every device-to-host read of the
@@ -50,7 +52,8 @@ wavefront and the LBVH route), `wavefront.iterations` (the wavefront's
 drain iterations) and `lbvh.steps` (the LBVH route's lockstep steps).
 Groups: `launch.<kernel>` and `plain.<path>`, each module's `LAUNCHES`
 and `PLAIN_CALLS` (the kernels' launches and their plain versions'
-calls).
+calls), and `train.graph_captures`, `train.graph_replays`
+(diff/inverse.GRAPHS).
 """
 
 from __future__ import annotations

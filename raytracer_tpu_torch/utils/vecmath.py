@@ -11,6 +11,19 @@ import torch
 
 EPS_NEAR_ZERO = 1e-8  # reference Vec3::nearZero threshold (Core/Vec3.cuh)
 
+_CONSTANTS: dict = {}
+
+
+def constant(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """torch.tensor(values, dtype=dtype, device=device), made once per
+    (values, dtype, device) and kept: a copy from the host on every call
+    cannot be captured into a CUDA graph. Read it, never write to it."""
+    key = (tuple(values), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return t
+
 
 def dot(a: torch.Tensor, b: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     p = a * b

@@ -1314,3 +1314,44 @@ def test_k3_resources_with_and_without_the_sphere_tree(dev):
     (without,) = _ptxas_spills("fused_path_kernelILi8ELb0ELb0E").values()
     (with_tree,) = _ptxas_spills("fused_path_kernelILi8ELb0ELb1E").values()
     assert without[0] == 64 and with_tree[1] <= without[1] and with_tree[2] <= without[2]
+
+
+TRAIN_GRAPH = dict(width=32, height=32, spp=4, max_bounces=6, rng_impl="ktf")
+
+
+def test_train_step_graph_route_equals_the_eager_route(dev, monkeypatch):
+    """make_train_step_accum on the card (one ChunkGraph: the first step
+    warms up and captures, every chunk replays) against the same step
+    with the graph left out, from the same params and Adam state over 3
+    steps at 32², 2 pairs in chunks of 1, 4 spp, 6 bounces, the edge term
+    on: the losses bit for bit, the gradients and params within the eager
+    route's own run-to-run gap; one capture, steps x chunks replays, and
+    a replayed step's spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch.diff import inverse
+
+    smoke = _chip_smoke()
+    scene, cfg, cam, keys, targets, params = smoke.inverse_setup(dev, TRAIN_GRAPH, 2)
+    assert cfg.edge_aware_lights
+    kw = dict(chunk=1, lr=0.03, lr_fn=inverse.cosine_lr(0.03, 500, 0.05),
+              lr_scales={"cam_position": 0.3, "cam_yaw": 2.0, "cam_pitch": 2.0})
+    with monkeypatch.context() as m:
+        m.setattr(inverse, "ChunkGraph", lambda *a: None)
+        eager = [smoke._train_run(inverse.make_train_step_accum(
+            scene, cam, cfg, targets, keys, **kw), params, 3) for _ in range(2)]
+    before = dict(inverse.GRAPHS)
+    step = inverse.make_train_step_accum(scene, cam, cfg, targets, keys, **kw)
+    graph = smoke._train_run(step, params, 3)
+    assert inverse.GRAPHS["graph_captures"] - before["graph_captures"] == 1
+    assert inverse.GRAPHS["graph_replays"] - before["graph_replays"] == 3 * 2
+    assert all(torch.equal(a, b) for a, b in zip(graph["losses"], eager[0]["losses"]))
+    assert all(torch.isfinite(x).all() for x in graph["losses"])
+    for key in ("grads", "params"):
+        assert (smoke._max_gap(graph[key], eager[0][key])
+                <= smoke._max_gap(eager[1][key], eager[0][key])), key
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(graph["params"][-1], inverse.adam_init(params))
+    names = [r.name for r in profiling.recorded()]
+    assert names.count("rt.train.step") == 1 and names.count("rt.train.replay") == 2
+    assert "rt.train.forward" not in names and "rt.train.backward" not in names

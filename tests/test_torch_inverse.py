@@ -164,3 +164,111 @@ def test_apply_params_clips_with_jaxs_gradient():
                             {"cam_yaw": torch.tensor(-80.0), "cam_fov": torch.tensor(60.0)})
     assert float(moved.yaw) == -80.0 and float(moved.fov_degrees) == 60.0
     assert dataclasses.is_dataclass(moved)
+
+
+def _sky_color_site():
+    from raytracer_tpu_torch.ops import tonemap
+    from raytracer_tpu_torch.utils import vecmath as vm
+
+    d = torch.from_numpy(np.random.default_rng(3).normal(size=(257, 3)).astype(np.float32))
+    t = 0.5 * (vm.normalize(d, eps=1e-20)[..., 1:2] + 1.0)
+    old = ((1.0 - t) * torch.tensor(tonemap.SKY_BOTTOM, dtype=torch.float32)
+           + t * torch.tensor(tonemap.SKY_TOP, dtype=torch.float32))
+    return tonemap.sky_color(d), old
+
+
+def _ktf_sampler_site(bounce):
+    from raytracer_tpu_torch.utils import ktf
+
+    trace = ktf.TraceDraws(torch.tensor(7, dtype=torch.int32), torch.tensor(-9, dtype=torch.int32),
+                           torch.arange(40, dtype=torch.int32), 3, 5)
+    smp = trace.sampler(bounce)
+    old = dataclasses.replace(smp, bounce=torch.tensor(bounce, dtype=torch.int32))
+    assert smp.bounce.dtype == old.bounce.dtype and smp.bounce.shape == old.bounce.shape
+    return (torch.cat([smp.bounce.reshape(1).float(), smp.scatter_unit_vector().reshape(-1),
+                       smp.rr_uniform()]),
+            torch.cat([old.bounce.reshape(1).float(), old.scatter_unit_vector().reshape(-1),
+                       old.rr_uniform()]))
+
+
+def _camera_target_site():
+    from raytracer_tpu_torch.camera import make_camera
+
+    pos = torch.tensor([0.1, -0.05, 0.29], requires_grad=True)
+    target = (0.013, -0.2, 0.0071)
+    cam = make_camera(aspect_ratio=1.0, position=pos, target=target)
+    old = torch.linalg.vector_norm(pos - torch.as_tensor(target, dtype=torch.float32))
+    return cam.focus_dist.detach(), old.detach()
+
+
+def _sphere_limit_site():
+    from raytracer_tpu_torch.ops.sphere import BIG, intersect_spheres
+
+    rs = np.random.default_rng(5)
+    o = torch.from_numpy(rs.uniform(-0.3, 0.3, (300, 3)).astype(np.float32))
+    d = torch.from_numpy(rs.normal(size=(300, 3)).astype(np.float32))
+    c = torch.from_numpy(rs.uniform(-0.3, 0.3, (4, 3)).astype(np.float32))
+    r = torch.tensor([0.05, 0.1, 0.2, 999.0])
+    new = intersect_spheres(o, d, c, r, 1e-3, BIG)
+    old = intersect_spheres(o, d, c, r, 1e-3, torch.as_tensor(BIG, dtype=torch.float32))
+    return torch.cat([new[0], new[1].float()]), torch.cat([old[0], old[1].float()])
+
+
+CAPTURE_SAFE_SITES = {"sky_color": _sky_color_site, "ktf_sampler_b0": lambda: _ktf_sampler_site(0),
+                      "ktf_sampler_b3": lambda: _ktf_sampler_site(3),
+                      "ktf_sampler_b5": lambda: _ktf_sampler_site(5),
+                      "camera_target": _camera_target_site, "sphere_limit": _sphere_limit_site}
+
+
+@pytest.mark.parametrize("site", list(CAPTURE_SAFE_SITES))
+def test_capture_safe_constants_give_the_old_values(site):
+    """Each per-call copy from the host that a CUDA graph cannot capture,
+    now a device constant made once or a fill, gives the value of the
+    copy it replaced bit for bit."""
+    new, old = CAPTURE_SAFE_SITES[site]()
+    assert new.dtype == old.dtype and torch.equal(new, old)
+
+
+def test_accum_step_stays_eager_on_the_cpu():
+    """On CPU tensors make_train_step_accum runs its chunks eagerly: one
+    `rt.train.forward` and one `rt.train.backward` span a chunk, no
+    capture, no replay; the benchmark's graph_replays_per_step.train reads
+    0 there, and nothing for a program without ChunkGraph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import manifest
+    from benchmark.run import Run
+    from raytracer_tpu_torch.camera import make_camera
+    from raytracer_tpu_torch.render import render_image
+    from raytracer_tpu_torch.scene.builder import cornell_materials_scene
+    from raytracer_tpu_torch.utils import profiling
+
+    cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=3, rng_impl="ktf",
+                       reference_emission_quirk=False, edge_aware_lights=True)
+    scene = cornell_materials_scene()
+    cam = make_camera(aspect_ratio=1.0, position=(0.0, -0.05, 0.29), pitch=-10.0)
+    keys = rng.split(rng.key(40), 2)
+    with torch.no_grad():
+        tg = torch.stack([render_image(scene, cam, cfg, (keys[0][j], keys[1][j]))
+                          for j in range(2)])
+    params = tinv.init_params(scene, key=rng.key(41), noise=0.15)
+    step = tinv.make_train_step_accum(scene, cam, cfg, tg, keys, chunk=1, lr=0.03)
+    before = dict(tinv.GRAPHS)
+    state = tinv.adam_init(params)
+    params, state, _ = step(params, state)
+    with profile(activities=[ProfilerActivity.CPU]):
+        params, state, loss = step(params, state)
+    assert dict(tinv.GRAPHS) == before and bool(torch.isfinite(loss))
+    names = [r.name for r in profiling.recorded()]
+    assert names.count("rt.train.step") == 1
+    assert names.count("rt.train.forward") == names.count("rt.train.backward") == 2
+    assert "rt.train.replay" not in names
+    run = Run(trace={}, traced=[(0.0, 1)])
+    reader = manifest.metric_reader("graph_replays_per_step.train")
+    assert reader.read(run) == 0.0
+    graph_cls = tinv.ChunkGraph
+    del tinv.ChunkGraph
+    try:
+        assert reader.read(run) is None
+    finally:
+        tinv.ChunkGraph = graph_cls
